@@ -1,7 +1,9 @@
 """PyTorch port, host layer: the copied jax-free modules parse the
 committed stream's parameter sets, slice headers and CABAC bins exactly as
 the JAX package does; the native CABAC binding agrees with the Python
-specification; and neither the port nor chip_smoke.py imports JAX or the
+specification; the encoder halves of cabac.py, residual_coding.py and
+contexts.py write the JAX package's bytes and carry its rate tables; and
+neither the port nor chip_smoke.py imports JAX or the
 JAX package (checked on the sources with `ast`)."""
 import ast
 import dataclasses
@@ -13,11 +15,13 @@ import torch
 
 from vvc_mm_tpu.common import bitstream as jax_bs
 from vvc_mm_tpu.common import cabac as jax_cabac
+from vvc_mm_tpu.common import contexts as jax_contexts
 from vvc_mm_tpu.common import residual_coding as jax_rc
 from vvc_mm_tpu.common import slice_ps as jax_ps
 from vvc_mm_tpu.decoder import inter_parser as jax_inter
 from vvc_mm_tpu.decoder import intra_parser as jax_intra
-from vvc_mm_tpu_torch.common import bitstream, cabac, residual_coding
+from vvc_mm_tpu_torch.common import bitstream, cabac, contexts
+from vvc_mm_tpu_torch.common import residual_coding
 from vvc_mm_tpu_torch.common import slice_ps
 from vvc_mm_tpu_torch.common.typedefs import SliceType
 from vvc_mm_tpu_torch.decoder import inter_parser, intra_parser
@@ -126,6 +130,93 @@ def test_residual_coding_spec_and_native_agree(rng, chroma):
     fast = native.NativeBinDecoder(data)
     for b in blocks:
         np.testing.assert_array_equal(fast.decode_coeffs(8, 8, chroma), b)
+
+
+def test_context_tables_and_rate_estimate_equal_jax(rng):
+    """contexts.py: the context layout, the initial probabilities and the
+    fractional-bit table; cabac.py: the sequential rate estimate."""
+    assert contexts.NUM_CTX == jax_contexts.NUM_CTX
+    assert contexts.CTX_OFFSET == jax_contexts.CTX_OFFSET
+    np.testing.assert_array_equal(contexts._INIT_P1, jax_contexts._INIT_P1)
+    assert contexts.FRAC_BITS_SCALE == jax_contexts.FRAC_BITS_SCALE
+    np.testing.assert_array_equal(contexts.FRAC_BITS_TABLE,
+                                  jax_contexts.FRAC_BITS_TABLE)
+    p1 = rng.integers(0, contexts.PROB_ONE, 500)
+    bins = rng.integers(0, 2, 500)
+    np.testing.assert_array_equal(contexts.frac_bits(p1, bins),
+                                  jax_contexts.frac_bits(p1, bins))
+    ctxs = rng.integers(0, contexts.NUM_CTX, 500)
+    state, jstate = contexts.ContextState(), jax_contexts.ContextState()
+    got = cabac.estimate_bits_and_update(
+        np.array(state.p0), np.array(state.p1), bins, ctxs)
+    want = jax_cabac.estimate_bits_and_update(
+        np.array(jstate.p0), np.array(jstate.p1), bins, ctxs)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[2] == want[2] > 0
+
+
+def test_spec_encoder_writes_jax_bytes_and_reads_back(rng):
+    """cabac.py BinEncoder, every public method (truncated unary included,
+    which the native encoder does not carry): the JAX package's bytes, and
+    the port's BinDecoder is its exact inverse."""
+    ops = []
+    for _ in range(1500):
+        kind = int(rng.integers(0, 5))
+        if kind == 0:
+            ops.append(("bin", int(rng.integers(0, 2)),
+                        int(rng.integers(0, contexts.NUM_CTX))))
+        elif kind == 1:
+            ops.append(("bin_ep", int(rng.integers(0, 2))))
+        elif kind == 2:
+            nb = int(rng.integers(1, 16))
+            ops.append(("bins_ep", int(rng.integers(0, 1 << nb)), nb))
+        elif kind == 3:
+            mx = int(rng.integers(1, 8))
+            ops.append(("unary", int(rng.integers(0, mx + 1)),
+                        int(rng.integers(0, 20)), int(rng.integers(20, 40)),
+                        mx))
+        else:
+            ops.append(("eg", int(rng.integers(0, 3000)),
+                        int(rng.integers(0, 4))))
+    enc, jenc = cabac.BinEncoder(), jax_cabac.BinEncoder()
+    for op, *args in ops:
+        getattr(enc, "encode_" + op)(*args)
+        getattr(jenc, "encode_" + op)(*args)
+    data = enc.finish()
+    assert data == jenc.finish()
+    assert enc.num_bins == jenc.num_bins
+    dec = cabac.BinDecoder(data)
+    for op, value, *args in ops:
+        assert getattr(dec, "decode_" + op)(*args) == value
+
+
+@pytest.mark.parametrize("shape", [(4, 4), (8, 8), (16, 16), (4, 8)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_residual_encoder_writes_jax_bytes(rng, shape):
+    """residual_coding.py encode_coeffs, luma and chroma in one substream:
+    the JAX package's bytes, read back by the port's spec decoder."""
+    blocks = []
+    for i in range(16):
+        b = np.where(rng.random(shape) < 0.3,
+                     rng.integers(-300, 301, shape), 0).astype(np.int32)
+        b[tuple(rng.integers(0, n) for n in shape)] = 1 + i   # never empty
+        blocks.append((b, bool(i & 1)))
+    enc, jenc = cabac.BinEncoder(), jax_cabac.BinEncoder()
+    for b, chroma in blocks:
+        residual_coding.encode_coeffs(enc, b, chroma)
+        jax_rc.encode_coeffs(jenc, b, chroma)
+    data = enc.finish()
+    assert data == jenc.finish()
+    dec = cabac.BinDecoder(data)
+    for b, chroma in blocks:
+        np.testing.assert_array_equal(
+            residual_coding.decode_coeffs(dec, *shape, chroma), b)
+    for g in range(12):
+        assert residual_coding._last_ctx(3, g, False) == \
+            jax_rc._last_ctx(3, g, False)
+        assert residual_coding._last_ctx(4, g, True) == \
+            jax_rc._last_ctx(4, g, True)
 
 
 def _imports(path):

@@ -1,0 +1,200 @@
+"""PyTorch port, kernels K3/K4/K5: the plain versions the CPU runs are held
+bit-exact (tolerance 0) to the JAX package's XLA mirrors and to its Pallas
+kernels in interpret mode (ops/mc_kernel.py), on random and extreme
+positions, at 8 and 10 bit, and at one block count the TPU kernels' layout
+gate refuses (the port takes every shape).  The CUDA kernels themselves are
+held to the plain versions on the card (the `cuda` tests, and
+chip_smoke.py)."""
+import os
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vvc_mm_tpu.common.mm import mc as jax_mc
+from vvc_mm_tpu.ops import mc_kernel as jax_kernel
+from vvc_mm_tpu_torch.common import interp
+from vvc_mm_tpu_torch.common.mm import mc as port_mc
+from vvc_mm_tpu_torch.ops import mc_kernel
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _block_setup(rng, s, k, nbx=None, h=64, w=256, m=40, extreme=False,
+                 bit_depth=8):
+    nby = h // s
+    nbx = w // s if nbx is None else nbx
+    w = nbx * s
+    top = 1 << bit_depth
+    ref = rng.integers(0, top, (h + 2 * m, w + 2 * m), dtype=np.int32)
+    bands = rng.integers(0, top, (nby * 4, nbx * s), dtype=np.int32)
+    if extreme:
+        pos = rng.integers(-100000, 100000, (k, nby, nbx, 2))
+        pos[:, ::2, ::3] = (-(1 << 30), (1 << 30))
+    else:
+        pos = np.stack(
+            [rng.integers(-m * 16, (w + m - s - 8) * 16, (k, nby, nbx)),
+             rng.integers(-m * 16, (h + m - 8) * 16, (k, nby, nbx))], -1)
+    return ref, bands, pos.astype(np.int32), m
+
+
+_PALLAS_CASES = {(8, 5), (16, 4), (32, 1)}
+
+
+def _t(*arrs):
+    return [torch.from_numpy(a) for a in arrs]
+
+
+@pytest.mark.parametrize("extreme", [False, True], ids=["random", "extreme"])
+@pytest.mark.parametrize("k", [1, 4, 5])
+@pytest.mark.parametrize("s", [8, 16, 32])
+def test_block_kernels_plain_match_xla_and_pallas(rng, s, k, extreme):
+    """K3 and K4 plain versions == XLA mirrors == Pallas (interpret)."""
+    ref, bands, pos, m = _block_setup(rng, s, k, extreme=extreme)
+    tr, tb, tp = _t(ref, bands, pos)
+    jr, jb, jp = (jnp.asarray(a) for a in (ref, bands, pos))
+    got_sad = port_mc.sad_block_positions(tr, tb, tp, m, s, 8).numpy()
+    got_mc = port_mc.mc_block_positions(tr, tp, m, s, 8).numpy()
+    assert got_sad.dtype == np.int32 and got_mc.dtype == np.int32
+    np.testing.assert_array_equal(
+        got_sad, np.asarray(jax_mc.sad_block_positions_xla(jr, jb, jp, m, s,
+                                                           8)))
+    np.testing.assert_array_equal(
+        got_mc, np.asarray(jax_mc.mc_block_positions_xla(jr, jp, m, s, 8)))
+    if (s, k) in _PALLAS_CASES:     # interpret mode is slow: one K per s
+        np.testing.assert_array_equal(
+            got_sad, np.asarray(jax_kernel.sad_block_positions_multi(
+                jr, jb, jp, m, s, 8, interpret=True)))
+        np.testing.assert_array_equal(
+            got_mc, np.asarray(jax_kernel.mc_block_positions_multi(
+                jr, jp, m, s, 8, interpret=True)))
+    # the SAD is the band prediction's distance to the original band
+    want = np.abs(got_mc - bands[None]).reshape(k, -1, 4, pos.shape[2], s) \
+        .sum(axis=(2, 4))
+    np.testing.assert_array_equal(got_sad, want)
+
+
+@pytest.mark.parametrize("bit_depth", [8, 10])
+def test_block_kernels_take_a_shape_the_tpu_gate_refuses(rng, bit_depth):
+    """nbx = 20 at s = 16 fails the Pallas kernels' `nbx % (128 // s)`
+    gate, so the JAX package answers it through the XLA mirror; the port's
+    functions take it as any other shape.  Also the 10-bit path."""
+    s, k = 16, 4
+    assert jax_kernel.block_rows_per_step(4, 20, k, s, strict=False) is None
+    ref, bands, pos, m = _block_setup(rng, s, k, nbx=20,
+                                      bit_depth=bit_depth)
+    tr, tb, tp = _t(ref, bands, pos)
+    jr, jb, jp = (jnp.asarray(a) for a in (ref, bands, pos))
+    np.testing.assert_array_equal(
+        port_mc.sad_block_positions(tr, tb, tp, m, s, bit_depth).numpy(),
+        np.asarray(jax_mc.sad_block_positions_xla(jr, jb, jp, m, s,
+                                                  bit_depth)))
+    np.testing.assert_array_equal(
+        port_mc.mc_block_positions(tr, tp, m, s, bit_depth).numpy(),
+        np.asarray(jax_mc.mc_block_positions_xla(jr, jp, m, s, bit_depth)))
+
+
+def _sub_setup(rng, k, h=64, w=128, m=40, extreme=False, bit_depth=8):
+    top = 1 << bit_depth
+    ref = rng.integers(0, top, (h + 2 * m, w + 2 * m), dtype=np.int32)
+    orig = rng.integers(0, top, (h, w), dtype=np.int32)
+    nsy, nsx = h // 4, w // 4
+    if extreme:
+        pos = rng.integers(-100000, 100000, (k, nsy, nsx, 2))
+        pos[:, ::3, ::2] = ((1 << 30), -(1 << 30))
+    else:
+        pos = np.stack(
+            [rng.integers(-m * 16, (w + m - 8) * 16, (k, nsy, nsx)),
+             rng.integers(-m * 16, (h + m - 8) * 16, (k, nsy, nsx))], -1)
+    return ref, orig, pos.astype(np.int32), m
+
+
+@pytest.mark.parametrize("extreme", [False, True], ids=["random", "extreme"])
+@pytest.mark.parametrize("k", [1, 4, 5])
+def test_subblock_sad_plain_matches_xla_loop_and_pallas(rng, k, extreme):
+    """K5 plain version == the JAX dispatcher's XLA loop == Pallas
+    (interpret)."""
+    ref, orig, pos, m = _sub_setup(rng, k, extreme=extreme)
+    tr, to, tp = _t(ref, orig, pos)
+    jr, jo, jp = (jnp.asarray(a) for a in (ref, orig, pos))
+    got = port_mc.sad_positions_multi(tr, to, tp, m, 8).numpy()
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(
+        got, np.asarray(jax_mc.sad_positions_multi(jr, jo, jp, m, 8)))
+    np.testing.assert_array_equal(
+        got, np.asarray(jax_kernel.sad_luma_positions_multi(
+            jr, jo, jp, m, 8, interpret=True)))
+
+
+def test_subblock_sad_10_bit_and_odd_grid(rng):
+    """10 bit, and a subblock grid (7 x 9) no TPU row gate would take."""
+    ref, orig, pos, m = _sub_setup(rng, 3, h=28, w=36, bit_depth=10)
+    tr, to, tp = _t(ref, orig, pos)
+    jr, jo, jp = (jnp.asarray(a) for a in (ref, orig, pos))
+    np.testing.assert_array_equal(
+        port_mc.sad_positions_multi(tr, to, tp, m, 10).numpy(),
+        np.asarray(jax_mc.sad_positions_multi(jr, jo, jp, m, 10)))
+
+
+def test_filter_table_matches_cuda_source():
+    """The __constant__ table in csrc/sad_positions.cu equals interp's."""
+    src = open(os.path.join(ROOT, "vvc_mm_tpu_torch", "csrc",
+                            "sad_positions.cu")).read()
+    body = src.split("c_luma_filter", 1)[1].split("};", 1)[0]
+    nums = [int(v) for v in re.findall(r"-?\d+", body)]
+    rows, cols = nums[:2]
+    np.testing.assert_array_equal(np.array(nums[2:]).reshape(rows, cols),
+                                  interp.LUMA_FILTER)
+
+
+def test_cpu_tensors_launch_nothing(rng):
+    """On CPU tensors the wrappers take the plain versions and count no
+    launch; wrong dtypes are refused before any launch."""
+    ref, bands, pos, m = _block_setup(rng, 8, 2)
+    before = dict(mc_kernel.LAUNCHES)
+    mc_kernel.sad_block_positions(*_t(ref, bands, pos), m, 8, 8)
+    mc_kernel.mc_block_positions(*_t(ref, pos), m, 8, 8)
+    assert mc_kernel.LAUNCHES == before
+    assert set(before) == {"mc_luma_positions", "mc_chroma_positions",
+                           "sad_block_positions", "mc_block_positions",
+                           "sad_luma_positions"}
+    with pytest.raises(TypeError):
+        mc_kernel._check_i32("k", torch.zeros(2, 2, dtype=torch.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extreme", [False, True], ids=["random", "extreme"])
+def test_cuda_search_kernels_match_plain(rng, extreme):
+    """On the card: K3, K4, K5 bit-exact with their plain versions, each
+    launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    for s, k, nbx in ((8, 5, 32), (16, 6, 20), (32, 1, 8)):
+        ref, bands, pos, m = _block_setup(rng, s, k, nbx=nbx, h=128,
+                                          extreme=extreme)
+        r, b, p = (t.cuda() for t in _t(ref, bands, pos))
+        before = dict(mc_kernel.LAUNCHES)
+        got_sad = mc_kernel.sad_block_positions(r, b, p, m, s, 8)
+        got_mc = mc_kernel.mc_block_positions(r, p, m, s, 8)
+        assert mc_kernel.LAUNCHES["sad_block_positions"] == \
+            before["sad_block_positions"] + 1
+        assert mc_kernel.LAUNCHES["mc_block_positions"] == \
+            before["mc_block_positions"] + 1
+        torch.testing.assert_close(
+            got_sad, mc_kernel.sad_block_positions_plain(r, b, p, m, s, 8),
+            rtol=0, atol=0)
+        torch.testing.assert_close(
+            got_mc, mc_kernel.mc_block_positions_plain(r, p, m, s, 8),
+            rtol=0, atol=0)
+    ref, orig, pos, m = _sub_setup(rng, 5, h=128, w=256, extreme=extreme)
+    r, o, p = (t.cuda() for t in _t(ref, orig, pos))
+    before = mc_kernel.LAUNCHES["sad_luma_positions"]
+    got = mc_kernel.sad_luma_positions(r, o, p, m, 8)
+    assert mc_kernel.LAUNCHES["sad_luma_positions"] == before + 1
+    torch.testing.assert_close(
+        got, mc_kernel.sad_luma_positions_plain(r, o, p, m, 8), rtol=0,
+        atol=0)

@@ -1,15 +1,23 @@
-"""Adaptive Loop Filter — the decoder's application side.
+"""Adaptive Loop Filter — estimation and application.
 
-PyTorch counterpart of `classify`, `apply_alf`, `apply_alf_chroma` and
-`apply_ccalf` in `vvc_mm_tpu/common/alf.py` (reference:
+PyTorch counterpart of `vvc_mm_tpu/common/alf.py` (reference:
 source/Lib/CommonLib/AdaptiveLoopFilter.cpp — ALFProcess:402,
-deriveClassification, filter7x7Blk / filter5x5Blk, applyCcAlfFilter).
+deriveClassification, filter7x7Blk / filter5x5Blk, applyCcAlfFilter;
+EncoderLib/EncAdaptiveLoopFilter.cpp deriveCoeff).
 The filters are integer (int32 features x int coeffs >> 7) and DC
-preserving; per-64x64-region enable flags gate them.  Estimation is
-encoder work (a later slice).
+preserving; per-64x64-region enable flags gate them.
+
+The encoder's Wiener statistics are sums of products of integers.  The JAX
+package accumulates them in float32, where the result depends on the order
+of reduction; here they are accumulated in float64, which holds every sum
+exactly (terms below 2^21, fewer than 2^32 of them), so the statistics are
+the same on every device.  They agree with the JAX package's to float32
+precision, and a rounded coefficient can differ by one: that changes the
+slice header, not decodability (the decoder applies what is signalled).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 NUM_CLASSES = 25
@@ -91,26 +99,18 @@ def apply_alf(recon: torch.Tensor, cls4: torch.Tensor, coeffs, enable,
               bit_depth: int = 8) -> torch.Tensor:
     """Luma ALF: per-class 7x7 diamond filters with per-region gating."""
     h, w = recon.shape
-    dev = recon.device
-    coeffs = torch.as_tensor(coeffs, device=dev).to(torch.int32)
-    f = _features(recon, DIAMOND_PAIRS)                       # (12, H, W)
-    cmap = cls4.repeat_interleave(4, 0).repeat_interleave(4, 1)
-    ctab = coeffs[cmap.to(torch.int64)]                       # (H, W, 12)
-    acc = (f.permute(1, 2, 0) * ctab).sum(-1, dtype=torch.int32)
-    filtered = _finish(recon, acc, bit_depth)
-    return torch.where(_region_map(enable, h, w, dev), filtered, recon)
+    filtered = filter_frame(recon, cls4, coeffs, bit_depth)
+    return torch.where(_region_map(enable, h, w, recon.device), filtered,
+                       recon)
 
 
 def apply_alf_chroma(recon: torch.Tensor, coeffs, enable,
                      bit_depth: int = 8) -> torch.Tensor:
     """Chroma ALF: one 5x5 diamond filter per plane, region gated."""
     h, w = recon.shape
-    dev = recon.device
-    coeffs = torch.as_tensor(coeffs, device=dev).to(torch.int32)
-    f = _features(recon, DIAMOND_PAIRS_C)
-    acc = (f * coeffs[:, None, None]).sum(0, dtype=torch.int32)
-    filtered = _finish(recon, acc, bit_depth)
-    return torch.where(_region_map(enable, h, w, dev), filtered, recon)
+    filtered = filter_chroma(recon, coeffs, bit_depth)
+    return torch.where(_region_map(enable, h, w, recon.device), filtered,
+                       recon)
 
 
 def apply_ccalf(recon_c: torch.Tensor, luma: torch.Tensor, coeffs, enable,
@@ -118,11 +118,122 @@ def apply_ccalf(recon_c: torch.Tensor, luma: torch.Tensor, coeffs, enable,
     """CC-ALF: a chroma correction from co-located luma differences
     (4:2:0 co-located sample at (2y, 2x)), region gated."""
     ch, cw = recon_c.shape
-    dev = recon_c.device
+    out = filter_ccalf(recon_c, luma, coeffs, bit_depth)
+    return torch.where(_region_map(enable, ch, cw, recon_c.device), out,
+                       recon_c)
+
+
+# ---------------------------------------------------------------------------
+# Estimation (encoder)
+# ---------------------------------------------------------------------------
+def _gram(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """sum_hw f[i] * g[j] for (n, H, W) / (m, H, W) float64 -> (n, m)."""
+    return f.reshape(f.shape[0], -1) @ g.reshape(g.shape[0], -1).t()
+
+
+def gather_stats(recon: torch.Tensor, orig: torch.Tensor,
+                 cls4: torch.Tensor):
+    """Per-class Wiener statistics: (25, 12, 12) autocorrelation and
+    (25, 12) cross-correlation, float64 (exact)."""
+    f = _features(recon, DIAMOND_PAIRS).to(torch.float64)    # (12, H, W)
+    d = (orig - recon).to(torch.float64)[None]
+    cmap = cls4.repeat_interleave(4, 0).repeat_interleave(4, 1)
+    a, b = [], []
+    for k in range(NUM_CLASSES):
+        fk = f * (cmap == k)[None]
+        a.append(_gram(fk, f))
+        b.append(_gram(fk, d)[:, 0])
+    return torch.stack(a), torch.stack(b)
+
+
+def solve_coeffs(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Host-side regularized Wiener solve + fixed-point quantization
+    (reference: EncAdaptiveLoopFilter deriveCoeff)."""
+    coeffs = np.zeros((NUM_CLASSES, NUM_COEFF), dtype=np.int32)
+    for k in range(NUM_CLASSES):
+        ak = a[k] + np.eye(NUM_COEFF) * (1.0 + a[k].trace() * 1e-4)
+        try:
+            c = np.linalg.solve(ak, b[k])
+        except np.linalg.LinAlgError:
+            continue
+        coeffs[k] = np.clip(np.round(c * (1 << COEFF_SHIFT)), -1024, 1023)
+    return coeffs
+
+
+def filter_frame(recon: torch.Tensor, cls4: torch.Tensor, coeffs,
+                 bit_depth: int = 8) -> torch.Tensor:
+    """Apply the per-class luma filters everywhere (region gating by the
+    caller)."""
+    dev = recon.device
     coeffs = torch.as_tensor(coeffs, device=dev).to(torch.int32)
-    c0 = luma[::2, ::2][:ch, :cw]
-    f = torch.stack([_shift2(luma, dy, dx)[::2, ::2][:ch, :cw] - c0
-                     for (dy, dx) in CCALF_TAPS]).to(torch.int32)
+    f = _features(recon, DIAMOND_PAIRS)
+    cmap = cls4.repeat_interleave(4, 0).repeat_interleave(4, 1)
+    ctab = coeffs[cmap.to(torch.int64)]
+    acc = (f.permute(1, 2, 0) * ctab).sum(-1, dtype=torch.int32)
+    return _finish(recon, acc, bit_depth)
+
+
+def _region_sums(x: torch.Tensor, gy: int, gx: int) -> torch.Tensor:
+    h, w = x.shape
+    ph, pw = gy * REGION, gx * REGION
+    if (ph, pw) != (h, w):
+        x = torch.nn.functional.pad(x, (0, pw - w, 0, ph - h))
+    return x.reshape(gy, REGION, gx, REGION).sum(dim=(1, 3),
+                                                 dtype=torch.int32)
+
+
+def region_decide(orig: torch.Tensor, recon: torch.Tensor,
+                  filtered: torch.Tensor, lam: float, bit_depth: int = 8
+                  ) -> torch.Tensor:
+    """Per-64x64-region on/off by SSD (reference: ALF CTU enable flags).
+    The comparison is the JAX package's: int32 SSDs against a float32
+    lambda."""
+    h, w = orig.shape
+    gy, gx = -(-h // REGION), -(-w // REGION)
+    sse_off = _region_sums((orig - recon) ** 2, gy, gx)
+    sse_on = _region_sums((orig - filtered) ** 2, gy, gx)
+    lam32 = torch.tensor(lam, dtype=torch.float32, device=orig.device)
+    return sse_on.to(torch.float32) + lam32 < sse_off.to(torch.float32)
+
+
+def _stats_c(recon: torch.Tensor, orig: torch.Tensor):
+    """Chroma Wiener statistics (6, 6) / (6,), float64 (exact)."""
+    f = _features(recon, DIAMOND_PAIRS_C).to(torch.float64)
+    d = (orig - recon).to(torch.float64)[None]
+    return _gram(f, f), _gram(f, d)[:, 0]
+
+
+def filter_chroma(recon: torch.Tensor, coeffs, bit_depth: int = 8
+                  ) -> torch.Tensor:
+    coeffs = torch.as_tensor(coeffs, device=recon.device).to(torch.int32)
+    f = _features(recon, DIAMOND_PAIRS_C)
     acc = (f * coeffs[:, None, None]).sum(0, dtype=torch.int32)
-    out = _finish(recon_c, acc, bit_depth)
-    return torch.where(_region_map(enable, ch, cw, dev), out, recon_c)
+    return _finish(recon, acc, bit_depth)
+
+
+def _ccalf_features(luma: torch.Tensor, ch: int, cw: int) -> torch.Tensor:
+    """(7, ch, cw) luma difference features at chroma resolution (4:2:0
+    co-located sample at (2y, 2x))."""
+    c0 = luma[::2, ::2][:ch, :cw]
+    return torch.stack([_shift2(luma, dy, dx)[::2, ::2][:ch, :cw] - c0
+                        for (dy, dx) in CCALF_TAPS]).to(torch.int32)
+
+
+def _ccalf_stats(luma: torch.Tensor, orig_c: torch.Tensor,
+                 recon_c: torch.Tensor):
+    """CC-ALF Wiener statistics (7, 7) / (7,), float64 (exact)."""
+    ch, cw = recon_c.shape
+    f = _ccalf_features(luma, ch, cw).to(torch.float64)
+    d = (orig_c - recon_c).to(torch.float64)[None]
+    return _gram(f, f), _gram(f, d)[:, 0]
+
+
+def filter_ccalf(recon_c: torch.Tensor, luma: torch.Tensor, coeffs,
+                 bit_depth: int = 8) -> torch.Tensor:
+    """The CC-ALF correction applied everywhere (region gating by the
+    caller)."""
+    ch, cw = recon_c.shape
+    coeffs = torch.as_tensor(coeffs, device=recon_c.device).to(torch.int32)
+    f = _ccalf_features(luma, ch, cw)
+    acc = (f * coeffs[:, None, None]).sum(0, dtype=torch.int32)
+    return _finish(recon_c, acc, bit_depth)

@@ -155,3 +155,25 @@ class ContextState:
             self.p0[ctx] -= self.p0[ctx] >> RATE0
             self.p1[ctx] -= self.p1[ctx] >> RATE1
 
+# ---------------------------------------------------------------------------
+# Rate estimation: fractional bits of coding bin b with probability p.
+# Table of -log2(p/32768) in 1/512-bit units over 6-bit quantized p
+# (reference analog: fracBitsAccess in Contexts.h / RdCost).
+# ---------------------------------------------------------------------------
+FRAC_BITS_SCALE = 512
+
+
+def _build_frac_bits_table() -> np.ndarray:
+    idx = (np.arange(1 << 6) + 0.5) / (1 << 6)      # p in (0,1)
+    bits1 = -np.log2(idx)
+    bits0 = -np.log2(1.0 - idx)
+    return np.stack([bits0, bits1], 1) * FRAC_BITS_SCALE
+
+
+FRAC_BITS_TABLE = _build_frac_bits_table().astype(np.int32)  # (64, 2)
+
+
+def frac_bits(p1: np.ndarray, binval: np.ndarray) -> np.ndarray:
+    """Estimated fractional bits (x512) of coding `binval` at prob-of-one p1."""
+    q = np.clip(p1 >> (PROB_BITS - 6), 0, 63)
+    return FRAC_BITS_TABLE[q, binval]

@@ -1,25 +1,38 @@
-"""Multi-model P/B reconstruction: merged positions + one MC pass.
+"""Multi-model P/B frames: per-block model search, merged positions + one
+MC pass.
 
-PyTorch counterpart of the reconstruction side of
-`vvc_mm_tpu/common/mm/frame_codec.py` (reference: DecCu.cpp +
-InterPrediction.cpp:520-528 model dispatch).  Every model's per-subblock
-positions are computed frame-wide, merged per block by the signalled model
-index, and ONE position-based MC pass (kernels K1/K2) predicts the frame.
+PyTorch counterpart of `vvc_mm_tpu/common/mm/frame_codec.py` (reference:
+EncCu.cpp:775-798 per-model mode loop, InterSearch.cpp:2695 predInterSearch;
+decoder side DecCu.cpp + InterPrediction.cpp:520-528 model dispatch).
+
+Reconstruction: every model's per-subblock positions are computed
+frame-wide, merged per block by the signalled model index, and ONE
+position-based MC pass (kernels K1/K2) predicts the frame.
+
+Search: every model's motion search runs frame-batched (a diamond
+refinement whose every step evaluates all blocks at once through the
+decision-SAD kernels K3/K5), one argmin picks the per-block model, and the
+merge candidates' SADs are measured by the same kernels (K3, K4 for the B
+bands).  The search only picks MVs and models: float drift in its
+positions can change a decision, never break decode.  The JAX package
+traces each search as one program; here they are plain functions.
 
 Each reconstruct function takes an optional `positions=` argument: the
 merged positions tensor (a pair of them for B frames) to use instead of
 computing them.  The positions are float32 sphere math rounded to 1/16
 pel, and this lets a caller reconstruct from positions computed elsewhere
-(the JAX package's, in the tests).  The search side is ROADMAP queue 1
-item 5; projected DMVR is item 7.
+(the JAX package's, in the tests).  Projected DMVR is ROADMAP queue 1
+item 7.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import quant, transforms
 from ...device import check_device
-from ..inter_frame import MC_MARGIN, _from_blocks, _to_blocks, pad_ref
+from ..inter_frame import (MC_MARGIN, _from_blocks, _residual_pass,
+                           _to_blocks, first_argmin, pad_ref)
 from ..typedefs import MotionModelID as M
 from . import mc as mm_mc
 from .reprojection import MVReprojection, SUBBLK
@@ -31,13 +44,14 @@ def _up(t: torch.Tensor, rep: int) -> torch.Tensor:
 
 def merged_positions(reproj: MVReprojection, active_models: list[int],
                      model_idx: torch.Tensor, mvs_stack: torch.Tensor,
-                     block_size: int, epipoles: dict | None = None
-                     ) -> torch.Tensor:
+                     block_size: int, epipoles: dict | None = None,
+                     row_step: int = 1) -> torch.Tensor:
     """Merge per-subblock target positions across models.
 
     Args:
       model_idx: (nby, nbx) index into active_models per block.
       mvs_stack: (n_models, nby, nbx, 2) MV of each model for each block.
+      row_step: optional subblock-row subsampling (search-time SADs).
     Returns (nsy, nsx, 2) int32 positions on the reprojection's device."""
     dev = reproj.device
     model_idx = torch.as_tensor(model_idx, device=dev)
@@ -46,14 +60,17 @@ def merged_positions(reproj: MVReprojection, active_models: list[int],
     for i, model_id in enumerate(active_models):
         if model_id == M.CLASSIC:
             pos = mm_mc.classic_positions(reproj.width, reproj.height,
-                                          mvs_stack[i], block_size)
+                                          mvs_stack[i], block_size,
+                                          row_step)
         else:
             ep = (epipoles or {}).get(model_id)
             pos = reproj.reproject_frame(model_id, mvs_stack[i], block_size,
-                                         ep)
+                                         ep, row_step)
         pos_all.append(pos)
     pos_all = torch.stack(pos_all)                   # (n, nsy, nsx, 2)
     idx_sb = _up(model_idx.to(torch.int64), block_size // SUBBLK)
+    if row_step > 1:
+        idx_sb = idx_sb[::row_step]
     idx = idx_sb[None, :, :, None].expand(1, -1, -1, 2)
     return torch.gather(pos_all, 0, idx)[0]
 
@@ -154,3 +171,579 @@ def reconstruct_b_frame_mm(reproj, active_models, model_idx0, model_idx1,
     return dict(y=_rec_plane(py, lev_y, s, nby, nbx, qp, bit_depth),
                 u=_rec_plane(pu, lev_u, s // 2, nby, nbx, qp, bit_depth),
                 v=_rec_plane(pv, lev_v, s // 2, nby, nbx, qp, bit_depth))
+
+
+# ------------------------------------------------------------ the search
+
+SAD_ROW_STEP = 4     # search-time SAD subsampling: keep 1-of-4 4-px row
+                     # bands (reference: RdCost subShift; non-normative —
+                     # only steers the model/MV choice, never the
+                     # signalled reconstruction)
+SAD_COL_STEP = 2     # and 1-of-2 4-px column bands in the model-search
+                     # evals
+
+# Search-eval mode: "block" ranks diamond candidates by the
+# block-translational decision SAD (one patch per block, kernel K3 — good
+# when blocks subtend small angles, i.e. real frame sizes); "subblock"
+# keeps the exact per-subblock reprojection in the diamonds (kernel K5;
+# used below a minimum frame height, where a block spans a large latitude
+# range and the translational approximation misranks).
+BLOCK_EVAL_MIN_HEIGHT = 512
+
+P_SEED_STEPS = (32, 16, 8, 4)   # temporally-seeded P-anchor model search
+B_SEED_STEPS = (8, 4)           # temporally-seeded B model search
+
+_NEIGHBOR_SHIFTS = ((0, -1), (-1, 0), (-1, 1))   # left, above, above-right
+
+
+def _block_sad(diff_abs: torch.Tensor, s: int) -> torch.Tensor:
+    h, w = diff_abs.shape
+    return diff_abs.reshape(h // s, s, w // s, s).sum(dim=(1, 3)) \
+        .to(torch.int32)
+
+
+def _subsample_rows(plane: torch.Tensor, row_step: int,
+                    col_step: int = 1) -> torch.Tensor:
+    """Keep every row_step-th 4-pixel row band (and every col_step-th
+    4-pixel column band) of a frame."""
+    h, w = plane.shape
+    x = plane.reshape(h // 4, 4, w)[::row_step]
+    if col_step > 1:
+        x = x.reshape(-1, 4, w // 4, 4)[:, :, ::col_step]
+        return x.reshape(-1, (w // 4 // col_step) * 4)
+    return x.reshape(-1, w)
+
+
+def _block_sad_sub(diff_abs: torch.Tensor, s: int, row_step: int,
+                   col_step: int = 1) -> torch.Tensor:
+    """Per-block SAD from a row/column-subsampled |diff| plane: each
+    block keeps s//4//row_step of its 4-px row bands (and s//4//col_step
+    column bands); scaled back to full-SAD range."""
+    h, w = diff_abs.shape
+    rows_per_block = (s // 4 // row_step) * 4
+    cols_per_block = (s // 4 // col_step) * 4
+    return (diff_abs.reshape(h // rows_per_block, rows_per_block,
+                             w // cols_per_block, cols_per_block
+                             ).sum(dim=(1, 3)) * (row_step * col_step)
+            ).to(torch.int32)
+
+
+def _sad_fields_bilin(ref_padded, orig_sub, pos_k, block_size: int,
+                      row_step: int, col_step: int = 1,
+                      exact: bool = False, bit_depth: int = 8
+                      ) -> torch.Tensor:
+    """Per-BLOCK decision SADs for K candidate position fields over the
+    row/col-subsampled subblock grid: pos_k (K, nsy_sub, nsx_sub, 2) ->
+    (K, nby, nbx) scaled back to full-SAD range.  Only the exact arm (the
+    fused 8-tap SAD, kernel K5) is here: every caller asks for it."""
+    if not exact:
+        raise NotImplementedError(
+            "bilinear decision SAD (kernel K6, sad_bilinear_positions): "
+            "ROADMAP queue 1 item 6")
+    sads = mm_mc.sad_positions_multi(ref_padded, orig_sub, pos_k,
+                                     MC_MARGIN, bit_depth)
+    k, ny, nx = sads.shape
+    rows_pb = block_size // 4 // row_step
+    cols_pb = block_size // 4 // col_step
+    return (sads.reshape(k, ny // rows_pb, rows_pb, nx // cols_pb,
+                         cols_pb).sum(dim=(2, 4))
+            * (row_step * col_step)).to(torch.int32)
+
+
+def _take0(stack: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """stack[idx[y, x], y, x(, :)] — the per-block entry of a stack."""
+    i = idx.to(torch.int64)[None]
+    if stack.dim() == 4:
+        i = i[..., None].expand(1, *idx.shape, stack.shape[-1])
+    return torch.gather(stack, 0, i)[0]
+
+
+def _shift2(f: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """The field of the neighbour at (dy, dx): zero-pad and slice, so a
+    neighbour outside the picture is model index 0 (CLASSIC) with MV 0 —
+    not an edge copy and not a wrap.  dy, dx in [-1, 1] keeps the slice
+    inside the padded field (the JAX package's dynamic_slice never has to
+    clamp here either)."""
+    nby, nbx = f.shape[:2]
+    p = f.new_zeros((nby + 2, nbx + 2) + tuple(f.shape[2:]))
+    p[1:-1, 1:-1] = f
+    return p[1 + dy:1 + dy + nby, 1 + dx:1 + dx + nbx]
+
+
+def _to_stack(idx_f: torch.Tensor, mv_f: torch.Tensor, n: int
+              ) -> torch.Tensor:
+    """(model index, MV) grids -> (n, nby, nbx, 2) stack with each block's
+    MV in its selected model's layer, zero elsewhere."""
+    onehot = idx_f[None] == torch.arange(
+        n, dtype=idx_f.dtype, device=idx_f.device)[:, None, None]
+    return torch.where(onehot[..., None], mv_f[None],
+                       torch.zeros_like(mv_f)[None])
+
+
+def _block_bands(plane: torch.Tensor, s: int) -> torch.Tensor:
+    """Each block row's first 4-pixel band, stacked: (nby*4, W)."""
+    h, w = plane.shape
+    return plane.reshape(h // s, s, w)[:, 0:4].reshape(-1, w).contiguous()
+
+
+def _make_eval_multi_uncached(reproj: MVReprojection, model_id: int,
+                              block_size: int, bit_depth: int, epipole=None):
+    """(orig, ref_padded, mv_cands (K,nby,nbx,2)) -> (K,nby,nbx) SADs — all
+    K candidates of a refinement step in ONE launch."""
+    s = block_size
+    if reproj.height < BLOCK_EVAL_MIN_HEIGHT:
+        return _make_eval_subblock(reproj, model_id, s, bit_depth, epipole)
+
+    def eval_cands(orig, ref_padded, mv_cands):
+        # block-translational decision SAD: each block's first 4-pixel
+        # row band, sampled at the block-center's reprojected displacement
+        # with the exact 8-tap filter — one patch per (candidate, BLOCK)
+        bands = _block_bands(orig, s)
+        pos_k = torch.stack([
+            reproj.reproject_block_centers(model_id, mv_cands[k], s,
+                                           epipole)
+            for k in range(mv_cands.shape[0])])
+        sads = mm_mc.sad_block_positions(ref_padded, bands, pos_k,
+                                         MC_MARGIN, s, bit_depth)
+        return sads * (s // 4)            # scale to full-block SAD range
+
+    return eval_cands
+
+
+make_eval_multi = _make_eval_multi_uncached   # nothing to cache: no tracing
+
+
+def _merged_center_positions(reproj: MVReprojection,
+                             active_models: list[int], s: int,
+                             epipoles: dict | None, idx_f, stack_f
+                             ) -> torch.Tensor:
+    """Block-translational analog of merged_positions: per-block center
+    reprojection of each model, selected by idx_f -> (nby, nbx, 2)."""
+    pos_all = torch.stack([
+        reproj.reproject_block_centers(m, stack_f[i], s,
+                                       (epipoles or {}).get(m))
+        for i, m in enumerate(active_models)])
+    return _take0(pos_all, idx_f)
+
+
+def _sad_fields_block(reproj: MVReprojection, active_models: list[int],
+                      ref_padded, orig_bands, s: int,
+                      epipoles: dict | None, fields, bit_depth: int
+                      ) -> torch.Tensor:
+    """Block-translational field SADs: ONE kernel launch for all
+    (idx_f, stack_f) fields; scaled to full-block SAD range."""
+    pos_k = torch.stack([
+        _merged_center_positions(reproj, active_models, s, epipoles, i, st)
+        for i, st in fields])
+    return mm_mc.sad_block_positions(ref_padded, orig_bands, pos_k,
+                                     MC_MARGIN, s, bit_depth) * (s // 4)
+
+
+def _band_sad_blocks(bands: torch.Tensor, orig_bands: torch.Tensor,
+                     s: int) -> torch.Tensor:
+    """Per-block SAD from predicted/original band planes (nby*4, nbx*s),
+    scaled to full-block range."""
+    d = (bands - orig_bands).abs()
+    hb, w = d.shape
+    return (d.reshape(hb // 4, 4, w // s, s).sum(dim=(1, 3)) * (s // 4)
+            ).to(torch.int32)
+
+
+def _make_eval_subblock(reproj: MVReprojection, model_id: int,
+                        block_size: int, bit_depth: int, epipole=None):
+    """Exact per-subblock diamond eval (the multi-candidate 8-tap SAD,
+    kernel K5, on the row/col-subsampled subblock grid)."""
+    row_step = SAD_ROW_STEP if block_size // 4 >= SAD_ROW_STEP else 1
+    col_step = SAD_COL_STEP if block_size // 4 >= 2 * SAD_COL_STEP else 1
+
+    def eval_cands(orig, ref_padded, mv_cands):
+        orig_sub = _subsample_rows(orig, row_step, col_step).contiguous()
+
+        def one_pos(mvs):
+            if model_id == M.CLASSIC:
+                pos = mm_mc.classic_positions(reproj.width, reproj.height,
+                                              mvs, block_size, row_step)
+            else:
+                pos = reproj.reproject_frame(model_id, mvs, block_size,
+                                             epipole, row_step)
+            if col_step > 1:
+                pos = pos[:, ::col_step]
+            return pos
+        pos_k = torch.stack([one_pos(mv_cands[k])
+                             for k in range(mv_cands.shape[0])])
+        return _sad_fields_bilin(ref_padded, orig_sub, pos_k, block_size,
+                                 row_step, col_step, exact=True,
+                                 bit_depth=bit_depth)
+
+    return eval_cands
+
+
+_PLUS = np.array([(0, -1), (-1, 0), (1, 0), (0, 1)], dtype=np.int32)
+_PLUS_C = np.array([(0, 0), (0, -1), (-1, 0), (1, 0), (0, 1)],
+                   dtype=np.int32)
+
+
+def diamond_search(eval_multi, orig, ref_padded, mv_init: torch.Tensor,
+                   steps=(64, 32, 16, 8, 4, 2)):
+    """Batched diamond refinement in 1/16-pel units (steps 64..16 are
+    integer-pel, below is fractional).  All blocks refine simultaneously;
+    the first step evaluates center + plus (5 candidates), every later
+    step the 4-point plus pattern with the center's SAD carried over.  The
+    center comes FIRST in the argmin, so a tie keeps it."""
+    mv = mv_init.to(torch.int32)
+    dev = mv.device
+    best = None
+    for step in steps:
+        if best is None:
+            offs = torch.as_tensor(_PLUS_C * step, device=dev)
+            cands = mv[None] + offs[:, None, None, :]
+            sads = eval_multi(orig, ref_padded, cands)   # (5, nby, nbx)
+        else:
+            offs = torch.as_tensor(_PLUS * step, device=dev)
+            cands = mv[None] + offs[:, None, None, :]
+            sads = eval_multi(orig, ref_padded, cands)   # (4, nby, nbx)
+            cands = torch.cat([mv[None], cands])
+            sads = torch.cat([best[None], sads])
+        k = first_argmin(sads, 0)                        # (nby, nbx)
+        mv = _take0(cands, k)
+        best = sads.min(dim=0).values
+    return mv, best
+
+
+def search_models(reproj: MVReprojection, active_models: list[int],
+                  orig_y: torch.Tensor, ref_y: torch.Tensor,
+                  classic_mv: torch.Tensor, classic_sad: torch.Tensor,
+                  block_size: int, bit_depth: int, lam_bits: float,
+                  epipoles: dict | None = None, wrap_around: bool = False,
+                  steps=(64, 32, 16, 8, 4),  # stops at quarter-pel
+                  seed_stack=None):
+    """Search every active non-classic model and pick the per-block best
+    model by SAD + lambda*bits(model index).  Diamonds seed from zero MV
+    or, when seed_stack (n_models, nby, nbx, 2) is given, from the
+    previous frame's per-model MV field.
+
+    Returns (model_idx_grid (nby, nbx) int32 index into active_models,
+             mvs_per_model dict, sad_per_model dict)."""
+    refp = pad_ref(ref_y, MC_MARGIN, wrap_around)
+    mvs = {M.CLASSIC: classic_mv}
+    # re-evaluate the classic candidate through the same decision-SAD
+    # path the model diamonds use, so the per-block model argmin compares
+    # one domain (classic_sad comes from the fractional refine)
+    ev_cl = make_eval_multi(reproj, M.CLASSIC, block_size, bit_depth)
+    sads = {M.CLASSIC: ev_cl(orig_y, refp, classic_mv[None])[0]}
+    for i, model_id in enumerate(active_models):
+        if model_id == M.CLASSIC:
+            continue
+        ep = (epipoles or {}).get(model_id)
+        ev = make_eval_multi(reproj, model_id, block_size, bit_depth, ep)
+        mv0 = (torch.zeros_like(classic_mv) if seed_stack is None
+               else seed_stack[i].to(torch.int32))
+        mv, sad = diamond_search(ev, orig_y, refp, mv0, steps)
+        mvs[model_id] = mv
+        sads[model_id] = sad
+    # model cost: unary index bins (reference: CABACReader.cpp:2300 unary
+    # over the active-model list); lam_bits is a host float on purpose
+    costs = []
+    for i, model_id in enumerate(active_models):
+        bits = i + 1 if i < len(active_models) - 1 else i
+        costs.append(sads[model_id] + int(lam_bits * bits))
+    idx = first_argmin(torch.stack(costs), 0).to(torch.int32)
+    return idx, mvs, sads
+
+
+def _search_list(reproj, active_models, orig_y, ref_y, qp, s, bit_depth,
+                 search_range, epipoles, wrap_around, steps, seed):
+    """Classic hierarchical ME + fractional refine + every model's diamond
+    + the model argmin against one reference.  Returns (idx, stack, sads
+    dict, padded reference)."""
+    from ...encoder import me as me_mod
+    lam = quant.lambda_from_qp(qp, intra=False)
+    lam_bits = lam ** 0.5 * 4.0
+    lam16 = int(lam ** 0.5 * 16)
+    refp = pad_ref(ref_y, MC_MARGIN, wrap_around)
+    mv_int, _ = me_mod.hierarchical_search(orig_y, refp, s, search_range,
+                                           MC_MARGIN, lam16)
+    cmv, csad = me_mod.fractional_refine(orig_y, refp, mv_int, s, MC_MARGIN,
+                                         bit_depth)
+    idx, mvs, sads = search_models(
+        reproj, active_models, orig_y, ref_y, cmv, csad, s, bit_depth,
+        lam_bits, epipoles, wrap_around, steps, seed)
+    stack = torch.stack([mvs[m] for m in active_models])
+    return idx, stack, sads, refp
+
+
+def search_p_mm(reproj: MVReprojection, active_models: list[int],
+                orig_y, ref_y, qp: int, block_size: int, bit_depth: int,
+                search_range: int, epipoles: dict | None = None,
+                wrap_around: bool = False, seed=None):
+    """P-frame motion/model search.  Returns (model_idx (nby,nbx),
+    mvs_stack (n_models,nby,nbx,2)).  With `seed` (the previous frame's
+    per-model MV stack), diamonds start from the temporal predictor and
+    run the reduced step ladder."""
+    steps = P_SEED_STEPS if seed is not None else (64, 32, 16, 8, 4)
+    idx, stack, _, _ = _search_list(
+        reproj, active_models, orig_y, ref_y, qp, block_size, bit_depth,
+        search_range, epipoles, wrap_around, steps, seed)
+    return idx, stack
+
+
+def _field_sads(reproj, active_models, refp, orig_y, s, epipoles, fields,
+                bit_depth):
+    """Decision SADs of (idx, stack) candidate fields applied at the
+    CURRENT block's location: block-translational bands (K3) at real
+    frame sizes, the row-subsampled exact per-subblock SAD (K5) below."""
+    if reproj.height >= BLOCK_EVAL_MIN_HEIGHT:
+        return _sad_fields_block(reproj, active_models, refp,
+                                 _block_bands(orig_y, s), s, epipoles,
+                                 fields, bit_depth)
+    row_step = SAD_ROW_STEP if s // 4 >= SAD_ROW_STEP else 1
+    oy_sub = _subsample_rows(orig_y, row_step).contiguous()
+    pos_fields = [merged_positions(reproj, active_models, i, st, s,
+                                   epipoles, row_step) for i, st in fields]
+    return _sad_fields_bilin(refp, oy_sub, torch.stack(pos_fields), s,
+                             row_step, exact=True, bit_depth=bit_depth)
+
+
+def search_p_mm_merge(reproj: MVReprojection, active_models: list[int],
+                      orig_y, ref_y, qp: int, block_size: int,
+                      bit_depth: int, search_range: int,
+                      epipoles: dict | None = None,
+                      wrap_around: bool = False, seed=None):
+    """P-frame MM search with merge-candidate SADs: search_p_mm plus, for
+    each candidate field (neighbor shifts of the selected (model, mv) grid
+    and zero-CLASSIC), a reprojection + SAD pass.  Candidates applied at
+    the CURRENT block's location go through the reprojection there — a
+    neighbor's (model, mv) produces different target positions at this
+    block (reference: merge candidates carry their motion model,
+    UnitTools.cpp:872-885).
+
+    Returns (model_idx, mvs_stack, sad_sel, cand_idx (K,nby,nbx),
+    cand_mv (K,nby,nbx,2), cand_sads (K,nby,nbx))."""
+    s = block_size
+    steps = P_SEED_STEPS if seed is not None else (64, 32, 16, 8, 4)
+    idx, stack, _, refp = _search_list(
+        reproj, active_models, orig_y, ref_y, qp, s, bit_depth,
+        search_range, epipoles, wrap_around, steps, seed)
+    mv_sel = _take0(stack, idx)
+    fields = [(idx, stack)]
+    cand_idx, cand_mv = [], []
+    for (dy, dx) in _NEIGHBOR_SHIFTS:
+        idx_s = _shift2(idx, dy, dx)
+        stack_s = torch.stack([_shift2(stack[i], dy, dx)
+                               for i in range(stack.shape[0])])
+        cand_idx.append(idx_s)
+        cand_mv.append(_shift2(mv_sel, dy, dx))
+        fields.append((idx_s, stack_s))
+    # zero-CLASSIC candidate (active_models[0] is CLASSIC)
+    cand_idx.append(torch.zeros_like(idx))
+    cand_mv.append(torch.zeros_like(mv_sel))
+    fields.append((torch.zeros_like(idx), torch.zeros_like(stack)))
+    all_sads = _field_sads(reproj, active_models, refp, orig_y, s, epipoles,
+                           fields, bit_depth)
+    return (idx, stack, all_sads[0], torch.stack(cand_idx),
+            torch.stack(cand_mv), all_sads[1:])
+
+
+def search_qt_parent_mm(reproj: MVReprojection, active_models: list[int],
+                        orig_y, ref_y, idx_child, mv_child, idx_own,
+                        mv_own, qp: int, block_size: int, bit_depth: int,
+                        epipoles: dict | None = None,
+                        wrap_around: bool = False):
+    """Parent-level MM evaluation for the quadtree lattice (reference: the
+    QTMT recursion reuses child information through EncModeCtrl caching,
+    EncCu.cpp:499).
+
+    Candidates for each parent block are the four child-quadrant
+    selections, zero-CLASSIC AND this size's own flat-search selection
+    (idx_own/mv_own from search_p_mm); the best becomes this level's
+    selection and three neighbor shifts of it are evaluated for merge.
+
+    idx_child/mv_child: (2*nby, 2*nbx[, 2]) child-level selected grids.
+    Returns (idx, mv_sel, sad_sel, cand_idx (9,nby,nbx),
+    cand_mv (9,nby,nbx,2), cand_sads (9,nby,nbx)) — candidate fields are
+    [3 neighbor shifts, zero, 4 child quadrants, own-search]."""
+    s = block_size
+    n = len(active_models)
+    refp = pad_ref(ref_y, MC_MARGIN, wrap_around)
+
+    def field_sads(pairs):
+        fields = [(i, _to_stack(i, m, n)) for i, m in pairs]
+        return _field_sads(reproj, active_models, refp, orig_y, s,
+                           epipoles, fields, bit_depth)
+
+    quads = [(idx_child[dy::2, dx::2], mv_child[dy::2, dx::2])
+             for dy in (0, 1) for dx in (0, 1)]
+    zi = torch.zeros_like(quads[0][0])
+    zm = torch.zeros_like(quads[0][1])
+    own = quads + [(zi, zm), (idx_own, mv_own)]
+    own_sads = field_sads(own)
+    k = first_argmin(own_sads, 0)
+    idx = _take0(torch.stack([i for i, _ in own]), k)
+    mv_sel = _take0(torch.stack([m for _, m in own]), k)
+    sad_sel = own_sads.min(dim=0).values
+    cand_idx, cand_mv, shifted = [], [], []
+    for (dy, dx) in _NEIGHBOR_SHIFTS:
+        i_s = _shift2(idx, dy, dx)
+        m_s = _shift2(mv_sel, dy, dx)
+        cand_idx.append(i_s)
+        cand_mv.append(m_s)
+        shifted.append((i_s, m_s))
+    shift_sads = field_sads(shifted)
+    cand_sads = [shift_sads[i] for i in range(3)]
+    for (i_q, m_q), sd in zip(own, own_sads):
+        cand_idx.append(i_q)
+        cand_mv.append(m_q)
+        cand_sads.append(sd)
+    return (idx, mv_sel, sad_sel, torch.stack(cand_idx),
+            torch.stack(cand_mv), torch.stack(cand_sads))
+
+
+def search_b_mm_merge(reproj: MVReprojection, active_models: list[int],
+                      orig_y, ref0_y, ref1_y, qp: int, block_size: int,
+                      bit_depth: int, search_range: int, epipoles0=None,
+                      epipoles1=None, wrap_around: bool = False,
+                      small_range: bool = True, seed=None):
+    """B-frame per-list model search + uni/bi decision + whole-motion
+    merge-candidate SADs: for each neighbor shift of the selected per-list
+    (model, mv) grids and dirs, one positions+MC+combine+SAD pass per list
+    (candidates applied at the current block go through the reprojection
+    there).  Returns
+    (idx0, idx1, stack0, stack1, dirs, sad_sel,
+     cand_idx0/idx1 (K,..), cand_mv0/mv1 (K,..,2), cand_dirs, cand_sads).
+    """
+    s = block_size
+    lam = quant.lambda_from_qp(qp, intra=False)
+    mv_bits = int(lam ** 0.5 * 8)          # a host float, as lam_bits is
+    # models stop at quarter-pel; a temporal seed shrinks the ladder
+    steps = (B_SEED_STEPS if seed is not None else (16, 8, 4)) \
+        if small_range else (64, 32, 16, 8, 4)
+    idx0, stack0, _, r0p = _search_list(
+        reproj, active_models, orig_y, ref0_y, qp, s, bit_depth,
+        search_range, epipoles0, wrap_around, steps, seed)
+    idx1, stack1, _, r1p = _search_list(
+        reproj, active_models, orig_y, ref1_y, qp, s, bit_depth,
+        search_range, epipoles1, wrap_around, steps, seed)
+    mv_sel0 = _take0(stack0, idx0)
+    mv_sel1 = _take0(stack1, idx1)
+
+    def shifted_fields(idx_f, stack_f):
+        return [(_shift2(idx_f, dy, dx),
+                 torch.stack([_shift2(stack_f[i], dy, dx)
+                              for i in range(stack_f.shape[0])]))
+                for (dy, dx) in _NEIGHBOR_SHIFTS]
+
+    if reproj.height >= BLOCK_EVAL_MIN_HEIGHT:
+        # block-translational bands: per list ONE multi-candidate band-MC
+        # launch (kernel K4) for (selection + 3 neighbor shifts)
+        ob = _block_bands(orig_y, s)
+
+        def list_bands(rp, eps, idx_f, stack_f):
+            fields = [(idx_f, stack_f)] + shifted_fields(idx_f, stack_f)
+            pos = torch.stack([
+                _merged_center_positions(reproj, active_models, s, eps, i,
+                                         st) for i, st in fields])
+            return mm_mc.mc_block_positions(rp, pos, MC_MARGIN, s,
+                                            bit_depth)
+
+        preds0 = list_bands(r0p, epipoles0, idx0, stack0)
+        preds1 = list_bands(r1p, epipoles1, idx1, stack1)
+        rep_y = 4
+
+        def block_sad(x):
+            return _band_sad_blocks(x, ob, s)
+    else:
+        # decision-only: bi choice + selected-SAD on row-subsampled MC
+        row_step = SAD_ROW_STEP if s // 4 >= SAD_ROW_STEP else 1
+        ob = _subsample_rows(orig_y, row_step)
+
+        def list_preds(rp, eps, idx_f, stack_f):
+            fields = [(idx_f, stack_f)] + shifted_fields(idx_f, stack_f)
+            return [mm_mc.mc_luma_positions(
+                rp, merged_positions(reproj, active_models, i, st, s, eps,
+                                     row_step), MC_MARGIN, bit_depth)
+                for i, st in fields]
+
+        preds0 = list_preds(r0p, epipoles0, idx0, stack0)
+        preds1 = list_preds(r1p, epipoles1, idx1, stack1)
+        rep_y = s if row_step == 1 else (s // 4 // row_step) * 4
+
+        def block_sad(x):
+            return _block_sad_sub((ob - x).abs(), s, row_step)
+
+    def sel_pred(p0x, p1x, d):
+        dd = d.repeat_interleave(rep_y, 0).repeat_interleave(s, 1)
+        avg = (p0x + p1x + 1) >> 1
+        return torch.where(dd == 0, p0x, torch.where(dd == 1, p1x, avg))
+
+    sad_bi = block_sad((preds0[0] + preds1[0] + 1) >> 1) + mv_bits
+    dirs = first_argmin(torch.stack(
+        [block_sad(preds0[0]), block_sad(preds1[0]), sad_bi]), 0
+    ).to(torch.int32)
+    sad_sel = block_sad(sel_pred(preds0[0], preds1[0], dirs))
+    ci0, ci1, cm0, cm1, cd, cs = [], [], [], [], [], []
+    for j, (dy, dx) in enumerate(_NEIGHBOR_SHIFTS):
+        ds = _shift2(dirs, dy, dx)
+        cs.append(block_sad(sel_pred(preds0[j + 1], preds1[j + 1], ds)))
+        ci0.append(_shift2(idx0, dy, dx))
+        ci1.append(_shift2(idx1, dy, dx))
+        cm0.append(_shift2(mv_sel0, dy, dx))
+        cm1.append(_shift2(mv_sel1, dy, dx))
+        cd.append(ds)
+    return (idx0, idx1, stack0, stack1, dirs, sad_sel,
+            torch.stack(ci0), torch.stack(ci1), torch.stack(cm0),
+            torch.stack(cm1), torch.stack(cd), torch.stack(cs))
+
+
+def enc_finish_b_mm_fused(reproj, active_models, idx0, idx1, stack0,
+                          stack1, rstack0, rstack1, dirs, orig, ref0,
+                          ref1, qp: int, block_size: int, bit_depth: int,
+                          epipoles0=None, epipoles1=None,
+                          wrap_around: bool = False,
+                          deblocking: bool = True):
+    """Encoder tail for MM B frames: both per-list merged positions, then
+    bi combine -> residual -> recon -> deblock (integer math downstream of
+    the positions, so the reconstruction is bit-exact with the decoder's).
+    rstack0/rstack1 drive the PREDICTION; stack0/stack1 stay the
+    signalled ones (deblock MV field).  Returns (lev_y, lev_u, lev_v, rec
+    dict post-deblock)."""
+    pos0 = merged_positions(reproj, active_models, idx0, rstack0,
+                            block_size, epipoles0)
+    pos1 = merged_positions(reproj, active_models, idx1, rstack1,
+                            block_size, epipoles1)
+    return _b_finish_body(idx0, idx1, stack0, stack1, dirs, pos0, pos1,
+                          *orig, *ref0, *ref1, qp, block_size, bit_depth,
+                          wrap_around, deblocking)
+
+
+def _b_finish_body(idx0, idx1, stack0, stack1, dirs, pos0, pos1, oy, ou,
+                   ov, r0y, r0u, r0v, r1y, r1u, r1v, qp, block_size,
+                   bit_depth, wrap_around, deblocking):
+    from .. import deblock as deblock_mod
+    s = block_size
+    h, w = oy.shape
+    nby, nbx = h // s, w // s
+    p0 = predict_from_positions(pos0, r0y, r0u, r0v, bit_depth,
+                                wrap_around)
+    p1 = predict_from_positions(pos1, r1y, r1u, r1v, bit_depth,
+                                wrap_around)
+    py = _bi_combine_px(p0[0], p1[0], dirs, s, 1, bit_depth)
+    pu = _bi_combine_px(p0[1], p1[1], dirs, s, 2, bit_depth)
+    pv = _bi_combine_px(p0[2], p1[2], dirs, s, 2, bit_depth)
+    lev_y, _ = _residual_pass(oy, py, s, qp, bit_depth)
+    lev_u, _ = _residual_pass(ou, pu, s // 2, qp, bit_depth)
+    lev_v, _ = _residual_pass(ov, pv, s // 2, qp, bit_depth)
+    rec_y = _rec_plane(py, lev_y, s, nby, nbx, qp, bit_depth)
+    rec_u = _rec_plane(pu, lev_u, s // 2, nby, nbx, qp, bit_depth)
+    rec_v = _rec_plane(pv, lev_v, s // 2, nby, nbx, qp, bit_depth)
+    if deblocking:
+        sel0 = _take0(stack0, idx0)
+        sel1 = _take0(stack1, idx1)
+        sel = torch.where(dirs[..., None] == 1, sel1, sel0)
+        has_resid = ((lev_y != 0).any(dim=3).any(dim=2)
+                     | (lev_u != 0).any(dim=3).any(dim=2)
+                     | (lev_v != 0).any(dim=3).any(dim=2))
+        bs_v, bs_h = deblock_mod.boundary_strengths_inter(
+            sel.to(torch.int32), has_resid)
+        rec_y, rec_u, rec_v = deblock_mod.deblock_frame(
+            rec_y, rec_u, rec_v, bs_v, bs_h, s, qp, bit_depth)
+    return lev_y, lev_u, lev_v, dict(y=rec_y, u=rec_u, v=rec_v)

@@ -68,13 +68,17 @@ class MVReprojection:
         return self._mpa_cache[plane]
 
     # -- the engine --------------------------------------------------------
-    def _subblock_mv_center(self, mvs: torch.Tensor, block_size: int):
+    def _subblock_mv_center(self, mvs: torch.Tensor, block_size: int,
+                            row_step: int = 1):
         """Broadcast per-block (nby, nbx, 2) 1/16-pel MVs and block centers
-        to the subblock grid -> per-subblock float32 mv/center tensors."""
+        to the subblock grid -> per-subblock float32 mv/center tensors.
+        row_step > 1 keeps only every row_step-th subblock row (subsampled
+        SAD during search)."""
         rep = block_size // SUBBLK
 
         def up(t):
-            return t.repeat_interleave(rep, 0).repeat_interleave(rep, 1)
+            return t.repeat_interleave(rep, 0).repeat_interleave(
+                rep, 1)[::row_step]
 
         mvf = mvs.to(torch.float32) / 16.0
         nby, nbx = mvs.shape[:2]
@@ -88,24 +92,29 @@ class MVReprojection:
         return up(mvf[..., 0]), up(mvf[..., 1]), up(cx), up(cy)
 
     def reproject_frame(self, model_id: int, mvs: torch.Tensor,
-                        block_size: int, epipole=None) -> torch.Tensor:
+                        block_size: int, epipole=None,
+                        row_step: int = 1) -> torch.Tensor:
         """Model every subblock of the frame under `model_id`.
 
         Args:
           mvs: (nby, nbx, 2) int 1/16-pel motion vectors.
+          row_step: keep every row_step-th subblock row only (search-time
+            subsampled SAD; normative paths use 1).
         Returns:
           (nsy, nsx, 2) int32 absolute subblock target positions, 1/16-pel
           luma fixed point.
         """
         mvs = mvs.to(self.device)
-        mv_x, mv_y, c_x, c_y = self._subblock_mv_center(mvs, block_size)
-        gx, gy = self.grid_x, self.grid_y
+        mv_x, mv_y, c_x, c_y = self._subblock_mv_center(mvs, block_size,
+                                                        row_step)
+        gx, gy = self.grid_x[::row_step], self.grid_y[::row_step]
         p = self.proj
         if model_id == M.CLASSIC:
             ox, oy = models.translational_motion(gx, gy, mv_x, mv_y)
         elif model_id in _MPA:
+            cache = tuple(c[::row_step] for c in self.mpa_cache(model_id))
             ox, oy = models.mpa_motion(p, model_id, gx, gy, mv_x, mv_y,
-                                       pers_cache=self.mpa_cache(model_id))
+                                       pers_cache=cache)
         elif model_id == M.ROTATIONAL:
             ox, oy = models.rot_motion(p, self.angle_res, gx, gy, mv_x, mv_y,
                                        c_x, c_y)
@@ -120,3 +129,48 @@ class MVReprojection:
         fx = torch.round(ox * 16.0).to(torch.int32)
         fy = torch.round(oy * 16.0).to(torch.int32)
         return torch.stack([fx, fy], dim=-1)
+
+    def reproject_block_centers(self, model_id: int, mvs: torch.Tensor,
+                                block_size: int, epipole=None
+                                ) -> torch.Tensor:
+        """Block-translational search approximation: model the motion of
+        each BLOCK CENTER only and return the 1/16-pel position of the
+        block's top-left sample under that uniform displacement.
+
+        Decision-only (ranks search candidates); normative paths use the
+        full per-subblock reprojection (reproject_frame).
+
+        mvs (nby, nbx, 2) int 1/16-pel -> (nby, nbx, 2) int32 positions."""
+        mvs = mvs.to(self.device)
+        nby, nbx = mvs.shape[:2]
+        s = block_size
+        f32 = dict(dtype=torch.float32, device=self.device)
+        cx = torch.arange(nbx, **f32) * s + (s - 1) / 2.0
+        cy = torch.arange(nby, **f32) * s + (s - 1) / 2.0
+        cx = cx[None, :].expand(nby, nbx)
+        cy = cy[:, None].expand(nby, nbx)
+        mvf = mvs.to(torch.float32) / 16.0
+        ox, oy = self._model_motion_pointwise(model_id, cx, cy,
+                                              mvf[..., 0], mvf[..., 1],
+                                              cx, cy, epipole)
+        bad = torch.isnan(ox) | torch.isnan(oy)
+        ox = torch.where(bad, cx, ox)
+        oy = torch.where(bad, cy, oy)
+        half = (s - 1) / 2.0
+        fx = torch.round((ox - half) * 16.0).to(torch.int32)
+        fy = torch.round((oy - half) * 16.0).to(torch.int32)
+        return torch.stack([fx, fy], dim=-1)
+
+    def _model_motion_pointwise(self, model_id, px, py, mvx, mvy, cx, cy,
+                                epipole):
+        p = self.proj
+        if model_id == M.CLASSIC:
+            return models.translational_motion(px, py, mvx, mvy)
+        if model_id in _MPA:
+            return models.mpa_motion(p, model_id, px, py, mvx, mvy)
+        if model_id == M.ROTATIONAL:
+            return models.rot_motion(p, self.angle_res, px, py, mvx, mvy,
+                                     cx, cy)
+        raise NotImplementedError(
+            f"motion model {M(model_id).name}: GED/3DT/TAN are ROADMAP "
+            "queue 1 item 7 (full multi-model config)")

@@ -1,8 +1,8 @@
-"""Quadtree helpers of the multi-model decoder path.
+"""Quadtree helpers of the multi-model encoder and decoder paths.
 
-PyTorch counterpart of `node_sizes` and `qt_boundary_strengths` in
-`vvc_mm_tpu/common/qtree.py`.  The classic quadtree codec is ROADMAP
-queue 1 item 11.
+PyTorch counterpart of `node_sizes`, `_up2`, `_coeff_bits_est` and
+`qt_boundary_strengths` in `vvc_mm_tpu/common/qtree.py`.  The classic
+quadtree codec is ROADMAP queue 1 item 11.
 """
 from __future__ import annotations
 
@@ -11,6 +11,22 @@ import torch
 
 def node_sizes(top: int, depth: int) -> list[int]:
     return [top >> d for d in range(depth + 1)]
+
+
+def _up2(x: torch.Tensor, f: int = 2) -> torch.Tensor:
+    """Nearest-neighbor upsample of the leading two axes by f."""
+    return x.repeat_interleave(f, 0).repeat_interleave(f, 1)
+
+
+def _coeff_bits_est(lev: torch.Tensor) -> torch.Tensor:
+    """Per-block coefficient bit estimate for the split decision (the real
+    rate comes from the CABAC pass).  lev (nby, nbx, s, s) -> float32
+    (nby, nbx).  The formula is the JAX package's, in float32: at a
+    magnitude of 2^k - 1 one ulp of log2 decides between k and k + 1."""
+    a = lev.abs().to(torch.float32)
+    bits = torch.where(a > 0, 2.0 * torch.ceil(torch.log2(a + 1.0)) + 1.0,
+                       torch.zeros_like(a))
+    return bits.sum(dim=(2, 3))
 
 
 def qt_boundary_strengths(mv_unit, has_resid_unit, leaf_id_unit):

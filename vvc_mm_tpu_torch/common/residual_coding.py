@@ -1,7 +1,6 @@
-"""Transform-coefficient entropy decoding (VVC-style CG/scan/level ladder).
+"""Transform-coefficient entropy coding (VVC-style CG/scan/level ladder).
 
-Copy of the decoder half of `vvc_mm_tpu/common/residual_coding.py`; the
-encoder half is ROADMAP queue 1 item 5 (the encoder slice).
+Copy of `vvc_mm_tpu/common/residual_coding.py`.
 
 TPU-native analog of the reference residual coding (reference:
 source/Lib/DecoderLib/CABACReader.cpp residual_coding / CommonLib/
@@ -24,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 
 from . import rom
-from .cabac import BinDecoder
+from .cabac import BinEncoder, BinDecoder
 from .contexts import ctx_id
 
 
@@ -44,6 +43,25 @@ def _group_min(g: int) -> int:
         return g
     sl = (g >> 1) - 1
     return (2 + (g & 1)) << sl
+
+
+def _last_ctx(log2size: int, binidx: int, chroma: bool) -> int:
+    base = 20 if chroma else (log2size - 2) * 5
+    return ctx_id("LastX", min(base + min(binidx, 4), 24))
+
+
+def _encode_last_coord(enc: BinEncoder, v: int, log2size: int, chroma: bool,
+                       axis: str) -> None:
+    set_name = "LastX" if axis == "x" else "LastY"
+    g, sl, suf = _last_group(v)
+    gmax, _, _ = _last_group((1 << log2size) - 1)
+    base = 20 if chroma else (log2size - 2) * 5
+    for i in range(g):
+        enc.encode_bin(1, ctx_id(set_name, min(base + min(i, 4), 24)))
+    if g < gmax:
+        enc.encode_bin(0, ctx_id(set_name, min(base + min(g, 4), 24)))
+    if sl:
+        enc.encode_bins_ep(suf, sl)
 
 
 def _decode_last_coord(dec: BinDecoder, log2size: int, chroma: bool,
@@ -75,10 +93,73 @@ def _sig_ctx(cg: np.ndarray, pos: int, cgw: int, chroma: bool) -> int:
     return ctx_id("SigFlag", (12 if chroma else 0) + min(n, 2))
 
 
+def encode_coeffs(enc: BinEncoder, levels: np.ndarray, chroma: bool) -> None:
+    """Encode one TB's levels (h, w) int (caller guarantees not all-zero)."""
+    h, w = levels.shape
+    log2w, log2h = w.bit_length() - 1, h.bit_length() - 1
+    scan = rom.scan_order(log2w, log2h)
+    flat = levels.reshape(-1)
+    sig_scan = np.nonzero(flat[scan] != 0)[0]
+    assert len(sig_scan), "encode_coeffs on zero block"
+    last = int(sig_scan[-1])
+    lx, ly = int(scan[last] % w), int(scan[last] // w)
+    _encode_last_coord(enc, lx, log2w, chroma, "x")
+    _encode_last_coord(enc, ly, log2h, chroma, "y")
+
+    cgw, cgh = min(w, 4), min(h, 4)
+    cg_size = cgw * cgh
+    ncg = (last // cg_size) + 1
+    for cgi in range(ncg - 1, -1, -1):
+        base = cgi * cg_size
+        cg_levels = flat[scan[base:base + cg_size]]
+        has = np.any(cg_levels != 0)
+        implied = (cgi == ncg - 1) or (cgi == 0)
+        if not implied:
+            enc.encode_bin(int(has),
+                           ctx_id("SigCoeffGroup", 2 * int(chroma)))
+            if not has:
+                continue
+        elif not has:
+            # implied CG must contain coeffs; CG0 can be empty only if no
+            # DC... VVC implies CG0 sig; allow empty by coding nothing
+            # (decoder mirrors: implied CGs are always scanned).
+            pass
+        # reconstruct CG 2-D layout for the neighbor template
+        cg2d = np.zeros((cgh, cgw), dtype=np.int64)
+        rice = 0
+        start = min(last - base, cg_size - 1) if cgi == ncg - 1 else cg_size - 1
+        for k in range(start, -1, -1):
+            p = int(scan[base + k])
+            v = int(flat[scan[base + k]])
+            px, py = p % w, p // w
+            cx, cy = px % cgw, py % cgh
+            a = abs(v)
+            is_last_coeff = (base + k) == last
+            if not is_last_coeff:
+                enc.encode_bin(int(a != 0),
+                               _sig_ctx(cg2d, cy * cgw + cx, cgw, chroma))
+            if a != 0:
+                enc.encode_bin(int(a > 1),
+                               ctx_id("GtxFlag", 11 * int(chroma)))
+                if a > 1:
+                    enc.encode_bin(int(a > 2),
+                                   ctx_id("GtxFlag", 11 * int(chroma) + 1))
+                    if a > 2:
+                        rem = a - 3
+                        enc.encode_eg(rem, rice)
+                        if rem > (3 << rice):
+                            rice = min(rice + 1, 4)
+                cg2d[cy, cx] = a
+        # signs (bypass)
+        for k in range(start, -1, -1):
+            v = int(flat[scan[base + k]])
+            if v != 0:
+                enc.encode_bin_ep(int(v < 0))
+
+
 def decode_coeffs(dec: BinDecoder, h: int, w: int, chroma: bool
                   ) -> np.ndarray:
-    """Exact inverse of the JAX package's residual_coding.encode_coeffs
-    -> (h, w) int32 levels."""
+    """Exact inverse of encode_coeffs -> (h, w) int32 levels."""
     log2w, log2h = w.bit_length() - 1, h.bit_length() - 1
     scan = rom.scan_order(log2w, log2h)
     flat = np.zeros(h * w, dtype=np.int32)

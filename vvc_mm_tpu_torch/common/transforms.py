@@ -1,11 +1,12 @@
-"""Batched integer inverse transforms (DCT-II / DST-VII / DCT-VIII).
+"""Batched integer transforms (DCT-II / DST-VII / DCT-VIII).
 
-PyTorch counterpart of the inverse side of `vvc_mm_tpu/common/
-transforms.py` (reference: source/Lib/CommonLib/TrQuant.cpp:799 xIT).
+PyTorch counterpart of `vvc_mm_tpu/common/transforms.py` (reference:
+source/Lib/CommonLib/TrQuant.cpp:715 xT, :799 xIT).
 Each pass is a matrix product over a batch of blocks.  The products run in
 float64, which is exact here: every partial sum is an integer below 2^38
 (16-bit coefficients times 8-bit basis values over at most 64 terms), and
 CUDA has no int32 matrix product.
+  forward:  shift1 = log2W + bitDepth - 9, shift2 = log2H + 6
   inverse:  shift1 = 7 (clip to 16 bit), shift2 = 20 - bitDepth
 """
 from __future__ import annotations
@@ -38,6 +39,23 @@ def _matrix_np(tr_type: int, n: int) -> np.ndarray:
 
 def _matrix(tr_type: int, n: int, device) -> torch.Tensor:
     return torch.as_tensor(_matrix_np(tr_type, n), device=device)
+
+
+def forward_transform(resid: torch.Tensor, tr_h: int = rom.DCT2,
+                      tr_v: int = rom.DCT2, bit_depth: int = 8
+                      ) -> torch.Tensor:
+    """(B, H, W) int32 residuals -> (B, H, W) int32 coefficients, clipped
+    to the 16-bit dynamic range."""
+    _, h, w = resid.shape
+    log2w, log2h = w.bit_length() - 1, h.bit_length() - 1
+    th = _matrix(tr_h, w, resid.device)
+    tv = _matrix(tr_v, h, resid.device)
+    # horizontal: contract W with rows of th
+    tmp = torch.matmul(resid.to(torch.float64), th.t()).to(torch.int64)
+    tmp = _clip16(_rshift_round(tmp, log2w + bit_depth - 9))
+    # vertical: contract H with rows of tv
+    out = torch.matmul(tv, tmp.to(torch.float64)).to(torch.int64)
+    return _clip16(_rshift_round(out, log2h + 6)).to(torch.int32)
 
 
 def inverse_transform(coeff: torch.Tensor, tr_h: int = rom.DCT2,

@@ -1,0 +1,590 @@
+"""Top-level encoder library — the inter-picture path.
+
+PyTorch counterpart of `vvc_mm_tpu/encoder/enclib.py` (reference:
+source/Lib/EncoderLib/EncLib.cpp — init:147, encode:734; EncGOP.cpp:2253
+compressGOP).  This slice encodes the multi-model P pictures (quadtree
+lattice, merge-aware) and B pictures (whole-motion merge) of the random
+access configuration:
+
+  search on the device (common/mm: kernels K3/K4/K5 rank the candidates)
+  -> one packed pull -> host selection (encoder/inter_coder.py)
+  -> finish on the device (K1/K2 predict, transform/quant, deblock)
+  -> SAO/ALF on the device while the host writes CABAC -> slice NAL.
+
+Encoding the I picture, the parameter sets and the sequence loop with the
+GOP16 cascade are ROADMAP queue 1 item 6; every other branch of the JAX
+package's encoder raises NotImplementedError naming its ROADMAP item.
+"""
+from __future__ import annotations
+
+import hashlib
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..common import deblock, qtree, quant
+from ..common.bitstream import BitWriter, NalUnit, NAL_SEI, NAL_TRAIL
+from ..common.mm import frame_codec as mm_codec
+from ..common.mm import qt_codec
+from ..common.mm.reprojection import MVReprojection
+from ..common.slice_ps import MMConfig, PPS, SPS, SliceHeader
+from ..common.typedefs import SliceType
+from ..device import resolve_device
+from ..lib360.projection import make_projection
+from ..utils import profiling, xfer
+from . import filter_stage
+from .inter_coder import (encode_b_slice_mm, encode_p_slice_qt_mm,
+                          resolve_tree_qt_mm, select_merge_b_mm,
+                          select_qt_mm)
+
+
+def _todo(what: str, item: str):
+    raise NotImplementedError(f"{what}: ROADMAP queue 1 item {item}")
+
+
+# CTC-style RA QP cascade at fixed QP (reference:
+# cfg/encoder_randomaccess_vtm_gop16.cfg QPoffset per temporal layer +
+# IntraQPOffset -3)
+_B_QP_OFFSETS = (1, 1, 4, 5, 6)
+
+
+def ctc_qp(base_qp: int, kind: str, tid: int = 0) -> int:
+    """QP of a picture in the random-access cascade: kind "I" -3, "P" +1,
+    "B" +1/+1/+4/+5/+6 by temporal id."""
+    if kind == "I":
+        return max(1, base_qp - 3)
+    if kind == "P":
+        return base_qp + 1
+    return base_qp + _B_QP_OFFSETS[min(tid, len(_B_QP_OFFSETS) - 1)]
+
+
+@dataclass
+class EncCfg:
+    """Encoder configuration (reference: EncCfg.h 'setter soup' — here a
+    plain dataclass).  Every field of the JAX package's EncCfg is here;
+    EncLib raises for a field whose tool the port does not carry yet."""
+    width: int = 0
+    height: int = 0
+    bit_depth: int = 8
+    qp: int = 32
+    intra_block_size: int = 8
+    inter_block_size: int = 16
+    frames: int = 0
+    wrap_around: bool = False
+    gop: str = "AI"              # "AI" | "LDP" | "RA" (hierarchical B)
+    intra_period: int = 32       # IDR refresh interval (LDP / RA)
+    gop_size: int = 8            # RA mini-GOP (reference:
+                                 # cfg/encoder_randomaccess_vtm.cfg GOP table)
+    ctc_qp_offsets: bool = True  # CTC-style per-temporal-layer QP
+                                 # offsets for RA at fixed QP: I -3,
+                                 # anchors +1, B layers +1/+4/+5/+6
+                                 # (reference:
+                                 # cfg/encoder_randomaccess_vtm_gop16.cfg
+                                 # QPoffset column, IntraQPOffset)
+    search_range: int = 24
+    max_num_ref: int = 2         # active references per list (plain-grid
+                                 # P path; reference: per-ref ME loop
+                                 # InterSearch.cpp:4937, RPL selection
+                                 # EncLib.cpp:2213).  2 = ref_idx syntax
+                                 # on, 1 = single-ref like round 3
+    qt_depth: int = 0            # inter quadtree depth (0 = fixed grid;
+                                 # QTMT analog — common/qtree.py)
+    mtt: bool = False            # BT/TT splits on top of the quadtree
+                                 # lattice (common/mtt.py; needs
+                                 # qt_depth > 0)
+    affine: bool = False         # per-block 4-param affine motion
+                                 # (common/affine.py; CLASSIC fixed grid)
+    # multi-model motion tools (reference: EncAppCfg.cpp:1013-1020
+    # --MPA/--3DT/--TAN/--ROT/--GED/--GEDA/--MMMVP/--Epipole)
+    mm: MMConfig = field(default_factory=MMConfig)
+    epipoles: list[tuple[int, int, float, float, float]] = field(
+        default_factory=list)    # (curPOC, refPOC, x, y, z)
+    metrics_360: bool = False    # per-POC WS-PSNR/S-PSNR/CPP-PSNR
+                                 # (reference: TExt360EncGop)
+    picture_hash_sei: bool = True  # decoded-picture-hash SEI (the
+                                   # conformance oracle, EncGOP.cpp:4124)
+    deblocking: bool = True      # in-loop deblocking filter
+    target_bitrate_kbps: int = 0  # 0 = fixed QP; else lambda-domain RC
+    frame_rate: float = 30.0
+    sao: bool = True             # sample adaptive offset (luma)
+    alf: bool = True             # adaptive loop filter (luma)
+    mctf: bool = False           # GOP-based temporal pre-filter (reference:
+                                 # EncTemporalFilter, EncApp.cpp:1547-1551)
+    lmcs: bool = False           # luma mapping / reshaper (reference:
+                                 # Reshape.{cpp,h}, EncReshape)
+    bdof: bool = False           # bi-directional optical flow refinement
+                                 # of bi-predicted blocks (common/bdof.py)
+    dmvr: bool = False           # decoder-side MV refinement by bilateral
+                                 # matching (common/dmvr.py)
+    gpm: bool = False            # geometric partitioning merge blend
+                                 # (common/gpm.py; reference: --Geo)
+    ciip: bool = False           # combined inter/intra prediction
+                                 # (common/gpm.py; reference: --CIIP)
+    ibc: bool = False            # intra block copy (wavefront BV search;
+                                 # reference: --IBC, IbcHashMap)
+    rdoq: bool = False           # RDOQ-lite: rate-aware per-coefficient
+                                 # level decision, encoder-only
+                                 # (quant.quantize_rdoq; reference:
+                                 # QuantRDOQ.cpp; --RDOQ)
+    dep_quant: bool = False      # dependent quantization trellis
+                                 # (common/depquant.py; reference:
+                                 # DepQuant.cpp, --DepQuant)
+    cclm: bool = False           # chroma-from-luma linear model
+                                 # (common/cclm.py; reference: --CCLM)
+    mip: bool = False            # matrix intra prediction
+                                 # (common/mip.py; reference: --MIP)
+    lfnst: bool = False          # low-frequency non-separable secondary
+                                 # transform (common/lfnst.py; --LFNST)
+    tmvp: bool = False           # TMVP + HMVP AMVP candidates (--TMVP)
+    merge: bool = True           # merge/skip candidate machinery on the
+                                 # dense-grid inter paths: 6-candidate list
+                                 # (spatial/TMVP/HMVP/pairwise/zero),
+                                 # merge_flag + merge_idx, encoder snapping
+                                 # (reference: UnitTools.cpp:1059
+                                 # getInterMergeCandidates; --Merge)
+    log2_parallel_merge_level: int = 2  # merge-estimation region size:
+                                 # spatial candidates inside the current
+                                 # block's region are excluded so a region
+                                 # derives lists in parallel (reference:
+                                 # sps_log2_parallel_merge_level)
+    mts: bool = False            # explicit MTS for intra luma: per-block
+                                 # DCT2/DST7/DCT8 pair RD choice + mts_idx
+                                 # syntax (reference: TrQuant getTrTypes,
+                                 # --MTS)
+    amvr: bool = False           # adaptive MV resolution (quarter/full/
+                                 # 4-pel per block; reference: IMV loop
+                                 # EncCu.cpp:775, --IMV)
+    mrl: bool = False            # multi-reference-line intra (--MRL)
+    intra_split: bool = False    # two-level intra partitioning: 16x16
+                                 # superblocks split into 8x8 quads by RD
+                                 # (common/intra_part.py; reference: one
+                                 # level of QTMT intra, EncCu.cpp:499).
+                                 # Base toolset only (no CCLM/MIP/... —
+                                 # those ride the fixed-grid path)
+    wpp: bool = False            # entropy substreams + entry points (--WPP)
+    num_substreams: int = 4
+    weighted_bipred: bool = False  # explicit weighted prediction on B
+                                 # slices: per-list weight tables, the
+                                 # weighted bi combine (reference:
+                                 # xWeightedPredictionBi; --WeightedPredB).
+                                 # Composes with BDOF/DMVR/GPM/CIIP per
+                                 # SLICE with reference precedence:
+                                 # weights win where present, the tools
+                                 # stay on elsewhere (BDOF biocheck0,
+                                 # InterPrediction.cpp:566)
+    weighted_pred: bool = False  # explicit weighted prediction P slices
+                                 # (reference: WeightPrediction.cpp,
+                                 # WeightPredAnalysis; --WeightedPredP)
+    transform_skip: bool = False  # per-block transform skip RD choice
+                                  # (reference: transform_skip_flag;
+                                  # --TransformSkip)
+    bdpcm: bool = False          # BDPCM on TS blocks (--BDPCM)
+    film_grain: bool = False     # film grain characteristics SEI +
+                                 # analyzer (reference:
+                                 # SEIFilmGrainAnalyzer/Synthesizer)
+    lossless: bool = False       # all-TS qStep-1 lossless intra coding
+                                 # (--Lossless; forces QP 4, filters off)
+    scaling_list: tuple = ()     # 64-entry 8x8 quant scaling matrix
+                                 # (--ScalingList; classic P path +
+                                 # decoder; empty = flat)
+    mcts_tiles: tuple = ()       # (cols, rows): motion-constrained tile
+                                 # sets — ME clamped so every prediction
+                                 # stays inside its block's tile, MCTS SEI
+                                 # emitted (reference: MCTS.{cpp,h},
+                                 # SEI temporal MCTS; --MCTSTiles)
+
+    def make_sps(self) -> SPS:
+        from ..common.slice_ps import HRDParams
+        hrd = (HRDParams(bit_rate_kbps=self.target_bitrate_kbps,
+                         cpb_size_kbits=2 * self.target_bitrate_kbps,
+                         time_scale=int(self.frame_rate * 1000),
+                         num_units_in_tick=1000)
+               if self.target_bitrate_kbps > 0 else None)
+        return SPS(width=self.width, height=self.height, hrd=hrd,
+                   max_num_ref=self.max_num_ref,
+                   log2_parallel_merge_level=self.log2_parallel_merge_level,
+                   scaling_list=tuple(int(v) for v in self.scaling_list),
+                   bit_depth=self.bit_depth,
+                   intra_block_size=self.intra_block_size,
+                   inter_block_size=self.inter_block_size,
+                   wrap_around=self.wrap_around, deblocking=self.deblocking,
+                   sao=self.sao, alf=self.alf, mm=self.mm,
+                   inter_qt_depth=self.qt_depth, mtt=self.mtt,
+                   affine=self.affine,
+                   bdof=self.bdof, dmvr=self.dmvr, gpm=self.gpm,
+                   ciip=self.ciip, ibc=self.ibc,
+                   dep_quant=self.dep_quant, cclm=self.cclm, mip=self.mip,
+                   lfnst=self.lfnst, tmvp=self.tmvp, merge=self.merge,
+                   mrl=self.mrl,
+                   mts=self.mts, amvr=self.amvr,
+                   wpp=self.wpp, intra_split=self.intra_split,
+                   num_substreams=self.num_substreams,
+                   ts=self.transform_skip or self.lossless,
+                   bdpcm=self.bdpcm, lossless=self.lossless)
+
+
+@dataclass
+class FrameResult:
+    poc: int
+    bits: int
+    psnr_y: float
+    psnr_u: float
+    psnr_v: float
+    recon: list[np.ndarray]           # internal domain (mapped under LMCS)
+    seconds: float = 0.0
+    metrics_360: dict | None = None   # WS-PSNR/S-PSNR-NN/CPP-PSNR (luma)
+    recon_out: list[np.ndarray] | None = None  # display domain (LMCS
+                                               # inverse-mapped); None ->
+                                               # same as recon
+
+    @property
+    def output(self) -> list[np.ndarray]:
+        return self.recon_out if self.recon_out is not None else self.recon
+
+
+def ra_coding_order(n: int, gop_size: int) -> list[tuple[int, int, int,
+                                                         int]]:
+    """Hierarchical-B coding order: list of (poc, ref0_poc, ref1_poc,
+    temporal_id); ref1_poc == -1 means P frame (trailing partial GOP).
+    Mirrors the dyadic GOP tables of the reference CTC configs."""
+    order: list[tuple[int, int, int, int]] = []
+
+    def bisect(lo: int, hi: int, tid: int) -> None:
+        if hi - lo < 2:
+            return
+        mid = (lo + hi) // 2
+        order.append((mid, lo, hi, tid))
+        bisect(lo, mid, tid + 1)
+        bisect(mid, hi, tid + 1)
+
+    pos = 0
+    while pos + 1 < n:
+        end = min(pos + gop_size, n - 1)
+        order.append((end, pos, -1, 0))       # GOP anchor: P frame
+        bisect(pos, end, 1)
+        pos = end
+    return order
+
+
+# EncCfg fields whose tool is not ported: (field, value that is carried,
+# what, ROADMAP queue 1 item)
+_UNPORTED = (
+    ("mtt", False, "BT/TT splits", "11"),
+    ("affine", False, "affine motion", "8"),
+    ("metrics_360", False, "WS-PSNR/S-PSNR/CPP-PSNR", "11"),
+    ("target_bitrate_kbps", 0, "rate control", "10"),
+    ("mctf", False, "MCTF pre-filter", "11"),
+    ("lmcs", False, "LMCS", "11"),
+    ("bdof", False, "BDOF", "8"),
+    ("dmvr", False, "DMVR / projected DMVR", "7"),
+    ("gpm", False, "GPM", "8"),
+    ("ciip", False, "CIIP", "8"),
+    ("ibc", False, "IBC", "9"),
+    ("rdoq", False, "RDOQ", "9"),
+    ("dep_quant", False, "dependent quantization", "9"),
+    ("cclm", False, "CCLM", "9"),
+    ("mip", False, "MIP", "9"),
+    ("lfnst", False, "LFNST", "9"),
+    ("tmvp", False, "TMVP/HMVP", "8"),
+    ("mts", False, "MTS", "9"),
+    ("amvr", False, "AMVR", "8"),
+    ("mrl", False, "MRL", "9"),
+    ("intra_split", False, "intra partitioning", "9"),
+    ("wpp", False, "WPP", "11"),
+    ("weighted_bipred", False, "weighted bi-prediction", "8"),
+    ("weighted_pred", False, "weighted prediction", "8"),
+    ("transform_skip", False, "transform skip", "9"),
+    ("bdpcm", False, "BDPCM", "9"),
+    ("film_grain", False, "film grain SEI", "11"),
+    ("lossless", False, "lossless coding", "9"),
+    ("scaling_list", (), "scaling lists", "9"),
+    ("mcts_tiles", (), "MCTS tiles", "11"),
+)
+
+
+class EncLib:
+    """reference: EncLib (EncLib.cpp:147 init / :734 encode).  State lives
+    on `device`: CUDA unless another is named (raises without a card)."""
+
+    def __init__(self, cfg: EncCfg, device=None) -> None:
+        self.device = resolve_device(device)
+        for name, carried, what, item in _UNPORTED:
+            if getattr(cfg, name) != carried:
+                _todo(what, item)
+        mm = cfg.mm
+        if not mm.any_enabled():
+            _todo("classic (single-model) inter pictures", "8")
+        if mm.ged or mm.geda or mm.t3d or mm.tan or cfg.epipoles:
+            _todo("GED/3DT/TAN motion models and GED epipoles", "7")
+        if mm.mmmvp:
+            _todo("MMMVP", "7")
+        self.cfg = cfg
+        self.sps = cfg.make_sps()
+        self.pps = PPS(base_qp=cfg.qp)
+        self.results: list[FrameResult] = []
+        # POC -> device-resident reconstruction (y, u, v): the DPB stays
+        # on the device so reference planes never cross to the host twice
+        self._dpb_dev: dict[int, tuple] = {}
+        # previous frame's per-model MV stack (device): temporal seed for
+        # the model search diamonds (encoder-side state, non-normative)
+        self._mm_seed = None
+        self._mm_seed_qt = None
+        self._pending_alf_chroma = None
+        self._pending_ccalf = None
+        # reference: EncLib.cpp:335-357 projection + MVReprojection init
+        proj = make_projection(int(mm.projection), cfg.width, cfg.height)
+        self.reproj = MVReprojection(proj, cfg.width, cfg.height,
+                                     mm.mm_offset_4x4, device=self.device)
+        self.mvp_conv = None        # MM-MVP conversion (MMMVP) is not on
+        # of the picture encoded last, for tests and the smoke run: the
+        # deblocked reconstruction before SAO/ALF (device), the CABAC
+        # payload and the slice header
+        self.prefilter_recon = None
+        self.payload = b""
+        self.slice_header = None
+
+    ra_coding_order = staticmethod(ra_coding_order)
+
+    def _hash_sei(self, poc: int, recon: list[np.ndarray],
+                  tid: int = 0) -> NalUnit:
+        """Decoded-picture-hash SEI (reference: EncGOP.cpp:4124-4127,
+        SEIEncoder::initDecodedPictureHashSEI — MD5 of the final
+        reconstruction, verified by the decoder)."""
+        m = hashlib.md5()
+        for p in recon:
+            if self.cfg.bit_depth > 8:
+                m.update(p.astype("<u2").tobytes())
+            else:
+                m.update(p.astype(np.uint8).tobytes())
+        bw = BitWriter()
+        bw.write(0, 8)                    # payload type 0: MD5
+        bw.write_uvlc(poc)
+        for b in m.digest():
+            bw.write(b, 8)
+        bw.align()
+        # the SEI rides its picture's temporal id so temporal extraction
+        # drops them together
+        return NalUnit(NAL_SEI, tid, bw.get_bytes())
+
+    def _refs(self, poc: int, planes):
+        """The device planes of a reference: the encoder's own DPB entry,
+        else an upload of the host planes."""
+        dev = self._dpb_dev.get(poc)
+        if dev is None:
+            dev = xfer.upload_planes(planes, self.cfg.bit_depth,
+                                     self.device)
+        return dev
+
+    def encode_p_frame(self, poc: int, planes: list[np.ndarray],
+                       ref: list[np.ndarray], ref_poc: int,
+                       qp: int | None = None
+                       ) -> tuple[NalUnit, FrameResult]:
+        """P encode against one reference reconstruction (reference:
+        EncGOP::compressGOP inter picture path).  The JAX package's second
+        reference only acts on its classic merge path (ROADMAP queue 1
+        item 8), which the multi-model configuration never takes."""
+        cfg = self.cfg
+        if cfg.qt_depth <= 0:
+            _todo("fixed-grid multi-model P pictures", "8")
+        qp = cfg.qp if qp is None else qp
+        t0 = time.time()
+        s = cfg.inter_block_size
+        nd = cfg.qt_depth
+        dev = xfer.upload_planes(planes, cfg.bit_depth, self.device)
+        rdev = self._refs(ref_poc, ref)
+        active = cfg.mm.active_models()
+        # MM x partitioning, merge-aware: the unit level runs the
+        # flat-path search (identical decisions), parents are evaluated
+        # from their children, the tree resolves on the host, and leaves
+        # get the flat merge/skip syntax (reference: EncCu.cpp:499
+        # xCompressCU + the per-model mode loop EncCu.cpp:775-798)
+        with profiling.stage("mm_search") as ps:
+            per_dev, stack = qt_codec.search_qt_mm(
+                self.reproj, active, dev[0], rdev[0], qp, s, nd,
+                cfg.bit_depth, cfg.search_range, None, cfg.wrap_around,
+                seed=self._mm_seed_qt)
+            rd_dev = [qt_codec.qt_rd_stats(
+                self.reproj, active, t[0], t[1], dev[0], dev[1], dev[2],
+                rdev[0], rdev[1], rdev[2], qp, s >> i, cfg.bit_depth, None,
+                cfg.wrap_around) for i, t in enumerate(per_dev)]
+            ps.set_sync(self.device)
+        self._mm_seed_qt = stack
+        with profiling.stage("mm_select+pull"):
+            flat = [a for tup in per_dev for a in tup]
+            flat += [a for tup in rd_dev for a in tup]
+            pulled = xfer.pull_i32(*flat)
+            per_h = [tuple(pulled[6 * i:6 * i + 6])
+                     for i in range(len(per_dev))]
+            off = 6 * len(per_dev)
+            rd_h = [tuple(pulled[off + 2 * i:off + 2 * i + 2])
+                    for i in range(len(rd_dev))]
+            lam = quant.lambda_from_qp(qp, intra=False)
+            splits, leaf = resolve_tree_qt_mm(per_h, rd_h, len(active), lam,
+                                              nd)
+            midx_u, mv_u, decisions = select_qt_mm(
+                per_h, splits, leaf, active, lam ** 0.5, s, nd)
+        mv_u_dev = torch.from_numpy(mv_u.astype(np.int32)).to(self.device)
+        with profiling.stage("mm_finish") as ps:
+            levels, recon, has_resid_u, leaf_id_u = \
+                qt_codec.enc_finish_qt_mm(
+                    self.reproj, active,
+                    torch.from_numpy(midx_u).to(self.device), mv_u_dev,
+                    [torch.from_numpy(m).to(self.device) for m in leaf],
+                    dev[0], dev[1], dev[2], rdev[0], rdev[1], rdev[2], qp,
+                    s, nd, cfg.bit_depth, None, cfg.wrap_around)
+            if cfg.deblocking:
+                bs_v, bs_h = qtree.qt_boundary_strengths(
+                    mv_u_dev, has_resid_u, leaf_id_u)
+                ry, ru, rv = deblock.deblock_frame(
+                    recon["y"], recon["u"], recon["v"], bs_v, bs_h,
+                    s >> nd, qp, cfg.bit_depth)
+                recon = dict(y=ry, u=ru, v=rv)
+            ps.set_sync(self.device)
+
+        def make_payload():
+            lev_h = xfer.pull_levels(*[l for trio in levels for l in trio])
+            lev_h = [tuple(lev_h[3 * i:3 * i + 3]) for i in range(nd + 1)]
+            return encode_p_slice_qt_mm(splits, decisions, lev_h, s, nd,
+                                        len(active))
+
+        return self._finish_slice_overlap(
+            poc, planes, recon, make_payload, qp, t0, SliceType.P,
+            [ref_poc], [], None, 0, dev)
+
+    def encode_b_frame(self, poc: int, planes: list[np.ndarray],
+                       ref0: list[np.ndarray], ref0_poc: int,
+                       ref1: list[np.ndarray], ref1_poc: int, tid: int = 0,
+                       qp: int | None = None
+                       ) -> tuple[NalUnit, FrameResult]:
+        """Hierarchical-B encode against past+future references (reference:
+        EncGOP compressGOP B pictures; RA GOP table
+        cfg/encoder_randomaccess_vtm.cfg:13-33)."""
+        cfg = self.cfg
+        if not cfg.merge:
+            _todo("multi-model B pictures without merge", "8")
+        qp = cfg.qp if qp is None else qp
+        t0 = time.time()
+        s = cfg.inter_block_size
+        dev = xfer.upload_planes(planes, cfg.bit_depth, self.device)
+        r0 = self._refs(ref0_poc, ref0)
+        r1 = self._refs(ref1_poc, ref1)
+        active = cfg.mm.active_models()
+        # whole-motion MM merge: candidate-field SADs ride the search;
+        # host selection snaps (dir, model, mv) triples in coding order
+        with profiling.stage("mm_search_b") as ps:
+            out = mm_codec.search_b_mm_merge(
+                self.reproj, active, dev[0], r0[0], r1[0], qp, s,
+                cfg.bit_depth, cfg.search_range, None, None,
+                cfg.wrap_around)
+            ps.set_sync(self.device)
+        with profiling.stage("mm_select_b+pull"):
+            pulled = xfer.pull_i32(*out)
+            lam_sqrt = quant.lambda_from_qp(qp, intra=False) ** 0.5
+            mer_blk = max(0, self.sps.log2_parallel_merge_level
+                          - (s.bit_length() - 1))
+            (f_m0, f_m1, f_s0, f_s1, f_d, mflag, midx) = select_merge_b_mm(
+                *pulled, active, lam_sqrt, s, self.mvp_conv, None, None,
+                mer_blk)
+
+        def t(a):
+            return torch.from_numpy(a.astype(np.int32)).to(self.device)
+
+        midx0, midx1, dirs = t(f_m0), t(f_m1), t(f_d)
+        stack0, stack1 = t(f_s0), t(f_s1)
+        self._mm_seed = stack0
+        with profiling.stage("mm_finish_b") as ps:
+            ly, lu, lv, recon = mm_codec.enc_finish_b_mm_fused(
+                self.reproj, active, midx0, midx1, stack0, stack1, stack0,
+                stack1, dirs, dev, tuple(r0), tuple(r1), qp, s,
+                cfg.bit_depth, None, None, cfg.wrap_around, cfg.deblocking)
+            ps.set_sync(self.device)
+
+        def make_payload():
+            lyh, luh, lvh = xfer.pull_levels(ly, lu, lv)
+            return encode_b_slice_mm(
+                f_m0, f_m1, active, f_s0, f_s1, f_d, lyh, luh, lvh, s,
+                self.mvp_conv, None, None, merge_flag=mflag,
+                merge_idx=midx)
+
+        return self._finish_slice_overlap(
+            poc, planes, recon, make_payload, qp, t0, SliceType.B,
+            [ref0_poc], [ref1_poc], None, tid, dev)
+
+    def _finish_slice_overlap(self, poc, planes, recon, make_payload, qp,
+                              t0, slice_type, ref_pocs_l0, ref_pocs_l1,
+                              epipole_delta, tid, dev):
+        """Inter-frame tail with entropy/filter overlap: enqueue the
+        SAO + ALF-stats device stages first (no host wait), run the host
+        entropy pass (make_payload pulls the coded grids and writes CABAC)
+        while the device chain executes, then finish the filters.  The
+        filter chain never reads the entropy-coded grids, so the two are
+        independent (reference analog: EncGOP's separate compressSlice /
+        encodeSlice passes)."""
+        cfg = self.cfg
+        lam = quant.lambda_from_qp(qp, intra=False)
+        self.prefilter_recon = recon     # deblocked, before SAO/ALF
+        sao_h = (filter_stage.sao_dispatch(recon, dev, lam, cfg.bit_depth)
+                 if cfg.sao else None)
+        post_sao = (dict(y=sao_h[0], u=sao_h[1], v=sao_h[2]) if cfg.sao
+                    else recon)
+        alf_h = (filter_stage.alf_stats_dispatch(post_sao, dev,
+                                                 cfg.bit_depth)
+                 if cfg.alf else None)
+        with profiling.stage("entropy"):
+            payload = make_payload()    # host entropy overlaps device filters
+        self.payload = payload
+        self._pending_alf_chroma = None
+        self._pending_ccalf = None
+        sao_params = None
+        with profiling.stage("filters") as ps:
+            if cfg.sao:
+                recon, sao_params = filter_stage.sao_finish(recon, sao_h)
+                recon = post_sao   # same values; keep the device chain's view
+            alf_params = None
+            if cfg.alf:
+                recon, alf_params, self._pending_alf_chroma, \
+                    self._pending_ccalf = filter_stage.run_alf(
+                        post_sao, dev, lam, cfg.bit_depth,
+                        stats_handles=alf_h)
+            ps.set_sync(self.device)
+        sh = SliceHeader(poc=poc, slice_type=slice_type, qp=qp,
+                         temporal_id=tid, ref_pocs_l0=ref_pocs_l0,
+                         ref_pocs_l1=ref_pocs_l1,
+                         epipole_delta=epipole_delta,
+                         sao_params=sao_params, alf_params=alf_params,
+                         alf_chroma_params=self._pending_alf_chroma,
+                         ccalf_params=self._pending_ccalf)
+        self.slice_header = sh
+        bw = BitWriter()
+        sh.write(bw, self.sps)
+        bw.write_bytes(payload)
+        nal = NalUnit(NAL_TRAIL, tid, bw.get_bytes())
+        self._dpb_dev[poc] = (recon["y"], recon["u"], recon["v"])
+        with profiling.stage("recon_pull"):
+            rec, psnrs = xfer.finalize_recon(recon, dev, cfg.bit_depth)
+        res = FrameResult(
+            poc=poc, bits=len(nal.payload) * 8,
+            psnr_y=psnrs[0], psnr_u=psnrs[1], psnr_v=psnrs[2],
+            recon=rec, seconds=time.time() - t0)
+        self._finish_frame(res, planes)
+        self.results.append(res)
+        return nal, res
+
+    def _finish_frame(self, res: FrameResult, orig: list[np.ndarray]
+                      ) -> FrameResult:
+        """Per-POC metric hook (reference: EncGOP.cpp:4914
+        m_ext360.calculatePSNRs); the 360 metrics are not ported."""
+        return res
+
+    def summary(self) -> dict:
+        """reference: EncGOP::printOutSummary (EncGOP.cpp:4244)."""
+        n = max(len(self.results), 1)
+        return dict(
+            frames=len(self.results),
+            bits=sum(r.bits for r in self.results),
+            psnr_y=sum(r.psnr_y for r in self.results) / n,
+            psnr_u=sum(r.psnr_u for r in self.results) / n,
+            psnr_v=sum(r.psnr_v for r in self.results) / n,
+            fps=n / max(sum(r.seconds for r in self.results), 1e-9))

@@ -1,18 +1,32 @@
-"""Motion-vector predictor and merge-candidate helpers of the MM decoder.
+"""Multi-model inter slices on the host: candidate lists, the encoder's
+merge/split selection and the CABAC slice writers.
 
-The candidate lists are shared bit-exactly by encoder and decoder; the
-decoder slice of the PyTorch port needs only the multi-model ones, copied
-from `vvc_mm_tpu/encoder/inter_coder.py` (numpy host code; reference:
+Copied from `vvc_mm_tpu/encoder/inter_coder.py` (numpy host code; reference:
+source/Lib/EncoderLib/CABACWriter.cpp cu_skip_flag, merge_idx,
+motion_model():1854, mvd_coding:1575, cbf + residual_coding;
 UnitTools.cpp:872-885 model inheritance through merge, fillMvpCand).  The
-slice writers and the encoder's selection are ROADMAP queue 1 item 5.
+candidate lists are shared bit-exactly by encoder and decoder.  Only the
+multi-model paths of the quadtree P slice and the merge B slice are here;
+the classic, affine, 2-reference, MTT and WPP writers are ROADMAP queue 1
+items 8-11.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from ..common.cabac import BinEncoder
+from ..common.contexts import ctx_id
+from ..utils.native import NativeBinEncoder
+
 
 MERGE_MAX = 6     # merge candidate list size (reference: CommonDef.h
                   # MRG_MAX_NUM_CANDS = 6)
+
+
+def _mvd_bits(v: np.ndarray) -> int:
+    """Cheap mvd bit estimate for AMVP index choice (encoder only)."""
+    return sum(1 + (2 * int(abs(int(c))).bit_length() if c else 0)
+               for c in v)
 
 
 def _median3(a: int, b: int, c: int) -> int:
@@ -178,3 +192,428 @@ def merge_candidates_b_mm(dirs_g: np.ndarray, midx0_g: np.ndarray,
         out.append(zero)
     return out
 
+
+def encode_merge_idx(enc: BinEncoder, idx: int, n: int = MERGE_MAX) -> None:
+    """Truncated-unary merge index: first bin context-coded, rest EP
+    (reference: CABACWriter::merge_idx)."""
+    if n <= 1:
+        return
+    enc.encode_bin(int(idx > 0), ctx_id("MergeIdx"))
+    for i in range(1, idx):
+        enc.encode_bin_ep(1)
+    if 0 < idx < n - 1:
+        enc.encode_bin_ep(0)
+
+
+def encode_mvd_comp(enc: BinEncoder, v: int, ctx_base: str = "Mvd") -> None:
+    """VVC mvd_coding per component: gt0(ctx), gt1(ctx), EG1 remainder,
+    sign (reference: CABACWriter.cpp mvd_coding)."""
+    a = abs(v)
+    enc.encode_bin(int(a > 0), ctx_id(ctx_base, 0))
+    if a > 0:
+        enc.encode_bin(int(a > 1), ctx_id(ctx_base, 1))
+        if a > 1:
+            enc.encode_eg(a - 2, 1)
+        enc.encode_bin_ep(int(v < 0))
+
+
+def encode_motion_model(enc: BinEncoder, idx: int, n_active: int) -> None:
+    """Truncated-unary model index over the active-model list, each bin
+    context-coded (reference: CABACWriter.cpp:1854 motion_model() — first
+    m_mmCodingDepth(=9) bins context-coded Ctx::MotionModel(i); all our
+    lists are <= 11 so every bin gets a context)."""
+    for i in range(idx):
+        enc.encode_bin(1, ctx_id("MotionModel", min(i, 10)))
+    if idx < n_active - 1:
+        enc.encode_bin(0, ctx_id("MotionModel", min(idx, 10)))
+
+
+QT_SPLIT_BIAS_BINS = 6.0
+
+
+def resolve_tree_qt_mm(per, rd, n_active: int, lam: float, depth: int):
+    """Host bottom-up split resolve over the per-size cost lattice
+    (batched analog of EncCu::xCheckModeSplit, EncCu.cpp:1118).
+
+    per: list over sizes [top .. unit] of host tuples
+    (idx, mv, sad, cidx, cmv, csad); rd: per-size (ssd, coeff_bits) from
+    qt_codec.qt_rd_stats.  Cost = SSD + lambda*(coeff bits + motion
+    bits), with motion bits the cheaper of the AMVP estimate and a
+    merge-optimistic estimate (counted only when a measured candidate's
+    SAD does not exceed the selection's — merging to a worse candidate
+    would change the SSD this lattice can't see).
+    Returns (splits, leaf) boolean mask lists."""
+    costs = []
+    for (idx, mv, sad, cidx, cmv, csad), (ssd, cbits) in zip(per, rd):
+        idx = np.asarray(idx)
+        mv = np.asarray(mv, dtype=np.int64)
+        sad = np.asarray(sad, dtype=np.float64)
+        csad = np.asarray(csad, dtype=np.float64)
+        ssd = np.asarray(ssd, dtype=np.float64)
+        cbits = np.asarray(cbits, dtype=np.float64)
+        left = np.concatenate([mv[:, :1], mv[:, :-1]], axis=1)
+        d = np.abs(mv - left).sum(-1).astype(np.float64)
+        mvd_bits = 2.0 * np.log2(d + 1.0) + 2.0
+        model_bins = np.minimum(idx + 1, n_active - 1)
+        amvp_bits = 2.0 + model_bins + mvd_bits
+        ks = np.arange(csad.shape[0], dtype=np.float64)[:, None, None]
+        mrg_bits = np.where(csad <= sad[None],
+                            3.0 + np.minimum(ks, 5.0), np.inf).min(axis=0)
+        costs.append(ssd + lam * (cbits
+                                  + np.minimum(amvp_bits, mrg_bits)))
+    best = costs[depth]
+    splits = [None] * depth
+    for d in range(depth - 1, -1, -1):
+        extra = lam if d + 1 < depth else 0.0
+        b = best + extra
+        # QT_SPLIT_BIAS: estimated per-leaf syntax the child cost model
+        # cannot see (cbf trees, context dilution, merge candidates the
+        # emission walk fails to realize) — biases the resolve toward the
+        # parent so marginal splits don't land (the reference's
+        # EncModeCtrl plays the same conservative role)
+        agg = (b[0::2, 0::2] + b[0::2, 1::2] + b[1::2, 0::2]
+               + b[1::2, 1::2]) + lam * QT_SPLIT_BIAS_BINS
+        splits[d] = agg < costs[d]
+        best = np.where(splits[d], agg, costs[d])
+    leaf = []
+    alive = np.ones(costs[0].shape, dtype=bool)
+    for d in range(depth):
+        sp = splits[d] & alive
+        splits[d] = sp
+        leaf.append(alive & ~sp)
+        alive = np.repeat(np.repeat(sp, 2, 0), 2, 1)
+    leaf.append(alive)
+    return splits, leaf
+
+
+def select_qt_mm(per, splits, leaf, active_models: list[int],
+                 lam_sqrt: float, top: int, depth: int):
+    """Encoder merge decision for the resolved MM quadtree, walking the
+    tree in EMISSION order (z-order inside top-level raster) so candidate
+    lists are exactly the ones the decoder derives from the causal unit
+    grid.  per: host tuples as in resolve_tree_qt_mm.
+
+    Returns (midx_unit, mv_unit, decisions) — decisions is a z-order list
+    of (mflag, merge_idx, midx, mv, mvd) per leaf."""
+    n_active = len(active_models)
+    u = top >> depth
+    sizes = [top >> d for d in range(depth + 1)]
+    nuy, nux = leaf[-1].shape
+    nty, ntx = leaf[0].shape
+    midx_u = np.zeros((nuy, nux), dtype=np.int32)
+    mv_u = np.zeros((nuy, nux, 2), dtype=np.int64)
+    avail = np.zeros((nuy, nux), dtype=bool)
+    host = []
+    for (idx, mv, sad, cidx, cmv, csad) in per:
+        host.append((np.asarray(idx).tolist(),
+                     np.asarray(mv, dtype=np.int64),
+                     np.asarray(sad).tolist(),
+                     np.asarray(cidx).tolist(),
+                     np.asarray(cmv).tolist(),
+                     np.asarray(csad).tolist()))
+    decisions = []
+
+    def do_leaf(d, by, bx):
+        k = sizes[d] // u
+        uy, ux = by * k, bx * k
+        idx_l, mv_a, sad_l, ci_l, cm_l, cs_l = host[d]
+        me_midx = int(idx_l[by][bx])
+        me_mv = (int(mv_a[by, bx, 0]), int(mv_a[by, bx, 1]))
+        me_sad = sad_l[by][bx]
+        cands = merge_candidates_qt_mm(midx_u, mv_u, avail, uy, ux, k)
+        best = None
+        for i, c in enumerate(cands):
+            if c == (me_midx, me_mv):
+                cs = me_sad
+            else:
+                cs = None
+                for f in range(len(ci_l)):
+                    mk = cm_l[f][by][bx]
+                    if (ci_l[f][by][bx] == c[0] and mk[0] == c[1][0]
+                            and mk[1] == c[1][1]):
+                        cs = cs_l[f][by][bx]
+                        break
+                if cs is None:
+                    continue
+            cost = cs + lam_sqrt * (i + 2)
+            if best is None or cost < best[0]:
+                best = (cost, i, c)
+        pred = mvp_unit_grid_mm(mv_u, midx_u, avail, uy, ux, k, me_midx)
+        mvd = (me_mv[0] - int(pred[0]), me_mv[1] - int(pred[1]))
+        model_bins = min(me_midx + 1, n_active - 1)
+        amvp_cost = me_sad + lam_sqrt * (
+            2 + model_bins + _mvd_bits(np.asarray(mvd, np.int64)))
+        if best is not None and best[0] <= amvp_cost:
+            _, mi, (cmidx, cmv_v) = best
+            decisions.append((True, mi, cmidx, cmv_v, None))
+            midx_f, mv_f = cmidx, cmv_v
+        else:
+            decisions.append((False, 0, me_midx, me_mv, mvd))
+            midx_f, mv_f = me_midx, me_mv
+        midx_u[uy:uy + k, ux:ux + k] = midx_f
+        mv_u[uy:uy + k, ux:ux + k] = mv_f
+        avail[uy:uy + k, ux:ux + k] = True
+
+    def do_node(d, by, bx):
+        if d < depth and bool(splits[d][by, bx]):
+            for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
+                do_node(d + 1, 2 * by + dy, 2 * bx + dx)
+            return
+        do_leaf(d, by, bx)
+
+    for by in range(nty):
+        for bx in range(ntx):
+            do_node(0, by, bx)
+    return midx_u, mv_u, decisions
+
+
+def encode_p_slice_qt_mm(splits, decisions, levels, top: int, depth: int,
+                         n_active: int) -> bytes:
+    """Quadtree P-slice with merge-aware per-leaf MOTION MODEL syntax
+    (MM x partitioning; reference: the per-model mode loop inside the
+    QTMT recursion, EncCu.cpp:775-798, CABACWriter motion_model +
+    merge_flag/merge_idx/cu_skip).  Leaf syntax mirrors the flat MM
+    path: skip(=merge+no-residual) / merge / motion_model+mvd, then
+    cbf+coeffs — so a fully-split tree costs the flat grid plus one
+    split bin per node.  `decisions` comes from select_qt_mm (z-order)."""
+    enc = NativeBinEncoder()
+    nty, ntx = (splits[0].shape if depth
+                else levels[0][0].shape[:2])
+    it = iter(decisions)
+
+    def code_leaf(d, by, bx):
+        mflag, mi, midx, mv, mvd = next(it)
+        levs = tuple(levels[d][c][by, bx] for c in range(3))
+        cbfs = tuple(bool(np.any(l != 0)) for l in levs)
+        no_resid = not any(cbfs)
+        skip = mflag and no_resid
+        enc.encode_bin(int(skip), ctx_id("SkipFlag"))
+        if skip:
+            encode_merge_idx(enc, mi)
+            return
+        enc.encode_bin(int(mflag), ctx_id("MergeFlag"))
+        if mflag:
+            encode_merge_idx(enc, mi)
+        else:
+            encode_motion_model(enc, midx, n_active)
+            encode_mvd_comp(enc, int(mvd[0]))
+            encode_mvd_comp(enc, int(mvd[1]))
+        for cbf, lev, cid in zip(cbfs, levs, (0, 4, 5)):
+            enc.encode_bin(int(cbf), ctx_id("QtCbf", cid))
+            if cbf:
+                enc.encode_coeffs(lev, chroma=(cid != 0))
+
+    def code_node(d, by, bx):
+        if d < depth:
+            sp = bool(splits[d][by, bx])
+            enc.encode_bin(int(sp), ctx_id("SplitFlag", min(d, 8)))
+            if sp:
+                for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
+                    code_node(d + 1, 2 * by + dy, 2 * bx + dx)
+                return
+        code_leaf(d, by, bx)
+
+    for by in range(nty):
+        for bx in range(ntx):
+            code_node(0, by, bx)
+    return enc.finish()
+
+
+def select_merge_b_mm(midx0_me, midx1_me, stack0, stack1, dirs_me,
+                      sad_sel, ci0, ci1, cm0, cm1, cdirs, csads,
+                      active_models: list[int], lam_sqrt: float,
+                      block_size: int, conv=None, ep0=None, ep1=None,
+                      mer_blocks_log2: int = 0):
+    """Encoder MM B merge decision in coding order.  Returns
+    (f_midx0, f_midx1, f_stack0, f_stack1, f_dirs, merge_flag,
+    merge_idx) — stacks carry final MVs in the selected model layers and
+    the grids evolve with the entropy convention (unused lists take the
+    inherited model + its MVP)."""
+    nby, nbx = dirs_me.shape
+    f_midx0 = midx0_me.astype(np.int32).copy()
+    f_midx1 = midx1_me.astype(np.int32).copy()
+    f_stack0 = stack0.astype(np.int64).copy()
+    f_stack1 = stack1.astype(np.int64).copy()
+    f_dirs = dirs_me.astype(np.int32).copy()
+    sel0 = np.take_along_axis(
+        f_stack0, f_midx0[None, :, :, None].astype(np.int64), 0
+    )[0].astype(np.int64)
+    sel1 = np.take_along_axis(
+        f_stack1, f_midx1[None, :, :, None].astype(np.int64), 0
+    )[0].astype(np.int64)
+    models0 = np.asarray([active_models[i] for i in f_midx0.reshape(-1)],
+                         np.int32).reshape(nby, nbx)
+    models1 = np.asarray([active_models[i] for i in f_midx1.reshape(-1)],
+                         np.int32).reshape(nby, nbx)
+    merge_flag = np.zeros((nby, nbx), dtype=bool)
+    merge_idx = np.zeros((nby, nbx), dtype=np.int32)
+    n_fields = ci0.shape[0]
+    n_active = len(active_models)
+    sad_l = np.asarray(sad_sel).tolist()
+    ci0_l = np.asarray(ci0).tolist()
+    ci1_l = np.asarray(ci1).tolist()
+    cm0_l = np.asarray(cm0).tolist()
+    cm1_l = np.asarray(cm1).tolist()
+    cd_l = np.asarray(cdirs).tolist()
+    cs_l = np.asarray(csads).tolist()
+    for by in range(nby):
+        for bx in range(nbx):
+            d = int(dirs_me[by, bx])
+            cands = merge_candidates_b_mm(
+                f_dirs, f_midx0, sel0, f_midx1, sel1, by, bx,
+                mer_blocks_log2=mer_blocks_log2)
+            me = (d, (int(midx0_me[by, bx]),
+                      (int(sel0[by, bx, 0]), int(sel0[by, bx, 1]))),
+                  (int(midx1_me[by, bx]),
+                   (int(sel1[by, bx, 0]), int(sel1[by, bx, 1]))))
+            best = None
+            for i, c in enumerate(cands):
+                if c == me:
+                    sad = sad_l[by][bx]
+                else:
+                    sad = None
+                    for k in range(n_fields):
+                        m0k = cm0_l[k][by][bx]
+                        m1k = cm1_l[k][by][bx]
+                        if (cd_l[k][by][bx] == c[0]
+                                and ci0_l[k][by][bx] == c[1][0]
+                                and m0k[0] == c[1][1][0]
+                                and m0k[1] == c[1][1][1]
+                                and ci1_l[k][by][bx] == c[2][0]
+                                and m1k[0] == c[2][1][0]
+                                and m1k[1] == c[2][1][1]):
+                            sad = cs_l[k][by][bx]
+                            break
+                    if sad is None:
+                        continue
+                cost = sad + lam_sqrt * (i + 2)
+                if best is None or cost < best[0]:
+                    best = (cost, i, c)
+            # AMVP cost mirror of encode_b_slice_mm's syntax
+            mvd_bits = 0
+            if d != 1:
+                p0 = _mm_mvp(sel0, models0, by, bx,
+                             int(models0[by, bx]), block_size, conv, ep0)
+                mvd_bits += (_mvd_bits(sel0[by, bx] - p0)
+                             + min(int(midx0_me[by, bx]) + 1,
+                                   n_active - 1))
+            if d != 0:
+                p1 = _mm_mvp(sel1, models1, by, bx,
+                             int(models1[by, bx]), block_size, conv, ep1)
+                mvd_bits += (_mvd_bits(sel1[by, bx] - p1)
+                             + min(int(midx1_me[by, bx]) + 1,
+                                   n_active - 1))
+            amvp_cost = sad_l[by][bx] + lam_sqrt * (3 + mvd_bits)
+            if best is not None and best[0] <= amvp_cost:
+                merge_flag[by, bx] = True
+                merge_idx[by, bx] = best[1]
+                cd_, (c_i0, c_m0), (c_i1, c_m1) = best[2]
+                f_dirs[by, bx] = cd_
+                f_midx0[by, bx] = c_i0
+                f_midx1[by, bx] = c_i1
+                f_stack0[c_i0, by, bx] = c_m0
+                f_stack1[c_i1, by, bx] = c_m1
+                sel0[by, bx] = c_m0
+                sel1[by, bx] = c_m1
+                models0[by, bx] = active_models[c_i0]
+                models1[by, bx] = active_models[c_i1]
+                d = cd_
+            # entropy convention: unused lists take the inherited model
+            # and its MVP (mirrors encode_b_slice_mm grid evolution)
+            if d == 1:
+                inh0 = inherited_model(models0, by, bx)
+                models0[by, bx] = inh0
+                f_midx0[by, bx] = active_models.index(inh0)
+                sel0[by, bx] = _mm_mvp(sel0, models0, by, bx, inh0,
+                                       block_size, conv, ep0)
+                f_stack0[f_midx0[by, bx], by, bx] = sel0[by, bx]
+            if d == 0:
+                inh1 = inherited_model(models1, by, bx)
+                models1[by, bx] = inh1
+                f_midx1[by, bx] = active_models.index(inh1)
+                sel1[by, bx] = _mm_mvp(sel1, models1, by, bx, inh1,
+                                       block_size, conv, ep1)
+                f_stack1[f_midx1[by, bx], by, bx] = sel1[by, bx]
+    return (f_midx0, f_midx1, f_stack0, f_stack1, f_dirs, merge_flag,
+            merge_idx)
+
+
+def encode_b_slice_mm(model_idx0: np.ndarray, model_idx1: np.ndarray,
+                      active_models: list[int], mvs0_stack: np.ndarray,
+                      mvs1_stack: np.ndarray, dirs: np.ndarray,
+                      lev_y: np.ndarray, lev_u: np.ndarray,
+                      lev_v: np.ndarray, block_size: int = 16,
+                      conv=None, epipole0=None, epipole1=None,
+                      merge_flag: np.ndarray | None = None,
+                      merge_idx: np.ndarray | None = None) -> bytes:
+    """MM B-slice: skip / inter_dir / per-used-list motion_model + mvd /
+    residual (reference: CABACWriter motion_model():1854 per list after
+    inter_pred_idc).  With merge_flag/merge_idx (select_merge_b_mm),
+    skip means merge+no-residual and candidates carry whole motion incl.
+    per-list models; the input grids are the FINAL (already-evolved)
+    fields, so the entropy pass reads them without mutation."""
+    enc = NativeBinEncoder()
+    nby, nbx = dirs.shape
+    n_active = len(active_models)
+    if merge_flag is None:
+        raise NotImplementedError("MM B slice without merge: ROADMAP "
+                                  "queue 1 item 8")
+    sel0 = np.take_along_axis(
+        mvs0_stack, model_idx0[None, :, :, None].astype(np.int64), 0
+    )[0].astype(np.int64)
+    sel1 = np.take_along_axis(
+        mvs1_stack, model_idx1[None, :, :, None].astype(np.int64), 0
+    )[0].astype(np.int64)
+    models0 = np.asarray([active_models[i]
+                          for i in model_idx0.reshape(-1)], np.int32
+                         ).reshape(nby, nbx)
+    models1 = np.asarray([active_models[i]
+                          for i in model_idx1.reshape(-1)], np.int32
+                         ).reshape(nby, nbx)
+    cbf_y = (lev_y != 0).any(axis=(2, 3))
+    cbf_u = (lev_u != 0).any(axis=(2, 3))
+    cbf_v = (lev_v != 0).any(axis=(2, 3))
+    for by in range(nby):
+        for bx in range(nbx):
+            d = int(dirs[by, bx])
+            no_resid = not (cbf_y[by, bx] or cbf_u[by, bx]
+                            or cbf_v[by, bx])
+            mrg = bool(merge_flag[by, bx])
+            skip = mrg and no_resid
+            enc.encode_bin(int(skip), ctx_id("SkipFlag"))
+            if skip:
+                encode_merge_idx(enc, int(merge_idx[by, bx]))
+                continue
+            enc.encode_bin(int(mrg), ctx_id("MergeFlag"))
+            if mrg:
+                encode_merge_idx(enc, int(merge_idx[by, bx]))
+            else:
+                enc.encode_bin(int(d == 2), ctx_id("InterDir", 0))
+                if d != 2:
+                    enc.encode_bin(d, ctx_id("InterDir", 1))
+                if d != 1:
+                    encode_motion_model(enc, int(model_idx0[by, bx]),
+                                        n_active)
+                    p0 = _mm_mvp(sel0, models0, by, bx,
+                                 int(models0[by, bx]), block_size,
+                                 conv, epipole0)
+                    encode_mvd_comp(enc, int(sel0[by, bx, 0] - p0[0]))
+                    encode_mvd_comp(enc, int(sel0[by, bx, 1] - p0[1]))
+                if d != 0:
+                    encode_motion_model(enc, int(model_idx1[by, bx]),
+                                        n_active)
+                    p1 = _mm_mvp(sel1, models1, by, bx,
+                                 int(models1[by, bx]), block_size,
+                                 conv, epipole1)
+                    encode_mvd_comp(enc, int(sel1[by, bx, 0] - p1[0]))
+                    encode_mvd_comp(enc, int(sel1[by, bx, 1] - p1[1]))
+            for cbf, lev, cid in ((bool(cbf_y[by, bx]),
+                                   lev_y[by, bx], 0),
+                                  (bool(cbf_u[by, bx]),
+                                   lev_u[by, bx], 4),
+                                  (bool(cbf_v[by, bx]),
+                                   lev_v[by, bx], 5)):
+                enc.encode_bin(int(cbf), ctx_id("QtCbf", cid))
+                if cbf:
+                    enc.encode_coeffs(lev, chroma=(cid != 0))
+    return enc.finish()

@@ -1,23 +1,32 @@
-"""K1 and K2: position-based subblock MC, hand-written CUDA for Hopper.
+"""K1-K5: position-based MC and decision SADs, hand-written CUDA for Hopper.
 
 Every multi-model P/B reconstruction predicts each 4x4 luma subblock (2x2
 chroma, 4:2:0) from its own absolute position: 1/16 pel for luma, the same
-integers read as 1/32 pel at chroma resolution.
+integers read as 1/32 pel at chroma resolution.  The motion search ranks its
+candidates with SADs of such predictions.
 
   K1 mc_luma_positions   replaces vvc_mm_tpu/ops/mc_kernel.py
                          mc_luma_positions (_mc_luma_kernel).
   K2 mc_chroma_positions replaces vvc_mm_tpu/ops/mc_kernel.py
                          mc_chroma_positions (_mc_chroma_kernel).
+  K3 sad_block_positions replaces sad_block_positions_multi: for K
+                         candidate fields, the SAD of each block's first
+                         4-row band predicted at one position per block.
+  K4 mc_block_positions  replaces mc_block_positions_multi: K3's band
+                         prediction, samples written instead of SADs.
+  K5 sad_luma_positions  replaces sad_luma_positions_multi: for K fields,
+                         K1's per-subblock prediction fused with the SAD
+                         against the original.
 
-The kernels live in csrc/mc_positions.cu.  Both are bound by memory
-traffic: each reads the padded reference plane and the positions once and
-writes the prediction, and their integer filter work is far below the
-card's rate.  One thread computes one output sample (design notes in the
-source).
+K1/K2 live in csrc/mc_positions.cu, K3-K5 in csrc/sad_positions.cu.  All
+are bound by memory traffic: each reads the padded reference plane, the
+positions (and the original) once and writes its result, and their integer
+filter work is far below the card's rate (design notes in the sources).
 
 Beside each kernel sits its plain PyTorch version, ported from the JAX
 package's XLA mirror (`common/mm/mc.py` _mc_luma_positions_xla /
-_mc_chroma_positions_xla).  The wrapper takes the plain version only for a
+_mc_chroma_positions_xla, sad_block_positions_xla, mc_block_positions_xla
+and the loop of sad_positions_multi).  The wrapper takes the plain version only for a
 reference plane that lies on the CPU; for a CUDA tensor it launches the
 kernel or raises.  `LAUNCHES` counts kernel launches, per kernel.
 """
@@ -31,11 +40,19 @@ from ..common import interp
 from ..common.typedefs import NTAPS_CHROMA, NTAPS_LUMA
 from . import cuda_lib
 
-LAUNCHES = {"mc_luma_positions": 0, "mc_chroma_positions": 0}
+LAUNCHES = {"mc_luma_positions": 0, "mc_chroma_positions": 0,
+            "sad_block_positions": 0, "mc_block_positions": 0,
+            "sad_luma_positions": 0}
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_void_p]
+
+
+# When a dict, the search kernels' wrappers keep the tensors of their last
+# launch in it, keyed by (kernel, positions shape, block width): a timing run
+# replays a kernel on the inputs the encoder really gave it.
+CAPTURED: dict | None = None
 
 
 def reset_launches() -> None:
@@ -147,3 +164,174 @@ def mc_chroma_positions(ref_padded: torch.Tensor, positions: torch.Tensor,
                                          bit_depth)
     return _launch("mc_chroma_positions", 2, ref_padded, positions, margin,
                    bit_depth)
+
+
+# ---------------------------------------------------------------------------
+# K3 / K4 / K5: the search's decision SADs
+# ---------------------------------------------------------------------------
+def _band_pixels(ref_padded: torch.Tensor, positions: torch.Tensor,
+                 margin: int, s: int, bit_depth: int) -> torch.Tensor:
+    """(K, nby, nbx, 2) block positions -> (4, s, K*nby*nbx) predicted
+    first-band samples of every (candidate, block)."""
+    pos = positions.reshape(-1, 2)
+    xi = (pos[:, 0] >> 4) + margin - (NTAPS_LUMA // 2 - 1)
+    yi = (pos[:, 1] >> 4) + margin - (NTAPS_LUMA // 2 - 1)
+    xi = torch.clamp(xi, 0, ref_padded.shape[1] - (s + NTAPS_LUMA - 1))
+    yi = torch.clamp(yi, 0, ref_padded.shape[0] - (4 + NTAPS_LUMA - 1))
+    patch = interp.gather_patches_t(ref_padded, yi, xi, 4 + NTAPS_LUMA - 1,
+                                    s + NTAPS_LUMA - 1)   # (11, s+7, B)
+    val = interp.interp_luma_t(patch, pos[:, 0] & 15, pos[:, 1] & 15, 4, s,
+                               bit_depth)
+    return interp.finalize_uni(val, bit_depth)            # (4, s, B)
+
+
+def sad_block_positions_plain(ref_padded: torch.Tensor,
+                              orig_bands: torch.Tensor,
+                              positions: torch.Tensor, margin: int, s: int,
+                              bit_depth: int = 8) -> torch.Tensor:
+    """Per-BLOCK decision SADs of each block's first 4-pixel row band
+    sampled at the block-translational position (exact 8-tap filter).
+    positions (K, nby, nbx, 2); orig_bands (nby*4, nbx*s) ->
+    (K, nby, nbx) int32."""
+    k, nby, nbx, _ = positions.shape
+    pix = _band_pixels(ref_padded, positions, margin, s, bit_depth)
+    ob = orig_bands.reshape(nby, 4, nbx, s).permute(1, 3, 0, 2)
+    ob = ob.reshape(4, s, nby * nbx).repeat(1, 1, k)
+    return (pix - ob).abs().sum(dim=(0, 1)).reshape(k, nby, nbx) \
+        .to(torch.int32)
+
+
+def mc_block_positions_plain(ref_padded: torch.Tensor,
+                             positions: torch.Tensor, margin: int, s: int,
+                             bit_depth: int = 8) -> torch.Tensor:
+    """Each block's predicted first 4-pixel row band at the
+    block-translational position.  positions (K, nby, nbx, 2) ->
+    (K, nby*4, nbx*s) int32."""
+    k, nby, nbx, _ = positions.shape
+    pix = _band_pixels(ref_padded, positions, margin, s, bit_depth)
+    pix = pix.permute(2, 0, 1).reshape(k, nby, nbx, 4, s)
+    return pix.permute(0, 1, 3, 2, 4).reshape(k, nby * 4, nbx * s)
+
+
+def sad_luma_positions_plain(ref_padded: torch.Tensor, orig: torch.Tensor,
+                             positions: torch.Tensor, margin: int,
+                             bit_depth: int = 8) -> torch.Tensor:
+    """Exact (8-tap) per-subblock SAD for K candidate fields: one K1-style
+    prediction per field, reduced over 4x4 subblocks.  orig (4*nsy, 4*nsx),
+    positions (K, nsy, nsx, 2) -> (K, nsy, nsx) int32."""
+    outs = []
+    for i in range(positions.shape[0]):
+        pred = mc_luma_positions_plain(ref_padded, positions[i], margin,
+                                       bit_depth)
+        d = (orig - pred).abs()
+        h, w = d.shape
+        outs.append(d.reshape(h // 4, 4, w // 4, 4).sum(dim=(1, 3)))
+    return torch.stack(outs).to(torch.int32)
+
+
+def _check_i32(name: str, ref_padded: torch.Tensor, *others: torch.Tensor
+               ) -> None:
+    for t in (ref_padded, *others):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: int32 tensors required, got {t.dtype}")
+        if t.device != ref_padded.device:
+            raise ValueError(f"{name}: tensors on different devices")
+
+
+def _launch_search(name: str, ref_padded: torch.Tensor, positions:
+                   torch.Tensor, out_shape: tuple, win_w: int, margin: int,
+                   bit_depth: int, orig: torch.Tensor | None,
+                   s: int | None) -> torch.Tensor:
+    """Launch one of csrc/sad_positions.cu's kernels.  `orig` is the
+    original band plane / plane (None for K4), `s` the block width (None
+    for K5), `win_w` the window width the plane must hold."""
+    others = (positions,) if orig is None else (positions, orig)
+    _check_i32(name, ref_padded, *others)
+    if ref_padded.dim() != 2 or positions.dim() != 4 \
+            or positions.shape[3] != 2 or positions.shape[0] < 1:
+        raise ValueError(f"{name}: shapes {tuple(ref_padded.shape)} / "
+                         f"{tuple(positions.shape)}")
+    hp, wp = ref_padded.shape
+    if hp < 4 + NTAPS_LUMA - 1 or wp < win_w or not 8 <= bit_depth <= 14:
+        raise ValueError(f"{name}: plane {hp}x{wp} / bit depth {bit_depth}")
+    k, ny, nx, _ = positions.shape
+    out = torch.empty(out_shape, dtype=torch.int32, device=ref_padded.device)
+    if out.numel() == 0:
+        return out
+    ref_c = ref_padded.contiguous()
+    pos_c = positions.contiguous()
+    args = [ref_c.data_ptr(), hp, wp]
+    types = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    if orig is not None:
+        orig_c = orig.contiguous()
+        args.append(orig_c.data_ptr())
+        types.append(ctypes.c_void_p)
+    args += [pos_c.data_ptr(), k, ny, nx]
+    types += [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    if s is not None:
+        args.append(s)
+        types.append(ctypes.c_int)
+    args += [margin, bit_depth, out.data_ptr()]
+    types += [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn = getattr(cuda_lib.load("sad_positions"), name)
+    fn.argtypes = types + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(ref_padded.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    LAUNCHES[name] += 1
+    if CAPTURED is not None:
+        CAPTURED[(name, tuple(positions.shape), s)] = dict(
+            ref_padded=ref_c, positions=pos_c, orig=orig, margin=margin,
+            s=s, bit_depth=bit_depth)
+    return out
+
+
+def sad_block_positions(ref_padded: torch.Tensor, orig_bands: torch.Tensor,
+                        positions: torch.Tensor, margin: int, s: int,
+                        bit_depth: int = 8) -> torch.Tensor:
+    """K3.  CPU tensors take the plain version; CUDA tensors the kernel.
+    Returns raw band SADs (K, nby, nbx); scaling to full-block range is
+    the caller's."""
+    if ref_padded.device.type == "cpu":
+        return sad_block_positions_plain(ref_padded, orig_bands, positions,
+                                         margin, s, bit_depth)
+    k, nby, nbx, _ = positions.shape
+    if tuple(orig_bands.shape) != (nby * 4, nbx * s):
+        raise ValueError(f"sad_block_positions: bands "
+                         f"{tuple(orig_bands.shape)} for {nby}x{nbx} blocks "
+                         f"of width {s}")
+    return _launch_search("sad_block_positions", ref_padded, positions,
+                          (k, nby, nbx), s + NTAPS_LUMA - 1, margin,
+                          bit_depth, orig_bands, s)
+
+
+def mc_block_positions(ref_padded: torch.Tensor, positions: torch.Tensor,
+                       margin: int, s: int, bit_depth: int = 8
+                       ) -> torch.Tensor:
+    """K4.  CPU tensors take the plain version; CUDA tensors the kernel."""
+    if ref_padded.device.type == "cpu":
+        return mc_block_positions_plain(ref_padded, positions, margin, s,
+                                        bit_depth)
+    k, nby, nbx, _ = positions.shape
+    return _launch_search("mc_block_positions", ref_padded, positions,
+                          (k, nby * 4, nbx * s), s + NTAPS_LUMA - 1, margin,
+                          bit_depth, None, s)
+
+
+def sad_luma_positions(ref_padded: torch.Tensor, orig: torch.Tensor,
+                       positions: torch.Tensor, margin: int,
+                       bit_depth: int = 8) -> torch.Tensor:
+    """K5.  CPU tensors take the plain version; CUDA tensors the kernel."""
+    if ref_padded.device.type == "cpu":
+        return sad_luma_positions_plain(ref_padded, orig, positions, margin,
+                                        bit_depth)
+    k, nsy, nsx, _ = positions.shape
+    if tuple(orig.shape) != (nsy * 4, nsx * 4):
+        raise ValueError(f"sad_luma_positions: original "
+                         f"{tuple(orig.shape)} for {nsy}x{nsx} subblocks")
+    return _launch_search("sad_luma_positions", ref_padded, positions,
+                          (k, nsy, nsx), 4 + NTAPS_LUMA - 1, margin,
+                          bit_depth, orig, None)

@@ -1,9 +1,9 @@
-"""Build + ctypes binding for the native CABAC decoder.
+"""Build + ctypes binding for the native CABAC coder.
 
 The C implementation (the repository's native/cabac.c, shared with the JAX
-package and not edited here) is the port's arithmetic decoder; the Python
-BinDecoder in common/cabac.py is its executable specification, and the
-tests hold the two bit-identical.  Built at first use with the system
+package and not edited here) is the port's arithmetic encoder and decoder;
+the Python BinEncoder/BinDecoder in common/cabac.py are its executable
+specification, and the tests hold them bit-identical.  Built at first use with the system
 compiler into vvc_mm_tpu_torch/_build/ (reused while newer than the
 source); a failed build raises.
 """
@@ -51,6 +51,20 @@ def get_lib() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     lib = ctypes.CDLL(_build())
+    lib.enc_new.restype = ctypes.c_void_p
+    lib.enc_new.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.enc_free.argtypes = [ctypes.c_void_p]
+    lib.enc_bin.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    lib.enc_bin_ep.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.enc_bins_ep.argtypes = [ctypes.c_void_p, ctypes.c_uint32,
+                                ctypes.c_int]
+    lib.enc_eg.argtypes = [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int]
+    lib.enc_finish.restype = ctypes.c_int64
+    lib.enc_finish.argtypes = [ctypes.c_void_p]
+    lib.enc_copy.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.enc_coeffs.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                               ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                               ctypes.c_int, ctypes.POINTER(_ResCtx)]
     lib.dec_new.restype = ctypes.c_void_p
     lib.dec_new.argtypes = [ctypes.c_void_p, ctypes.c_int64,
                             ctypes.c_void_p, ctypes.c_int]
@@ -75,6 +89,50 @@ def _res_ctx() -> _ResCtx:
     return _ResCtx(CTX_OFFSET["LastX"], CTX_OFFSET["LastY"],
                    CTX_OFFSET["SigCoeffGroup"], CTX_OFFSET["SigFlag"],
                    CTX_OFFSET["GtxFlag"])
+
+
+class NativeBinEncoder:
+    """The C counterpart of common.cabac.BinEncoder, plus residual coding
+    (encode_coeffs, the counterpart of residual_coding.encode_coeffs)."""
+
+    def __init__(self) -> None:
+        from ..common.contexts import _INIT_P1, NUM_CTX
+        self._lib = get_lib()
+        init = np.ascontiguousarray(_INIT_P1, dtype=np.int32)
+        self._h = self._lib.enc_new(init.ctypes.data, NUM_CTX)
+        self._rc = _res_ctx()
+
+    def encode_bin(self, binval: int, ctx: int) -> None:
+        self._lib.enc_bin(self._h, int(binval), ctx)
+
+    def encode_bin_ep(self, binval: int) -> None:
+        self._lib.enc_bin_ep(self._h, int(binval))
+
+    def encode_bins_ep(self, value: int, nbits: int) -> None:
+        self._lib.enc_bins_ep(self._h, int(value), nbits)
+
+    def encode_eg(self, value: int, k: int) -> None:
+        self._lib.enc_eg(self._h, int(value), k)
+
+    def encode_coeffs(self, levels: np.ndarray, chroma: bool) -> None:
+        from ..common import rom
+        h, w = levels.shape
+        scan = rom.scan_order(w.bit_length() - 1, h.bit_length() - 1)
+        lv = np.ascontiguousarray(levels, dtype=np.int32)
+        sc = np.ascontiguousarray(scan, dtype=np.int32)
+        self._lib.enc_coeffs(self._h, lv.ctypes.data, h, w, sc.ctypes.data,
+                             int(chroma), ctypes.byref(self._rc))
+
+    def finish(self) -> bytes:
+        n = self._lib.enc_finish(self._h)
+        buf = ctypes.create_string_buffer(n)
+        self._lib.enc_copy(self._h, buf)
+        return buf.raw
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.enc_free(self._h)
+            self._h = None
 
 
 class NativeBinDecoder:
@@ -115,3 +173,4 @@ class NativeBinDecoder:
         if getattr(self, "_h", None):
             self._lib.dec_free(self._h)
             self._h = None
+
