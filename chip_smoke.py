@@ -6,39 +6,59 @@ Phases (any failure exits non-zero and prints no result line):
   1. build every CUDA kernel of the port (one nvcc per source, in parallel);
   2. print the card's name and power limit (nvidia-smi);
   3. hold kernels K1 (luma MC), K2 (chroma MC), K3 (block-band SAD), K4
-     (block-band MC) and K5 (per-subblock SAD) against their plain PyTorch
-     versions on the card, on random and on extreme (clamped) positions at
-     the main paths' shapes: bit-exact (tolerance 0);
+     (block-band MC), K5 (per-subblock SAD) and K6 (bilinear per-subblock
+     SAD) against their plain PyTorch versions on the card, on random and
+     on extreme (clamped) positions at the main paths' shapes: bit-exact
+     (tolerance 0);
   4. decode the committed 2048x1024 ERP multi-model RA stream with
      DecLib() on CUDA, counting kernel launches: the I picture's MD5 must
      match, and every picture's Y-PSNR against the regenerated source must
      lie within 0.1 dB of the encoder's recorded value; the small 256x128
      stream is decoded on the card too: all its MD5s must match;
   5. count, per multi-model picture, the subblock positions the card
-     computes differently from the same code on the CPU; then decode the
-     stream on the CPU from the card's positions: every picture must equal
-     the card's bit for bit (all that follows the positions is integer
-     math);
-  6. encode POC 4 (P), 2, 1, 3 (B) of the 2048x1024 source with EncLib() on
-     CUDA at the random-access cascade's QPs, from the card's own decode of
-     the committed I picture, counting launches (K1-K4 must be launched);
-     decode the assembled stream (committed headers + I picture, the
-     port's P/B pictures + hash SEIs) with DecLib() on the card: every MD5
-     must match; Y-PSNR may lie at most 0.1 dB below and the bits at most
-     2% above the recorded JAX encoder's.  A second encode with the stage
+     computes differently from the same code on the CPU (both streams);
+     then decode the 2048x1024 stream on the CPU from the card's
+     positions: every picture must equal the card's bit for bit (all that
+     follows the positions is integer math);
+  6. sequence, against the JAX encoder's record: EncLib(cfg)
+     .encode_sequence(frames) on CUDA for 5 frames at GOP 4, 2048x1024,
+     the configuration of the committed stream (parameter sets, I picture,
+     POC 4 (P), 2, 1, 3 (B), hash SEIs), counting launches (K1-K4 must be
+     launched); DecLib() on the card decodes the port's stream: every MD5
+     must match; per picture the Y-PSNR may lie at most 0.1 dB below and
+     the bits at most 2% above the recorded JAX encoder's; the IDR NAL is
+     compared with the committed stream's.  A second encode with the stage
      timers on must give the same bytes and prints the stage shares per
-     picture; a third under torch.profiler counts, per picture, every
-     device operation (kernel, copy) and their summed device time, which
-     against the first encode's seconds gives the card's idle share;
+     picture;
   7. the same at 256x128 on the card: the path that launches K5 (and K1 in
-     the B decision); every MD5 must match;
-  8. time each kernel and its plain version on inputs captured from those
+     the B decision); every MD5 must match; a third encode under
+     torch.profiler counts, per picture, every device operation (kernel,
+     copy) and their summed device time.  The whole stream is compared
+     with the committed one byte for byte: where the card's positions
+     equal the CPU's at this size, a difference fails the run;
+  8. sequence, full width: the headline configuration (2048x1024, RA,
+     GOP 16, 17 frames, MPA+ROT, quadtree depth 1, QP 37 with the cascade)
+     through encode_sequence on the card, then DecLib() on the card: 17 of
+     17 MD5s must match and K1-K4 must be launched; per-picture bits,
+     Y-PSNR and seconds and the frames per second are printed.  Three more
+     encodes give the median and the spread of the sequence's seconds and
+     must give the same bytes; one more under torch.profiler gives every
+     picture's device operations, device time and idle share, and the I
+     picture's decode is traced the same way;
+  9. decision SADs (K6's path): frame_codec._sad_fields_bilin with
+     exact=False and exact=True on the tensors captured from the 256x128
+     encodes' diamond steps and on one full 2048x1024 grid: the bilinear
+     result must equal the plain version's, sad_bilinear_positions must be
+     launched, and the blocks whose best candidate is the same under both
+     filters are counted;
+ 10. time each kernel and its plain version on inputs captured from those
      runs, print the `kernels` line, then the result line.
 """
 from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -49,12 +69,13 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 from vvc_mm_tpu_torch.common import bitstream as bs
-from vvc_mm_tpu_torch.common.inter_frame import MC_MARGIN, pad_ref
+from vvc_mm_tpu_torch.common.inter_frame import (MC_MARGIN, first_argmin,
+                                                 pad_ref)
 from vvc_mm_tpu_torch.common.mm import frame_codec
 from vvc_mm_tpu_torch.common.mm.reprojection import MVReprojection
 from vvc_mm_tpu_torch.common.slice_ps import MMConfig
 from vvc_mm_tpu_torch.decoder.declib import DecLib
-from vvc_mm_tpu_torch.encoder.enclib import EncCfg, EncLib, ctc_qp
+from vvc_mm_tpu_torch.encoder.enclib import EncCfg, EncLib
 from vvc_mm_tpu_torch.lib360.projection import ERP
 from vvc_mm_tpu_torch.ops import cuda_lib, mc_kernel
 from vvc_mm_tpu_torch.utils import profiling
@@ -65,6 +86,8 @@ BIG = "erp2048x1024_ra_mm_qp37_5f"
 SMALL = "erp256x128_ra_mm_qp37_5f"
 PSNR_TOL_DB = 0.1
 BITS_TOL = 1.02
+MIN_PSNR_Y_DB = 25.0           # sanity floor where no record exists
+HEADLINE_FRAMES, HEADLINE_GOP = 17, 16
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12          # H100 SXM non-tensor float32 rate (the
                                # table's nearest entry for int32 MACs)
@@ -72,12 +95,21 @@ SOURCES = {"mc_luma_positions": "mc_positions.cu",
            "mc_chroma_positions": "mc_positions.cu",
            "sad_block_positions": "sad_positions.cu",
            "mc_block_positions": "sad_positions.cu",
-           "sad_luma_positions": "sad_positions.cu"}
+           "sad_luma_positions": "sad_positions.cu",
+           "sad_bilinear_positions": "sad_positions.cu"}
 REPLACES = {"mc_luma_positions": "vvc_mm_tpu/ops/mc_kernel.py:191",
             "mc_chroma_positions": "vvc_mm_tpu/ops/mc_kernel.py:817",
             "sad_block_positions": "vvc_mm_tpu/ops/mc_kernel.py:565",
             "mc_block_positions": "vvc_mm_tpu/ops/mc_kernel.py:505",
-            "sad_luma_positions": "vvc_mm_tpu/ops/mc_kernel.py:291"}
+            "sad_luma_positions": "vvc_mm_tpu/ops/mc_kernel.py:291",
+            "sad_bilinear_positions": "vvc_mm_tpu/ops/mc_kernel.py:688"}
+
+
+_T0 = time.perf_counter()
+
+
+def phase(title: str) -> None:
+    print(f"[{time.perf_counter() - _T0:.0f} s] {title}")
 
 
 def fail(msg: str) -> None:
@@ -110,20 +142,24 @@ def cuda_ms(fn, iters: int = 50) -> float:
 
 def device_ms(fn, iters: int = 20) -> float | None:
     """Mean device time of the one kernel a wrapper call fn() launches, from
-    torch.profiler's device events: the gaps between launches, which the
-    CUDA-event loop of cuda_ms includes, are left out.  The profiler
-    misses the first few operations after it starts, so the mean is taken
-    over the kernels it caught.  Where it traces no device event at all, or
-    more than one for a call, the time is not measured (None) and the
-    CUDA-event time of cuda_ms stands alone."""
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    n, busy = device_work(prof)
-    return busy / n * 1e3 if 0 < n <= iters else None
+    torch.profiler's device events of the port's kernels (their names hold
+    "positions_kernel"): the gaps between launches, which the CUDA-event
+    loop of cuda_ms includes, are left out.  The profiler misses the first
+    few operations after it starts, so the mean is taken over the kernels
+    it caught.  Where it traces none, or more than one for a call, twice in
+    a row, the time is not measured (None) and the CUDA-event time of
+    cuda_ms stands alone."""
+    for _ in range(2):          # now and then a trace is unusable
+        with _profiler() as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        own = [t for name, t in device_events(prof)
+               if "positions_kernel" in name]
+        if 0 < len(own) <= iters:
+            return sum(own) / len(own) * 1e3
+    print(f"  (the profiler caught {len(own)} kernels for {iters} calls)")
+    return None
 
 
 def bound_ms(n_words: int, macs: int) -> tuple[float, str]:
@@ -144,9 +180,9 @@ def mc_bound(ref, positions, s: int, taps: int) -> tuple[float, str]:
 
 
 def search_bound(name: str, case: dict) -> tuple[float, str]:
-    """K3/K4/K5: padded reference + positions + original band or plane +
+    """K3-K6: padded reference + positions + original band or plane +
     output; MACs per (k, block) = 11*s*8 + 4*s*8 (K3, K4), 480 per
-    subblock (K5)."""
+    subblock (K5), 72 per subblock (K6: 5*4*2 + 4*4*2)."""
     pos = case["positions"]
     k, ny, nx, _ = pos.shape
     words = case["ref_padded"].numel() + pos.numel()
@@ -154,6 +190,8 @@ def search_bound(name: str, case: dict) -> tuple[float, str]:
         words += case["orig"].numel()
     if name == "sad_luma_positions":
         return bound_ms(words + k * ny * nx, 480 * k * ny * nx)
+    if name == "sad_bilinear_positions":
+        return bound_ms(words + k * ny * nx, 72 * k * ny * nx)
     s = case["s"]
     out = k * ny * nx if name == "sad_block_positions" else k * ny * 4 * nx * s
     return bound_ms(words + out, k * ny * nx * (11 * s * 8 + 4 * s * 8))
@@ -218,8 +256,8 @@ def check_kernels(margin: int, dev) -> dict:
                           ref_y, p, margin, 16, 8),
                       lambda p=p: mc_kernel.mc_block_positions_plain(
                           ref_y, p, margin, 16, 8)))
-    # K5: the 256x128 search's grids (s=8 unsubsampled; s=16 keeps 1 of 4
-    # subblock rows and 1 of 2 columns) and one full 2048x1024 grid
+    # K5, K6: the 256x128 search's grids (s=8 unsubsampled; s=16 keeps 1
+    # of 4 subblock rows and 1 of 2 columns) and one full 2048x1024 grid
     for (ny, nx), ref in (((32, 64), ref_small), ((8, 32), ref_small),
                           ((h // 4, w // 4), ref_y)):
         orig = t(rng.integers(0, 256, (ny * 4, nx * 4), dtype=np.int32))
@@ -231,6 +269,12 @@ def check_kernels(margin: int, dev) -> dict:
                           lambda p=p, o=orig, r=ref:
                           mc_kernel.sad_luma_positions_plain(r, o, p, margin,
                                                              8)))
+            cases.append(("sad_bilinear_positions", f"(5, {ny}, {nx}, 2)",
+                          lambda p=p, o=orig, r=ref:
+                          mc_kernel.sad_bilinear_positions(r, o, p, margin),
+                          lambda p=p, o=orig, r=ref:
+                          mc_kernel.sad_bilinear_positions_plain(r, o, p,
+                                                                 margin)))
     max_err = {name: 0 for name in SOURCES}
     for name, label, fn, plain in cases:
         got, want = fn(), plain()
@@ -248,124 +292,196 @@ def check_kernels(margin: int, dev) -> dict:
     return max_err
 
 
+def device_events(prof) -> list[tuple[str, float]]:
+    """(name, device seconds) of every device operation of a profile.
+    Read from the profiler's raw records where it keeps them: building
+    `prof.events()` costs about 0.1 ms an event, minutes for a traced
+    sequence."""
+    from torch.autograd import DeviceType
+    raw = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    if raw is not None:
+        return [(e.name(), e.duration_ns() * 1e-9) for e in raw.events()
+                if e.device_type() == DeviceType.CUDA]
+    return [(e.name, e.time_range.elapsed_us() * 1e-6)
+            for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
 def device_work(prof) -> tuple[int, float]:
     """(device operations, their summed device seconds) of a profile.  The
     profiler misses the first few operations (about ten) after it starts,
     so a count is low by that much."""
-    from torch.autograd import DeviceType
-    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return len(evs), sum(e.time_range.elapsed_us() for e in evs) * 1e-6
+    evs = device_events(prof)
+    return len(evs), sum(t for _, t in evs)
 
 
-def encode_path(label: str, stream: str, mode: str) -> dict:
-    """Phases 6/7: encode POC 4, 2, 1, 3 with EncLib() on the card from the
-    card's decode of the committed I picture; returns the NAL units, the
-    per-picture results and the launch counts of the encode.  `mode`:
-    "plain", "stages" (stage timers on, each stage synchronised) or "trace"
-    (each picture under torch.profiler)."""
-    side = json.load(open(os.path.join(DATA, stream + ".json")))
-    data = open(os.path.join(DATA, stream + ".bin"), "rb").read()
-    head = []
-    for nal in bs.read_annexb(data):
-        head.append(nal)
-        if nal.nal_type == bs.NAL_SEI:
-            break
-    if [n.nal_type for n in head] != [bs.NAL_SPS, bs.NAL_PPS, bs.NAL_IDR,
-                                      bs.NAL_SEI]:
-        fail(f"{stream}: unexpected head {[n.nal_type for n in head]}")
-    dec = DecLib()
-    dec.decode_bytes(bs.write_annexb(head))
-    if dec.hash_status.get(0) != "OK":
-        fail(f"{stream}: I picture MD5 on the card")
-    w, h, n = side["width"], side["height"], side["frames"]
-    src = realistic_sequence(w, h, n)
-    cfg = EncCfg(
-        width=w, height=h, qp=side["qp"], gop="RA",
-        gop_size=side["gop_size"], qt_depth=side["qt_depth"],
-        inter_block_size=16, search_range=side["search_range"],
-        wrap_around=side["wrap_around"], merge=True,
-        mm=MMConfig(mpa=True, rot=True))
-    profiling.reset()
-    profiling.enable(mode == "stages")
-    enc = EncLib(cfg)
-    dpb = {0: dec.frames[0].numpy()}
-    nals, rows = [], []
-    mc_kernel.reset_launches()
-    torch.cuda.synchronize()
-    t_all = time.perf_counter()
-    for poc, r0, r1, tid in EncLib.ra_coding_order(n, side["gop_size"]):
+def _profiler():
+    """Device activity only: the host side of each operation is not read
+    here, and tracing it slows the traced run."""
+    return torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+
+
+class MeasuredEncLib(EncLib):
+    """EncLib that notes, for each picture encode_sequence codes, its
+    launches, stage times and (mode "trace") its device operations.
+    `mode`: "plain", "stages" (stage timers on, each stage synchronised) or
+    "trace" (each picture under torch.profiler)."""
+
+    def __init__(self, cfg: EncCfg, mode: str) -> None:
+        super().__init__(cfg)
+        self.mode = mode
+        self.rows: list[dict] = []
+
+    def _measured(self, kind: str, method, poc: int, *args, **kw):
         before = dict(mc_kernel.LAUNCHES)
         stages_before = profiling.totals()
         prof = None
-        if mode == "trace":
-            prof = torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA])
+        if self.mode == "trace":
+            prof = _profiler()
             prof.start()
-        if r1 < 0:
-            nal, res = enc.encode_p_frame(
-                poc, src[poc], dpb[r0], r0,
-                qp=ctc_qp(side["qp"], "P"))
-        else:
-            nal, res = enc.encode_b_frame(
-                poc, src[poc], dpb[r0], r0, dpb[r1], r1, tid,
-                qp=ctc_qp(side["qp"], "B", tid))
+        nal, res = method(poc, *args, **kw)
         if prof is not None:
             torch.cuda.synchronize()
             prof.stop()
-        dpb[poc] = res.recon
-        nals += [nal, enc._hash_sei(poc, res.recon, tid)]
-        rows.append(dict(
-            poc=poc, kind="P" if r1 < 0 else "B", bits=res.bits,
-            psnr=(res.psnr_y, res.psnr_u, res.psnr_v),
-            seconds=res.seconds,
+        self.rows.append(dict(
+            poc=poc, kind=kind, bits=res.bits,
+            psnr=(res.psnr_y, res.psnr_u, res.psnr_v), seconds=res.seconds,
             stages={k: v - stages_before.get(k, 0.0)
                     for k, v in profiling.totals().items()},
             device_work=device_work(prof) if prof is not None else None,
             launches={k: v - before[k]
                       for k, v in mc_kernel.LAUNCHES.items()}))
+        return nal, res
+
+    def encode_intra_frame(self, poc, *args, **kw):
+        return self._measured("I", super().encode_intra_frame, poc, *args,
+                              **kw)
+
+    def encode_p_frame(self, poc, *args, **kw):
+        return self._measured("P", super().encode_p_frame, poc, *args, **kw)
+
+    def encode_b_frame(self, poc, planes, ref0, ref0_poc, ref1, ref1_poc,
+                       tid=0, qp=None):
+        return self._measured(f"B{tid}", super().encode_b_frame, poc, planes,
+                              ref0, ref0_poc, ref1, ref1_poc, tid, qp)
+
+
+def headline_cfg(w: int, h: int, qp: int, gop_size: int,
+                 search_range: int = 24) -> EncCfg:
+    """The headline configuration: ERP, RA with the QP cascade, MPA+ROT,
+    quadtree depth 1, merge, deblock+SAO+ALF."""
+    return EncCfg(width=w, height=h, qp=qp, gop="RA", gop_size=gop_size,
+                  qt_depth=1, inter_block_size=16, search_range=search_range,
+                  wrap_around=True, merge=True,
+                  mm=MMConfig(mpa=True, rot=True))
+
+
+def encode_run(label: str, cfg: EncCfg, src: list, mode: str) -> dict:
+    """One EncLib(cfg).encode_sequence(src) on the card: the Annex-B
+    bytes, the per-picture notes, the sequence's seconds (host clock,
+    synchronised) and the launch counts of this run alone."""
+    profiling.reset()
+    profiling.enable(mode == "stages")
+    mc_kernel.reset_launches()
     torch.cuda.synchronize()
-    seconds = time.perf_counter() - t_all
+    t0 = time.perf_counter()
+    enc = MeasuredEncLib(cfg, mode)
+    data = enc.encode_sequence(src)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
     launches = dict(mc_kernel.LAUNCHES)
     profiling.enable(False)
-    return dict(label=label, side=side, head=head, nals=nals, rows=rows,
-                launches=launches, seconds=seconds,
-                stages=profiling.totals())
+    if len(enc.results) != len(src) or enc.summary()["frames"] != len(src):
+        fail(f"{label}: {len(enc.results)} results for {len(src)} frames")
+    return dict(label=label, data=data, rows=enc.rows, launches=launches,
+                seconds=seconds, stages=profiling.totals(), frames=len(src),
+                width=cfg.width, height=cfg.height)
 
 
-def check_encode(run: dict, need: tuple, hold_to_sidecar: bool) -> None:
-    side = run["side"]
-    rec = {p["poc"]: p for p in side["pocs"]}
+def check_run(run: dict, need: tuple, record: dict | None = None,
+              hold: bool = False) -> None:
+    """Print a run's pictures beside the JAX encoder's record where there
+    is one, and with `hold` keep them to it; require the kernels in `need`
+    launched; decode the stream on the card and require every MD5 OK."""
+    label, n = run["label"], run["frames"]
     for r in run["rows"]:
-        ref = rec[r["poc"]]
-        print(f"{run['label']} POC {r['poc']} ({r['kind']}): {r['bits']} bits "
-              f"(JAX encoder {ref['bits']}), PSNR Y/U/V "
-              f"{r['psnr'][0]:.4f}/{r['psnr'][1]:.4f}/{r['psnr'][2]:.4f} dB "
-              f"(JAX encoder {ref['psnr_y']:.4f}/{ref['psnr_u']:.4f}/"
-              f"{ref['psnr_v']:.4f}), {r['seconds']:.2f} s (host clock), "
-              f"launches {r['launches']}")
-        if hold_to_sidecar:
+        ref = record.get(r["poc"]) if record else None
+        rec_bits = f" (JAX encoder {ref['bits']})" if ref else ""
+        rec_psnr = (f" (JAX encoder {ref['psnr_y']:.4f}/{ref['psnr_u']:.4f}/"
+                    f"{ref['psnr_v']:.4f})") if ref else ""
+        print(f"{label} POC {r['poc']} ({r['kind']}): {r['bits']} bits"
+              f"{rec_bits}, PSNR Y/U/V {r['psnr'][0]:.4f}/{r['psnr'][1]:.4f}/"
+              f"{r['psnr'][2]:.4f} dB{rec_psnr}, {r['seconds']:.2f} s (host "
+              f"clock), launches {r['launches']}")
+        if not all(np.isfinite(r["psnr"])) or r["psnr"][0] < MIN_PSNR_Y_DB:
+            fail(f"{label} POC {r['poc']}: Y-PSNR {r['psnr'][0]}")
+        if ref and hold:
             if r["psnr"][0] < ref["psnr_y"] - PSNR_TOL_DB:
                 fail(f"POC {r['poc']}: Y-PSNR {r['psnr'][0]:.4f} more than "
                      f"{PSNR_TOL_DB} dB below {ref['psnr_y']:.4f}")
             if r["bits"] > BITS_TOL * ref["bits"]:
                 fail(f"POC {r['poc']}: {r['bits']} bits more than 2% above "
                      f"{ref['bits']}")
-    print(f"{run['label']}: 4 pictures in {run['seconds']:.2f} s (host "
-          f"clock), launches {run['launches']}")
+    if sorted(r["poc"] for r in run["rows"]) != list(range(n)):
+        fail(f"{label}: pictures {[r['poc'] for r in run['rows']]}")
+    print(f"{label}: {n} pictures, {len(run['data'])} bytes in "
+          f"{run['seconds']:.2f} s (host clock), "
+          f"{n / run['seconds']:.3f} frames per second, launches "
+          f"{run['launches']}")
     for name in need:
         if run["launches"][name] == 0:
-            fail(f"{run['label']}: the encode did not launch {name}")
+            fail(f"{label}: the encode did not launch {name}")
     dec = DecLib()
-    t0 = time.perf_counter()
-    dec.decode_bytes(bs.write_annexb(run["head"] + run["nals"]))
     torch.cuda.synchronize()
-    print(f"{run['label']}: own stream decoded on the card in "
-          f"{time.perf_counter() - t0:.2f} s, hash {dec.hash_status}")
-    if sorted(dec.hash_status) != list(range(side["frames"])) or \
-            any(v != "OK" for v in dec.hash_status.values()):
-        fail(f"{run['label']}: the port's decoder disagrees with its "
-             "encoder on the card")
+    t0 = time.perf_counter()
+    frames = dec.decode_bytes(run["data"])
+    torch.cuda.synchronize()
+    ok = sum(1 for v in dec.hash_status.values() if v == "OK")
+    print(f"{label}: own stream decoded on the card in "
+          f"{time.perf_counter() - t0:.2f} s (host clock), {ok} of {n} MD5 "
+          f"OK, hash {dec.hash_status}")
+    if sorted(dec.hash_status) != list(range(n)) or ok != n \
+            or [f.poc for f in frames] != list(range(n)):
+        fail(f"{label}: the port's decoder disagrees with its encoder on "
+             "the card")
+    for f in frames:
+        if tuple(f.planes[0].shape) != (run["height"], run["width"]):
+            fail(f"{label} POC {f.poc}: decoded shape "
+                 f"{tuple(f.planes[0].shape)}")
+
+
+def first_difference(a: bytes, b: bytes) -> int | None:
+    """Index of the first differing byte (the shorter length if one is a
+    prefix of the other), or None when equal."""
+    if a == b:
+        return None
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return min(len(a), len(b))
+
+
+def compare_nals(label: str, got: bytes, want: bytes, only=None) -> bool:
+    """Print, NAL by NAL, whether the port's stream equals the committed
+    (JAX-encoded) one; `only` limits the comparison to one NAL type."""
+    g, w = bs.read_annexb(got), bs.read_annexb(want)
+    same = len(g) == len(w)
+    pics = -1
+    for a, b in zip(g, w):
+        if a.nal_type in (bs.NAL_IDR, bs.NAL_TRAIL):
+            pics += 1
+        if only is not None and a.nal_type != only:
+            continue
+        at = first_difference(a.payload, b.payload)
+        if at is not None or a.nal_type != b.nal_type:
+            same = False
+            print(f"{label}: NAL type {a.nal_type} of coded picture {pics} "
+                  f"differs from the committed stream's at byte {at} "
+                  f"({len(a.payload)} against {len(b.payload)} bytes)")
+    what = "whole stream" if only is None else f"NAL type {only}"
+    print(f"{label}: {what} equal to the committed stream's byte for byte: "
+          f"{same}")
+    return same
 
 
 def stage_shares(stages: dict) -> str:
@@ -375,7 +491,7 @@ def stage_shares(stages: dict) -> str:
 
 
 def print_stages(run: dict) -> None:
-    """Stage shares of a "stages" run, per picture and over the four."""
+    """Stage shares of a "stages" run, per picture and over all."""
     for r in run["rows"]:
         print(f"{run['label']} POC {r['poc']} ({r['kind']}) stage shares "
               f"({sum(r['stages'].values()):.2f} s in stages of "
@@ -389,6 +505,8 @@ def print_device_work(traced: dict, plain: dict) -> None:
     """Per picture: the device operations torch.profiler traced and their
     device time, against the untraced encode's seconds of that picture."""
     for r, p in zip(traced["rows"], plain["rows"]):
+        if r["poc"] != p["poc"]:
+            fail(f"{traced['label']}: picture order changed between runs")
         n, busy = r["device_work"]
         if n == 0:
             print(f"{traced['label']} POC {r['poc']} ({r['kind']}): device "
@@ -402,13 +520,56 @@ def print_device_work(traced: dict, plain: dict) -> None:
               f"({r['seconds']:.2f} s under the profiler)")
 
 
+def compare_positions(data: bytes, w: int, h: int):
+    """Decode `data` on the card, computing every merged-positions tensor
+    on the card and with the same code on the CPU: returns the card's
+    tensors, the (differing, total) subblock counts per call, and the
+    decoded frames."""
+    card_positions, mismatches = [], []
+    dec = DecLib(positions_fn=lambda *a: compare(*a))
+    cpu_reproj = None
+
+    def compare(active, midx, stack, bsize):
+        nonlocal cpu_reproj
+        if cpu_reproj is None:
+            cpu_reproj = MVReprojection(ERP(w, h), w, h,
+                                        dec.sps.mm.mm_offset_4x4,
+                                        device="cpu")
+        on_card = frame_codec.merged_positions(dec.reproj, active, midx,
+                                               stack, bsize)
+        on_cpu = frame_codec.merged_positions(cpu_reproj, active, midx,
+                                              stack, bsize)
+        diff = (on_card.cpu() != on_cpu).any(-1)
+        mismatches.append((int(diff.sum()), diff.numel()))
+        card_positions.append(on_card)
+        return on_card
+
+    frames = dec.decode_bytes(data)
+    for i, (n, tot) in enumerate(mismatches):
+        print(f"{w}x{h} positions call {i}: {n} of {tot} subblocks differ "
+              "card vs CPU")
+    print(f"{w}x{h} position mismatches card vs CPU: "
+          f"{sum(n for n, _ in mismatches)} of "
+          f"{sum(t for _, t in mismatches)} subblocks")
+    return card_positions, mismatches, frames
+
+
+def captured_case(key: tuple) -> dict:
+    """The tensors of the last launch with `key` = (kernel, positions
+    shape, block width) that the encodes made."""
+    if key not in mc_kernel.CAPTURED:
+        fail(f"the encodes never launched {key}; captured "
+             f"{sorted(mc_kernel.CAPTURED, key=str)}")
+    return mc_kernel.CAPTURED[key]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a "
              "CUDA device")
     dev = torch.device("cuda")
-    t_start = time.perf_counter()
     # ---- 1. build
+    phase("1. build")
     t0 = time.perf_counter()
     reports = cuda_lib.build_all()
     print(f"build: {len(reports)} CUDA source(s) in "
@@ -422,9 +583,11 @@ def main() -> None:
     print(card)
 
     # ---- 3. kernels vs plain versions
+    phase("3. kernels against their plain versions")
     max_err = check_kernels(MC_MARGIN, dev)
 
     # ---- 4. decode the 2048x1024 stream on the card
+    phase("4. decode the committed streams on the card")
     w, h = 2048, 1024
     path_launches = {}
     side = json.load(open(os.path.join(DATA, BIG + ".json")))
@@ -480,33 +643,14 @@ def main() -> None:
         fail(f"{SMALL}: MD5 mismatch on the card")
 
     # ---- 5. positions: card vs the same code on the CPU
-    card_positions = []
-    cpu_reproj = MVReprojection(ERP(w, h), w, h,
-                                dec.sps.mm.mm_offset_4x4, device="cpu")
-    mismatches = []
-
-    def compare(active, midx, stack, bs):
-        on_card = frame_codec.merged_positions(dec2.reproj, active, midx,
-                                               stack, bs)
-        on_cpu = frame_codec.merged_positions(cpu_reproj, active, midx,
-                                              stack, bs)
-        diff = (on_card.cpu() != on_cpu).any(-1)
-        mismatches.append((int(diff.sum()), diff.numel()))
-        card_positions.append(on_card)
-        return on_card
-
-    dec2 = DecLib(positions_fn=compare)
-    frames2 = dec2.decode_bytes(data)
-    for i, (n, tot) in enumerate(mismatches):
-        print(f"positions call {i}: {n} of {tot} subblocks differ "
-              "card vs CPU")
-    print(f"position mismatches card vs CPU: "
-          f"{sum(n for n, _ in mismatches)} of "
-          f"{sum(t for _, t in mismatches)} subblocks")
+    phase("5. positions, card against CPU")
+    card_positions, mismatches, frames2 = compare_positions(data, w, h)
     same = [a.md5() == b.md5() for a, b in zip(frames, frames2)]
     print(f"second decode identical to the first: {same}")
     if not all(same):
         fail("the positions hook changed the decode")
+    small_data = open(os.path.join(DATA, SMALL + ".bin"), "rb").read()
+    _, small_mismatches, _ = compare_positions(small_data, 256, 128)
 
     # everything downstream of the positions (MC, bi-combine, dequant,
     # inverse transform, deblock, SAO, ALF) is integer math: the plain
@@ -528,32 +672,193 @@ def main() -> None:
         fail("the card's reconstruction differs from the CPU's on the "
              "same positions")
 
-    # ---- 6./7. encode on the card, decode the own stream on the card
+    # ---- 6./7. sequences against the JAX encoder's record (GOP 4)
+    phase("6./7. sequences against the JAX encoder's record")
     mc_kernel.CAPTURED = {}
-    for label, stream, need, hold in (
-            ("encode 2048x1024", BIG,
-             ("mc_luma_positions", "mc_chroma_positions",
-              "sad_block_positions", "mc_block_positions"), True),
-            ("encode 256x128", SMALL,
-             ("mc_luma_positions", "mc_chroma_positions",
-              "sad_luma_positions"), False)):
-        run = encode_path(label, stream, "plain")
-        path_launches[label] = run["launches"]
-        check_encode(run, need, hold)
-        timed = encode_path(label, stream, "stages")
-        traced = encode_path(label, stream, "trace")
-        for again in (timed, traced):
-            if [n.payload for n in again["nals"]] != \
-                    [n.payload for n in run["nals"]]:
-                fail(f"{label}: another encode gave other bytes")
-        print_stages(timed)
-        print_device_work(traced, run)
-    captured, mc_kernel.CAPTURED = mc_kernel.CAPTURED, None
+    sequences_against_record(path_launches,
+                             sum(n for n, _ in small_mismatches))
 
-    # ---- 8. time the kernels on the main paths' inputs
+    # ---- 8. the headline sequence: 17 frames, GOP 16, 2048x1024
+    phase("8. the headline sequence")
+    clip = realistic_sequence(w, h, HEADLINE_FRAMES)
+    headline_sequence("sequence 2048x1024 GOP 16",
+                      headline_cfg(w, h, 37, HEADLINE_GOP), clip,
+                      ("mc_luma_positions", "mc_chroma_positions",
+                       "sad_block_positions", "mc_block_positions"),
+                      path_launches)
+
+    # ---- 9. decision SADs through K6 (and K5 beside it)
+    phase("9. decision SADs")
     positions = card_positions[-1].to(torch.int32).contiguous()
     ref_pic = frames[0].planes
-    refp_y = pad_ref(ref_pic[0], MC_MARGIN, True)
+    full_grid = full_grid_case(ref_pic[0], clip[1][0], positions, dev)
+    decision_sads(full_grid, path_launches)
+    captured, mc_kernel.CAPTURED = mc_kernel.CAPTURED, None
+
+    # ---- 10. time the kernels on the main paths' inputs
+    phase("10. kernel times")
+    out = time_kernels(captured, full_grid, ref_pic, positions, max_err,
+                       path_launches, card, w, h)
+    phase("done")
+    print(json.dumps({"kernels": list(out.values())}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def sequences_against_record(path_launches: dict, small_positions_off: int
+                             ) -> None:
+    """Phases 6 and 7."""
+    for label, stream, need in (
+            ("sequence 2048x1024 GOP 4", BIG,
+             ("mc_luma_positions", "mc_chroma_positions",
+              "sad_block_positions", "mc_block_positions")),
+            ("sequence 256x128 GOP 4", SMALL,
+             ("mc_luma_positions", "mc_chroma_positions",
+              "sad_luma_positions"))):
+        sd = json.load(open(os.path.join(DATA, stream + ".json")))
+        committed = open(os.path.join(DATA, stream + ".bin"), "rb").read()
+        cfg = headline_cfg(sd["width"], sd["height"], sd["qp"],
+                           sd["gop_size"], sd["search_range"])
+        if (sd["gop"], sd["qt_depth"], sd["wrap_around"]) != \
+                (cfg.gop, cfg.qt_depth, cfg.wrap_around):
+            fail(f"{stream}: the sidecar names another configuration")
+        clip = realistic_sequence(sd["width"], sd["height"], sd["frames"])
+        run = encode_run(label, cfg, clip, "plain")
+        path_launches[label] = run["launches"]
+        big = stream == BIG
+        # at 256x128 the byte comparison below is the stricter check
+        check_run(run, need, {p["poc"]: p for p in sd["pocs"]}, hold=big)
+        again = [encode_run(label, cfg, clip, "stages")]
+        if not big:
+            again.append(encode_run(label, cfg, clip, "trace"))
+        for other in again:
+            if other["data"] != run["data"]:
+                fail(f"{label}: another encode gave other bytes")
+        print_stages(again[0])
+        if big:
+            compare_nals(label, run["data"], committed, only=bs.NAL_IDR)
+        else:
+            print_device_work(again[1], run)
+            if not compare_nals(label, run["data"], committed) \
+                    and small_positions_off == 0:
+                fail(f"{label}: the card's positions equal the CPU's, yet "
+                     "the stream differs from the JAX encoder's")
+
+
+def headline_sequence(label: str, cfg: EncCfg, clip: list, need: tuple,
+                      path_launches: dict) -> None:
+    """Phase 8."""
+    n = len(clip)
+    first = encode_run(label + " (first call)", cfg, clip, "plain")
+    path_launches[label] = first["launches"]
+    check_run(first, need)
+    runs = [encode_run(label, cfg, clip, "plain") for _ in range(3)]
+    for r in runs:
+        if r["data"] != first["data"]:
+            fail(f"{label}: another encode gave other bytes")
+    secs = sorted(r["seconds"] for r in runs)
+    med = statistics.median(secs)
+    print(f"{label}: first call {first['seconds']:.2f} s; three more: "
+          f"{', '.join(f'{x:.2f}' for x in secs)} s (host clock), median "
+          f"{med:.2f} s = {n / med:.3f} frames per second, spread "
+          f"(max - min) {secs[-1] - secs[0]:.2f} s = "
+          f"{100 * (secs[-1] - secs[0]) / med:.1f}% of the median")
+    for kind in sorted({r["kind"] for r in runs[0]["rows"]}):
+        per = [r["seconds"] for run in runs for r in run["rows"]
+               if r["kind"] == kind]
+        print(f"{label}: {kind} pictures {min(per):.2f}-{max(per):.2f} s, "
+              f"median {statistics.median(per):.2f} s over {len(per)} "
+              "encodes (host clock)")
+    traced = encode_run(label + " (traced)", cfg, clip, "trace")
+    if traced["data"] != first["data"]:
+        fail(f"{label}: the traced encode gave other bytes")
+    print_device_work(traced, runs[0])
+    # the I picture's decode alone, untraced then traced
+    head = bs.write_annexb(bs.read_annexb(first["data"])[:4])
+    for trace in (False, True):
+        prof = _profiler() if trace else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if prof is not None:
+            prof.start()
+        idec = DecLib()
+        idec.decode_bytes(head)
+        torch.cuda.synchronize()
+        if prof is not None:
+            prof.stop()
+        took = time.perf_counter() - t0
+        if idec.hash_status != {0: "OK"}:
+            fail(f"{label}: I picture decode, hash {idec.hash_status}")
+        if not trace:
+            i_decode_s = took
+            print(f"{label}: I picture decoded alone in {took:.2f} s (host "
+                  "clock)")
+            continue
+        n_ops, busy = device_work(prof)
+        if n_ops == 0:
+            print(f"{label}: I picture decode: device operations not "
+                  "measured (the profiler traced none)")
+        else:
+            print(f"{label}: I picture decode: {n_ops} device operations, "
+                  f"{busy:.4f} s of device time; untraced it took "
+                  f"{i_decode_s:.2f} s: the card is idle "
+                  f"{100 * (1 - busy / i_decode_s):.1f}% of it "
+                  f"({took:.2f} s under the profiler)")
+
+
+def full_grid_case(ref_y, src_y: np.ndarray, positions, dev) -> dict:
+    """One full-picture subblock grid for K5 and K6: not on a codec path
+    (2048x1024 takes K3/K4); a decoded picture as the reference, the next
+    source picture as the original, and the decode's merged positions
+    shifted five ways."""
+    shifts = torch.tensor([(0, 0), (0, -64), (-64, 0), (64, 0), (0, 64)],
+                          dtype=torch.int32, device=dev)
+    return dict(
+        ref_padded=pad_ref(ref_y, MC_MARGIN, True),
+        orig=torch.as_tensor(src_y.astype(np.int32), device=dev),
+        margin=MC_MARGIN, s=None, bit_depth=8,
+        positions=(positions[None] + shifts[:, None, None, :]).contiguous())
+
+
+def decision_sads(full_grid: dict, path_launches: dict) -> None:
+    """Phase 9."""
+    # (captured K5 grid of the 256x128 diamonds, block size, row step,
+    # column step), as _make_eval_subblock sets them
+    decision_cases = [(captured_case(("sad_luma_positions", (5, 32, 64, 2),
+                                      None)), 8, 1, 1),
+                      (captured_case(("sad_luma_positions", (5, 8, 32, 2),
+                                      None)), 16, 4, 2),
+                      (full_grid, 16, 1, 1)]
+    mc_kernel.reset_launches()
+    for c, s_blk, row_step, col_step in decision_cases:
+        args = (c["ref_padded"], c["orig"], c["positions"])
+        tail = (s_blk, row_step, col_step)
+        bil = frame_codec._sad_fields_bilin(*args, *tail, exact=False)
+        ex = frame_codec._sad_fields_bilin(*args, *tail, exact=True,
+                                           bit_depth=8)
+        torch.cuda.synchronize()
+        plain = frame_codec._sad_fields_bilin(
+            *(a.cpu() for a in args), *tail, exact=False)
+        if bil.shape != ex.shape or not torch.equal(bil.cpu(), plain):
+            fail(f"decision SAD {tuple(c['positions'].shape)}: the bilinear "
+                 "arm differs from its plain version")
+        agree = int((first_argmin(bil, 0) == first_argmin(ex, 0)).sum())
+        print(f"decision SAD, positions {tuple(c['positions'].shape)}, "
+              f"block {s_blk}, row/col step {row_step}/{col_step}: bilinear "
+              f"equals its plain version on {bil.numel()} SADs; the best of "
+              f"{bil.shape[0]} candidates is the same under both filters in "
+              f"{agree} of {bil[0].numel()} blocks")
+    path_launches["decision SAD"] = dict(mc_kernel.LAUNCHES)
+    if path_launches["decision SAD"]["sad_bilinear_positions"] == 0:
+        fail("the decision-SAD phase did not launch sad_bilinear_positions")
+
+
+def time_kernels(captured: dict, full_grid: dict, ref_pic, positions,
+                 max_err: dict, path_launches: dict, card: str, w: int,
+                 h: int) -> dict:
+    """Phase 10: the `kernels` records, by kernel name."""
     timed_cases = []       # (kernel, label, kernel call, plain, bound)
     for name, plane, s, taps, m in (
             ("mc_luma_positions", ref_pic[0], 4, 8, MC_MARGIN),
@@ -566,9 +871,9 @@ def main() -> None:
             lambda fn=fn, r=refp, m=m: fn(r, positions, m, 8),
             lambda fn=plain, r=refp, m=m: fn(r, positions, m, 8),
             mc_bound(refp, positions, s, taps)))
-    wanted = (("sad_block_positions", (5, 128, 256, 2), 8),
-              ("sad_block_positions", (6, 64, 128, 2), 16),
-              ("mc_block_positions", (4, 64, 128, 2), 16),
+    wanted = (("sad_block_positions", (5, h // 8, w // 8, 2), 8),
+              ("sad_block_positions", (6, h // 16, w // 16, 2), 16),
+              ("mc_block_positions", (4, h // 16, w // 16, 2), 16),
               ("sad_luma_positions", (5, 32, 64, 2), None),
               ("sad_luma_positions", (5, 8, 32, 2), None))
     for key in wanted:
@@ -576,22 +881,20 @@ def main() -> None:
             fail(f"the encodes never launched {key}; captured "
                  f"{sorted(captured, key=str)}")
     cases = [(k[0], captured[k]) for k in wanted]
-    # K5 at the full 2048x1024 grid: not on a main path (that size
-    # takes K3/K4), timed on the decode's positions shifted 5 ways
-    src_y = torch.as_tensor(
-        realistic_sequence(w, h, 2)[1][0].astype(np.int32), device=dev)
-    shifts = torch.tensor([(0, 0), (0, -64), (-64, 0), (64, 0), (0, 64)],
-                          dtype=torch.int32, device=dev)
-    cases.append(("sad_luma_positions", dict(
-        ref_padded=refp_y, orig=src_y, margin=MC_MARGIN, s=None,
-        bit_depth=8,
-        positions=(positions[None] + shifts[:, None, None, :])
-        .contiguous())))
+    # K5 and K6 at the full 2048x1024 grid, then K6 on the 256x128 grids
+    cases.append(("sad_luma_positions", full_grid))
+    cases.append(("sad_bilinear_positions", dict(full_grid, bit_depth=None)))
+    for shape in ((5, 32, 64, 2), (5, 8, 32, 2)):
+        key = ("sad_bilinear_positions", shape, None)
+        if key not in captured:
+            fail(f"the decision-SAD phase never launched {key}")
+        cases.append((key[0], captured[key]))
     for name, c in cases:
         args = [c["ref_padded"]] + \
             ([c["orig"]] if c["orig"] is not None else []) + \
             [c["positions"], c["margin"]] + \
-            ([c["s"]] if c["s"] is not None else []) + [c["bit_depth"]]
+            ([c["s"]] if c["s"] is not None else []) + \
+            ([c["bit_depth"]] if c["bit_depth"] is not None else [])
         fn = getattr(mc_kernel, name)
         plain = getattr(mc_kernel, name + "_plain")
         label = f"positions {tuple(c['positions'].shape)}" + \
@@ -624,17 +927,14 @@ def main() -> None:
                                   for k, p in path_launches.items()},
                 max_abs_err=max_err[name], ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                cases=[])
+                device_ms=dev_ms, cases=[])
         out[name]["cases"].append(case)
+    if sorted(out) != sorted(SOURCES):
+        fail(f"kernels timed: {sorted(out)}")
     for name, k in out.items():
         if k["launches"] == 0:
             fail(f"no main path launched {name}")
-    print(f"smoke run: {time.perf_counter() - t_start:.0f} s in all")
-    print(json.dumps({"kernels": list(out.values())}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    return out
 
 
 if __name__ == "__main__":

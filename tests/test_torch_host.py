@@ -252,3 +252,64 @@ def test_content_copy_matches_bench():
         for x, y in zip(fa, fb):
             np.testing.assert_array_equal(x, y)
     assert psnr(a[0][0], a[1][0]) == jax_psnr(a[0][0], a[1][0])
+
+
+@pytest.mark.parametrize("bit_depth", [8, 10])
+def test_yuv_writer_and_reader_match_jax(tmp_path, bit_depth):
+    """A file the port's YuvWriter writes has the JAX YuvWriter's bytes
+    (out-of-range samples clipped), and reads back equal through both
+    readers, with skip_frames and the end of file."""
+    from vvc_mm_tpu.utils import yuv_io as jax_yuv
+    from vvc_mm_tpu_torch.utils import yuv_io
+    rng = np.random.default_rng(31 + bit_depth)
+    top = 1 << bit_depth
+    fmt = yuv_io.VideoFormat(48, 32, bit_depth)
+    jfmt = jax_yuv.VideoFormat(48, 32, bit_depth)
+    assert fmt.chroma_size == jfmt.chroma_size == (16, 24)
+    assert fmt.frame_bytes == jfmt.frame_bytes
+    frames = [[rng.integers(-3, top + 3, (32, 48), dtype=np.int32),
+               rng.integers(0, top, (16, 24), dtype=np.int32),
+               rng.integers(0, top, (16, 24), dtype=np.int32)]
+              for _ in range(3)]
+    paths = [str(tmp_path / "port.yuv"), str(tmp_path / "jax.yuv")]
+    with yuv_io.YuvWriter(paths[0], fmt) as wr:
+        for f in frames:
+            wr.write_frame(f)
+    jwr = jax_yuv.YuvWriter(paths[1], jfmt)
+    for f in frames:
+        jwr.write_frame(f)
+    jwr.close()
+    data = open(paths[0], "rb").read()
+    assert data == open(paths[1], "rb").read()
+    assert len(data) == 3 * fmt.frame_bytes
+    with yuv_io.YuvReader(paths[1], fmt) as rd:
+        assert rd.num_frames == 3
+        rd.skip_frames(1)
+        got = [rd.read_frame(), rd.read_frame()]
+        assert rd.read_frame() is None
+    jrd = jax_yuv.YuvReader(paths[0], jfmt)
+    jrd.skip_frames(1)
+    want = [jrd.read_frame(), jrd.read_frame()]
+    jrd.close()
+    for f, g, src in zip(got, want, frames[1:]):
+        for a, b, s in zip(f, g, src):
+            assert a.dtype == np.int32
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(a, np.clip(s, 0, top - 1))
+
+
+@pytest.mark.parametrize("bit_depth", [8, 10])
+def test_synthetic_sequence_matches_jax(bit_depth):
+    from vvc_mm_tpu.utils import yuv_io as jax_yuv
+    from vvc_mm_tpu_torch.common.typedefs import ChromaFormat
+    from vvc_mm_tpu_torch.utils import yuv_io
+    a = yuv_io.synthetic_sequence(yuv_io.VideoFormat(96, 64, bit_depth), 3)
+    b = jax_yuv.synthetic_sequence(jax_yuv.VideoFormat(96, 64, bit_depth), 3)
+    assert len(a) == len(b) == 3
+    for fa, fb in zip(a, b):
+        assert len(fa) == 3
+        for x, y in zip(fa, fb):
+            np.testing.assert_array_equal(x, y)
+    mono = yuv_io.VideoFormat(32, 16, 8, ChromaFormat.C400)
+    assert mono.frame_bytes == 32 * 16
+    assert [len(f) for f in yuv_io.synthetic_sequence(mono, 2)] == [1, 1]

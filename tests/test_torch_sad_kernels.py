@@ -161,7 +161,7 @@ def test_cpu_tensors_launch_nothing(rng):
     assert mc_kernel.LAUNCHES == before
     assert set(before) == {"mc_luma_positions", "mc_chroma_positions",
                            "sad_block_positions", "mc_block_positions",
-                           "sad_luma_positions"}
+                           "sad_luma_positions", "sad_bilinear_positions"}
     with pytest.raises(TypeError):
         mc_kernel._check_i32("k", torch.zeros(2, 2, dtype=torch.int64))
 

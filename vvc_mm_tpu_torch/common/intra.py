@@ -105,6 +105,16 @@ def _tables_flat(h: int, w: int):
     return i0.reshape(-1), i1.reshape(-1), fr.reshape(65, h, w)
 
 
+@functools.lru_cache(maxsize=None)
+def _tables_on(h: int, w: int, device: torch.device):
+    """The angular tables on `device`, copied there once (a copy per call
+    makes the host wait for the device).  Read-only."""
+    i0, i1, fr = _tables_flat(h, w)
+    return (torch.as_tensor(i0, dtype=torch.int64, device=device),
+            torch.as_tensor(i1, dtype=torch.int64, device=device),
+            torch.as_tensor(fr, dtype=torch.int32, device=device))
+
+
 def _planar(top: torch.Tensor, left: torch.Tensor, h: int, w: int
             ) -> torch.Tensor:
     """VVC planar (reference: IntraPrediction.cpp:295 xPredIntraPlanar).
@@ -163,11 +173,7 @@ def predict_all_modes(cref: torch.Tensor, h: int, w: int) -> torch.Tensor:
     b = cref.shape[0]
     planar = _pdpc(_planar(top, left, h, w), top, left, h, w)
     dc = _pdpc(_dc(top, left, h, w).expand(b, h, w), top, left, h, w)
-    i0np, i1np, frnp = _tables_flat(h, w)
-    dev = cref.device
-    i0 = torch.as_tensor(i0np, dtype=torch.int64, device=dev)
-    i1 = torch.as_tensor(i1np, dtype=torch.int64, device=dev)
-    fr = torch.as_tensor(frnp, dtype=torch.int32, device=dev)
+    i0, i1, fr = _tables_on(h, w, cref.device)
     g0 = cref[:, i0].reshape(-1, 65, h, w)
     g1 = cref[:, i1].reshape(-1, 65, h, w)
     ang = ((32 - fr)[None] * g0 + fr[None] * g1 + 16) >> 5

@@ -234,14 +234,18 @@ def _sad_fields_bilin(ref_padded, orig_sub, pos_k, block_size: int,
                       ) -> torch.Tensor:
     """Per-BLOCK decision SADs for K candidate position fields over the
     row/col-subsampled subblock grid: pos_k (K, nsy_sub, nsx_sub, 2) ->
-    (K, nby, nbx) scaled back to full-SAD range.  Only the exact arm (the
-    fused 8-tap SAD, kernel K5) is here: every caller asks for it."""
-    if not exact:
-        raise NotImplementedError(
-            "bilinear decision SAD (kernel K6, sad_bilinear_positions): "
-            "ROADMAP queue 1 item 6")
-    sads = mm_mc.sad_positions_multi(ref_padded, orig_sub, pos_k,
-                                     MC_MARGIN, bit_depth)
+    (K, nby, nbx) scaled back to full-SAD range.  exact=False takes the
+    2-tap bilinear SAD (kernel K6, sad_bilinear_positions; it only ranks
+    candidates), exact=True the fused 8-tap SAD (kernel K5) — for
+    RD-critical field SADs, where bilinear's blur would favour
+    integer-position candidates.  Every caller in the codec asks for the
+    exact arm, as in the JAX package."""
+    if exact:
+        sads = mm_mc.sad_positions_multi(ref_padded, orig_sub, pos_k,
+                                         MC_MARGIN, bit_depth)
+    else:
+        sads = mm_mc.sad_bilinear_positions(ref_padded, orig_sub, pos_k,
+                                            MC_MARGIN)
     k, ny, nx = sads.shape
     rows_pb = block_size // 4 // row_step
     cols_pb = block_size // 4 // col_step

@@ -4,8 +4,8 @@ PyTorch counterpart of `vvc_mm_tpu/common/mm/mc.py` (reference:
 source/Lib/CommonLib/InterPrediction.cpp:683-860 xPredInterBlkMM).  Every
 4x4 luma (2x2 chroma) subblock has an absolute 1/16-pel target position;
 the MC itself is kernels K1/K2 in ops/mc_kernel.py and the search's
-decision SADs are K3-K5 there; all take their plain versions for CPU
-tensors.  Out-of-range subblocks clamp into the padded
+decision SADs are K3-K6 there (K6, sad_bilinear_positions, is the 2-tap
+bilinear one); all take their plain versions for CPU tensors.  Out-of-range subblocks clamp into the padded
 reference, as in the JAX package.
 """
 from __future__ import annotations
@@ -13,12 +13,12 @@ from __future__ import annotations
 import torch
 
 from ...ops.mc_kernel import (mc_block_positions, mc_chroma_positions,
-                              mc_luma_positions, sad_block_positions,
-                              sad_luma_positions)
+                              mc_luma_positions, sad_bilinear_positions,
+                              sad_block_positions, sad_luma_positions)
 
 __all__ = ["mc_luma_positions", "mc_chroma_positions", "classic_positions",
            "sad_block_positions", "mc_block_positions",
-           "sad_positions_multi"]
+           "sad_positions_multi", "sad_bilinear_positions"]
 
 # Multi-candidate exact (8-tap) per-subblock SAD, under the JAX package's
 # name for it: kernel K5.

@@ -37,7 +37,11 @@ def _matrix_np(tr_type: int, n: int) -> np.ndarray:
     return np.asarray(rom.tr_matrix(tr_type, n), dtype=np.float64)
 
 
-def _matrix(tr_type: int, n: int, device) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _matrix(tr_type: int, n: int, device: torch.device) -> torch.Tensor:
+    """The transform matrix on `device`, copied there once: a copy per
+    call makes the host wait for the device.  Read-only: every caller gets
+    the same tensor."""
     return torch.as_tensor(_matrix_np(tr_type, n), device=device)
 
 

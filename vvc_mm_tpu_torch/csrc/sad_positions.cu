@@ -1,9 +1,10 @@
 // Search-side position kernels for Hopper (sm_90a).
 //
-// K3 sad_block_positions, K4 mc_block_positions and K5 sad_luma_positions:
-// the decision SADs of the multi-model motion search.  They replace the TPU
-// kernels vvc_mm_tpu/ops/mc_kernel.py sad_block_positions_multi,
-// mc_block_positions_multi and sad_luma_positions_multi.
+// K3 sad_block_positions, K4 mc_block_positions, K5 sad_luma_positions and
+// K6 sad_bilinear_positions: the decision SADs of the multi-model motion
+// search.  They replace the TPU kernels vvc_mm_tpu/ops/mc_kernel.py
+// sad_block_positions_multi, mc_block_positions_multi,
+// sad_luma_positions_multi and sad_bilinear_positions_multi.
 //
 //   K3/K4  For K candidate fields and every s-wide block: predict the
 //          block's first 4-row band with the H.266 8-tap separable filter
@@ -12,8 +13,11 @@
 //   K5     For K candidate fields and every 4x4 subblock: predict the
 //          subblock at its own position (as K1 does) and return its SAD
 //          against the original.
+//   K6     As K5 with the 2-tap bilinear filter (a 5x5 patch at the floor
+//          position, no tap offset, no clip to the bit depth): the cheap
+//          ranking SAD of a search's decision stages.
 //
-// Bound: memory traffic for all three at the codec's shapes (the padded
+// Bound: memory traffic for all four at the codec's shapes (the padded
 // plane, the positions and the original are read once, a few MB; the
 // filter work is a few hundred M integer MACs).
 // Design, K3/K4: one warp per (candidate, block).  The warp filters the
@@ -23,6 +27,9 @@
 // Design, K5: one half-warp per (candidate, subblock), one lane per output
 // sample with the 8x8 filter read straight from the plane (the 11x11 patch
 // stays in L1 between the 16 lanes), reduced over the 16 lanes.
+// Design, K6: K5's layout; a lane reads the 2x2 samples around its output
+// sample, filters the two rows horizontally and then vertically (the same
+// roundings, in the same order, as filtering all five rows first).
 // The window origin is clipped to the UNALIGNED padded shape exactly as the
 // plain versions do.  Every shape and every K >= 1 is taken: nothing of the
 // TPU kernels' layout (aligned superpatch + roll, scalar streams, the
@@ -195,6 +202,39 @@ __global__ void sad_luma_positions_kernel(const int32_t* __restrict__ ref,
     if (live && l == 0) out[item] = acc;
 }
 
+// K6: 16 lanes per (candidate, subblock), 2-tap bilinear.
+__global__ void sad_bilinear_positions_kernel(
+        const int32_t* __restrict__ ref, int hp, int wp,
+        const int32_t* __restrict__ orig, const int32_t* __restrict__ pos,
+        long long n_items, int nsy, int nsx, int margin,
+        int32_t* __restrict__ out) {
+    const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const long long item = tid >> 4;
+    const int l = threadIdx.x & 15;
+    const bool live = item < n_items;
+    int acc = 0;
+    if (live) {
+        const int sx = (int)(item % nsx);
+        const int sy = (int)((item / nsx) % nsy);
+        const int px = pos[2 * item];
+        const int py = pos[2 * item + 1];
+        const int xi = min(max((px >> 4) + margin, 0), wp - 5);
+        const int yi = min(max((py >> 4) + margin, 0), hp - 5);
+        const int fx = px & 15, fy = py & 15;
+        const int r = l >> 2, c = l & 3;
+        const int32_t* p = ref + (size_t)(yi + r) * wp + xi + c;
+        const int h0 = (p[0] * (16 - fx) + p[1] * fx + 8) >> 4;
+        const int h1 = (p[wp] * (16 - fx) + p[wp + 1] * fx + 8) >> 4;
+        const int pix = (h0 * (16 - fy) + h1 * fy + 8) >> 4;
+        acc = abs(pix - orig[(size_t)(sy * 4 + r) * (nsx * 4) + sx * 4 + c]);
+    }
+    // every lane of the warp takes part; a half-warp sums its 16 lanes
+#pragma unroll
+    for (int d = 8; d > 0; d >>= 1)
+        acc += __shfl_down_sync(0xffffffffu, acc, d, 16);
+    if (live && l == 0) out[item] = acc;
+}
+
 extern "C" int sad_block_positions(const void* ref, int hp, int wp,
                                    const void* orig_bands, const void* pos,
                                    int n_k, int nby, int nbx, int s,
@@ -225,5 +265,20 @@ extern "C" int sad_luma_positions(const void* ref, int hp, int wp,
         (const int32_t*)ref, hp, wp, (const int32_t*)orig,
         (const int32_t*)pos, n_items, nsy, nsx, margin, bit_depth,
         (int32_t*)out);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int sad_bilinear_positions(const void* ref, int hp, int wp,
+                                      const void* orig, const void* pos,
+                                      int n_k, int nsy, int nsx, int margin,
+                                      void* out, void* stream) {
+    const long long n_items = (long long)n_k * nsy * nsx;
+    const int threads = 256;
+    const long long blocks = (n_items * 16 + threads - 1) / threads;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    sad_bilinear_positions_kernel<<<(unsigned)blocks, threads, 0,
+                                    (cudaStream_t)stream>>>(
+        (const int32_t*)ref, hp, wp, (const int32_t*)orig,
+        (const int32_t*)pos, n_items, nsy, nsx, margin, (int32_t*)out);
     return (int)cudaGetLastError();
 }

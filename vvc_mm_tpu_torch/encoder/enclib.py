@@ -1,19 +1,23 @@
-"""Top-level encoder library — the inter-picture path.
+"""Top-level encoder library.
 
 PyTorch counterpart of `vvc_mm_tpu/encoder/enclib.py` (reference:
 source/Lib/EncoderLib/EncLib.cpp — init:147, encode:734; EncGOP.cpp:2253
-compressGOP).  This slice encodes the multi-model P pictures (quadtree
-lattice, merge-aware) and B pictures (whole-motion merge) of the random
-access configuration:
+compressGOP).  `EncLib(cfg).encode_sequence(frames)` turns source pictures
+into Annex-B bytes: parameter sets, then per picture a slice NAL and its
+decoded-picture-hash SEI, in AI, LDP or RA (hierarchical B, CTC QP
+cascade) order.  The pictures it encodes:
 
-  search on the device (common/mm: kernels K3/K4/K5 rank the candidates)
-  -> one packed pull -> host selection (encoder/inter_coder.py)
-  -> finish on the device (K1/K2 predict, transform/quant, deblock)
-  -> SAO/ALF on the device while the host writes CABAC -> slice NAL.
+  I    wavefront intra encode on the device (common/wavefront.py) -> one
+       packed pull -> host CABAC (encoder/intra_coder.py);
+  P/B  multi-model P pictures (quadtree lattice, merge-aware) and B
+       pictures (whole-motion merge): search on the device (common/mm:
+       kernels K3/K4/K5 rank the candidates) -> one packed pull -> host
+       selection (encoder/inter_coder.py) -> finish on the device (K1/K2
+       predict, transform/quant, deblock);
+  all  SAO/ALF on the device while the host writes CABAC -> slice NAL.
 
-Encoding the I picture, the parameter sets and the sequence loop with the
-GOP16 cascade are ROADMAP queue 1 item 6; every other branch of the JAX
-package's encoder raises NotImplementedError naming its ROADMAP item.
+Every other branch of the JAX package's encoder raises
+NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -24,8 +28,9 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..common import deblock, qtree, quant
-from ..common.bitstream import BitWriter, NalUnit, NAL_SEI, NAL_TRAIL
+from ..common import deblock, qtree, quant, wavefront
+from ..common.bitstream import (BitWriter, NalUnit, NAL_IDR, NAL_PPS,
+                                NAL_SEI, NAL_SPS, NAL_TRAIL, write_annexb)
 from ..common.mm import frame_codec as mm_codec
 from ..common.mm import qt_codec
 from ..common.mm.reprojection import MVReprojection
@@ -38,6 +43,7 @@ from . import filter_stage
 from .inter_coder import (encode_b_slice_mm, encode_p_slice_qt_mm,
                           resolve_tree_qt_mm, select_merge_b_mm,
                           select_qt_mm)
+from .intra_coder import encode_intra_slice
 
 
 def _todo(what: str, item: str):
@@ -377,14 +383,65 @@ class EncLib:
                                      self.device)
         return dev
 
+    def encode_headers(self) -> list[NalUnit]:
+        """The SPS and PPS NAL units."""
+        bw = BitWriter()
+        self.sps.write(bw)
+        sps_nal = NalUnit(NAL_SPS, 0, bw.get_bytes())
+        bw = BitWriter()
+        self.pps.write(bw)
+        return [sps_nal, NalUnit(NAL_PPS, 0, bw.get_bytes())]
+
+    def encode_intra_frame(self, poc: int, planes: list[np.ndarray],
+                           qp: int | None = None
+                           ) -> tuple[NalUnit, FrameResult]:
+        """IDR picture: closed-loop wavefront intra encode on the device,
+        one packed pull of the nine per-step outputs, host CABAC while the
+        device runs SAO and the ALF statistics."""
+        cfg = self.cfg
+        qp = cfg.qp if qp is None else qp
+        t0 = time.time()
+        s = cfg.intra_block_size
+        self._mm_seed = None        # closed GOP: no temporal seed across IDR
+        self._mm_seed_qt = None
+        dev = xfer.upload_planes(planes, cfg.bit_depth, self.device)
+        nby, nbx = cfg.height // s, cfg.width // s
+        with profiling.stage("intra_search") as ps:
+            outs, recon = wavefront.encode_intra_frame(
+                dev[0], dev[1], dev[2], qp, s, cfg.bit_depth)
+            if cfg.deblocking:
+                bs_v, bs_h = deblock.boundary_strengths_intra(nby, nbx,
+                                                              self.device)
+                ry, ru, rv = deblock.deblock_frame(
+                    recon["y"], recon["u"], recon["v"], bs_v, bs_h, s, qp,
+                    cfg.bit_depth)
+                recon = dict(y=ry, u=ru, v=rv)
+            ps.set_sync(self.device)
+
+        def make_payload():
+            # ONE packed int16 copy for all mode/level outputs (modes fit
+            # uint8, levels int16)
+            pulled = xfer.pull_levels(*outs)
+            coords, valid = wavefront.wavefront_coords(nby, nbx)
+            modes, _, _, _, _, _, ly, lu, lv = (
+                wavefront.steps_to_grid(p, coords, valid) for p in pulled)
+            return encode_intra_slice(modes, ly, lu, lv)
+
+        return self._finish_slice_overlap(
+            poc, planes, recon, make_payload, qp, t0, SliceType.I, [], [],
+            None, 0, dev, NAL_IDR)
+
     def encode_p_frame(self, poc: int, planes: list[np.ndarray],
                        ref: list[np.ndarray], ref_poc: int,
-                       qp: int | None = None
+                       qp: int | None = None,
+                       ref2: list[np.ndarray] | None = None,
+                       ref2_poc: int = -1
                        ) -> tuple[NalUnit, FrameResult]:
         """P encode against one reference reconstruction (reference:
-        EncGOP::compressGOP inter picture path).  The JAX package's second
-        reference only acts on its classic merge path (ROADMAP queue 1
-        item 8), which the multi-model configuration never takes."""
+        EncGOP::compressGOP inter picture path).  `ref2` / `ref2_poc` are
+        the JAX package's second reference: it only acts on the classic
+        merge path there (ROADMAP queue 1 item 8) and is ignored whenever a
+        multi-model tool is on, so it is accepted and ignored here."""
         cfg = self.cfg
         if cfg.qt_depth <= 0:
             _todo("fixed-grid multi-model P pictures", "8")
@@ -514,8 +571,8 @@ class EncLib:
 
     def _finish_slice_overlap(self, poc, planes, recon, make_payload, qp,
                               t0, slice_type, ref_pocs_l0, ref_pocs_l1,
-                              epipole_delta, tid, dev):
-        """Inter-frame tail with entropy/filter overlap: enqueue the
+                              epipole_delta, tid, dev, nal_type=NAL_TRAIL):
+        """Picture tail with entropy/filter overlap: enqueue the
         SAO + ALF-stats device stages first (no host wait), run the host
         entropy pass (make_payload pulls the coded grids and writes CABAC)
         while the device chain executes, then finish the filters.  The
@@ -560,7 +617,7 @@ class EncLib:
         bw = BitWriter()
         sh.write(bw, self.sps)
         bw.write_bytes(payload)
-        nal = NalUnit(NAL_TRAIL, tid, bw.get_bytes())
+        nal = NalUnit(nal_type, tid, bw.get_bytes())
         self._dpb_dev[poc] = (recon["y"], recon["u"], recon["v"])
         with profiling.stage("recon_pull"):
             rec, psnrs = xfer.finalize_recon(recon, dev, cfg.bit_depth)
@@ -571,6 +628,83 @@ class EncLib:
         self._finish_frame(res, planes)
         self.results.append(res)
         return nal, res
+
+    def encode_sequence(self, frames: list[list[np.ndarray]]) -> bytes:
+        """Encode a frame list -> Annex-B bytes (AI / LDP / RA GOP)."""
+        cfg = self.cfg
+        nalus = self.encode_headers()
+        cascade = cfg.ctc_qp_offsets and cfg.gop == "RA"
+
+        def qp_of(kind, tid=0):
+            return ctc_qp(cfg.qp, kind, tid) if cascade else None
+
+        if cfg.gop == "RA" and len(frames) > 1:
+            dpb: dict[int, list[np.ndarray]] = {}
+            nal, res = self.encode_intra_frame(0, frames[0], qp=qp_of("I"))
+            nalus.append(nal)
+            if cfg.picture_hash_sei:
+                nalus.append(self._hash_sei(0, res.recon))
+            dpb[0] = res.recon
+            # GOP-anchor P frames take the previous TWO anchors as their
+            # reference list (RPL from the GOP structure; reference:
+            # EncLib.cpp:2213 RPL selection, cfg GOP tables)
+            anchors = [0]
+            order = []
+            for poc, r0, r1, tid in ra_coding_order(len(frames),
+                                                    cfg.gop_size):
+                r2 = -1
+                if r1 < 0:
+                    r2 = anchors[-2] if len(anchors) >= 2 else -1
+                    anchors.append(poc)
+                order.append((poc, r0, r1, r2, tid))
+            for i, (poc, r0, r1, r2, tid) in enumerate(order):
+                if r1 < 0:
+                    nal, res = self.encode_p_frame(
+                        poc, frames[poc], dpb[r0], r0, qp=qp_of("P"),
+                        ref2=dpb.get(r2) if r2 >= 0 else None, ref2_poc=r2)
+                else:
+                    nal, res = self.encode_b_frame(
+                        poc, frames[poc], dpb[r0], r0, dpb[r1], r1, tid,
+                        qp=qp_of("B", tid))
+                dpb[poc] = res.recon
+                nalus.append(nal)
+                if cfg.picture_hash_sei:
+                    nalus.append(self._hash_sei(
+                        poc, res.recon, max(tid, 0) if r1 >= 0 else 0))
+                # prune the device-side DPB: keep only pictures still
+                # needed as references by the remaining coding order
+                needed = {p for (_, a, b, c, _t) in order[i + 1:]
+                          for p in (a, b, c) if p >= 0}
+                for p in list(self._dpb_dev):
+                    if p not in needed:
+                        del self._dpb_dev[p]
+            self.results.sort(key=lambda r: r.poc)
+            return write_annexb(nalus)
+        last_rec = prev2_rec = None
+        last_poc = prev2_poc = -1
+        for poc, planes in enumerate(frames):
+            is_intra = (cfg.gop == "AI" or last_rec is None
+                        or (cfg.intra_period > 0
+                            and poc % cfg.intra_period == 0))
+            if is_intra:
+                nal, res = self.encode_intra_frame(poc, planes)
+            else:
+                nal, res = self.encode_p_frame(
+                    poc, planes, last_rec, last_poc, ref2=prev2_rec,
+                    ref2_poc=prev2_poc)
+            # LDP: the last TWO recons stay referenceable
+            for p in list(self._dpb_dev):
+                if p not in (poc, last_poc):
+                    del self._dpb_dev[p]
+            if is_intra:
+                prev2_rec, prev2_poc = None, -1   # closed GOP: IDR only
+            else:
+                prev2_rec, prev2_poc = last_rec, last_poc
+            last_rec, last_poc = res.recon, poc
+            nalus.append(nal)
+            if cfg.picture_hash_sei:
+                nalus.append(self._hash_sei(poc, res.recon))
+        return write_annexb(nalus)
 
     def _finish_frame(self, res: FrameResult, orig: list[np.ndarray]
                       ) -> FrameResult:

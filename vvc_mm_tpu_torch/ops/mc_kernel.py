@@ -1,4 +1,4 @@
-"""K1-K5: position-based MC and decision SADs, hand-written CUDA for Hopper.
+"""K1-K6: position-based MC and decision SADs, hand-written CUDA for Hopper.
 
 Every multi-model P/B reconstruction predicts each 4x4 luma subblock (2x2
 chroma, 4:2:0) from its own absolute position: 1/16 pel for luma, the same
@@ -17,16 +17,19 @@ candidates with SADs of such predictions.
   K5 sad_luma_positions  replaces sad_luma_positions_multi: for K fields,
                          K1's per-subblock prediction fused with the SAD
                          against the original.
+  K6 sad_bilinear_positions replaces sad_bilinear_positions_multi: K5
+                         with the 2-tap bilinear filter on a 5x5 patch,
+                         the cheap SAD that only ranks candidates.
 
-K1/K2 live in csrc/mc_positions.cu, K3-K5 in csrc/sad_positions.cu.  All
+K1/K2 live in csrc/mc_positions.cu, K3-K6 in csrc/sad_positions.cu.  All
 are bound by memory traffic: each reads the padded reference plane, the
 positions (and the original) once and writes its result, and their integer
 filter work is far below the card's rate (design notes in the sources).
 
 Beside each kernel sits its plain PyTorch version, ported from the JAX
 package's XLA mirror (`common/mm/mc.py` _mc_luma_positions_xla /
-_mc_chroma_positions_xla, sad_block_positions_xla, mc_block_positions_xla
-and the loop of sad_positions_multi).  The wrapper takes the plain version only for a
+_mc_chroma_positions_xla, sad_block_positions_xla, mc_block_positions_xla,
+the loop of sad_positions_multi and sad_bilinear_positions_xla).  The wrapper takes the plain version only for a
 reference plane that lies on the CPU; for a CUDA tensor it launches the
 kernel or raises.  `LAUNCHES` counts kernel launches, per kernel.
 """
@@ -42,7 +45,7 @@ from . import cuda_lib
 
 LAUNCHES = {"mc_luma_positions": 0, "mc_chroma_positions": 0,
             "sad_block_positions": 0, "mc_block_positions": 0,
-            "sad_luma_positions": 0}
+            "sad_luma_positions": 0, "sad_bilinear_positions": 0}
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -229,6 +232,28 @@ def sad_luma_positions_plain(ref_padded: torch.Tensor, orig: torch.Tensor,
     return torch.stack(outs).to(torch.int32)
 
 
+def sad_bilinear_positions_plain(ref_padded: torch.Tensor,
+                                 orig: torch.Tensor, positions: torch.Tensor,
+                                 margin: int) -> torch.Tensor:
+    """Per-4x4-subblock decision SADs with 2-tap bilinear interpolation for
+    K candidate fields (ranks search candidates only): a 5x5 patch at the
+    floor position, no clip to the bit depth.  orig (4*nsy, 4*nsx),
+    positions (K, nsy, nsx, 2) -> (K, nsy, nsx) int32."""
+    k, nsy, nsx, _ = positions.shape
+    pos = positions.reshape(-1, 2)
+    xi = torch.clamp((pos[:, 0] >> 4) + margin, 0, ref_padded.shape[1] - 5)
+    yi = torch.clamp((pos[:, 1] >> 4) + margin, 0, ref_padded.shape[0] - 5)
+    patch = interp.gather_patches_t(ref_padded, yi, xi, 5, 5)   # (5, 5, B)
+    fx = (pos[:, 0] & 15)[None, None, :]
+    fy = (pos[:, 1] & 15)[None, None, :]
+    h = (patch[:, 0:4] * (16 - fx) + patch[:, 1:5] * fx + 8) >> 4
+    pix = (h[0:4] * (16 - fy) + h[1:5] * fy + 8) >> 4           # (4, 4, B)
+    ob = orig.reshape(nsy, 4, nsx, 4).permute(1, 3, 0, 2)
+    ob = ob.reshape(4, 4, nsy * nsx).repeat(1, 1, k)
+    return (pix - ob).abs().sum(dim=(0, 1)).reshape(k, nsy, nsx) \
+        .to(torch.int32)
+
+
 def _check_i32(name: str, ref_padded: torch.Tensor, *others: torch.Tensor
                ) -> None:
     for t in (ref_padded, *others):
@@ -238,13 +263,17 @@ def _check_i32(name: str, ref_padded: torch.Tensor, *others: torch.Tensor
             raise ValueError(f"{name}: tensors on different devices")
 
 
+_BAND_ROWS = 4 + NTAPS_LUMA - 1      # rows an 8-tap filter reads for 4 rows
+
+
 def _launch_search(name: str, ref_padded: torch.Tensor, positions:
-                   torch.Tensor, out_shape: tuple, win_w: int, margin: int,
-                   bit_depth: int, orig: torch.Tensor | None,
+                   torch.Tensor, out_shape: tuple, win: tuple, margin: int,
+                   bit_depth: int | None, orig: torch.Tensor | None,
                    s: int | None) -> torch.Tensor:
     """Launch one of csrc/sad_positions.cu's kernels.  `orig` is the
     original band plane / plane (None for K4), `s` the block width (None
-    for K5), `win_w` the window width the plane must hold."""
+    for K5 and K6), `bit_depth` None for K6 (which does not clip), `win`
+    the (rows, columns) window the plane must hold."""
     others = (positions,) if orig is None else (positions, orig)
     _check_i32(name, ref_padded, *others)
     if ref_padded.dim() != 2 or positions.dim() != 4 \
@@ -252,7 +281,8 @@ def _launch_search(name: str, ref_padded: torch.Tensor, positions:
         raise ValueError(f"{name}: shapes {tuple(ref_padded.shape)} / "
                          f"{tuple(positions.shape)}")
     hp, wp = ref_padded.shape
-    if hp < 4 + NTAPS_LUMA - 1 or wp < win_w or not 8 <= bit_depth <= 14:
+    if hp < win[0] or wp < win[1] or \
+            (bit_depth is not None and not 8 <= bit_depth <= 14):
         raise ValueError(f"{name}: plane {hp}x{wp} / bit depth {bit_depth}")
     k, ny, nx, _ = positions.shape
     out = torch.empty(out_shape, dtype=torch.int32, device=ref_padded.device)
@@ -271,8 +301,13 @@ def _launch_search(name: str, ref_padded: torch.Tensor, positions:
     if s is not None:
         args.append(s)
         types.append(ctypes.c_int)
-    args += [margin, bit_depth, out.data_ptr()]
-    types += [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    args.append(margin)
+    types.append(ctypes.c_int)
+    if bit_depth is not None:
+        args.append(bit_depth)
+        types.append(ctypes.c_int)
+    args.append(out.data_ptr())
+    types.append(ctypes.c_void_p)
     fn = getattr(cuda_lib.load("sad_positions"), name)
     fn.argtypes = types + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -304,7 +339,8 @@ def sad_block_positions(ref_padded: torch.Tensor, orig_bands: torch.Tensor,
                          f"{tuple(orig_bands.shape)} for {nby}x{nbx} blocks "
                          f"of width {s}")
     return _launch_search("sad_block_positions", ref_padded, positions,
-                          (k, nby, nbx), s + NTAPS_LUMA - 1, margin,
+                          (k, nby, nbx), (_BAND_ROWS, s + NTAPS_LUMA - 1),
+                          margin,
                           bit_depth, orig_bands, s)
 
 
@@ -317,7 +353,8 @@ def mc_block_positions(ref_padded: torch.Tensor, positions: torch.Tensor,
                                         bit_depth)
     k, nby, nbx, _ = positions.shape
     return _launch_search("mc_block_positions", ref_padded, positions,
-                          (k, nby * 4, nbx * s), s + NTAPS_LUMA - 1, margin,
+                          (k, nby * 4, nbx * s),
+                          (_BAND_ROWS, s + NTAPS_LUMA - 1), margin,
                           bit_depth, None, s)
 
 
@@ -333,5 +370,20 @@ def sad_luma_positions(ref_padded: torch.Tensor, orig: torch.Tensor,
         raise ValueError(f"sad_luma_positions: original "
                          f"{tuple(orig.shape)} for {nsy}x{nsx} subblocks")
     return _launch_search("sad_luma_positions", ref_padded, positions,
-                          (k, nsy, nsx), 4 + NTAPS_LUMA - 1, margin,
+                          (k, nsy, nsx), (_BAND_ROWS, _BAND_ROWS), margin,
                           bit_depth, orig, None)
+
+
+def sad_bilinear_positions(ref_padded: torch.Tensor, orig: torch.Tensor,
+                           positions: torch.Tensor, margin: int
+                           ) -> torch.Tensor:
+    """K6.  CPU tensors take the plain version; CUDA tensors the kernel."""
+    if ref_padded.device.type == "cpu":
+        return sad_bilinear_positions_plain(ref_padded, orig, positions,
+                                            margin)
+    k, nsy, nsx, _ = positions.shape
+    if tuple(orig.shape) != (nsy * 4, nsx * 4):
+        raise ValueError(f"sad_bilinear_positions: original "
+                         f"{tuple(orig.shape)} for {nsy}x{nsx} subblocks")
+    return _launch_search("sad_bilinear_positions", ref_padded, positions,
+                          (k, nsy, nsx), (5, 5), margin, None, orig, None)
