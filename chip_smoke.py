@@ -8,7 +8,9 @@ Phases (any failure exits non-zero and prints no result line):
   3. hold kernels K1 (luma MC), K2 (chroma MC), K3 (block-band SAD), K4
      (block-band MC), K5 (per-subblock SAD) and K6 (bilinear per-subblock
      SAD) against their plain PyTorch versions on the card, on random and
-     on extreme (clamped) positions at the main paths' shapes: bit-exact
+     on extreme (clamped) positions at the main paths' shapes, K3/K4 also
+     on diamond-like positions, at block widths 24 and 32, K = 1, 10 bit
+     and on a plane whose rows are not 16-byte aligned: bit-exact
      (tolerance 0);
   4. decode the committed 2048x1024 ERP multi-model RA stream with
      DecLib() on CUDA, counting kernel launches: the I picture's MD5 must
@@ -40,7 +42,8 @@ Phases (any failure exits non-zero and prints no result line):
      GOP 16, 17 frames, MPA+ROT, quadtree depth 1, QP 37 with the cascade)
      through encode_sequence on the card, then DecLib() on the card: 17 of
      17 MD5s must match and K1-K4 must be launched; per-picture bits,
-     Y-PSNR and seconds and the frames per second are printed.  Three more
+     Y-PSNR and seconds, the frames per second and the stream's SHA-256
+     are printed.  Three more
      encodes give the median and the spread of the sequence's seconds and
      must give the same bytes; one more under torch.profiler gives every
      picture's device operations, device time and idle share, and the I
@@ -52,10 +55,12 @@ Phases (any failure exits non-zero and prints no result line):
      launched, and the blocks whose best candidate is the same under both
      filters are counted;
  10. time each kernel and its plain version on inputs captured from those
-     runs, print the `kernels` line, then the result line.
+     runs, print the `kernels` line (K3/K4 launches also by block width and
+     candidate count), then the result line.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import statistics
@@ -89,8 +94,12 @@ BITS_TOL = 1.02
 MIN_PSNR_Y_DB = 25.0           # sanity floor where no record exists
 HEADLINE_FRAMES, HEADLINE_GOP = 17, 16
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
-F32_OPS_PER_S = 67e12          # H100 SXM non-tensor float32 rate (the
-                               # table's nearest entry for int32 MACs)
+# H100 SXM int32 multiply-add rate: 132 SMs x 64 IMAD a clock (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0: half the 128 of fp32 FMA) x 1.98 GHz x 2 operations.  Every kernel
+# of the port filters in int32, so this rate, not the 67 TFLOP/s of fp32,
+# bounds their operations.
+I32_OPS_PER_S = 33.5e12
 SOURCES = {"mc_luma_positions": "mc_positions.cu",
            "mc_chroma_positions": "mc_positions.cu",
            "sad_block_positions": "sad_positions.cu",
@@ -164,10 +173,10 @@ def device_ms(fn, iters: int = 20) -> float | None:
 
 def bound_ms(n_words: int, macs: int) -> tuple[float, str]:
     """Least time on the card for one call: its bytes (every input and
-    output int32 word once) over the memory rate, against its MACs (2
-    operations each) over the non-tensor rate."""
+    output int32 word once) over the memory rate, against its integer MACs
+    (2 operations each) over the int32 multiply-add rate."""
     t_bytes = 4 * n_words / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * macs / F32_OPS_PER_S * 1e3
+    t_ops = 2 * macs / I32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -195,6 +204,22 @@ def search_bound(name: str, case: dict) -> tuple[float, str]:
     s = case["s"]
     out = k * ny * nx if name == "sad_block_positions" else k * ny * 4 * nx * s
     return bound_ms(words + out, k * ny * nx * (11 * s * 8 + 4 * s * 8))
+
+
+def diamond_positions(rng, k: int, ny: int, nx: int, step: int,
+                      margin_px: int = 40) -> np.ndarray:
+    """A search step's positions, (k, ny, nx, 2) int32: each block's centre
+    near the grid, then the other candidates 1-8 pel from it along x or
+    y."""
+    gx = np.arange(nx)[None, :] * step * 16
+    gy = np.arange(ny)[:, None] * step * 16
+    centre = np.stack(np.broadcast_arrays(gx, gy), -1) + rng.integers(
+        -margin_px * 8, margin_px * 8, (ny, nx, 2))
+    pos = np.repeat(centre[None], k, axis=0)
+    for i in range(1, k):
+        axis, sign = (i - 1) % 4 // 2, 1 - 2 * ((i - 1) % 2)
+        pos[i, ..., axis] += sign * 16 * rng.integers(1, 9)
+    return pos.astype(np.int32)
 
 
 def positions_pair(rng, shape, step: int, margin_px: int = 40):
@@ -225,6 +250,11 @@ def check_kernels(margin: int, dev) -> dict:
     ref_y = plane(h, w, margin)
     ref_c = plane(h // 2, w // 2, margin // 2)
     ref_small = plane(128, 256, margin)
+    # 10 bit, 536x1000: no block count a row is a multiple of a K3/K4 tile
+    ref_10 = torch.as_tensor(rng.integers(0, 1024, (536 + 2 * margin,
+                                                    1000 + 2 * margin),
+                                          dtype=np.int32), device=dev)
+    ref_odd = ref_10[:, 3:].contiguous()    # rows not 16-byte aligned
     cases = []      # (kernel, label, kernel call, plain call) per positions
     for pos in positions_pair(rng, (h // 4, w // 4), 4):
         p = t(pos)
@@ -238,24 +268,36 @@ def check_kernels(margin: int, dev) -> dict:
                           ref_c, p, margin // 2, 8),
                       lambda p=p: mc_kernel.mc_chroma_positions_plain(
                           ref_c, p, margin // 2, 8)))
-    for s, k in ((8, 5), (16, 6)):
-        bands = t(rng.integers(0, 256, (h // s * 4, w), dtype=np.int32))
-        for pos in positions_pair(rng, (k, h // s, w // s), s):
+    # K3/K4: the main path's (s, K) first, then widths 32 and 24, K = 1, 5,
+    # 6, 10 bit, a plane whose rows are not 16-byte aligned (the kernels'
+    # scalar-load path); random, clamped and diamond-like positions each
+    for s, k, ref, bd in ((8, 5, ref_y, 8), (16, 6, ref_y, 8),
+                          (16, 4, ref_y, 8), (32, 1, ref_y, 8),
+                          (24, 5, ref_y, 8), (8, 1, ref_10, 10),
+                          (16, 6, ref_10, 10), (24, 6, ref_10, 10),
+                          (32, 5, ref_10, 10), (8, 5, ref_odd, 10),
+                          (16, 4, ref_odd, 10)):
+        ny, nx = (ref.shape[0] - 2 * margin) // s, \
+            (ref.shape[1] - 2 * margin) // s
+        bands = t(rng.integers(0, 1 << bd, (ny * 4, nx * s), dtype=np.int32))
+        label = f"s={s} K={k} {bd} bit, {ny}x{nx} blocks, plane width " \
+            f"{ref.shape[1]}"
+        for pos in (*positions_pair(rng, (k, ny, nx), s),
+                    diamond_positions(rng, k, ny, nx, s)):
             p = t(pos)
-            cases.append(("sad_block_positions", f"s={s} K={k}",
-                          lambda p=p, b=bands, s=s:
-                          mc_kernel.sad_block_positions(ref_y, b, p, margin,
-                                                        s, 8),
-                          lambda p=p, b=bands, s=s:
+            cases.append(("sad_block_positions", label,
+                          lambda p=p, b=bands, s=s, r=ref, bd=bd:
+                          mc_kernel.sad_block_positions(r, b, p, margin, s,
+                                                        bd),
+                          lambda p=p, b=bands, s=s, r=ref, bd=bd:
                           mc_kernel.sad_block_positions_plain(
-                              ref_y, b, p, margin, s, 8)))
-    for pos in positions_pair(rng, (4, h // 16, w // 16), 16):
-        p = t(pos)
-        cases.append(("mc_block_positions", "s=16 K=4",
-                      lambda p=p: mc_kernel.mc_block_positions(
-                          ref_y, p, margin, 16, 8),
-                      lambda p=p: mc_kernel.mc_block_positions_plain(
-                          ref_y, p, margin, 16, 8)))
+                              r, b, p, margin, s, bd)))
+            cases.append(("mc_block_positions", label,
+                          lambda p=p, s=s, r=ref, bd=bd:
+                          mc_kernel.mc_block_positions(r, p, margin, s, bd),
+                          lambda p=p, s=s, r=ref, bd=bd:
+                          mc_kernel.mc_block_positions_plain(r, p, margin, s,
+                                                             bd)))
     # K5, K6: the 256x128 search's grids (s=8 unsubsampled; s=16 keeps 1
     # of 4 subblock rows and 1 of 2 columns) and one full 2048x1024 grid
     for (ny, nx), ref in (((32, 64), ref_small), ((8, 32), ref_small),
@@ -285,11 +327,19 @@ def check_kernels(margin: int, dev) -> dict:
         max_err[name] = max(max_err[name], int((got - want).abs().max()))
     for name, err in max_err.items():
         n = sum(1 for c in cases if c[0] == name)
+        shapes = sorted({c[1] for c in cases if c[0] == name})
         print(f"{name}: max |kernel - plain| = {err} over {n} cases "
-              "(tolerance 0)")
+              f"(tolerance 0): {'; '.join(shapes)}")
         if err != 0:
             fail(f"{name} differs from its plain version")
     return max_err
+
+
+def launch_counts() -> dict:
+    """Kernel launches since the last reset_launches(), with K3's and K4's
+    by block width and candidate count under "by_shape"."""
+    return dict(mc_kernel.LAUNCHES, by_shape={
+        n: dict(d) for n, d in mc_kernel.LAUNCHES_BY_SHAPE.items()})
 
 
 def device_events(prof) -> list[tuple[str, float]]:
@@ -389,7 +439,7 @@ def encode_run(label: str, cfg: EncCfg, src: list, mode: str) -> dict:
     data = enc.encode_sequence(src)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(mc_kernel.LAUNCHES)
+    launches = launch_counts()
     profiling.enable(False)
     if len(enc.results) != len(src) or enc.summary()["frames"] != len(src):
         fail(f"{label}: {len(enc.results)} results for {len(src)} frames")
@@ -424,7 +474,8 @@ def check_run(run: dict, need: tuple, record: dict | None = None,
                      f"{ref['bits']}")
     if sorted(r["poc"] for r in run["rows"]) != list(range(n)):
         fail(f"{label}: pictures {[r['poc'] for r in run['rows']]}")
-    print(f"{label}: {n} pictures, {len(run['data'])} bytes in "
+    print(f"{label}: {n} pictures, {len(run['data'])} bytes (SHA-256 "
+          f"{hashlib.sha256(run['data']).hexdigest()}) in "
           f"{run['seconds']:.2f} s (host clock), "
           f"{n / run['seconds']:.3f} frames per second, launches "
           f"{run['launches']}")
@@ -599,7 +650,7 @@ def main() -> None:
     frames = dec.decode_bytes(data)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
-    launches = dict(mc_kernel.LAUNCHES)
+    launches = launch_counts()
     path_launches["decode 2048x1024"] = launches
     print(f"decode {BIG}: {len(frames)} pictures in {decode_s:.2f} s "
           f"(host clock, first call), launches {launches}")
@@ -850,9 +901,21 @@ def decision_sads(full_grid: dict, path_launches: dict) -> None:
               f"equals its plain version on {bil.numel()} SADs; the best of "
               f"{bil.shape[0]} candidates is the same under both filters in "
               f"{agree} of {bil[0].numel()} blocks")
-    path_launches["decision SAD"] = dict(mc_kernel.LAUNCHES)
+    path_launches["decision SAD"] = launch_counts()
     if path_launches["decision SAD"]["sad_bilinear_positions"] == 0:
         fail("the decision-SAD phase did not launch sad_bilinear_positions")
+
+
+def by_shape(name: str, path_launches: dict) -> dict:
+    """K3/K4: {"launches_by_shape": {"s=8 K=5": n, ...}} summed over the
+    paths; {} for the other kernels."""
+    if name not in mc_kernel.LAUNCHES_BY_SHAPE:
+        return {}
+    total: dict[str, int] = {}
+    for p in path_launches.values():
+        for shape, n in p["by_shape"][name].items():
+            total[shape] = total.get(shape, 0) + n
+    return {"launches_by_shape": total}
 
 
 def time_kernels(captured: dict, full_grid: dict, ref_pic, positions,
@@ -871,7 +934,11 @@ def time_kernels(captured: dict, full_grid: dict, ref_pic, positions,
             lambda fn=fn, r=refp, m=m: fn(r, positions, m, 8),
             lambda fn=plain, r=refp, m=m: fn(r, positions, m, 8),
             mc_bound(refp, positions, s, taps)))
-    wanted = (("sad_block_positions", (5, h // 8, w // 8, 2), 8),
+    # K3: its most launched shapes on the headline sequence first (s=16, K
+    # = 4 and 5), then s=8 K=5 and s=16 K=6
+    wanted = (("sad_block_positions", (4, h // 16, w // 16, 2), 16),
+              ("sad_block_positions", (5, h // 16, w // 16, 2), 16),
+              ("sad_block_positions", (5, h // 8, w // 8, 2), 8),
               ("sad_block_positions", (6, h // 16, w // 16, 2), 16),
               ("mc_block_positions", (4, h // 16, w // 16, 2), 16),
               ("sad_luma_positions", (5, 32, 64, 2), None),
@@ -925,6 +992,7 @@ def time_kernels(captured: dict, full_grid: dict, ref_pic, positions,
                 launches=sum(p[name] for p in path_launches.values()),
                 launches_by_path={k: p[name]
                                   for k, p in path_launches.items()},
+                **by_shape(name, path_launches),
                 max_abs_err=max_err[name], ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 device_ms=dev_ms, cases=[])

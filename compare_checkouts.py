@@ -1,0 +1,107 @@
+"""Run the port of one or more checkouts of this repository on one GPU and
+compare them: the headline stream's SHA-256 and the host time of a kernel
+wrapper call.
+
+    python3 compare_checkouts.py [CHECKOUT ...]
+
+For each checkout (default: this one), in the order given and each in a
+process of its own, the checkout's own code builds its CUDA kernels, runs
+`EncLib(cfg).encode_sequence` on the card for the headline configuration
+of its `chip_smoke.py` (2048x1024 ERP, RA GOP 16, 17 frames, MPA+ROT, QP
+37), and times 300 back-to-back calls of the K5 wrapper
+`sad_luma_positions` on the 256x128 search's smallest grid (5, 8, 32, 2),
+whose kernel takes a few microseconds: the mean is the wrapper's host
+time.  One JSON line per checkout gives the stream's SHA-256 and length,
+the sequence's seconds (host clock, synchronised), the launches of each
+kernel and the wrapper's microseconds.  The last line is
+`{"same": true|false, ...}`: whether every encode gave the same bytes.
+Give the parent first and last to interleave (parent, change, change,
+parent); a changed kernel whose decisions are the same leaves the hash as
+it was.
+"""
+from __future__ import annotations
+
+import hashlib
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import time
+
+
+def encode_one(checkout: str) -> dict:
+    """Import `checkout`'s chip_smoke.py (which puts the checkout first on
+    sys.path) and encode its headline configuration on the card."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(checkout, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    import torch
+    import vvc_mm_tpu_torch
+    if not os.path.abspath(vvc_mm_tpu_torch.__file__).startswith(checkout):
+        raise RuntimeError(f"imported {vvc_mm_tpu_torch.__file__}, not the "
+                           f"package of {checkout}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("needs a CUDA device")
+    smoke.cuda_lib.build_all()
+    w, h = 2048, 1024
+    cfg = smoke.headline_cfg(w, h, 37, smoke.HEADLINE_GOP)
+    clip = smoke.realistic_sequence(w, h, smoke.HEADLINE_FRAMES)
+    smoke.mc_kernel.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data = smoke.EncLib(cfg).encode_sequence(clip)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(smoke.mc_kernel.LAUNCHES)
+    return dict(checkout=checkout, sha256=hashlib.sha256(data).hexdigest(),
+                bytes=len(data), seconds=seconds, launches=launches,
+                wrapper_us=wrapper_us(smoke.mc_kernel, torch),
+                device=torch.cuda.get_device_name(0))
+
+
+def wrapper_us(mc_kernel, torch) -> float:
+    """Mean microseconds of one K5 wrapper call on a (5, 8, 32, 2) grid,
+    300 calls back to back between CUDA events."""
+    dev = torch.device("cuda")
+    ref = torch.zeros(128 + 160, 256 + 160, dtype=torch.int32, device=dev)
+    orig = torch.zeros(32, 128, dtype=torch.int32, device=dev)
+    pos = torch.zeros(5, 8, 32, 2, dtype=torch.int32, device=dev)
+    for _ in range(10):
+        mc_kernel.sad_luma_positions(ref, orig, pos, 80, 8)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(300):
+        mc_kernel.sad_luma_positions(ref, orig, pos, 80, 8)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 300 * 1e3
+
+
+def main() -> None:
+    if len(sys.argv) == 3 and sys.argv[1] == "--one":
+        print(json.dumps(encode_one(os.path.abspath(sys.argv[2]))))
+        return
+    here = os.path.dirname(os.path.abspath(__file__))
+    results = []
+    for checkout in sys.argv[1:] or [here]:
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--one",
+             os.path.abspath(checkout)], capture_output=True, text=True)
+        if out.returncode != 0:
+            print(out.stdout + out.stderr, file=sys.stderr)
+            sys.exit(f"the encode of {checkout} failed")
+        line = out.stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        results.append(json.loads(line))
+    hashes = sorted({r["sha256"] for r in results})
+    print(json.dumps({"same": len(hashes) == 1, "sha256": hashes}))
+    if len(hashes) != 1:
+        sys.exit(1)
+
+
+if __name__ == "__main__":
+    main()

@@ -230,7 +230,8 @@ def _imports(path):
 
 
 def test_port_never_imports_jax():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "compare_checkouts.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "vvc_mm_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 20

@@ -25,7 +25,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _block_setup(rng, s, k, nbx=None, h=64, w=256, m=40, extreme=False,
-                 bit_depth=8):
+                 bit_depth=8, diamond=False):
     nby = h // s
     nbx = w // s if nbx is None else nbx
     w = nbx * s
@@ -35,6 +35,18 @@ def _block_setup(rng, s, k, nbx=None, h=64, w=256, m=40, extreme=False,
     if extreme:
         pos = rng.integers(-100000, 100000, (k, nby, nbx, 2))
         pos[:, ::2, ::3] = (-(1 << 30), (1 << 30))
+    elif diamond:
+        # a search step: each block's centre, then the other candidates
+        # 1-8 pel away from it along x or y, as the diamond and the merge
+        # fields ask for nearly equal windows
+        gx = np.arange(nbx)[None, :] * s * 16
+        gy = np.arange(nby)[:, None] * s * 16
+        pos = np.repeat(np.stack(np.broadcast_arrays(gx, gy), -1)[None]
+                        + rng.integers(-m * 8, m * 8, (1, nby, nbx, 2)),
+                        k, axis=0)
+        for i in range(1, k):
+            axis, sign = (i - 1) % 4 // 2, 1 - 2 * ((i - 1) % 2)
+            pos[i, ..., axis] += sign * 16 * rng.integers(1, 9)
     else:
         pos = np.stack(
             [rng.integers(-m * 16, (w + m - s - 8) * 16, (k, nby, nbx)),
@@ -51,9 +63,11 @@ def _t(*arrs):
 
 @pytest.mark.parametrize("extreme", [False, True], ids=["random", "extreme"])
 @pytest.mark.parametrize("k", [1, 4, 5])
-@pytest.mark.parametrize("s", [8, 16, 32])
+@pytest.mark.parametrize("s", [8, 16, 32, 24])
 def test_block_kernels_plain_match_xla_and_pallas(rng, s, k, extreme):
-    """K3 and K4 plain versions == XLA mirrors == Pallas (interpret)."""
+    """K3 and K4 plain versions == XLA mirrors == Pallas (interpret).  s=24
+    is a width besides the codec's that the CUDA kernels take (no Pallas
+    case: interpret mode is slow)."""
     ref, bands, pos, m = _block_setup(rng, s, k, extreme=extreme)
     tr, tb, tp = _t(ref, bands, pos)
     jr, jb, jp = (jnp.asarray(a) for a in (ref, bands, pos))
@@ -166,30 +180,64 @@ def test_cpu_tensors_launch_nothing(rng):
         mc_kernel._check_i32("k", torch.zeros(2, 2, dtype=torch.int64))
 
 
+def test_band_kernels_refuse_what_they_do_not_take():
+    """K3/K4 take block widths that are multiples of 4 in [4, 512] and
+    sizes whose indices fit in 31 bits; the wrappers raise for others
+    before any launch."""
+    ref = torch.zeros(200, 300, dtype=torch.int32)
+    ok = torch.zeros(1, 1, 1, 2, dtype=torch.int32)
+    for s in (4, 8, 24, 512):
+        mc_kernel._check_band("k", ref, ok, s)
+    for s in (6, 10, 0, 516):
+        with pytest.raises(ValueError, match="multiple of 4"):
+            mc_kernel._check_band("k", ref, ok, s)
+    for shape in ((64, 1024, 1024, 2), (1, 70000, 1, 2)):
+        with pytest.raises(ValueError, match="31-bit"):
+            mc_kernel._check_band("k", ref, ok.expand(*shape), 8)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("extreme", [False, True], ids=["random", "extreme"])
-def test_cuda_search_kernels_match_plain(rng, extreme):
+@pytest.mark.parametrize("kind", ["random", "extreme", "diamond"])
+def test_cuda_search_kernels_match_plain(rng, kind):
     """On the card: K3, K4, K5 bit-exact with their plain versions, each
-    launch counted."""
+    launch counted.  K3/K4 at block widths 8, 16, 32 and 24, K = 1, 5 and
+    6, 8 and 10 bit, 37 blocks a row (no multiple of any CTA tile), planes
+    whose rows are 16-byte aligned or not, on random, clamped and
+    diamond-like positions."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    for s, k, nbx in ((8, 5, 32), (16, 6, 20), (32, 1, 8)):
-        ref, bands, pos, m = _block_setup(rng, s, k, nbx=nbx, h=128,
-                                          extreme=extreme)
-        r, b, p = (t.cuda() for t in _t(ref, bands, pos))
-        before = dict(mc_kernel.LAUNCHES)
-        got_sad = mc_kernel.sad_block_positions(r, b, p, m, s, 8)
-        got_mc = mc_kernel.mc_block_positions(r, p, m, s, 8)
-        assert mc_kernel.LAUNCHES["sad_block_positions"] == \
-            before["sad_block_positions"] + 1
-        assert mc_kernel.LAUNCHES["mc_block_positions"] == \
-            before["mc_block_positions"] + 1
-        torch.testing.assert_close(
-            got_sad, mc_kernel.sad_block_positions_plain(r, b, p, m, s, 8),
-            rtol=0, atol=0)
-        torch.testing.assert_close(
-            got_mc, mc_kernel.mc_block_positions_plain(r, p, m, s, 8),
-            rtol=0, atol=0)
+    extreme = kind == "extreme"
+    for s in (8, 16, 32, 24):
+        for k, bit_depth in ((1, 8), (5, 10), (6, 8)):
+            ref, bands, pos, m = _block_setup(
+                rng, s, k, nbx=37, h=128, extreme=extreme,
+                bit_depth=bit_depth, diamond=kind == "diamond")
+            r, b, p = (t.cuda() for t in _t(ref, bands, pos))
+            before = dict(mc_kernel.LAUNCHES)
+            got_sad = mc_kernel.sad_block_positions(r, b, p, m, s, bit_depth)
+            got_mc = mc_kernel.mc_block_positions(r, p, m, s, bit_depth)
+            assert mc_kernel.LAUNCHES["sad_block_positions"] == \
+                before["sad_block_positions"] + 1
+            assert mc_kernel.LAUNCHES["mc_block_positions"] == \
+                before["mc_block_positions"] + 1
+            torch.testing.assert_close(
+                got_sad, mc_kernel.sad_block_positions_plain(
+                    r, b, p, m, s, bit_depth), rtol=0, atol=0)
+            torch.testing.assert_close(
+                got_mc, mc_kernel.mc_block_positions_plain(
+                    r, p, m, s, bit_depth), rtol=0, atol=0)
+            if k == 5:      # rows not 16-byte aligned: the scalar-load path
+                r = r[:, 1:].contiguous()
+                torch.testing.assert_close(
+                    mc_kernel.sad_block_positions(r, b, p, m, s, bit_depth),
+                    mc_kernel.sad_block_positions_plain(r, b, p, m, s,
+                                                        bit_depth),
+                    rtol=0, atol=0)
+                torch.testing.assert_close(
+                    mc_kernel.mc_block_positions(r, p, m, s, bit_depth),
+                    mc_kernel.mc_block_positions_plain(r, p, m, s,
+                                                       bit_depth),
+                    rtol=0, atol=0)
     ref, orig, pos, m = _sub_setup(rng, 5, h=128, w=256, extreme=extreme)
     r, o, p = (t.cuda() for t in _t(ref, orig, pos))
     before = mc_kernel.LAUNCHES["sad_luma_positions"]

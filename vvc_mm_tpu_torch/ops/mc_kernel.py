@@ -21,10 +21,10 @@ candidates with SADs of such predictions.
                          with the 2-tap bilinear filter on a 5x5 patch,
                          the cheap SAD that only ranks candidates.
 
-K1/K2 live in csrc/mc_positions.cu, K3-K6 in csrc/sad_positions.cu.  All
-are bound by memory traffic: each reads the padded reference plane, the
-positions (and the original) once and writes its result, and their integer
-filter work is far below the card's rate (design notes in the sources).
+K1/K2 live in csrc/mc_positions.cu, K3-K6 in csrc/sad_positions.cu.  Each
+reads the padded reference plane, the positions (and the original) once and
+writes its result; K3 is bound by its integer multiply-adds at the codec's
+shapes, the others by that memory traffic (design notes in the sources).
 
 Beside each kernel sits its plain PyTorch version, ported from the JAX
 package's XLA mirror (`common/mm/mc.py` _mc_luma_positions_xla /
@@ -46,10 +46,28 @@ from . import cuda_lib
 LAUNCHES = {"mc_luma_positions": 0, "mc_chroma_positions": 0,
             "sad_block_positions": 0, "mc_block_positions": 0,
             "sad_luma_positions": 0, "sad_bilinear_positions": 0}
+# K3/K4 launches by block width and candidate count, e.g. "s=8 K=5"
+LAUNCHES_BY_SHAPE: dict[str, dict[str, int]] = {"sad_block_positions": {},
+                                                "mc_block_positions": {}}
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_void_p]
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# (source, C argument types) of each kernel's launcher; the last argument
+# is the stream
+_KERNELS = {
+    "mc_luma_positions": ("mc_positions", [_P, _I, _I, _P, _I, _I, _I, _I,
+                                           _P, _P]),
+    "mc_chroma_positions": ("mc_positions", [_P, _I, _I, _P, _I, _I, _I, _I,
+                                             _P, _P]),
+    "sad_block_positions": ("sad_positions", [_P, _I, _I, _P, _P, _I, _I, _I,
+                                              _I, _I, _I, _P, _P]),
+    "mc_block_positions": ("sad_positions", [_P, _I, _I, _P, _I, _I, _I, _I,
+                                             _I, _I, _P, _P]),
+    "sad_luma_positions": ("sad_positions", [_P, _I, _I, _P, _P, _I, _I, _I,
+                                             _I, _I, _P, _P]),
+    "sad_bilinear_positions": ("sad_positions", [_P, _I, _I, _P, _P, _I, _I,
+                                                 _I, _I, _P, _P]),
+}
+_BOUND: dict = {}
 
 
 # When a dict, the search kernels' wrappers keep the tensors of their last
@@ -61,6 +79,29 @@ CAPTURED: dict | None = None
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for d in LAUNCHES_BY_SHAPE.values():
+        d.clear()
+
+
+def _launch_kernel(name: str, device: torch.device, *args) -> None:
+    """Launch `name` on `device`'s current stream with `args` (the stream
+    is appended), raise if the launch was refused, count it.  The ctypes
+    function is bound with its argument types once."""
+    fn = _BOUND.get(name)
+    if fn is None:
+        source, argtypes = _KERNELS[name]
+        fn = getattr(cuda_lib.load(source), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _BOUND[name] = fn
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    LAUNCHES[name] += 1
 
 
 def _assemble(blocks: torch.Tensor, nsy: int, nsx: int, s: int
@@ -136,16 +177,9 @@ def _launch(name: str, s: int, ref_padded: torch.Tensor,
                       device=ref_padded.device)
     if out.numel() == 0:
         return out
-    fn = getattr(cuda_lib.load("mc_positions"), name)
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(ref_padded.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(ref_c.data_ptr(), hp, wp, pos_c.data_ptr(), nsy, nsx,
-                 margin, bit_depth, out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    LAUNCHES[name] += 1
+    _launch_kernel(name, ref_padded.device, ref_c.data_ptr(), hp, wp,
+                   pos_c.data_ptr(), nsy, nsx, margin, bit_depth,
+                   out.data_ptr())
     return out
 
 
@@ -291,37 +325,43 @@ def _launch_search(name: str, ref_padded: torch.Tensor, positions:
     ref_c = ref_padded.contiguous()
     pos_c = positions.contiguous()
     args = [ref_c.data_ptr(), hp, wp]
-    types = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     if orig is not None:
         orig_c = orig.contiguous()
+        if orig_c.data_ptr() % 16:       # K3 reads it 16 bytes at a time
+            orig_c = orig_c.clone()
         args.append(orig_c.data_ptr())
-        types.append(ctypes.c_void_p)
     args += [pos_c.data_ptr(), k, ny, nx]
-    types += [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
     if s is not None:
         args.append(s)
-        types.append(ctypes.c_int)
     args.append(margin)
-    types.append(ctypes.c_int)
     if bit_depth is not None:
         args.append(bit_depth)
-        types.append(ctypes.c_int)
     args.append(out.data_ptr())
-    types.append(ctypes.c_void_p)
-    fn = getattr(cuda_lib.load("sad_positions"), name)
-    fn.argtypes = types + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(ref_padded.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    LAUNCHES[name] += 1
+    _launch_kernel(name, ref_padded.device, *args)
+    if s is not None:
+        shapes = LAUNCHES_BY_SHAPE[name]
+        key = f"s={s} K={k}"
+        shapes[key] = shapes.get(key, 0) + 1
     if CAPTURED is not None:
         CAPTURED[(name, tuple(positions.shape), s)] = dict(
             ref_padded=ref_c, positions=pos_c, orig=orig, margin=margin,
             s=s, bit_depth=bit_depth)
     return out
+
+
+def _check_band(name: str, ref_padded: torch.Tensor,
+                positions: torch.Tensor, s: int) -> None:
+    """K3/K4 take block widths that are multiples of 4 up to 512, and
+    index in 32 bits."""
+    if s % 4 or not 4 <= s <= 512:
+        raise ValueError(f"{name}: block width {s} is not a multiple of 4 "
+                         "in [4, 512]")
+    k, nby, nbx, _ = positions.shape
+    if max(ref_padded.numel(), k * nby * 4 * nbx * s) >= 1 << 31 \
+            or nby > 65535:
+        raise ValueError(f"{name}: {tuple(ref_padded.shape)} plane, "
+                         f"{tuple(positions.shape)} positions at s={s} do "
+                         "not fit the kernel's 31-bit indices")
 
 
 def sad_block_positions(ref_padded: torch.Tensor, orig_bands: torch.Tensor,
@@ -338,6 +378,7 @@ def sad_block_positions(ref_padded: torch.Tensor, orig_bands: torch.Tensor,
         raise ValueError(f"sad_block_positions: bands "
                          f"{tuple(orig_bands.shape)} for {nby}x{nbx} blocks "
                          f"of width {s}")
+    _check_band("sad_block_positions", ref_padded, positions, s)
     return _launch_search("sad_block_positions", ref_padded, positions,
                           (k, nby, nbx), (_BAND_ROWS, s + NTAPS_LUMA - 1),
                           margin,
@@ -352,6 +393,7 @@ def mc_block_positions(ref_padded: torch.Tensor, positions: torch.Tensor,
         return mc_block_positions_plain(ref_padded, positions, margin, s,
                                         bit_depth)
     k, nby, nbx, _ = positions.shape
+    _check_band("mc_block_positions", ref_padded, positions, s)
     return _launch_search("mc_block_positions", ref_padded, positions,
                           (k, nby * 4, nbx * s),
                           (_BAND_ROWS, s + NTAPS_LUMA - 1), margin,
