@@ -8,10 +8,11 @@ Phases (any failure exits non-zero and prints no result line):
   3. hold kernels K1 (luma MC), K2 (chroma MC), K3 (block-band SAD), K4
      (block-band MC), K5 (per-subblock SAD) and K6 (bilinear per-subblock
      SAD) against their plain PyTorch versions on the card, on random and
-     on extreme (clamped) positions at the main paths' shapes, K3/K4 also
-     on diamond-like positions, at block widths 24 and 32, K = 1, 10 bit
-     and on a plane whose rows are not 16-byte aligned: bit-exact
-     (tolerance 0);
+     on extreme (clamped) positions at the main paths' shapes, K1/K2 also
+     on coherent positions, at 256x128 and at 10 bit on 536x1000, K3/K4
+     also on diamond-like positions, at block widths 24 and 32, K = 1 and
+     10 bit, and all four on a plane whose rows are not 16-byte aligned:
+     bit-exact (tolerance 0);
   4. decode the committed 2048x1024 ERP multi-model RA stream with
      DecLib() on CUDA, counting kernel launches: the I picture's MD5 must
      match, and every picture's Y-PSNR against the regenerated source must
@@ -235,6 +236,20 @@ def positions_pair(rng, shape, step: int, margin_px: int = 40):
     return rand.astype(np.int32), extreme.astype(np.int32)
 
 
+def coherent_positions(rng, ny: int, nx: int, step: int = 4
+                       ) -> np.ndarray:
+    """Positions as merged MM positions come, (ny, nx, 2) int32: each item
+    at its own place (`step` pixels apart) plus one shared motion and a
+    smooth variation of up to 12 pel, neighbours within 1.5 pel of it."""
+    ys, xs = np.meshgrid(np.arange(ny), np.arange(nx), indexing="ij")
+    motion = np.stack([np.sin(ys / 17.0) * 96 + np.cos(xs / 23.0) * 96,
+                       np.cos(ys / 13.0) * 96 + np.sin(xs / 29.0) * 96], -1)
+    pos = np.stack([xs, ys], -1) * step * 16 + motion.astype(np.int64) + \
+        rng.integers(-320, 320, (1, 1, 2)) + rng.integers(-24, 24,
+                                                           (ny, nx, 2))
+    return pos.astype(np.int32)
+
+
 def check_kernels(margin: int, dev) -> dict:
     """Phase 3: every kernel against its plain version, tolerance 0."""
     w, h = 2048, 1024
@@ -256,18 +271,29 @@ def check_kernels(margin: int, dev) -> dict:
                                           dtype=np.int32), device=dev)
     ref_odd = ref_10[:, 3:].contiguous()    # rows not 16-byte aligned
     cases = []      # (kernel, label, kernel call, plain call) per positions
-    for pos in positions_pair(rng, (h // 4, w // 4), 4):
-        p = t(pos)
-        cases.append(("mc_luma_positions", "256x512 subblocks",
-                      lambda p=p: mc_kernel.mc_luma_positions(
-                          ref_y, p, margin, 8),
-                      lambda p=p: mc_kernel.mc_luma_positions_plain(
-                          ref_y, p, margin, 8)))
-        cases.append(("mc_chroma_positions", "256x512 subblocks",
-                      lambda p=p: mc_kernel.mc_chroma_positions(
-                          ref_c, p, margin // 2, 8),
-                      lambda p=p: mc_kernel.mc_chroma_positions_plain(
-                          ref_c, p, margin // 2, 8)))
+    # K1/K2: the main path's planes first, then 256x128, 10 bit at 536x1000
+    # (250 subblocks a row: no multiple of a CTA's width) and a plane whose
+    # rows are not 16-byte aligned (the scalar-load path); chroma planes are
+    # the luma planes subsampled; random, clamped and coherent positions
+    for luma, bd, label in ((ref_y, 8, "2048x1024"), (ref_small, 8, "256x128"),
+                            (ref_10, 10, "536x1000"),
+                            (ref_odd, 10, "536x1000 cut by 3 columns")):
+        chroma = ref_c if luma is ref_y else luma[::2, ::2].contiguous()
+        ny, nx = (luma.shape[0] - 2 * margin) // 4, \
+            (luma.shape[1] - 2 * margin) // 4
+        for pos in (*positions_pair(rng, (ny, nx), 4),
+                    coherent_positions(rng, ny, nx)):
+            p = t(pos)
+            for name, r, m in (("mc_luma_positions", luma, margin),
+                               ("mc_chroma_positions", chroma, margin // 2)):
+                fn = getattr(mc_kernel, name)
+                plain = getattr(mc_kernel, name + "_plain")
+                cases.append((name, f"{label} {bd} bit, {ny}x{nx} subblocks, "
+                              f"plane width {r.shape[1]}",
+                              lambda fn=fn, r=r, p=p, m=m, bd=bd:
+                              fn(r, p, m, bd),
+                              lambda fn=plain, r=r, p=p, m=m, bd=bd:
+                              fn(r, p, m, bd)))
     # K3/K4: the main path's (s, K) first, then widths 32 and 24, K = 1, 5,
     # 6, 10 bit, a plane whose rows are not 16-byte aligned (the kernels'
     # scalar-load path); random, clamped and diamond-like positions each
@@ -626,9 +652,12 @@ def main() -> None:
     print(f"build: {len(reports)} CUDA source(s) in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, rep in reports.items():
+        entry = ""
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif "registers" in line or "spill" in line:
+                print(f"  {name} {entry}: {line.split(':', 1)[-1].strip()}")
     # ---- 2. card
     card = card_line()
     print(card)

@@ -1,6 +1,6 @@
 """Run the port of one or more checkouts of this repository on one GPU and
-compare them: the headline stream's SHA-256 and the host time of a kernel
-wrapper call.
+compare them: the headline stream's SHA-256, the host time of a kernel
+wrapper call and the device time of the MC kernels K1 and K2.
 
     python3 compare_checkouts.py [CHECKOUT ...]
 
@@ -11,9 +11,14 @@ of its `chip_smoke.py` (2048x1024 ERP, RA GOP 16, 17 frames, MPA+ROT, QP
 37), and times 300 back-to-back calls of the K5 wrapper
 `sad_luma_positions` on the 256x128 search's smallest grid (5, 8, 32, 2),
 whose kernel takes a few microseconds: the mean is the wrapper's host
-time.  One JSON line per checkout gives the stream's SHA-256 and length,
-the sequence's seconds (host clock, synchronised), the launches of each
-kernel and the wrapper's microseconds.  The last line is
+time.  Then it times K1 (`mc_luma_positions`) and K2
+(`mc_chroma_positions`) through the checkout's own wrappers and its
+`chip_smoke.device_ms` on one 2048x1024 picture of the headline clip and
+coherent 256x512 subblock positions, made from a fixed seed and the same
+for every checkout.  One JSON line per checkout gives the stream's SHA-256
+and length, the sequence's seconds (host clock, synchronised), the
+launches of each kernel, the wrapper's microseconds and K1's and K2's
+device milliseconds.  The last line is
 `{"same": true|false, ...}`: whether every encode gave the same bytes.
 Give the parent first and last to interleave (parent, change, change,
 parent); a changed kernel whose decisions are the same leaves the hash as
@@ -58,7 +63,42 @@ def encode_one(checkout: str) -> dict:
     return dict(checkout=checkout, sha256=hashlib.sha256(data).hexdigest(),
                 bytes=len(data), seconds=seconds, launches=launches,
                 wrapper_us=wrapper_us(smoke.mc_kernel, torch),
+                mc_device_ms=mc_device_ms(smoke, torch, clip[0]),
                 device=torch.cuda.get_device_name(0))
+
+
+def coherent_positions(nsy: int, nsx: int, seed: int = 5):
+    """(nsy, nsx, 2) int32 1/16-pel subblock positions as merged MM
+    positions come: each subblock at its own place plus a motion that
+    varies smoothly over the picture (up to 12 pel), neighbours within
+    1.5 pel of it."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    ys, xs = np.meshgrid(np.arange(nsy), np.arange(nsx), indexing="ij")
+    motion = np.stack([np.sin(ys / 17.0) * 96 + np.cos(xs / 23.0) * 96,
+                       np.cos(ys / 13.0) * 96 + np.sin(xs / 29.0) * 96], -1)
+    pos = np.stack([xs * 64, ys * 64], -1) + motion.astype(np.int64) + \
+        rng.integers(-24, 24, (nsy, nsx, 2))
+    return pos.astype(np.int32)
+
+
+def mc_device_ms(smoke, torch, frame) -> dict:
+    """K1's and K2's device ms (the checkout's `chip_smoke.device_ms`) on
+    `frame`'s luma and first chroma plane, padded as the codec pads them,
+    at coherent positions."""
+    dev = torch.device("cuda")
+    pos = torch.as_tensor(coherent_positions(frame[0].shape[0] // 4,
+                                             frame[0].shape[1] // 4),
+                          device=dev)
+    out = {}
+    for name, plane, m in (("mc_luma_positions", frame[0], smoke.MC_MARGIN),
+                           ("mc_chroma_positions", frame[1],
+                            smoke.MC_MARGIN // 2)):
+        ref = smoke.pad_ref(torch.as_tensor(plane.astype("int32"),
+                                            device=dev), m, True)
+        fn = getattr(smoke.mc_kernel, name)
+        out[name] = smoke.device_ms(lambda: fn(ref, pos, m, 8))
+    return out
 
 
 def wrapper_us(mc_kernel, torch) -> float:

@@ -24,11 +24,19 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _setup(rng, h=64, w=128, m=40, extreme=False):
+def _setup(rng, h=64, w=128, m=40, kind="random"):
+    """A padded 8-bit plane and (h/4, w/4, 2) positions: "random" over the
+    plane and its margin, "extreme" (clamped), or "coherent" (neighbours a
+    few pel apart around one shared motion, as merged MM positions are)."""
     ref = rng.integers(0, 255, (h + 2 * m, w + 2 * m), dtype=np.int32)
     nsy, nsx = h // 4, w // 4
-    if extreme:
+    if kind == "extreme":
         pos = rng.integers(-100000, 100000, (nsy, nsx, 2))
+    elif kind == "coherent":
+        grid = np.stack(np.meshgrid(np.arange(nsx) * 64,
+                                    np.arange(nsy) * 64), -1)
+        pos = grid + rng.integers(-m * 8, m * 8, (1, 1, 2)) + \
+            rng.integers(-24, 24, (nsy, nsx, 2))
     else:
         pos = np.stack([rng.integers(-m * 16, (w + m - 8) * 16, (nsy, nsx)),
                         rng.integers(-m * 16, (h + m - 8) * 16, (nsy, nsx))],
@@ -40,25 +48,33 @@ def _port(fn, ref, pos, m, bd=8):
     return fn(torch.from_numpy(ref), torch.from_numpy(pos), m, bd).numpy()
 
 
-@pytest.mark.parametrize("extreme", [False, True], ids=["random", "extreme"])
+@pytest.mark.parametrize("case", ["random", "extreme", "10bit-odd"])
 @pytest.mark.parametrize("plane", ["luma", "chroma"])
-def test_plain_matches_xla_mirror_and_pallas(rng, plane, extreme):
-    ref, pos, m = _setup(rng, extreme=extreme)
-    if plane == "luma":
-        port = _port(mc_kernel.mc_luma_positions, ref, pos, m)
-        xla = jax_mc._mc_luma_positions_xla(jnp.asarray(ref),
-                                            jnp.asarray(pos), m, 8)
-        pal = jax_kernel.mc_luma_positions(jnp.asarray(ref),
-                                           jnp.asarray(pos), m, 8,
-                                           interpret=True)
+def test_plain_matches_xla_mirror_and_pallas(rng, plane, case):
+    """The 10-bit case lies on a plane of odd width (the kernels' scalar
+    loads on the card) and is held to the XLA mirror only: interpret mode
+    is slow."""
+    if case == "10bit-odd":
+        ref, pos, m = _setup(rng, h=32, w=85)
+        ref, bd = ref * 4 + 3, 10
+        assert ref.shape[1] % 2 == 1
     else:
-        port = _port(mc_kernel.mc_chroma_positions, ref, pos, m)
+        ref, pos, m = _setup(rng, kind=case)
+        bd = 8
+    if plane == "luma":
+        port = _port(mc_kernel.mc_luma_positions, ref, pos, m, bd)
+        xla = jax_mc._mc_luma_positions_xla(jnp.asarray(ref),
+                                            jnp.asarray(pos), m, bd)
+    else:
+        port = _port(mc_kernel.mc_chroma_positions, ref, pos, m, bd)
         xla = jax_mc._mc_chroma_positions_xla(jnp.asarray(ref),
-                                              jnp.asarray(pos), m, 8)
-        pal = jax_kernel.mc_chroma_positions(jnp.asarray(ref),
-                                             jnp.asarray(pos), m, 8,
-                                             interpret=True)
+                                              jnp.asarray(pos), m, bd)
     np.testing.assert_array_equal(port, np.asarray(xla))
+    if bd != 8:
+        return
+    pallas = (jax_kernel.mc_luma_positions if plane == "luma"
+              else jax_kernel.mc_chroma_positions)
+    pal = pallas(jnp.asarray(ref), jnp.asarray(pos), m, 8, interpret=True)
     np.testing.assert_array_equal(port, np.asarray(pal))
 
 
@@ -133,19 +149,27 @@ def test_wrapper_counts_only_kernel_launches(rng):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("extreme", [False, True], ids=["random", "extreme"])
-def test_cuda_kernels_match_plain(rng, extreme):
-    """On the card: each kernel bit-exact with its plain version at the
-    2048x1024 shapes, with its launch counted."""
+@pytest.mark.parametrize("kind", ["random", "extreme", "coherent"])
+def test_cuda_kernels_match_plain(rng, kind):
+    """On the card: each kernel bit-exact with its plain version, with its
+    launch counted, at 8 bit on 2048x1024 and 256x128 planes, at 10 bit on
+    536x1000 (250 subblocks a row: no multiple of a CTA's width) and on a
+    536x1000 plane cut so that its rows are not 16-byte aligned (the
+    scalar-load path)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    _, pos, _ = _setup(rng, h=1024, w=2048, m=80, extreme=extreme)
-    for name, sub, m in (("mc_luma_positions", 1, 80),
-                         ("mc_chroma_positions", 2, 40)):
-        ref, _, _ = _setup(rng, h=1024 // sub, w=2048 // sub, m=m)
-        r, p = torch.from_numpy(ref).cuda(), torch.from_numpy(pos).cuda()
-        before = mc_kernel.LAUNCHES[name]
-        got = getattr(mc_kernel, name)(r, p, m, 8)
-        assert mc_kernel.LAUNCHES[name] == before + 1
-        want = getattr(mc_kernel, name + "_plain")(r, p, m, 8)
-        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for h, w, bd, cut in ((1024, 2048, 8, 0), (128, 256, 8, 0),
+                          (536, 1000, 10, 0), (536, 1000, 10, 3)):
+        ref, pos, _ = _setup(rng, h=h, w=w, m=80, kind=kind)
+        ref = (ref << (bd - 8))[:, cut:]
+        p = torch.from_numpy(pos).cuda()
+        for name, sub, m in (("mc_luma_positions", 1, 80),
+                             ("mc_chroma_positions", 2, 40)):
+            r = torch.from_numpy(np.ascontiguousarray(ref[::sub, ::sub]))
+            r = r.cuda()
+            assert (r.shape[1] % 4 != 0) == (cut != 0)
+            before = mc_kernel.LAUNCHES[name]
+            got = getattr(mc_kernel, name)(r, p, m, bd)
+            assert mc_kernel.LAUNCHES[name] == before + 1
+            want = getattr(mc_kernel, name + "_plain")(r, p, m, bd)
+            torch.testing.assert_close(got, want, rtol=0, atol=0)

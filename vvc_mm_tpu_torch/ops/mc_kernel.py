@@ -173,6 +173,8 @@ def _launch(name: str, s: int, ref_padded: torch.Tensor,
     nsy, nsx, _ = positions.shape
     ref_c = ref_padded.contiguous()
     pos_c = positions.contiguous()
+    if pos_c.data_ptr() % 8:             # read as one int2 a subblock
+        pos_c = pos_c.clone()
     out = torch.empty((nsy * s, nsx * s), dtype=torch.int32,
                       device=ref_padded.device)
     if out.numel() == 0:
