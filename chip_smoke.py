@@ -11,8 +11,9 @@ Phases (any failure exits non-zero and prints no result line):
      on extreme (clamped) positions at the main paths' shapes, K1/K2 also
      on coherent positions, at 256x128 and at 10 bit on 536x1000, K3/K4
      also on diamond-like positions, at block widths 24 and 32, K = 1 and
-     10 bit, and all four on a plane whose rows are not 16-byte aligned:
-     bit-exact (tolerance 0);
+     10 bit, K5/K6 also on coherent and diamond positions, at 10 bit on
+     536x1000 and K = 1, all six on a plane whose rows are not 16-byte
+     aligned and on an 8-bit 6144x3072 plane: bit-exact (tolerance 0);
   4. decode the committed 2048x1024 ERP multi-model RA stream with
      DecLib() on CUDA, counting kernel launches: the I picture's MD5 must
      match, and every picture's Y-PSNR against the regenerated source must
@@ -56,11 +57,14 @@ Phases (any failure exits non-zero and prints no result line):
      launched, and the blocks whose best candidate is the same under both
      filters are counted;
  10. time each kernel and its plain version on inputs captured from those
-     runs, print the `kernels` line (K3/K4 launches also by block width and
-     candidate count), then the result line.
+     runs, after a launch floor (the device time of a one-element fill),
+     print the `kernels` line (K3-K5 launches also by shape), then the
+     result line.  Before it, K5's and K6's launch rule is timed against
+     its alternatives on the same inputs (each held to the plain version).
 """
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import json
 import os
@@ -172,6 +176,17 @@ def device_ms(fn, iters: int = 20) -> float | None:
     return None
 
 
+def launch_floor_ms(dev, iters: int = 20) -> float | None:
+    """Mean device time of a one-element fill kernel under the profiler
+    that device_ms uses: no launch's device time goes below it."""
+    with _profiler() as prof:
+        for _ in range(iters):
+            torch.zeros(1, device=dev)
+        torch.cuda.synchronize()
+    evs = [t for _, t in device_events(prof)]
+    return sum(evs) / len(evs) * 1e3 if evs else None
+
+
 def bound_ms(n_words: int, macs: int) -> tuple[float, str]:
     """Least time on the card for one call: its bytes (every input and
     output int32 word once) over the memory rate, against its integer MACs
@@ -250,6 +265,45 @@ def coherent_positions(rng, ny: int, nx: int, step: int = 4
     return pos.astype(np.int32)
 
 
+def plane_6k_cases(rng, margin: int, dev) -> list:
+    """Every kernel on an 8-bit 6144x3072 plane, the size of bench.py's 6K
+    configuration: K1/K2 on the subblock grid, K3 at s=8 K=5 and s=16 K=6,
+    K4 at s=16 K=4, K5/K6 with K=5; random positions around the grid.
+    (kernel, label, kernel call, plain call) each."""
+    w, h = 6144, 3072
+    ref = torch.as_tensor(rng.integers(0, 256, (h + 2 * margin,
+                                                w + 2 * margin),
+                                       dtype=np.int32), device=dev)
+    chroma = ref[::2, ::2].contiguous()
+    orig = torch.as_tensor(rng.integers(0, 256, (h, w), dtype=np.int32),
+                           device=dev)
+    label = "6144x3072 8 bit"
+
+    def pos(shape, step):
+        return torch.as_tensor(positions_pair(rng, shape, step)[0],
+                               device=dev)
+
+    calls = []          # (kernel, arguments)
+    p = pos((h // 4, w // 4), 4)
+    calls += [("mc_luma_positions", (ref, p, margin, 8)),
+              ("mc_chroma_positions", (chroma, p, margin // 2, 8))]
+    for s, k in ((8, 5), (16, 6)):
+        bands = torch.as_tensor(rng.integers(0, 256, (h // s * 4, w),
+                                             dtype=np.int32), device=dev)
+        calls.append(("sad_block_positions",
+                      (ref, bands, pos((k, h // s, w // s), s), margin, s,
+                       8)))
+    calls.append(("mc_block_positions",
+                  (ref, pos((4, h // 16, w // 16), 16), margin, 16, 8)))
+    p = pos((5, h // 4, w // 4), 4)
+    calls += [("sad_luma_positions", (ref, orig, p, margin, 8)),
+              ("sad_bilinear_positions", (ref, orig, p, margin))]
+    return [(name, label, lambda fn=getattr(mc_kernel, name), a=args:
+             fn(*a),
+             lambda fn=getattr(mc_kernel, name + "_plain"), a=args: fn(*a))
+            for name, args in calls]
+
+
 def check_kernels(margin: int, dev) -> dict:
     """Phase 3: every kernel against its plain version, tolerance 0."""
     w, h = 2048, 1024
@@ -325,24 +379,38 @@ def check_kernels(margin: int, dev) -> dict:
                           mc_kernel.mc_block_positions_plain(r, p, margin, s,
                                                              bd)))
     # K5, K6: the 256x128 search's grids (s=8 unsubsampled; s=16 keeps 1
-    # of 4 subblock rows and 1 of 2 columns) and one full 2048x1024 grid
-    for (ny, nx), ref in (((32, 64), ref_small), ((8, 32), ref_small),
-                          ((h // 4, w // 4), ref_y)):
-        orig = t(rng.integers(0, 256, (ny * 4, nx * 4), dtype=np.int32))
-        for pos in positions_pair(rng, (5, ny, nx), 4):
+    # of 4 subblock rows and 1 of 2 columns: both below K5's split size)
+    # and one full 2048x1024 grid at 8 bit (above it); 10 bit at
+    # 536x1000 (250 subblocks a row: no multiple of a tile), on a plane
+    # whose rows are not 16-byte aligned, and K = 1; random, clamped,
+    # coherent and diamond positions
+    for (ny, nx), ref, k, bd, label in (
+            ((32, 64), ref_small, 5, 8, "256x128"),
+            ((8, 32), ref_small, 5, 8, "256x128"),
+            ((h // 4, w // 4), ref_y, 5, 8, "2048x1024"),
+            ((134, 250), ref_10, 5, 10, "536x1000"),
+            ((134, 250), ref_10, 1, 10, "536x1000"),
+            ((134, 250), ref_odd, 5, 10, "536x1000 cut by 3 columns"),
+            ((8, 32), ref_odd, 1, 10, "536x1000 cut by 3 columns")):
+        orig = t(rng.integers(0, 1 << bd, (ny * 4, nx * 4), dtype=np.int32))
+        coherent = np.repeat(coherent_positions(rng, ny, nx)[None], k, 0)
+        for pos in (*positions_pair(rng, (k, ny, nx), 4), coherent,
+                    diamond_positions(rng, k, ny, nx, 4)):
             p = t(pos)
-            cases.append(("sad_luma_positions", f"(5, {ny}, {nx}, 2)",
-                          lambda p=p, o=orig, r=ref:
-                          mc_kernel.sad_luma_positions(r, o, p, margin, 8),
-                          lambda p=p, o=orig, r=ref:
+            sub_label = f"({k}, {ny}, {nx}, 2) {bd} bit, {label}"
+            cases.append(("sad_luma_positions", sub_label,
+                          lambda p=p, o=orig, r=ref, bd=bd:
+                          mc_kernel.sad_luma_positions(r, o, p, margin, bd),
+                          lambda p=p, o=orig, r=ref, bd=bd:
                           mc_kernel.sad_luma_positions_plain(r, o, p, margin,
-                                                             8)))
-            cases.append(("sad_bilinear_positions", f"(5, {ny}, {nx}, 2)",
+                                                             bd)))
+            cases.append(("sad_bilinear_positions", sub_label,
                           lambda p=p, o=orig, r=ref:
                           mc_kernel.sad_bilinear_positions(r, o, p, margin),
                           lambda p=p, o=orig, r=ref:
                           mc_kernel.sad_bilinear_positions_plain(r, o, p,
                                                                  margin)))
+    cases += plane_6k_cases(rng, margin, dev)
     max_err = {name: 0 for name in SOURCES}
     for name, label, fn, plain in cases:
         got, want = fn(), plain()
@@ -362,8 +430,8 @@ def check_kernels(margin: int, dev) -> dict:
 
 
 def launch_counts() -> dict:
-    """Kernel launches since the last reset_launches(), with K3's and K4's
-    by block width and candidate count under "by_shape"."""
+    """Kernel launches since the last reset_launches(), with K3-K5's by
+    shape under "by_shape"."""
     return dict(mc_kernel.LAUNCHES, by_shape={
         n: dict(d) for n, d in mc_kernel.LAUNCHES_BY_SHAPE.items()})
 
@@ -936,8 +1004,9 @@ def decision_sads(full_grid: dict, path_launches: dict) -> None:
 
 
 def by_shape(name: str, path_launches: dict) -> dict:
-    """K3/K4: {"launches_by_shape": {"s=8 K=5": n, ...}} summed over the
-    paths; {} for the other kernels."""
+    """K3-K5: {"launches_by_shape": {"s=8 K=5": n, ...}} summed over the
+    paths (K5's keys are field count and subblock grid, "K=5 8x32"); {}
+    for the other kernels."""
     if name not in mc_kernel.LAUNCHES_BY_SHAPE:
         return {}
     total: dict[str, int] = {}
@@ -945,6 +1014,59 @@ def by_shape(name: str, path_launches: dict) -> dict:
         for shape, n in p["by_shape"][name].items():
             total[shape] = total.get(shape, 0) + n
     return {"launches_by_shape": total}
+
+
+def launch_variants(cases: list, card: str) -> list:
+    """K5's and K6's launch rule against its alternatives, on the same
+    inputs: each (kernel, case) launched through the launcher's `_as` form
+    as one thread an item with up to 8 fields of a subblock a CTA (the
+    rule for K6, and for K5 above 16,384 items), with one field a CTA, and,
+    for K5, split over 4 lanes an item (its rule at most 16,384 items).
+    Every variant is held
+    to the plain version (tolerance 0); device ms of each, in records."""
+    lib = cuda_lib.load("sad_positions")
+    variants = {"sad_luma_positions": (("fields side by side", 0, 8),
+                                       ("one field a CTA", 0, 1),
+                                       ("4 lanes an item", 1, 1)),
+                "sad_bilinear_positions": (("fields side by side", 0, 8),
+                                           ("one field a CTA", 0, 1))}
+    records = []
+    for name, c in cases:
+        fn = getattr(lib, name + "_as")
+        fn.restype = ctypes.c_int
+        ref, pos = c["ref_padded"], c["positions"]
+        orig = c["orig"].contiguous().clone()     # 16-byte aligned
+        k, ny, nx, _ = pos.shape
+        out = torch.empty((k, ny, nx), dtype=torch.int32, device=ref.device)
+        head = [ctypes.c_void_p(ref.data_ptr()), ref.shape[0], ref.shape[1],
+                ctypes.c_void_p(orig.data_ptr()),
+                ctypes.c_void_p(pos.data_ptr()), k, ny, nx, c["margin"]]
+        if c["bit_depth"] is not None:
+            head.append(c["bit_depth"])
+        plain_args = [ref, c["orig"], pos, c["margin"]] + \
+            ([c["bit_depth"]] if c["bit_depth"] is not None else [])
+        want = getattr(mc_kernel, name + "_plain")(*plain_args)
+        for label, split, kc in variants[name]:
+            tail = ([split] if name == "sad_luma_positions" else []) + \
+                [kc, ctypes.c_void_p(out.data_ptr()),
+                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)]
+
+            def launch(a=head + tail):
+                err = fn(*a)
+                if err:
+                    fail(f"{name}_as: CUDA launch failed with error {err}")
+            launch()
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                fail(f"{name} {label} on {tuple(pos.shape)} differs from "
+                     "its plain version")
+            dev_ms = device_ms(launch)
+            records.append(dict(kernel=name, shape=list(pos.shape),
+                                variant=label, device_ms=dev_ms))
+            alone = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+            print(f"launch variant {name} {tuple(pos.shape)} {label}: "
+                  f"device {alone}, equal to plain, {card}")
+    return records
 
 
 def time_kernels(captured: dict, full_grid: dict, ref_pic, positions,
@@ -999,6 +1121,13 @@ def time_kernels(captured: dict, full_grid: dict, ref_pic, positions,
                             lambda fn=fn, a=args: fn(*a),
                             lambda fn=plain, a=args: fn(*a),
                             search_bound(name, c)))
+    variant_cases = [(n, c) for n, c in cases
+                     if n in ("sad_luma_positions", "sad_bilinear_positions")]
+    floor = launch_floor_ms(ref_pic[0].device)
+    print("launch floor (device time of a one-element fill, "
+          f"torch.zeros(1) on the card): "
+          f"{'not measured' if floor is None else f'{floor:.4f} ms'}, "
+          f"{card}")
     out = {}
     for name, label, fn, plain, (b_ms, b_by) in timed_cases:
         before = dict(mc_kernel.LAUNCHES)
@@ -1028,6 +1157,8 @@ def time_kernels(captured: dict, full_grid: dict, ref_pic, positions,
         out[name]["cases"].append(case)
     if sorted(out) != sorted(SOURCES):
         fail(f"kernels timed: {sorted(out)}")
+    for r in launch_variants(variant_cases, card):
+        out[r.pop("kernel")].setdefault("launch_variants", []).append(r)
     for name, k in out.items():
         if k["launches"] == 0:
             fail(f"no main path launched {name}")

@@ -1,6 +1,7 @@
 """Run the port of one or more checkouts of this repository on one GPU and
 compare them: the headline stream's SHA-256, the host time of a kernel
-wrapper call and the device time of the MC kernels K1 and K2.
+wrapper call and the device time of the MC kernels K1 and K2 and of the
+subblock SAD kernels K5 and K6.
 
     python3 compare_checkouts.py [CHECKOUT ...]
 
@@ -15,10 +16,15 @@ time.  Then it times K1 (`mc_luma_positions`) and K2
 (`mc_chroma_positions`) through the checkout's own wrappers and its
 `chip_smoke.device_ms` on one 2048x1024 picture of the headline clip and
 coherent 256x512 subblock positions, made from a fixed seed and the same
-for every checkout.  One JSON line per checkout gives the stream's SHA-256
-and length, the sequence's seconds (host clock, synchronised), the
-launches of each kernel, the wrapper's microseconds and K1's and K2's
-device milliseconds.  The last line is
+for every checkout, and K5 (`sad_luma_positions`) and K6
+(`sad_bilinear_positions`) the same way on two grids of five fields (those
+positions shifted by 0 or 1 pel along x or y; 4 pel on the full grid): a
+search grid of the 256x128 configuration, (5, 32, 64, 2) on one picture of
+its clip, and the full (5, 256, 512, 2) grid on the 2048x1024 picture,
+with the next picture as the original.  One JSON line per checkout gives
+the stream's SHA-256 and length, the sequence's seconds (host clock,
+synchronised), the launches of each kernel, the wrapper's microseconds and
+K1's, K2's, K5's and K6's device milliseconds.  The last line is
 `{"same": true|false, ...}`: whether every encode gave the same bytes.
 Give the parent first and last to interleave (parent, change, change,
 parent); a changed kernel whose decisions are the same leaves the hash as
@@ -64,6 +70,7 @@ def encode_one(checkout: str) -> dict:
                 bytes=len(data), seconds=seconds, launches=launches,
                 wrapper_us=wrapper_us(smoke.mc_kernel, torch),
                 mc_device_ms=mc_device_ms(smoke, torch, clip[0]),
+                sad_device_ms=sad_device_ms(smoke, torch, clip),
                 device=torch.cuda.get_device_name(0))
 
 
@@ -98,6 +105,36 @@ def mc_device_ms(smoke, torch, frame) -> dict:
                                             device=dev), m, True)
         fn = getattr(smoke.mc_kernel, name)
         out[name] = smoke.device_ms(lambda: fn(ref, pos, m, 8))
+    return out
+
+
+def sad_device_ms(smoke, torch, clip) -> dict:
+    """K5's and K6's device ms (the checkout's `chip_smoke.device_ms`) on a
+    (5, 32, 64, 2) grid of the 256x128 clip and on the full (5, 256, 512,
+    2) grid of `clip`: the first picture's padded luma as the reference,
+    the second's as the original, five fields of coherent positions."""
+    dev = torch.device("cuda")
+    out = {}
+    for label, frames, step in (
+            ("(5, 32, 64, 2)", smoke.realistic_sequence(256, 128, 2), 16),
+            ("(5, 256, 512, 2)", clip, 64)):
+        h, w = frames[0][0].shape
+        ref = smoke.pad_ref(torch.as_tensor(frames[0][0].astype("int32"),
+                                            device=dev), smoke.MC_MARGIN,
+                            True)
+        orig = torch.as_tensor(frames[1][0].astype("int32"), device=dev)
+        shifts = torch.tensor([(0, 0), (0, -step), (-step, 0), (step, 0),
+                               (0, step)], dtype=torch.int32, device=dev)
+        pos = torch.as_tensor(coherent_positions(h // 4, w // 4), device=dev)
+        pos = (pos[None] + shifts[:, None, None, :]).contiguous()
+        m = smoke.MC_MARGIN
+        luma, bilin = (smoke.mc_kernel.sad_luma_positions,
+                       smoke.mc_kernel.sad_bilinear_positions)
+        out[label] = dict(
+            sad_luma_positions=smoke.device_ms(
+                lambda: luma(ref, orig, pos, m, 8)),
+            sad_bilinear_positions=smoke.device_ms(
+                lambda: bilin(ref, orig, pos, m)))
     return out
 
 

@@ -118,11 +118,17 @@ def test_bilinear_wrapper_on_cpu_launches_nothing_and_checks_types(rng):
 @pytest.mark.parametrize("extreme", [False, True], ids=["random", "extreme"])
 def test_cuda_bilinear_kernel_matches_plain(rng, extreme):
     """On the card: K6 bit-exact with its plain version, the launch
-    counted."""
+    counted, at 8 and 10 bit, K = 1, 3 and 5, small and large subblock
+    grids (37 subblocks a row: no multiple of a tile), and planes whose
+    rows are not 16-byte aligned (the scalar-load path)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    for k, h, w in ((5, 128, 256), (1, 28, 36), (3, 64, 128)):
-        ref, orig, pos, m = _setup(rng, k, h=h, w=w, extreme=extreme)
+    for k, h, w, top, cut in ((5, 128, 256, 256, 0), (1, 128, 256, 1024, 0),
+                              (5, 32, 148, 1024, 0), (5, 256, 148, 1024, 3),
+                              (1, 28, 36, 256, 1), (3, 64, 128, 256, 0)):
+        ref, orig, pos, m = _setup(rng, k, h=h, w=w, extreme=extreme,
+                                   top=top)
+        ref = np.pad(ref, ((0, 0), (0, cut)))
         r, o, p = (t.cuda() for t in _t(ref, orig, pos))
         before = mc_kernel.LAUNCHES["sad_bilinear_positions"]
         got = mc_kernel.sad_bilinear_positions(r, o, p, m)

@@ -155,7 +155,9 @@ def test_subblock_sad_10_bit_and_odd_grid(rng):
 
 
 def test_filter_table_matches_cuda_source():
-    """The __constant__ table in csrc/sad_positions.cu equals interp's."""
+    """The tap table in csrc/sad_positions.cu (a 16-byte aligned global
+    table that K5 reads through the read-only cache, K3/K4 through shared
+    memory) equals interp's."""
     src = open(os.path.join(ROOT, "vvc_mm_tpu_torch", "csrc",
                             "sad_positions.cu")).read()
     body = src.split("c_luma_filter", 1)[1].split("};", 1)[0]
@@ -196,6 +198,39 @@ def test_band_kernels_refuse_what_they_do_not_take():
             mc_kernel._check_band("k", ref, ok.expand(*shape), 8)
 
 
+def test_subblock_kernels_refuse_what_they_do_not_take():
+    """K5/K6 take every size whose indices fit in 31 bits (a 6144x3072
+    plane with K = 5 among them); the wrappers raise for others before any
+    launch."""
+    plane = torch.zeros(1, 1, dtype=torch.int32)
+    ok = torch.zeros(1, 1, 1, 2, dtype=torch.int32)
+    mc_kernel._check_sub("k", plane.expand(3072 + 160, 6144 + 160),
+                         ok.expand(5, 768, 1536, 2))
+    for ref, shape in ((plane.expand(50000, 50000), (1, 1, 1, 2)),
+                       (plane, (1024, 1024, 1024, 2)),
+                       (plane, (1, 16384, 8192, 2)),
+                       (plane, (1, 70000, 1, 2))):
+        with pytest.raises(ValueError, match="31-bit"):
+            mc_kernel._check_sub("k", ref, ok.expand(*shape))
+
+
+def _sub_cases(rng, kind):
+    """K5/K6 card cases: (ref, orig, positions, margin, bit depth) at 8 and
+    10 bit, K = 1 and 5, subblock grids above and below K5's split size
+    (37 subblocks a row: no multiple of a tile), and a plane
+    whose rows are not 16-byte aligned (the scalar-load path)."""
+    for k, h, w, bd, cut in ((5, 128, 256, 8, 0), (1, 128, 256, 10, 0),
+                             (5, 32, 148, 10, 0), (5, 512, 148, 10, 3),
+                             (1, 28, 36, 8, 1)):
+        ref, orig, pos, m = _sub_setup(rng, k, h=h, w=w, bit_depth=bd,
+                                       extreme=kind == "extreme")
+        if kind == "diamond":
+            _, _, pos, _ = _block_setup(rng, 4, k, nbx=w // 4, h=h, m=m,
+                                        diamond=True)
+        ref = np.pad(ref, ((0, 0), (0, cut)))
+        yield (*(t.cuda() for t in _t(ref, orig, pos)), m, bd)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["random", "extreme", "diamond"])
 def test_cuda_search_kernels_match_plain(rng, kind):
@@ -203,7 +238,7 @@ def test_cuda_search_kernels_match_plain(rng, kind):
     launch counted.  K3/K4 at block widths 8, 16, 32 and 24, K = 1, 5 and
     6, 8 and 10 bit, 37 blocks a row (no multiple of any CTA tile), planes
     whose rows are 16-byte aligned or not, on random, clamped and
-    diamond-like positions."""
+    diamond-like positions; K5 on the cases of _sub_cases."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     extreme = kind == "extreme"
@@ -238,11 +273,53 @@ def test_cuda_search_kernels_match_plain(rng, kind):
                     mc_kernel.mc_block_positions_plain(r, p, m, s,
                                                        bit_depth),
                     rtol=0, atol=0)
-    ref, orig, pos, m = _sub_setup(rng, 5, h=128, w=256, extreme=extreme)
-    r, o, p = (t.cuda() for t in _t(ref, orig, pos))
-    before = mc_kernel.LAUNCHES["sad_luma_positions"]
-    got = mc_kernel.sad_luma_positions(r, o, p, m, 8)
-    assert mc_kernel.LAUNCHES["sad_luma_positions"] == before + 1
-    torch.testing.assert_close(
-        got, mc_kernel.sad_luma_positions_plain(r, o, p, m, 8), rtol=0,
-        atol=0)
+    for r, o, p, m, bd in _sub_cases(rng, kind):
+        before = mc_kernel.LAUNCHES["sad_luma_positions"]
+        got = mc_kernel.sad_luma_positions(r, o, p, m, bd)
+        assert mc_kernel.LAUNCHES["sad_luma_positions"] == before + 1
+        torch.testing.assert_close(
+            got, mc_kernel.sad_luma_positions_plain(r, o, p, m, bd), rtol=0,
+            atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_take_a_6144x3072_plane(rng):
+    """On the card: K1-K6 bit-exact with their plain versions on an 8-bit
+    6144x3072 plane (the size of bench.py's 6K configuration), each launch
+    counted: K1/K2 on the subblock grid, K3 at s=8 K=5 and s=16 K=6, K4 at
+    s=16 K=4, K5/K6 with K=5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    h, w, m = 3072, 6144, 80
+    ny, nx = h // 4, w // 4
+    ref = torch.from_numpy(rng.integers(0, 256, (h + 2 * m, w + 2 * m),
+                                        dtype=np.int32)).cuda()
+    orig = torch.from_numpy(rng.integers(0, 256, (h, w),
+                                         dtype=np.int32)).cuda()
+
+    def grid_pos(k, gy, gx, step):
+        base = np.stack(np.meshgrid(np.arange(gx) * step * 16,
+                                    np.arange(gy) * step * 16), -1)
+        pos = base + rng.integers(-m * 16, m * 16, (k, gy, gx, 2))
+        return torch.from_numpy(pos.astype(np.int32)).cuda()
+
+    def check(name, args):
+        before = mc_kernel.LAUNCHES[name]
+        got = getattr(mc_kernel, name)(*args)
+        assert mc_kernel.LAUNCHES[name] == before + 1
+        torch.testing.assert_close(
+            got, getattr(mc_kernel, name + "_plain")(*args), rtol=0, atol=0)
+
+    p = grid_pos(1, ny, nx, 4)[0]
+    check("mc_luma_positions", (ref, p, m, 8))
+    check("mc_chroma_positions", (ref[::2, ::2].contiguous(), p, m // 2, 8))
+    for s, k in ((8, 5), (16, 6)):
+        bands = torch.from_numpy(rng.integers(
+            0, 256, (h // s * 4, w // s * s), dtype=np.int32)).cuda()
+        check("sad_block_positions",
+              (ref, bands, grid_pos(k, h // s, w // s, s), m, s, 8))
+    check("mc_block_positions", (ref, grid_pos(4, h // 16, w // 16, 16), m,
+                                 16, 8))
+    p = grid_pos(5, ny, nx, 4)
+    check("sad_luma_positions", (ref, orig, p, m, 8))
+    check("sad_bilinear_positions", (ref, orig, p, m))

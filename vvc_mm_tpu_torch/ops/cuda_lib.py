@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
 for Hopper (`sm_90a`) into `vvc_mm_tpu_torch/_build/lib<name>.so`, then
-loaded with ctypes.  Nothing is built when a module is imported: the first
-launch builds (or reuses a build newer than its source), and
+loaded with ctypes; the `csrc/*.cuh` headers are shared by the sources.
+Nothing is built when a module is imported: the first launch builds (or
+reuses a build newer than its source and the headers), and
 `build_all()` compiles every source at once, one `nvcc` each, in parallel.
 """
 from __future__ import annotations
@@ -44,7 +45,10 @@ def _start_build(name: str):
     """Start nvcc for one source unless its library is up to date; returns
     (process, tmp path, so path) or None."""
     src, so = _paths(name)
-    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+    headers = [os.path.join(CSRC, f) for f in os.listdir(CSRC)
+               if f.endswith(".cuh")]
+    newest = max(os.path.getmtime(f) for f in [src, *headers])
+    if os.path.exists(so) and os.path.getmtime(so) >= newest:
         return None
     os.makedirs(BUILD, exist_ok=True)
     tmp = f"{so}.{os.getpid()}"

@@ -23,8 +23,10 @@ candidates with SADs of such predictions.
 
 K1/K2 live in csrc/mc_positions.cu, K3-K6 in csrc/sad_positions.cu.  Each
 reads the padded reference plane, the positions (and the original) once and
-writes its result; K3 is bound by its integer multiply-adds at the codec's
-shapes, the others by that memory traffic (design notes in the sources).
+writes its result; K3 and K5 are bound by their integer multiply-adds at the
+codec's shapes, the others by that memory traffic.  Each is one thread (K3/K4:
+a few threads) per item, filtering in registers from aligned 16-byte loads;
+design notes in the sources.
 
 Beside each kernel sits its plain PyTorch version, ported from the JAX
 package's XLA mirror (`common/mm/mc.py` _mc_luma_positions_xla /
@@ -46,9 +48,11 @@ from . import cuda_lib
 LAUNCHES = {"mc_luma_positions": 0, "mc_chroma_positions": 0,
             "sad_block_positions": 0, "mc_block_positions": 0,
             "sad_luma_positions": 0, "sad_bilinear_positions": 0}
-# K3/K4 launches by block width and candidate count, e.g. "s=8 K=5"
+# K3/K4 launches by block width and candidate count, e.g. "s=8 K=5"; K5's
+# by field count and subblock grid, e.g. "K=5 8x32"
 LAUNCHES_BY_SHAPE: dict[str, dict[str, int]] = {"sad_block_positions": {},
-                                                "mc_block_positions": {}}
+                                                "mc_block_positions": {},
+                                                "sad_luma_positions": {}}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # (source, C argument types) of each kernel's launcher; the last argument
@@ -326,10 +330,12 @@ def _launch_search(name: str, ref_padded: torch.Tensor, positions:
         return out
     ref_c = ref_padded.contiguous()
     pos_c = positions.contiguous()
+    if s is None and pos_c.data_ptr() % 8:   # K5/K6 read one int2 an item
+        pos_c = pos_c.clone()
     args = [ref_c.data_ptr(), hp, wp]
     if orig is not None:
         orig_c = orig.contiguous()
-        if orig_c.data_ptr() % 16:       # K3 reads it 16 bytes at a time
+        if orig_c.data_ptr() % 16:       # read 16 bytes at a time
             orig_c = orig_c.clone()
         args.append(orig_c.data_ptr())
     args += [pos_c.data_ptr(), k, ny, nx]
@@ -340,9 +346,9 @@ def _launch_search(name: str, ref_padded: torch.Tensor, positions:
         args.append(bit_depth)
     args.append(out.data_ptr())
     _launch_kernel(name, ref_padded.device, *args)
-    if s is not None:
-        shapes = LAUNCHES_BY_SHAPE[name]
-        key = f"s={s} K={k}"
+    shapes = LAUNCHES_BY_SHAPE.get(name)
+    if shapes is not None:
+        key = f"s={s} K={k}" if s is not None else f"K={k} {ny}x{nx}"
         shapes[key] = shapes.get(key, 0) + 1
     if CAPTURED is not None:
         CAPTURED[(name, tuple(positions.shape), s)] = dict(
@@ -364,6 +370,17 @@ def _check_band(name: str, ref_padded: torch.Tensor,
         raise ValueError(f"{name}: {tuple(ref_padded.shape)} plane, "
                          f"{tuple(positions.shape)} positions at s={s} do "
                          "not fit the kernel's 31-bit indices")
+
+
+def _check_sub(name: str, ref_padded: torch.Tensor,
+               positions: torch.Tensor) -> None:
+    """K5/K6 index in 32 bits."""
+    k, nsy, nsx, _ = positions.shape
+    if max(ref_padded.numel(), 2 * k * nsy * nsx, 16 * nsy * nsx) \
+            >= 1 << 31 or nsy > 65535:
+        raise ValueError(f"{name}: {tuple(ref_padded.shape)} plane, "
+                         f"{tuple(positions.shape)} positions do not fit "
+                         "the kernel's 31-bit indices")
 
 
 def sad_block_positions(ref_padded: torch.Tensor, orig_bands: torch.Tensor,
@@ -413,6 +430,7 @@ def sad_luma_positions(ref_padded: torch.Tensor, orig: torch.Tensor,
     if tuple(orig.shape) != (nsy * 4, nsx * 4):
         raise ValueError(f"sad_luma_positions: original "
                          f"{tuple(orig.shape)} for {nsy}x{nsx} subblocks")
+    _check_sub("sad_luma_positions", ref_padded, positions)
     return _launch_search("sad_luma_positions", ref_padded, positions,
                           (k, nsy, nsx), (_BAND_ROWS, _BAND_ROWS), margin,
                           bit_depth, orig, None)
@@ -429,5 +447,6 @@ def sad_bilinear_positions(ref_padded: torch.Tensor, orig: torch.Tensor,
     if tuple(orig.shape) != (nsy * 4, nsx * 4):
         raise ValueError(f"sad_bilinear_positions: original "
                          f"{tuple(orig.shape)} for {nsy}x{nsx} subblocks")
+    _check_sub("sad_bilinear_positions", ref_padded, positions)
     return _launch_search("sad_bilinear_positions", ref_padded, positions,
                           (k, nsy, nsx), (5, 5), margin, None, orig, None)
