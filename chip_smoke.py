@@ -50,6 +50,20 @@ Phases (any failure exits non-zero and prints no result line):
      must give the same bytes; one more under torch.profiler gives every
      picture's device operations, device time and idle share, and the I
      picture's decode is traced the same way;
+  8b. bench configurations 3 (MPA, flat grid) and 4 (MPA+GED+ROT+MMMVP
+     with the signalled epipole (1, 0, 0, 0, 1), flat grid) of bench.py,
+     5 frames at GOP 4: at 2048x1024 through encode_sequence on the card,
+     held to the committed JAX stream's sidecar (per picture Y-PSNR at most
+     0.1 dB below, bits at most 2% above) and its IDR NAL byte for byte,
+     K1-K4 launched; the port's stream decoded on the card (every MD5 OK);
+     seconds, frames per second, stage shares and device operations per
+     picture printed; the committed stream decoded on the card (I picture
+     MD5 OK, every Y-PSNR within 0.1 dB of the sidecar) and on the CPU fed
+     the card's positions (epipoles through the positions hook): bit-exact
+     with the card.  At 256x128 (configurations 3, 4 and 4 with the
+     off-pole epipole (4, 0, 0.3, -0.5, 0.8)), where the card's positions
+     equal the CPU's, the card's stream must equal the port's CPU encode
+     byte for byte; each is compared with the committed stream NAL by NAL;
   9. decision SADs (K6's path): frame_codec._sad_fields_bilin with
      exact=False and exact=True on the tensors captured from the 256x128
      encodes' diamond steps and on one full 2048x1024 grid: the bilinear
@@ -510,6 +524,29 @@ class MeasuredEncLib(EncLib):
                               ref0, ref0_poc, ref1, ref1_poc, tid, qp)
 
 
+# bench.py:110-117, configurations 3 and 4 (and 4 with an off-pole
+# epipole): MMConfig fields and the signalled (curPOC, refPOC, x, y, z)
+BENCH_CONFIGS = {
+    "mpa": (dict(mpa=True), []),
+    "fullmm": (dict(mpa=True, ged=True, rot=True, mmmvp=True),
+               [(1, 0, 0.0, 0.0, 1.0)]),
+    "fullmm_ep": (dict(mpa=True, ged=True, rot=True, mmmvp=True),
+                  [(4, 0, 0.3, -0.5, 0.8)]),
+}
+
+
+def bench_cfg(name: str, w: int, h: int, qp: int, gop_size: int,
+              search_range: int = 24) -> EncCfg:
+    """Bench configurations 3 (`mpa`) and 4 (`fullmm`, `fullmm_ep`): ERP,
+    RA with the QP cascade, the flat grid (qt_depth 0), merge,
+    deblock+SAO+ALF."""
+    mm, eps = BENCH_CONFIGS[name]
+    return EncCfg(width=w, height=h, qp=qp, gop="RA", gop_size=gop_size,
+                  qt_depth=0, inter_block_size=16, search_range=search_range,
+                  wrap_around=True, merge=True, mm=MMConfig(**mm),
+                  epipoles=list(eps))
+
+
 def headline_cfg(w: int, h: int, qp: int, gop_size: int,
                  search_range: int = 24) -> EncCfg:
     """The headline configuration: ERP, RA with the QP cascade, MPA+ROT,
@@ -667,23 +704,24 @@ def print_device_work(traced: dict, plain: dict) -> None:
 
 def compare_positions(data: bytes, w: int, h: int):
     """Decode `data` on the card, computing every merged-positions tensor
-    on the card and with the same code on the CPU: returns the card's
-    tensors, the (differing, total) subblock counts per call, and the
-    decoded frames."""
+    on the card and with the same code on the CPU (GED pictures with their
+    epipoles): returns the card's tensors, the (differing, total) subblock
+    counts per call, and the decoded frames."""
     card_positions, mismatches = [], []
     dec = DecLib(positions_fn=lambda *a: compare(*a))
     cpu_reproj = None
 
-    def compare(active, midx, stack, bsize):
+    def compare(active, midx, stack, bsize, epipoles):
         nonlocal cpu_reproj
         if cpu_reproj is None:
             cpu_reproj = MVReprojection(ERP(w, h), w, h,
                                         dec.sps.mm.mm_offset_4x4,
+                                        int(dec.sps.mm.ged_flavor),
                                         device="cpu")
         on_card = frame_codec.merged_positions(dec.reproj, active, midx,
-                                               stack, bsize)
+                                               stack, bsize, epipoles)
         on_cpu = frame_codec.merged_positions(cpu_reproj, active, midx,
-                                              stack, bsize)
+                                              stack, bsize, epipoles)
         diff = (on_card.cpu() != on_cpu).any(-1)
         mismatches.append((int(diff.sum()), diff.numel()))
         card_positions.append(on_card)
@@ -758,25 +796,7 @@ def main() -> None:
           f"{time.perf_counter() - t0:.2f} s (host clock)")
     src = realistic_sequence(side["width"], side["height"],
                              side["frames"])
-    rec = {p["poc"]: p for p in side["pocs"]}
-    if [f.poc for f in frames] != sorted(rec):
-        fail(f"decoded POCs {[f.poc for f in frames]}")
-    for f in frames:
-        planes = f.numpy()
-        if any(p.shape != s.shape for p, s in zip(planes, src[f.poc])):
-            fail(f"POC {f.poc}: plane shapes")
-        ps = [psnr(s, p) for s, p in zip(src[f.poc], planes)]
-        ref_psnr = rec[f.poc]["psnr_y"]
-        status = dec.hash_status.get(f.poc, "NONE")
-        print(f"POC {f.poc}: hash {status}  PSNR Y/U/V "
-              f"{ps[0]:.4f}/{ps[1]:.4f}/{ps[2]:.4f} dB  encoder Y/U/V "
-              f"{rec[f.poc]['psnr_y']:.4f}/{rec[f.poc]['psnr_u']:.4f}/"
-              f"{rec[f.poc]['psnr_v']:.4f} dB")
-        if abs(ps[0] - ref_psnr) > PSNR_TOL_DB:
-            fail(f"POC {f.poc}: Y-PSNR {ps[0]:.4f} vs encoder "
-                 f"{ref_psnr:.4f}")
-    if dec.hash_status.get(0) != "OK":
-        fail("I picture (POC 0) MD5 mismatch")
+    hold_to_record(f"decode {BIG}", frames, dec.hash_status, side, src)
     for name in ("mc_luma_positions", "mc_chroma_positions"):
         if launches[name] == 0:
             fail(f"the decode did not launch {name}")
@@ -799,26 +819,7 @@ def main() -> None:
         fail("the positions hook changed the decode")
     small_data = open(os.path.join(DATA, SMALL + ".bin"), "rb").read()
     _, small_mismatches, _ = compare_positions(small_data, 256, 128)
-
-    # everything downstream of the positions (MC, bi-combine, dequant,
-    # inverse transform, deblock, SAO, ALF) is integer math: the plain
-    # versions on the CPU, fed the card's positions in the same order,
-    # must give the card's pictures bit for bit
-    feed = iter([p.cpu() for p in card_positions])
-    t0 = time.perf_counter()
-    cpu_frames = DecLib(
-        device="cpu",
-        positions_fn=lambda *_: next(feed)).decode_bytes(data)
-    exact = {a.poc: all(torch.equal(p.cpu(), q)
-                        for p, q in zip(a.planes, b.planes))
-             for a, b in zip(frames2, cpu_frames)}
-    print(f"CPU decode from the card's positions "
-          f"({time.perf_counter() - t0:.1f} s, host clock): bit-exact "
-          f"with the card per POC {exact}")
-    if [f.poc for f in cpu_frames] != [f.poc for f in frames2] \
-            or not all(exact.values()):
-        fail("the card's reconstruction differs from the CPU's on the "
-             "same positions")
+    cpu_decode_from(f"decode {BIG}", data, frames2, card_positions)
 
     # ---- 6./7. sequences against the JAX encoder's record (GOP 4)
     phase("6./7. sequences against the JAX encoder's record")
@@ -834,6 +835,12 @@ def main() -> None:
                       ("mc_luma_positions", "mc_chroma_positions",
                        "sad_block_positions", "mc_block_positions"),
                       path_launches)
+
+    # ---- 8b. bench configurations 3 and 4 (the flat MM P path, GED)
+    phase("8b. bench configurations 3 and 4")
+    mc_kernel.CAPTURED, kept = None, mc_kernel.CAPTURED
+    bench_configurations(path_launches)
+    mc_kernel.CAPTURED = kept
 
     # ---- 9. decision SADs through K6 (and K5 beside it)
     phase("9. decision SADs")
@@ -954,6 +961,131 @@ def headline_sequence(label: str, cfg: EncCfg, clip: list, need: tuple,
                   f"{i_decode_s:.2f} s: the card is idle "
                   f"{100 * (1 - busy / i_decode_s):.1f}% of it "
                   f"({took:.2f} s under the profiler)")
+
+
+def bench_configurations(path_launches: dict) -> None:
+    """Phase 8b."""
+    need = ("mc_luma_positions", "mc_chroma_positions",
+            "sad_block_positions", "mc_block_positions")
+    for name in ("mpa", "fullmm"):
+        stream = f"erp2048x1024_ra_{name}_qp37_5f"
+        sd, committed, cfg, clip = bench_stream(name, stream)
+        label = f"config {name} 2048x1024 GOP 4"
+        run = encode_run(label, cfg, clip, "plain")
+        path_launches[label] = run["launches"]
+        check_run(run, need, {p["poc"]: p for p in sd["pocs"]}, hold=True)
+        staged = encode_run(label, cfg, clip, "stages")
+        traced = encode_run(label + " (traced)", cfg, clip, "trace")
+        for other in (staged, traced):
+            if other["data"] != run["data"]:
+                fail(f"{label}: another encode gave other bytes")
+        print_stages(staged)
+        print_device_work(traced, run)
+        if not compare_nals(label, run["data"], committed, only=bs.NAL_IDR):
+            fail(f"{label}: the IDR NAL differs from the JAX encoder's")
+        decode_committed(label, stream, sd, committed, clip)
+    for name in ("mpa", "fullmm", "fullmm_ep"):
+        stream = f"erp256x128_ra_{name}_qp37_5f"
+        sd, committed, cfg, clip = bench_stream(name, stream)
+        label = f"config {name} 256x128 GOP 4"
+        run = encode_run(label, cfg, clip, "plain")
+        path_launches[label] = run["launches"]
+        check_run(run, ("mc_luma_positions", "mc_chroma_positions",
+                        "sad_luma_positions"),
+                  {p["poc"]: p for p in sd["pocs"]})
+        _, off, _ = compare_positions(committed, sd["width"], sd["height"])
+        n_off = sum(n for n, _ in off)
+        cpu = EncLib(cfg, device="cpu").encode_sequence(clip)
+        same = run["data"] == cpu
+        print(f"{label}: the card's stream equals the port's CPU encode "
+              f"byte for byte: {same}")
+        compare_nals(label, run["data"], committed)
+        if not same and n_off == 0:
+            fail(f"{label}: the card's positions equal the CPU's, yet the "
+                 "card's stream differs from the CPU's")
+
+
+def bench_stream(name: str, stream: str):
+    """The committed stream of a bench configuration: its sidecar, bytes,
+    EncCfg (checked against the sidecar) and source clip."""
+    sd = json.load(open(os.path.join(DATA, stream + ".json")))
+    committed = open(os.path.join(DATA, stream + ".bin"), "rb").read()
+    cfg = bench_cfg(name, sd["width"], sd["height"], sd["qp"],
+                    sd["gop_size"], sd["search_range"])
+    if (sd["gop"], sd["qt_depth"], sd["wrap_around"], sd.get("config"),
+            [tuple(e) for e in sd["epipoles"]]) != \
+            (cfg.gop, cfg.qt_depth, cfg.wrap_around, name,
+             [tuple(e) for e in cfg.epipoles]):
+        fail(f"{stream}: the sidecar names another configuration")
+    return sd, committed, cfg, realistic_sequence(sd["width"], sd["height"],
+                                                  sd["frames"])
+
+
+def decode_committed(label: str, stream: str, sd: dict, data: bytes,
+                     clip: list) -> None:
+    """The JAX encoder's stream on the card (I picture MD5 OK, every
+    Y-PSNR within 0.1 dB of the sidecar), then on the CPU fed the card's
+    positions: bit-exact with the card."""
+    card_positions, _, frames = compare_positions(data, sd["width"],
+                                                  sd["height"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec = DecLib()
+    again = dec.decode_bytes(data)
+    torch.cuda.synchronize()
+    print(f"{label}: committed {stream} decoded on the card in "
+          f"{time.perf_counter() - t0:.2f} s (host clock)")
+    if [a.md5() for a in frames] != [b.md5() for b in again]:
+        fail(f"{label}: the positions hook changed the decode")
+    hold_to_record(f"{label} committed", frames, dec.hash_status, sd, clip)
+    cpu_decode_from(label, data, frames, card_positions)
+
+
+def hold_to_record(label: str, frames: list, hash_status: dict, sd: dict,
+                   src: list) -> None:
+    """A JAX-encoded stream decoded on the card, against its sidecar: the
+    I picture's MD5 must match and every picture's Y-PSNR against the
+    source lie within 0.1 dB of the encoder's."""
+    rec = {p["poc"]: p for p in sd["pocs"]}
+    if [f.poc for f in frames] != sorted(rec):
+        fail(f"{label}: decoded POCs {[f.poc for f in frames]}")
+    for f in frames:
+        planes = f.numpy()
+        if any(p.shape != s.shape for p, s in zip(planes, src[f.poc])):
+            fail(f"{label} POC {f.poc}: plane shapes")
+        ps = [psnr(s, p) for s, p in zip(src[f.poc], planes)]
+        ref_psnr = rec[f.poc]["psnr_y"]
+        print(f"{label} POC {f.poc}: hash {hash_status.get(f.poc, 'NONE')}"
+              f"  PSNR Y/U/V {ps[0]:.4f}/{ps[1]:.4f}/{ps[2]:.4f} dB  "
+              f"encoder Y/U/V {rec[f.poc]['psnr_y']:.4f}/"
+              f"{rec[f.poc]['psnr_u']:.4f}/{rec[f.poc]['psnr_v']:.4f} dB")
+        if abs(ps[0] - ref_psnr) > PSNR_TOL_DB:
+            fail(f"{label} POC {f.poc}: Y-PSNR {ps[0]:.4f} vs encoder "
+                 f"{ref_psnr:.4f}")
+    if hash_status.get(0) != "OK":
+        fail(f"{label}: I picture (POC 0) MD5 mismatch")
+
+
+def cpu_decode_from(label: str, data: bytes, frames: list,
+                    card_positions: list) -> None:
+    """Everything downstream of the positions (MC, bi-combine, dequant,
+    inverse transform, deblock, SAO, ALF) is integer math: the plain
+    versions on the CPU, fed the card's positions in the same order, must
+    give the card's pictures bit for bit."""
+    feed = iter([p.cpu() for p in card_positions])
+    t0 = time.perf_counter()
+    cpu_frames = DecLib(device="cpu",
+                        positions_fn=lambda *_: next(feed)).decode_bytes(data)
+    exact = {a.poc: all(torch.equal(p.cpu(), q)
+                        for p, q in zip(a.planes, b.planes))
+             for a, b in zip(frames, cpu_frames)}
+    print(f"{label}: CPU decode from the card's positions "
+          f"({time.perf_counter() - t0:.1f} s, host clock): bit-exact with "
+          f"the card per POC {exact}")
+    if [f.poc for f in cpu_frames] != [f.poc for f in frames] \
+            or not all(exact.values()):
+        fail(f"{label}: the card's reconstruction differs from the CPU's "
+             "on the same positions")
 
 
 def full_grid_case(ref_y, src_y: np.ndarray, positions, dev) -> dict:

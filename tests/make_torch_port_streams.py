@@ -1,13 +1,25 @@
 """Write the committed streams that the PyTorch port's tests and its chip
 smoke run decode.
 
-Both streams use the headline tools of `bench.py` at QP37: RA with a GOP of
-4, the MM quadtree at depth 1 on P slices, MPA+ROT on ERP, search range 24,
-horizontal wrap-around, and `bench.realistic_sequence` content.  Each gets
-a JSON sidecar with every POC's MD5 and the encoder's Y/U/V PSNR.
+Every stream is ERP at QP37, RA with a GOP of 4 and the CTC QP cascade,
+search range 24, horizontal wrap-around, 5 frames of
+`bench.realistic_sequence` content.  Three configurations:
 
-    python tests/make_torch_port_streams.py            # both streams
-    python tests/make_torch_port_streams.py 256x128    # one of them
+  mm       the headline tools (`bench.py:127-129`): MPA+ROT, the MM quadtree
+           at depth 1 on P slices;
+  mpa      bench configuration 3 (`bench.py:110-112`): MPA only, flat grid;
+  fullmm   bench configuration 4 (`bench.py:114-117`): MPA+GED+ROT+MMMVP on
+           the flat grid, with the signalled epipole (1, 0, 0, 0, 1); the
+           `fullmm_ep` variant signals (4, 0, 0.3, -0.5, 0.8) instead, so
+           that the P anchor codes a non-zero picture-header epipole delta
+           and a GED rotation that is not the identity.
+
+Each gets a JSON sidecar with every POC's MD5 and the encoder's Y/U/V PSNR
+and bits.
+
+    python tests/make_torch_port_streams.py                   # all streams
+    python tests/make_torch_port_streams.py 256x128           # one size
+    python tests/make_torch_port_streams.py erp256x128_ra_mpa_qp37_5f
 
 This script imports the JAX package; pytest does not collect it (its name
 does not start with `test_`).
@@ -30,13 +42,32 @@ OUT_DIR = os.path.join(HERE, "data", "torch_port")
 SIZES = {"256x128": (256, 128), "2048x1024": (2048, 1024)}
 NUM_FRAMES = 5
 QP = 37
+# configuration -> (MMConfig fields, qt_depth, epipoles, sizes)
+CONFIGS = {
+    "mm": (dict(mpa=True, rot=True), 1, [], ("256x128", "2048x1024")),
+    "mpa": (dict(mpa=True), 0, [], ("256x128", "2048x1024")),
+    "fullmm": (dict(mpa=True, ged=True, rot=True, mmmvp=True), 0,
+               [(1, 0, 0.0, 0.0, 1.0)], ("256x128", "2048x1024")),
+    "fullmm_ep": (dict(mpa=True, ged=True, rot=True, mmmvp=True), 0,
+                  [(4, 0, 0.3, -0.5, 0.8)], ("256x128",)),
+}
 
 
-def stream_name(w: int, h: int) -> str:
-    return f"erp{w}x{h}_ra_mm_qp37_{NUM_FRAMES}f"
+def stream_name(w: int, h: int, config: str = "mm") -> str:
+    return f"erp{w}x{h}_ra_{config}_qp37_{NUM_FRAMES}f"
 
 
-def make(w: int, h: int) -> dict:
+STREAMS = {stream_name(*SIZES[size], config): (config, size)
+           for config, (_, _, _, sizes) in CONFIGS.items()
+           for size in sizes}
+
+
+def models_label(mm: dict) -> str:
+    return "+".join(k.upper() for k in ("mpa", "ged", "rot", "mmmvp")
+                    if mm.get(k))
+
+
+def make(w: int, h: int, config: str = "mm") -> dict:
     import jax
     jax.config.update("jax_platforms", "cpu")
     from bench import realistic_sequence
@@ -44,16 +75,17 @@ def make(w: int, h: int) -> dict:
     from vvc_mm_tpu.common.typedefs import ProjectionID
     from vvc_mm_tpu.encoder.enclib import EncCfg, EncLib
 
+    mm, qt_depth, epipoles, _ = CONFIGS[config]
     cfg = EncCfg(width=w, height=h, qp=QP, gop="RA", gop_size=4,
-                 qt_depth=1, search_range=24, wrap_around=True,
-                 mm=MMConfig(mpa=True, rot=True,
-                             projection=ProjectionID.EQUIRECTANGULAR))
+                 qt_depth=qt_depth, search_range=24, wrap_around=True,
+                 mm=MMConfig(projection=ProjectionID.EQUIRECTANGULAR, **mm),
+                 epipoles=list(epipoles))
     frames = realistic_sequence(w, h, NUM_FRAMES)
     enc = EncLib(cfg)
     t0 = time.perf_counter()
     data = enc.encode_sequence(frames)
     secs = time.perf_counter() - t0
-    name = stream_name(w, h)
+    name = stream_name(w, h, config)
     with open(os.path.join(OUT_DIR, name + ".bin"), "wb") as f:
         f.write(data)
     pocs = []
@@ -66,10 +98,13 @@ def make(w: int, h: int) -> dict:
                          psnr_u=float(r.psnr_u), psnr_v=float(r.psnr_v),
                          bits=int(r.bits)))
     side = dict(width=w, height=h, frames=NUM_FRAMES, qp=QP, gop="RA",
-                gop_size=4, qt_depth=1, models="MPA+ROT",
+                gop_size=4, qt_depth=qt_depth, models=models_label(mm),
                 projection="ERP", search_range=24, wrap_around=True,
                 content="bench.realistic_sequence(seed=11)",
                 bytes=len(data), pocs=pocs)
+    if config != "mm":
+        side.update(config=config, merge=True,
+                    epipoles=[list(e) for e in epipoles])
     with open(os.path.join(OUT_DIR, name + ".json"), "w") as f:
         json.dump(side, f, indent=1)
         f.write("\n")
@@ -78,9 +113,15 @@ def make(w: int, h: int) -> dict:
 
 
 def main(argv: list[str]) -> None:
+    """Each argument names a stream or a size (every stream of it)."""
     os.makedirs(OUT_DIR, exist_ok=True)
-    for key in (argv or list(SIZES)):
-        make(*SIZES[key])
+    names = []
+    for key in (argv or list(STREAMS)):
+        names += ([n for n, (_, size) in STREAMS.items() if size == key]
+                  if key in SIZES else [key])
+    for name in names:
+        config, size = STREAMS[name]
+        make(*SIZES[size], config)
 
 
 if __name__ == "__main__":

@@ -74,10 +74,10 @@ def test_port_decodes_stream_like_jax(stream, jax_dec):
 def test_each_inter_picture_bit_exact_from_jax_state(stream, jax_dec):
     """One slice at a time, against the exact references and positions
     the JAX decoder used."""
-    def jax_positions(active, midx, stack, block_size):
+    def jax_positions(active, midx, stack, block_size, epipoles):
         return np.asarray(jax_fc.merged_positions(
             jax_dec.reproj, active, jnp.asarray(midx), jnp.asarray(stack),
-            block_size))
+            block_size, epipoles))
 
     dec = DecLib(device="cpu", positions_fn=jax_positions)
     want = {f.poc: f.planes for f in jax_dec.frames}

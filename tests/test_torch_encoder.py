@@ -214,21 +214,27 @@ def test_unported_branches_raise():
             EncLib(_cfg(EncCfg, MMConfig))          # no card: no CPU fallback
         else:
             raise RuntimeError("a card is present")
-    for kw in (dict(dmvr=True), dict(affine=True), dict(wpp=True),
-               dict(target_bitrate_kbps=500), dict(scaling_list=(16,) * 64),
-               dict(mm=MMConfig()), dict(mm=MMConfig(mpa=True, ged=True)),
-               dict(mm=MMConfig(mpa=True, mmmvp=True))):
+    # each refusal names the ROADMAP queue 1 item that ports it
+    for kw, item in ((dict(dmvr=True), "7c"), (dict(affine=True), "8"),
+                     (dict(wpp=True), "11"),
+                     (dict(target_bitrate_kbps=500), "11"),
+                     (dict(scaling_list=(16,) * 64), "9"),
+                     (dict(mm=MMConfig()), "8"),
+                     (dict(mm=MMConfig(mpa=True, t3d=True)), "7c"),
+                     (dict(mm=MMConfig(mpa=True, ged=True, tan=True)), "7c")):
         cfg = _cfg(EncCfg, MMConfig)
         for k, v in kw.items():
             setattr(cfg, k, v)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP queue 1 item {item}$"):
             EncLib(cfg, device="cpu")
-    flat = _cfg(EncCfg, MMConfig)
-    flat.qt_depth = 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EncLib(flat, device="cpu").encode_p_frame(4, None, None, 0)
-    nomerge = _cfg(EncCfg, MMConfig)
-    nomerge.merge = False
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EncLib(nomerge, device="cpu").encode_b_frame(2, None, None, 0, None,
-                                                     4)
+    # what item 7 ported: GED with epipoles, MM-MVP, the flat P path and
+    # B pictures without merge are accepted
+    for kw in (dict(mm=MMConfig(mpa=True, ged=True, rot=True, mmmvp=True),
+                    epipoles=[(1, 0, 0.0, 0.0, 1.0)], qt_depth=0),
+               dict(mm=MMConfig(mpa=True, geda=True), merge=False)):
+        cfg = _cfg(EncCfg, MMConfig)
+        for k, v in kw.items():
+            setattr(cfg, k, v)
+        assert EncLib(cfg, device="cpu").mvp_conv is not None \
+            or not cfg.mm.mmmvp

@@ -168,6 +168,9 @@ def test_b_slice_writer_gives_jax_bytes(writer_calls):
     assert kwargs["merge_flag"] is not None
     assert jax_ic.encode_b_slice_mm(*args, **kwargs) == out
     assert len(out) > 100
-    with pytest.raises(NotImplementedError):
-        inter_coder.encode_b_slice_mm(*args, merge_flag=None,
-                                      merge_idx=None)
+    # the AMVP arm (no merge flags) on the same grids gives JAX's bytes too
+    amvp = inter_coder.encode_b_slice_mm(*args, merge_flag=None,
+                                         merge_idx=None)
+    assert amvp == jax_ic.encode_b_slice_mm(*args, merge_flag=None,
+                                            merge_idx=None)
+    assert amvp != out

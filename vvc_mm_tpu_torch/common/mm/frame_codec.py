@@ -22,7 +22,7 @@ merged positions tensor (a pair of them for B frames) to use instead of
 computing them.  The positions are float32 sphere math rounded to 1/16
 pel, and this lets a caller reconstruct from positions computed elsewhere
 (the JAX package's, in the tests).  Projected DMVR is ROADMAP queue 1
-item 7.
+item 7c.
 """
 from __future__ import annotations
 
@@ -138,7 +138,7 @@ def predict_b_mm(reproj, active_models, model_idx0, model_idx1, mvs0_stack,
     """Mixed-model bi-prediction: per-list merged positions -> two MC
     passes -> per-block uni/bi combine."""
     if dmvr:
-        raise NotImplementedError("projected DMVR: ROADMAP queue 1 item 7")
+        raise NotImplementedError("projected DMVR: ROADMAP queue 1 item 7c")
     if positions is None:
         positions = (
             merged_positions(reproj, active_models, model_idx0, mvs0_stack,
@@ -548,6 +548,61 @@ def search_p_mm_merge(reproj: MVReprojection, active_models: list[int],
             torch.stack(cand_mv), all_sads[1:])
 
 
+def search_b_mm(reproj: MVReprojection, active_models: list[int],
+                orig_y, ref0_y, ref1_y, qp: int, block_size: int,
+                bit_depth: int, search_range: int, epipoles0=None,
+                epipoles1=None, wrap_around: bool = False,
+                small_range: bool = True, seed=None):
+    """B-frame per-list model search + uni/bi decision, for B pictures
+    without merge.  Returns (idx0, idx1, stack0, stack1, dirs)."""
+    s = block_size
+    lam = quant.lambda_from_qp(qp, intra=False)
+    mv_bits = int(lam ** 0.5 * 8)
+    # models stop at quarter-pel; a temporal seed shrinks the ladder
+    steps = (B_SEED_STEPS if seed is not None else (16, 8, 4)) \
+        if small_range else (64, 32, 16, 8, 4)
+    idx0, stack0, sads0, r0p = _search_list(
+        reproj, active_models, orig_y, ref0_y, qp, s, bit_depth,
+        search_range, epipoles0, wrap_around, steps, seed)
+    idx1, stack1, sads1, r1p = _search_list(
+        reproj, active_models, orig_y, ref1_y, qp, s, bit_depth,
+        search_range, epipoles1, wrap_around, steps, seed)
+    if reproj.height >= BLOCK_EVAL_MIN_HEIGHT:
+        # bi decision on block-translational bands (decision-only; the
+        # normative prediction runs per subblock in the finish): one band
+        # per list through K4
+        ob = _block_bands(orig_y, s)
+        c0 = _merged_center_positions(reproj, active_models, s, epipoles0,
+                                      idx0, stack0)
+        c1 = _merged_center_positions(reproj, active_models, s, epipoles1,
+                                      idx1, stack1)
+        b0 = mm_mc.mc_block_positions(r0p, c0[None], MC_MARGIN, s,
+                                      bit_depth)[0]
+        b1 = mm_mc.mc_block_positions(r1p, c1[None], MC_MARGIN, s,
+                                      bit_depth)[0]
+        sad_bi = _band_sad_blocks((b0 + b1 + 1) >> 1, ob, s) + mv_bits
+        u0 = _band_sad_blocks(b0, ob, s)
+        u1 = _band_sad_blocks(b1, ob, s)
+        dirs = first_argmin(torch.stack([u0, u1, sad_bi]), 0)
+        return idx0, idx1, stack0, stack1, dirs.to(torch.int32)
+    # bi decision on row-subsampled MC (K1); the uni costs are each list's
+    # best model SAD of the search
+    row_step = SAD_ROW_STEP if s // 4 >= SAD_ROW_STEP else 1
+    oy_sub = _subsample_rows(orig_y, row_step)
+    pos0 = merged_positions(reproj, active_models, idx0, stack0, s,
+                            epipoles0, row_step)
+    pos1 = merged_positions(reproj, active_models, idx1, stack1, s,
+                            epipoles1, row_step)
+    p0 = mm_mc.mc_luma_positions(r0p, pos0, MC_MARGIN, bit_depth)
+    p1 = mm_mc.mc_luma_positions(r1p, pos1, MC_MARGIN, bit_depth)
+    sad_bi = _block_sad_sub((oy_sub - ((p0 + p1 + 1) >> 1)).abs(), s,
+                            row_step) + mv_bits
+    sad0 = torch.stack([sads0[m] for m in active_models]).min(dim=0).values
+    sad1 = torch.stack([sads1[m] for m in active_models]).min(dim=0).values
+    dirs = first_argmin(torch.stack([sad0, sad1, sad_bi]), 0)
+    return idx0, idx1, stack0, stack1, dirs.to(torch.int32)
+
+
 def search_qt_parent_mm(reproj: MVReprojection, active_models: list[int],
                         orig_y, ref_y, idx_child, mv_child, idx_own,
                         mv_own, qp: int, block_size: int, bit_depth: int,
@@ -696,6 +751,63 @@ def search_b_mm_merge(reproj: MVReprojection, active_models: list[int],
     return (idx0, idx1, stack0, stack1, dirs, sad_sel,
             torch.stack(ci0), torch.stack(ci1), torch.stack(cm0),
             torch.stack(cm1), torch.stack(cd), torch.stack(cs))
+
+
+def enc_finish_p_mm_fused(reproj, active_models, model_idx, mvs_stack,
+                          orig, ref, qp: int, block_size: int,
+                          bit_depth: int, epipoles=None,
+                          wrap_around: bool = False,
+                          deblocking: bool = True):
+    """Encoder tail for flat MM P frames: the merged positions, then
+    enc_finish_p_mm's prediction -> residual -> recon -> deblock.  Returns
+    (lev_y, lev_u, lev_v, rec dict post-deblock)."""
+    positions = merged_positions(reproj, active_models, model_idx,
+                                 mvs_stack, block_size, epipoles)
+    ly, lu, lv, ry, ru, rv = _p_finish_body(
+        model_idx, mvs_stack, positions, *orig, *ref, qp, block_size,
+        bit_depth, wrap_around, deblocking)
+    return ly, lu, lv, dict(y=ry, u=ru, v=rv)
+
+
+def _p_finish_body(model_idx, mvs_stack, positions, oy, ou, ov, ry, ru,
+                   rv, qp, block_size, bit_depth, wrap_around, deblocking):
+    from .. import deblock as deblock_mod
+    s = block_size
+    h, w = oy.shape
+    nby, nbx = h // s, w // s
+    pred_y, pred_u, pred_v = predict_from_positions(
+        positions, ry, ru, rv, bit_depth, wrap_around)
+    lev_y, _ = _residual_pass(oy, pred_y, s, qp, bit_depth)
+    lev_u, _ = _residual_pass(ou, pred_u, s // 2, qp, bit_depth)
+    lev_v, _ = _residual_pass(ov, pred_v, s // 2, qp, bit_depth)
+    rec_y = _rec_plane(pred_y, lev_y, s, nby, nbx, qp, bit_depth)
+    rec_u = _rec_plane(pred_u, lev_u, s // 2, nby, nbx, qp, bit_depth)
+    rec_v = _rec_plane(pred_v, lev_v, s // 2, nby, nbx, qp, bit_depth)
+    if deblocking:
+        sel = _take0(mvs_stack, model_idx)
+        has_resid = ((lev_y != 0).any(dim=3).any(dim=2)
+                     | (lev_u != 0).any(dim=3).any(dim=2)
+                     | (lev_v != 0).any(dim=3).any(dim=2))
+        bs_v, bs_h = deblock_mod.boundary_strengths_inter(
+            sel.to(torch.int32), has_resid)
+        rec_y, rec_u, rec_v = deblock_mod.deblock_frame(
+            rec_y, rec_u, rec_v, bs_v, bs_h, s, qp, bit_depth)
+    return lev_y, lev_u, lev_v, rec_y, rec_u, rec_v
+
+
+def enc_finish_p_mm(model_idx, mvs_stack, positions, orig_y, orig_u, orig_v,
+                    ref_y, ref_u, ref_v, qp: int, block_size: int,
+                    bit_depth: int, wrap_around: bool = False,
+                    deblocking: bool = True):
+    """Encoder tail for MM P frames from a given positions tensor:
+    prediction (K1/K2) -> residual/levels -> reconstruction -> deblock,
+    all integer math downstream of `positions`, so the reconstruction is
+    bit-exact with the decoder's.  Returns (lev_y, lev_u, lev_v, rec dict
+    post-deblock)."""
+    ly, lu, lv, ry, ru, rv = _p_finish_body(
+        model_idx, mvs_stack, positions, orig_y, orig_u, orig_v, ref_y,
+        ref_u, ref_v, qp, block_size, bit_depth, wrap_around, deblocking)
+    return ly, lu, lv, dict(y=ry, u=ru, v=rv)
 
 
 def enc_finish_b_mm_fused(reproj, active_models, idx0, idx1, stack0,

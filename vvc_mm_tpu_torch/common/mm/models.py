@@ -1,9 +1,11 @@
 """The multi-model motion models of the decoder slice — elementwise torch.
 
 PyTorch counterpart of `vvc_mm_tpu/common/mm/models.py` (reference:
-source/Lib/CommonLib/MotionModels/).  This slice carries CLASSIC
-(translational), the three MPA planes and ROT; GED, 3DT and TAN are ROADMAP
-queue 1 item 7.
+source/Lib/CommonLib/MotionModels/).  The port carries CLASSIC
+(translational), the three MPA planes, ROT and the geodesic family (GED
+with a signalled epipole, GEDA on the fixed axes); 3DT and TAN, and the
+`*_mv_for_shift` inverses (MM-MVP converts through the host's
+mvp_convert.py instead), are ROADMAP queue 1 item 7c.
 
 model_motion(grid_x, grid_y, mv_x, mv_y, cx, cy) -> (moved_x, moved_y) maps
 each subblock center of the current block to where it lands in the
@@ -14,9 +16,11 @@ results differ from it only where the math libraries round differently.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ...lib360.projection import (Perspective, cartesian_to_spherical, PI)
+from ...lib360.projection import (Perspective, cartesian_to_spherical,
+                                  spherical_to_cartesian, PI)
 from ..typedefs import MotionModelID as M
 
 
@@ -108,3 +112,75 @@ def rot_motion(proj, angle_res: float, grid_x, grid_y, mv_x, mv_y, cx, cy):
     out_x, out_y = proj.from_sphere(*o)
     zero = (mv_x == 0) & (mv_y == 0)
     return (torch.where(zero, grid_x, out_x), torch.where(zero, grid_y, out_y))
+
+
+# ---------------------------------------------------------------------------
+# Geodesic (GED / GEDA) — reference: GeodesicMotionModel.cpp
+# ---------------------------------------------------------------------------
+VISHWANATH_ORIGINAL = 0
+VISHWANATH_MODULATED = 1
+
+
+def ged_rotation_matrix(epipole: np.ndarray) -> np.ndarray:
+    """3x3 matrix rotating the epipole onto the north pole (0,0,1)
+    (reference: setEpipole — Rodrigues aligning z to epipole, transposed).
+    Host-side numpy float64, rounded to float32 once: epipoles are
+    per-frame scalars."""
+    p = np.asarray(epipole, dtype=np.float64)
+    p = p / np.sqrt((p * p).sum())
+    cross = np.array([-p[1], p[0], 0.0])
+    s = np.sqrt((cross * cross).sum())
+    if s == 0:
+        r = np.eye(3)
+        if p[2] < 0:
+            r[2, 2] = -1
+        return r.astype(np.float32)
+    c = np.clip(p[2], -1.0, 1.0)
+    k = np.array([[0, -cross[2], cross[1]],
+                  [cross[2], 0, -cross[0]],
+                  [-cross[1], cross[0], 0]])
+    r = np.eye(3) + k + k @ k * ((1 - c) / (s * s))
+    return r.T.astype(np.float32)
+
+
+def _mat_apply(m, x, y, z):
+    return (m[0, 0] * x + m[0, 1] * y + m[0, 2] * z,
+            m[1, 0] * x + m[1, 1] * y + m[1, 2] * z,
+            m[2, 0] * x + m[2, 1] * y + m[2, 2] * z)
+
+
+def ged_motion(proj, angle_res: float, rot_mat, flavor: int,
+               grid_x, grid_y, mv_x, mv_y, cx, cy):
+    """rot_mat: (3,3) float32 epipole-alignment matrix from
+    ged_rotation_matrix.  The modulated flavour keeps the JAX package's
+    order, k = sin(theta_c + a*mvx) / sin(a*mvx) and then
+    atan(sin(theta) / (k - cos(theta))): a zero mvx with a non-zero mvy
+    gives an infinite k or a NaN there as here, and the caller's NaN -> no
+    motion rule is the reference's."""
+    m = torch.as_tensor(rot_mat, dtype=torch.float32, device=grid_x.device)
+    g3 = proj.to_sphere(grid_x, grid_y)
+    rx, ry, rz = _mat_apply(m, *g3)
+    r, theta, phi = cartesian_to_spherical(rx, ry, rz)
+    if flavor == VISHWANATH_ORIGINAL:
+        theta_moved = theta + angle_res * mv_x
+    else:
+        c3 = proj.to_sphere(cx, cy)
+        crx, cry, crz = _mat_apply(m, *c3)
+        _, theta_c, _ = cartesian_to_spherical(crx, cry, crz)
+        k = (torch.sin(theta_c + angle_res * mv_x)
+             / torch.sin(angle_res * mv_x))
+        d_theta = torch.arctan(torch.sin(theta) / (k - torch.cos(theta)))
+        theta_moved = theta + d_theta
+    phi_moved = phi + angle_res * mv_y
+    c = spherical_to_cartesian(r, theta_moved, phi_moved)
+    ox, oy, oz = _mat_apply(m.T, *c)
+    out_x, out_y = proj.from_sphere(ox, oy, oz)
+    zero = (mv_x == 0) & (mv_y == 0)
+    return (torch.where(zero, grid_x, out_x), torch.where(zero, grid_y, out_y))
+
+
+GEDA_EPIPOLES = {
+    M.GEODESIC_AXIS_X: np.array([1.0, 0.0, 0.0]),
+    M.GEODESIC_AXIS_Y: np.array([0.0, 1.0, 0.0]),
+    M.GEODESIC_AXIS_Z: np.array([0.0, 0.0, 1.0]),
+}

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from . import models
@@ -29,6 +30,8 @@ from ..typedefs import MotionModelID as M
 SUBBLK = 4       # luma subblock size (reference: MVReprojection 4x4)
 
 _MPA = (M.MPA_FRONT_BACK, M.MPA_LEFT_RIGHT, M.MPA_TOP_BOTTOM)
+_GED = (M.GEODESIC_CAMPOSE, M.GEODESIC_AXIS_X, M.GEODESIC_AXIS_Y,
+        M.GEODESIC_AXIS_Z)
 
 
 def offset4x4_value(code: int) -> float:
@@ -38,11 +41,11 @@ def offset4x4_value(code: int) -> float:
 
 class MVReprojection:
     """Per-frame-geometry reprojection state on one device, CUDA unless
-    another is named (caches the subblock grid and the MPA
-    perspective-plane caches)."""
+    another is named (caches the subblock grid, the MPA perspective-plane
+    caches and the GED epipole-alignment matrices)."""
 
     def __init__(self, proj, width: int, height: int,
-                 offset4x4_code: int = 1,
+                 offset4x4_code: int = 1, ged_flavor: int = 1,
                  device: torch.device | str | None = None) -> None:
         self.proj = proj
         self.width = width
@@ -50,6 +53,7 @@ class MVReprojection:
         self.device = resolve_device(device)
         self.offset = offset4x4_value(offset4x4_code)
         self.angle_res = math.pi / height
+        self.ged_flavor = ged_flavor
         nsx, nsy = width // SUBBLK, height // SUBBLK
         f32 = dict(dtype=torch.float32, device=self.device)
         gx = torch.arange(nsx, **f32) * SUBBLK + self.offset
@@ -57,6 +61,7 @@ class MVReprojection:
         self.grid_x = gx[None, :].expand(nsy, nsx).contiguous()
         self.grid_y = gy[:, None].expand(nsy, nsx).contiguous()
         self._mpa_cache: dict[int, tuple] = {}
+        self._ged_rot: dict[tuple, torch.Tensor] = {}
 
     # -- caches ------------------------------------------------------------
     def mpa_cache(self, plane: int):
@@ -66,6 +71,24 @@ class MVReprojection:
             self._mpa_cache[plane] = models.mpa_to_perspective(
                 self.proj, plane, self.grid_x, self.grid_y)
         return self._mpa_cache[plane]
+
+    def ged_rot(self, epipole) -> torch.Tensor:
+        """The float32 epipole-alignment matrix on this device, cached by
+        the epipole rounded to 9 decimals (as the JAX package keys it)."""
+        key = tuple(np.round(np.asarray(epipole, dtype=np.float64), 9))
+        if key not in self._ged_rot:
+            self._ged_rot[key] = torch.from_numpy(
+                models.ged_rotation_matrix(epipole)).to(self.device)
+        return self._ged_rot[key]
+
+    def _ged(self, model_id, epipole, gx, gy, mv_x, mv_y, c_x, c_y):
+        if model_id != M.GEODESIC_CAMPOSE:
+            epipole = models.GEDA_EPIPOLES[M(model_id)]
+        if epipole is None:
+            raise ValueError("GEODESIC_CAMPOSE needs an epipole")
+        return models.ged_motion(self.proj, self.angle_res,
+                                 self.ged_rot(epipole), self.ged_flavor, gx,
+                                 gy, mv_x, mv_y, c_x, c_y)
 
     # -- the engine --------------------------------------------------------
     def _subblock_mv_center(self, mvs: torch.Tensor, block_size: int,
@@ -98,6 +121,7 @@ class MVReprojection:
 
         Args:
           mvs: (nby, nbx, 2) int 1/16-pel motion vectors.
+          epipole: (3,) for GEODESIC_CAMPOSE.
           row_step: keep every row_step-th subblock row only (search-time
             subsampled SAD; normative paths use 1).
         Returns:
@@ -118,10 +142,13 @@ class MVReprojection:
         elif model_id == M.ROTATIONAL:
             ox, oy = models.rot_motion(p, self.angle_res, gx, gy, mv_x, mv_y,
                                        c_x, c_y)
+        elif model_id in _GED:
+            ox, oy = self._ged(model_id, epipole, gx, gy, mv_x, mv_y, c_x,
+                               c_y)
         else:
             raise NotImplementedError(
-                f"motion model {M(model_id).name}: GED/3DT/TAN are ROADMAP "
-                "queue 1 item 7 (full multi-model config)")
+                f"motion model {M(model_id).name}: 3DT/TAN are ROADMAP "
+                "queue 1 item 7c")
         # NaN -> no motion (reference: MVReprojection.cpp:158-161)
         bad = torch.isnan(ox) | torch.isnan(oy)
         ox = torch.where(bad, gx, ox) - self.offset
@@ -171,6 +198,8 @@ class MVReprojection:
         if model_id == M.ROTATIONAL:
             return models.rot_motion(p, self.angle_res, px, py, mvx, mvy,
                                      cx, cy)
+        if model_id in _GED:
+            return self._ged(model_id, epipole, px, py, mvx, mvy, cx, cy)
         raise NotImplementedError(
-            f"motion model {M(model_id).name}: GED/3DT/TAN are ROADMAP "
-            "queue 1 item 7 (full multi-model config)")
+            f"motion model {M(model_id).name}: 3DT/TAN are ROADMAP "
+            "queue 1 item 7c")

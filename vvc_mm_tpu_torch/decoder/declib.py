@@ -4,13 +4,15 @@ PyTorch counterpart of `vvc_mm_tpu/decoder/declib.py` (reference:
 source/Lib/DecoderLib/DecLib.cpp — decode:3615 NAL dispatch,
 xDecodeSlice:2699, finishPicture:785 incl. the MD5 hash check at :868).
 
-This slice decodes the multi-model RA configuration: SPS/PPS activation,
-the decoded-picture-hash SEI check, I slices, MM P slices on the quadtree
-(`inter_qt_depth > 0`) and MM B slices, each followed by deblocking, SAO
-and ALF.  Entropy decoding runs on the host (numpy + the native CABAC
-coder); reconstruction, the DPB and the loop filters run on `device`,
-the MC through kernels K1/K2 on CUDA.  Every other branch raises
-NotImplementedError naming the ROADMAP queue 1 item that ports it.
+This slice decodes the multi-model RA configurations: SPS/PPS
+activation, the decoded-picture-hash SEI check, I slices, MM P slices on
+the flat grid or the quadtree (`inter_qt_depth > 0`) and MM B slices, with
+merge on or off, GED epipoles (PH delta against the coded predictor) and
+MM-MVP, each followed by deblocking, SAO and ALF.  Entropy decoding runs
+on the host (numpy + the native CABAC coder); reconstruction, the DPB and
+the loop filters run on `device`, the MC through kernels K1/K2 on CUDA.
+Every other branch raises NotImplementedError naming the ROADMAP queue 1
+item that ports it.
 """
 from __future__ import annotations
 
@@ -23,15 +25,19 @@ import torch
 from ..common import alf, deblock, sao, wavefront
 from ..common.bitstream import (BitReader, read_annexb, NAL_SPS, NAL_PPS,
                                 NAL_IDR, NAL_SEI, NAL_TRAIL)
+from ..common.mm import epipole as epipole_mod
 from ..common.mm import frame_codec as mm_codec
 from ..common.mm import qt_codec
+from ..common.mm.mvp_convert import MMVPConverter
 from ..common.mm.reprojection import MVReprojection
 from ..common.qtree import qt_boundary_strengths
 from ..common.slice_ps import PPS, SPS, SliceHeader
-from ..common.typedefs import SliceType
+from ..common.typedefs import MotionModelID, SliceType
 from ..device import check_device, resolve_device
 from ..lib360.projection import make_projection
-from .inter_parser import decode_b_slice_mm, decode_p_slice_qt_mm
+from ..encoder.inter_coder import mer_blocks_log2
+from .inter_parser import (decode_b_slice_mm, decode_p_slice_mm,
+                           decode_p_slice_qt_mm)
 from .intra_parser import decode_intra_slice
 
 
@@ -62,8 +68,9 @@ class DecLib:
 
     positions_fn, when given, replaces the port's merged-positions
     computation: positions_fn(active_models, model_idx, mvs_stack,
-    block_size) -> (nsy, nsx, 2) int positions.  Everything downstream of
-    the positions tensor is the port's."""
+    block_size, epipoles) -> (nsy, nsx, 2) int positions, where epipoles
+    is the picture's (list's) {GEODESIC_CAMPOSE: epipole} dict or None.
+    Everything downstream of the positions tensor is the port's."""
 
     def __init__(self, device=None, positions_fn=None) -> None:
         self.device = resolve_device(device)
@@ -72,6 +79,8 @@ class DecLib:
         self.pps: PPS | None = None
         self.frames: list[DecodedFrame] = []
         self.reproj: MVReprojection | None = None
+        self.epipole_list: epipole_mod.EpipoleList | None = None
+        self.mvp_conv: MMVPConverter | None = None
         # POC -> "OK"/"MISMATCH"/"MISSING" from decoded-picture-hash SEI
         self.hash_status: dict[int, str] = {}
 
@@ -81,18 +90,23 @@ class DecLib:
             _todo("LMCS", "11")
         if sps.wpp:
             _todo("WPP", "11")
-        if sps.mm.any_enabled():
-            if sps.mm.ged or sps.mm.geda or sps.mm.t3d or sps.mm.tan:
-                _todo("GED/3DT/TAN motion models and GED epipoles", "7")
-            if sps.mm.mmmvp:
-                _todo("MMMVP", "7")
+        if sps.mm.t3d or sps.mm.tan:
+            _todo("3DT/TAN motion models", "7c")
         self.sps = sps
         if sps.mm.any_enabled():
             proj = make_projection(int(sps.mm.projection), sps.width,
                                    sps.height)
             self.reproj = MVReprojection(proj, sps.width, sps.height,
                                          sps.mm.mm_offset_4x4,
+                                         int(sps.mm.ged_flavor),
                                          device=self.device)
+            self.epipole_list = epipole_mod.EpipoleList(
+                sps.mm.global_epipole)
+            self.mvp_conv = (MMVPConverter(sps.width, sps.height,
+                                           int(sps.mm.ged_flavor))
+                             if sps.mm.mmmvp else None)
+        else:
+            self.mvp_conv = None
 
     def decode_bytes(self, data: bytes) -> list[DecodedFrame]:
         for nalu in read_annexb(data):
@@ -169,10 +183,12 @@ class DecLib:
         self.frames.append(DecodedFrame(
             poc, [recon[k].to(torch.int32) for k in "yuv"]))
 
-    def _positions(self, active, model_idx, mvs_stack, block_size):
+    def _positions(self, active, model_idx, mvs_stack, block_size,
+                   epipoles):
         if self.positions_fn is None:
             return None
-        pos = self.positions_fn(active, model_idx, mvs_stack, block_size)
+        pos = self.positions_fn(active, model_idx, mvs_stack, block_size,
+                                epipoles)
         if not torch.is_tensor(pos):
             pos = torch.from_numpy(np.array(pos))
         return pos.to(device=self.device, dtype=torch.int32)
@@ -216,16 +232,32 @@ class DecLib:
         bs = deblock.boundary_strengths_intra(nby, nbx, self.device)
         self._store(sh.poc, recon, sh, bs, s)
 
+    def _p_epipoles(self, sh):
+        """Epipole reconstruction of a GED P picture (reference:
+        DecLib.cpp:3136-3143): the predictor from the epipoles decoded so
+        far plus the PH delta.  Returns the epipoles dict or None."""
+        if not self.sps.mm.ged:
+            return None
+        ref_poc = sh.ref_pocs_l0[0]
+        pred = self.epipole_list.derive_predictor(sh.poc, ref_poc)
+        delta = sh.epipole_delta or (0, 0, 0)
+        ep = epipole_mod.from_fixed(tuple(
+            a + b for a, b in zip(epipole_mod.to_fixed(pred), delta)))
+        self.epipole_list.set_epipole(sh.poc, ref_poc, ep)
+        return {MotionModelID.GEODESIC_CAMPOSE: ep}
+
     def _decode_p_mm(self, sh, cabac_bytes: bytes) -> None:
         sps = self.sps
-        if sps.inter_qt_depth <= 0:
-            _todo("the flat-grid MM P path", "7")
         if len(sh.ref_pocs_l0) != 1:
             _todo("two-reference P slices", "8")
         s = sps.inter_block_size
         ref = self._ref_by_poc(sh.ref_pocs_l0[0])
         active = sps.mm.active_models()
+        epipoles = self._p_epipoles(sh)
         depth = sps.inter_qt_depth
+        if depth <= 0:
+            self._decode_p_flat(sh, cabac_bytes, ref, active, epipoles)
+            return
         midx_u, mv_u, levels, has_resid_u, leaf_id_u = decode_p_slice_qt_mm(
             cabac_bytes, sps.height, sps.width, s, depth, len(active))
         u = s >> depth
@@ -234,45 +266,75 @@ class DecLib:
             stack = np.where(
                 (midx_u[None] == np.arange(len(active))[:, None, None])
                 [..., None], mv_u[None], 0)
-            positions = self._positions(active, midx_u, stack, u)
+            positions = self._positions(active, midx_u, stack, u, epipoles)
         recon = qt_codec.reconstruct_qt_mm(
             self.reproj, active, midx_u, mv_u, levels, *ref.planes, sh.qp,
-            s, depth, sps.bit_depth, None, sps.wrap_around,
+            s, depth, sps.bit_depth, epipoles, sps.wrap_around,
             positions=positions)
         bs = qt_boundary_strengths(mv_u, has_resid_u, leaf_id_u)
         self._store(sh.poc, recon, sh, bs, u)
 
+    def _decode_p_flat(self, sh, cabac_bytes: bytes, ref, active,
+                       epipoles) -> None:
+        """Flat-grid MM P slice (reference: the per-block model syntax of
+        CABACReader, DecCu + InterPrediction.cpp:520-528 model dispatch)."""
+        sps = self.sps
+        s = sps.inter_block_size
+        nby, nbx = sps.height // s, sps.width // s
+        ep_mvp = (epipoles or {}).get(MotionModelID.GEODESIC_CAMPOSE)
+        model_idx, mvs, ly, lu, lv = decode_p_slice_mm(
+            cabac_bytes, nby, nbx, s, active, self.mvp_conv, ep_mvp,
+            use_merge=sps.merge, mer_blocks_log2=mer_blocks_log2(
+                sps.log2_parallel_merge_level, s))
+        stack = _stack_of(model_idx, mvs, len(active))
+        positions = self._positions(active, model_idx, stack, s, epipoles)
+        recon = mm_codec.reconstruct_p_frame_mm(
+            self.reproj, active, model_idx, stack, ly, lu, lv, *ref.planes,
+            sh.qp, s, sps.bit_depth, epipoles, sps.wrap_around,
+            positions=positions)
+        has_resid = ((ly != 0).any((2, 3)) | (lu != 0).any((2, 3))
+                     | (lv != 0).any((2, 3)))
+        bs = deblock.boundary_strengths_inter(
+            torch.as_tensor(mvs, dtype=torch.int32),
+            torch.as_tensor(has_resid))
+        self._store(sh.poc, recon, sh, bs, s)
+
     def _decode_b_mm(self, sh, cabac_bytes: bytes) -> None:
         sps = self.sps
         if sps.dmvr:
-            _todo("projected DMVR", "7")
+            _todo("projected DMVR", "7c")
         s = sps.inter_block_size
         nby, nbx = sps.height // s, sps.width // s
         ref0 = self._ref_by_poc(sh.ref_pocs_l0[0])
         ref1 = self._ref_by_poc(sh.ref_pocs_l1[0])
         active = sps.mm.active_models()
-        mer_blk = max(0, sps.log2_parallel_merge_level
-                      - (s.bit_length() - 1))
+        eps0 = eps1 = None
+        if sps.mm.ged:
+            eps0 = {MotionModelID.GEODESIC_CAMPOSE:
+                    self.epipole_list.find_epipole(sh.poc,
+                                                   sh.ref_pocs_l0[0])}
+            eps1 = {MotionModelID.GEODESIC_CAMPOSE:
+                    self.epipole_list.find_epipole(sh.poc,
+                                                   sh.ref_pocs_l1[0])}
         (midx0, midx1, mv0, mv1, dirs, ly, lu,
-         lv) = decode_b_slice_mm(cabac_bytes, nby, nbx, s, active, None,
-                                 None, None, use_merge=sps.merge,
-                                 mer_blocks_log2=mer_blk)
+         lv) = decode_b_slice_mm(
+            cabac_bytes, nby, nbx, s, active, self.mvp_conv,
+            (eps0 or {}).get(MotionModelID.GEODESIC_CAMPOSE),
+            (eps1 or {}).get(MotionModelID.GEODESIC_CAMPOSE),
+            use_merge=sps.merge, mer_blocks_log2=mer_blocks_log2(
+                sps.log2_parallel_merge_level, s))
         n_active = len(active)
-        stacks = []
-        for midx, mv in ((midx0, mv0), (midx1, mv1)):
-            stack = np.zeros((n_active, nby, nbx, 2), np.int64)
-            np.put_along_axis(stack, midx[None, :, :, None].astype(np.int64),
-                              mv[None], axis=0)
-            stacks.append(stack)
+        stacks = [_stack_of(midx0, mv0, n_active),
+                  _stack_of(midx1, mv1, n_active)]
         positions = None
         if self.positions_fn is not None:
-            positions = tuple(self._positions(active, m, st, s)
-                              for m, st in ((midx0, stacks[0]),
-                                            (midx1, stacks[1])))
+            positions = tuple(self._positions(active, m, st, s, eps)
+                              for m, st, eps in ((midx0, stacks[0], eps0),
+                                                 (midx1, stacks[1], eps1)))
         recon = mm_codec.reconstruct_b_frame_mm(
             self.reproj, active, midx0, midx1, stacks[0], stacks[1], dirs,
             ly, lu, lv, ref0.planes, ref1.planes, sh.qp, s, sps.bit_depth,
-            None, None, sps.wrap_around, False, positions=positions)
+            eps0, eps1, sps.wrap_around, False, positions=positions)
         has_resid = ((ly != 0).any((2, 3)) | (lu != 0).any((2, 3))
                      | (lv != 0).any((2, 3)))
         sel_mv = np.where(dirs[..., None] == 1, mv1, mv0)
@@ -291,3 +353,13 @@ class DecLib:
                     check_device(p, self.device, f"reference POC {poc}")
                 return f
         _todo(f"reference POC {poc} missing (concealment)", "11")
+
+
+def _stack_of(model_idx: np.ndarray, mvs: np.ndarray, n_active: int
+              ) -> np.ndarray:
+    """(n_active, nby, nbx, 2) stack with each block's MV in its model's
+    layer, zero elsewhere."""
+    stack = np.zeros((n_active,) + mvs.shape, np.int64)
+    np.put_along_axis(stack, model_idx[None, :, :, None].astype(np.int64),
+                      mvs[None], axis=0)
+    return stack

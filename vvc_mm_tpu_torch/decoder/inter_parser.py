@@ -2,8 +2,9 @@
 
 PyTorch-port copy of the MM parsers of `vvc_mm_tpu/decoder/inter_parser.py`
 (reference: source/Lib/DecoderLib/CABACReader.cpp — cu_skip_flag,
-merge_idx, motion_model, mvd_coding, residual_coding): the quadtree MM P
-slice and the MM B slice.  Host numpy code over the native CABAC decoder.
+merge_idx, motion_model, mvd_coding, residual_coding): the flat and the
+quadtree MM P slice and the MM B slice, with MM-MVP where the SPS turns it
+on.  Host numpy code over the native CABAC decoder.
 The classic, affine, 2-ref, MTT and WPP parsers are ROADMAP queue 1
 items 8 and 11.
 """
@@ -15,6 +16,7 @@ from ..common.cabac import BinDecoder
 from ..common.contexts import ctx_id
 from ..encoder.inter_coder import (MERGE_MAX, _mm_mvp, inherited_model,
                                    merge_candidates_b_mm,
+                                   merge_candidates_mm,
                                    merge_candidates_qt_mm, mvp_unit_grid_mm)
 from ..utils.native import NativeBinDecoder
 
@@ -47,6 +49,63 @@ def decode_motion_model(dec: BinDecoder, n_active: int) -> int:
             ctx_id("MotionModel", min(idx, 10))):
         idx += 1
     return idx
+
+
+def _decode_residual(dec: BinDecoder, levs, sizes, by: int, bx: int
+                     ) -> None:
+    for ci, (lev, size) in enumerate(zip(levs, sizes)):
+        if dec.decode_bin(ctx_id("QtCbf", (0, 4, 5)[ci])):
+            lev[by, bx] = dec.decode_coeffs(size, size, chroma=(ci != 0))
+
+
+def decode_p_slice_mm(data: bytes, nby: int, nbx: int, s: int,
+                      active_models: list[int], conv=None, epipole=None,
+                      use_merge: bool = False, mer_blocks_log2: int = 0):
+    """Exact inverse of encoder.inter_coder.encode_p_slice_mm (flat grid).
+    Returns (model_idx, mvs (nby,nbx,2), lev_y, lev_u, lev_v) — mvs holds
+    each block's MV in its model."""
+    dec = NativeBinDecoder(data)
+    sc = s // 2
+    model_idx = np.zeros((nby, nbx), dtype=np.int32)
+    models_sel = np.zeros((nby, nbx), dtype=np.int32)
+    mvs = np.zeros((nby, nbx, 2), dtype=np.int64)
+    lev_y = np.zeros((nby, nbx, s, s), dtype=np.int32)
+    lev_u = np.zeros((nby, nbx, sc, sc), dtype=np.int32)
+    lev_v = np.zeros((nby, nbx, sc, sc), dtype=np.int32)
+    levs, sizes = (lev_y, lev_u, lev_v), (s, sc, sc)
+    model_to_idx = {m: i for i, m in enumerate(active_models)}
+    for by in range(nby):
+        for bx in range(nbx):
+            if use_merge:
+                skip = bool(dec.decode_bin(ctx_id("SkipFlag")))
+                if skip or dec.decode_bin(ctx_id("MergeFlag")):
+                    mcands = merge_candidates_mm(
+                        model_idx, mvs, by, bx,
+                        mer_blocks_log2=mer_blocks_log2)
+                    ci, cmv = mcands[decode_merge_idx(dec)]
+                    model_idx[by, bx] = ci
+                    models_sel[by, bx] = active_models[ci]
+                    mvs[by, bx] = cmv
+                    if not skip:
+                        _decode_residual(dec, levs, sizes, by, bx)
+                    continue
+            elif dec.decode_bin(ctx_id("SkipFlag")):
+                model = inherited_model(models_sel, by, bx)
+                models_sel[by, bx] = model
+                model_idx[by, bx] = model_to_idx[model]
+                mvs[by, bx] = _mm_mvp(mvs, models_sel, by, bx, model, s,
+                                      conv, epipole)
+                continue
+            midx = decode_motion_model(dec, len(active_models))
+            model = active_models[midx]
+            model_idx[by, bx] = midx
+            models_sel[by, bx] = model
+            mvd = np.array([decode_mvd_comp(dec), decode_mvd_comp(dec)],
+                           dtype=np.int64)
+            pred = _mm_mvp(mvs, models_sel, by, bx, model, s, conv, epipole)
+            mvs[by, bx] = pred + mvd
+            _decode_residual(dec, levs, sizes, by, bx)
+    return model_idx, mvs, lev_y, lev_u, lev_v
 
 
 def decode_p_slice_qt_mm(data: bytes, h: int, w: int, top: int,

@@ -9,11 +9,12 @@ cascade) order.  The pictures it encodes:
 
   I    wavefront intra encode on the device (common/wavefront.py) -> one
        packed pull -> host CABAC (encoder/intra_coder.py);
-  P/B  multi-model P pictures (quadtree lattice, merge-aware) and B
-       pictures (whole-motion merge): search on the device (common/mm:
-       kernels K3/K4/K5 rank the candidates) -> one packed pull -> host
-       selection (encoder/inter_coder.py) -> finish on the device (K1/K2
-       predict, transform/quant, deblock);
+  P/B  multi-model P pictures (flat grid or quadtree lattice, merge on
+       or off) and B pictures (whole-motion merge, or per-list AMVP),
+       with GED epipoles coded in the picture header and MM-MVP: search
+       on the device (common/mm: kernels K3/K4/K5 rank the candidates) ->
+       one packed pull -> host selection (encoder/inter_coder.py) ->
+       finish on the device (K1/K2 predict, transform/quant, deblock);
   all  SAO/ALF on the device while the host writes CABAC -> slice NAL.
 
 Every other branch of the JAX package's encoder raises
@@ -31,18 +32,21 @@ import torch
 from ..common import deblock, qtree, quant, wavefront
 from ..common.bitstream import (BitWriter, NalUnit, NAL_IDR, NAL_PPS,
                                 NAL_SEI, NAL_SPS, NAL_TRAIL, write_annexb)
+from ..common.mm import epipole as epipole_mod
 from ..common.mm import frame_codec as mm_codec
 from ..common.mm import qt_codec
+from ..common.mm.mvp_convert import MMVPConverter
 from ..common.mm.reprojection import MVReprojection
 from ..common.slice_ps import MMConfig, PPS, SPS, SliceHeader
-from ..common.typedefs import SliceType
+from ..common.typedefs import MotionModelID, SliceType
 from ..device import resolve_device
 from ..lib360.projection import make_projection
 from ..utils import profiling, xfer
 from . import filter_stage
-from .inter_coder import (encode_b_slice_mm, encode_p_slice_qt_mm,
+from .inter_coder import (encode_b_slice_mm, encode_p_slice_mm,
+                          encode_p_slice_qt_mm, mer_blocks_log2,
                           resolve_tree_qt_mm, select_merge_b_mm,
-                          select_qt_mm)
+                          select_merge_mm, select_qt_mm)
 from .intra_coder import encode_intra_slice
 
 
@@ -280,11 +284,11 @@ _UNPORTED = (
     ("mtt", False, "BT/TT splits", "11"),
     ("affine", False, "affine motion", "8"),
     ("metrics_360", False, "WS-PSNR/S-PSNR/CPP-PSNR", "11"),
-    ("target_bitrate_kbps", 0, "rate control", "10"),
+    ("target_bitrate_kbps", 0, "rate control", "11"),
     ("mctf", False, "MCTF pre-filter", "11"),
     ("lmcs", False, "LMCS", "11"),
     ("bdof", False, "BDOF", "8"),
-    ("dmvr", False, "DMVR / projected DMVR", "7"),
+    ("dmvr", False, "DMVR / projected DMVR", "7c"),
     ("gpm", False, "GPM", "8"),
     ("ciip", False, "CIIP", "8"),
     ("ibc", False, "IBC", "9"),
@@ -322,10 +326,8 @@ class EncLib:
         mm = cfg.mm
         if not mm.any_enabled():
             _todo("classic (single-model) inter pictures", "8")
-        if mm.ged or mm.geda or mm.t3d or mm.tan or cfg.epipoles:
-            _todo("GED/3DT/TAN motion models and GED epipoles", "7")
-        if mm.mmmvp:
-            _todo("MMMVP", "7")
+        if mm.t3d or mm.tan:
+            _todo("3DT/TAN motion models", "7c")
         self.cfg = cfg
         self.sps = cfg.make_sps()
         self.pps = PPS(base_qp=cfg.qp)
@@ -342,8 +344,20 @@ class EncLib:
         # reference: EncLib.cpp:335-357 projection + MVReprojection init
         proj = make_projection(int(mm.projection), cfg.width, cfg.height)
         self.reproj = MVReprojection(proj, cfg.width, cfg.height,
-                                     mm.mm_offset_4x4, device=self.device)
-        self.mvp_conv = None        # MM-MVP conversion (MMMVP) is not on
+                                     mm.mm_offset_4x4, int(mm.ged_flavor),
+                                     device=self.device)
+        # GED epipoles: the configuration's (curPOC, refPOC) list, and the
+        # decoder's mirror of the epipoles already signalled in picture
+        # headers — the predictor must be derivable on the decoder side
+        # (reference: EpipoleList availability gating, makeAvailable)
+        self.epipole_list = epipole_mod.EpipoleList(mm.global_epipole)
+        self.coded_epipoles = epipole_mod.EpipoleList(mm.global_epipole)
+        for (c, r, x, y, z) in cfg.epipoles:
+            self.epipole_list.set_epipole(c, r, (x, y, z))
+        # MM-MVP: cross-model MVP candidates converted on the host
+        self.mvp_conv = (MMVPConverter(cfg.width, cfg.height,
+                                       int(mm.ged_flavor))
+                         if mm.mmmvp else None)
         # of the picture encoded last, for tests and the smoke run: the
         # deblocked reconstruction before SAO/ALF (device), the CABAC
         # payload and the slice header
@@ -431,6 +445,23 @@ class EncLib:
             poc, planes, recon, make_payload, qp, t0, SliceType.I, [], [],
             None, 0, dev, NAL_IDR)
 
+    def _p_epipoles(self, poc: int, ref_poc: int):
+        """GED epipole of a P picture (reference: EncGOP.cpp:3105): the
+        configured one, coded in the PH as a 2^-24 fixed-point delta
+        against the predictor the decoder derives from the epipoles
+        already coded.  Returns (epipoles dict or None, PH delta or
+        None)."""
+        if not self.cfg.mm.ged:
+            return None, None
+        ep = self.epipole_list.find_epipole(poc, ref_poc)
+        pred = self.coded_epipoles.derive_predictor(poc, ref_poc)
+        delta = tuple(a - b for a, b in zip(epipole_mod.to_fixed(ep),
+                                            epipole_mod.to_fixed(pred)))
+        ep_used = epipole_mod.from_fixed(tuple(
+            a + b for a, b in zip(epipole_mod.to_fixed(pred), delta)))
+        self.coded_epipoles.set_epipole(poc, ref_poc, ep_used)
+        return {MotionModelID.GEODESIC_CAMPOSE: ep_used}, delta
+
     def encode_p_frame(self, poc: int, planes: list[np.ndarray],
                        ref: list[np.ndarray], ref_poc: int,
                        qp: int | None = None,
@@ -443,29 +474,42 @@ class EncLib:
         merge path there (ROADMAP queue 1 item 8) and is ignored whenever a
         multi-model tool is on, so it is accepted and ignored here."""
         cfg = self.cfg
-        if cfg.qt_depth <= 0:
-            _todo("fixed-grid multi-model P pictures", "8")
         qp = cfg.qp if qp is None else qp
         t0 = time.time()
         s = cfg.inter_block_size
-        nd = cfg.qt_depth
         dev = xfer.upload_planes(planes, cfg.bit_depth, self.device)
         rdev = self._refs(ref_poc, ref)
         active = cfg.mm.active_models()
-        # MM x partitioning, merge-aware: the unit level runs the
-        # flat-path search (identical decisions), parents are evaluated
-        # from their children, the tree resolves on the host, and leaves
-        # get the flat merge/skip syntax (reference: EncCu.cpp:499
-        # xCompressCU + the per-model mode loop EncCu.cpp:775-798)
+        epipoles, epipole_delta = self._p_epipoles(poc, ref_poc)
+        if cfg.qt_depth > 0:
+            recon, make_payload = self._p_quadtree(active, dev, rdev, qp,
+                                                   epipoles)
+        else:
+            recon, make_payload = self._p_flat(active, dev, rdev, qp,
+                                               epipoles)
+        return self._finish_slice_overlap(
+            poc, planes, recon, make_payload, qp, t0, SliceType.P,
+            [ref_poc], [], epipole_delta, 0, dev)
+
+    def _p_quadtree(self, active, dev, rdev, qp, epipoles):
+        """MM x partitioning, merge-aware: the unit level runs the
+        flat-path search (identical decisions), parents are evaluated from
+        their children, the tree resolves on the host, and leaves get the
+        flat merge/skip syntax (reference: EncCu.cpp:499 xCompressCU + the
+        per-model mode loop EncCu.cpp:775-798).  Returns (recon,
+        make_payload)."""
+        cfg = self.cfg
+        s = cfg.inter_block_size
+        nd = cfg.qt_depth
         with profiling.stage("mm_search") as ps:
             per_dev, stack = qt_codec.search_qt_mm(
                 self.reproj, active, dev[0], rdev[0], qp, s, nd,
-                cfg.bit_depth, cfg.search_range, None, cfg.wrap_around,
+                cfg.bit_depth, cfg.search_range, epipoles, cfg.wrap_around,
                 seed=self._mm_seed_qt)
             rd_dev = [qt_codec.qt_rd_stats(
                 self.reproj, active, t[0], t[1], dev[0], dev[1], dev[2],
-                rdev[0], rdev[1], rdev[2], qp, s >> i, cfg.bit_depth, None,
-                cfg.wrap_around) for i, t in enumerate(per_dev)]
+                rdev[0], rdev[1], rdev[2], qp, s >> i, cfg.bit_depth,
+                epipoles, cfg.wrap_around) for i, t in enumerate(per_dev)]
             ps.set_sync(self.device)
         self._mm_seed_qt = stack
         with profiling.stage("mm_select+pull"):
@@ -490,7 +534,7 @@ class EncLib:
                     torch.from_numpy(midx_u).to(self.device), mv_u_dev,
                     [torch.from_numpy(m).to(self.device) for m in leaf],
                     dev[0], dev[1], dev[2], rdev[0], rdev[1], rdev[2], qp,
-                    s, nd, cfg.bit_depth, None, cfg.wrap_around)
+                    s, nd, cfg.bit_depth, epipoles, cfg.wrap_around)
             if cfg.deblocking:
                 bs_v, bs_h = qtree.qt_boundary_strengths(
                     mv_u_dev, has_resid_u, leaf_id_u)
@@ -506,9 +550,62 @@ class EncLib:
             return encode_p_slice_qt_mm(splits, decisions, lev_h, s, nd,
                                         len(active))
 
-        return self._finish_slice_overlap(
-            poc, planes, recon, make_payload, qp, t0, SliceType.P,
-            [ref_poc], [], None, 0, dev)
+        return recon, make_payload
+
+    def _p_flat(self, active, dev, rdev, qp, epipoles):
+        """Flat-grid MM P picture.  With merge, the candidate-field SADs
+        ride the search, the host snaps blocks to (model, mv) candidates
+        in coding order, and the positions/finish run from the FINAL grids
+        (model inheritance through merge, reference: UnitTools.cpp:
+        872-885); without it the search's grids are coded as they are.
+        Returns (recon, make_payload)."""
+        cfg = self.cfg
+        s = cfg.inter_block_size
+        ep_mvp = (epipoles or {}).get(MotionModelID.GEODESIC_CAMPOSE)
+        if cfg.merge:
+            with profiling.stage("mm_search") as ps:
+                out = mm_codec.search_p_mm_merge(
+                    self.reproj, active, dev[0], rdev[0], qp, s,
+                    cfg.bit_depth, cfg.search_range, epipoles,
+                    cfg.wrap_around, seed=self._mm_seed)
+                ps.set_sync(self.device)
+            with profiling.stage("mm_select+pull"):
+                pulled = xfer.pull_i32(*out)
+                lam_sqrt = quant.lambda_from_qp(qp, intra=False) ** 0.5
+                f_midx, f_stack, mflag, midx_m = select_merge_mm(
+                    *pulled, active, lam_sqrt, s, self.mvp_conv, ep_mvp,
+                    mer_blocks_log2(self.sps.log2_parallel_merge_level, s))
+            model_idx = torch.from_numpy(f_midx).to(self.device)
+            mvs_stack = torch.from_numpy(
+                f_stack.astype(np.int32)).to(self.device)
+        else:
+            with profiling.stage("mm_search") as ps:
+                model_idx, mvs_stack = mm_codec.search_p_mm(
+                    self.reproj, active, dev[0], rdev[0], qp, s,
+                    cfg.bit_depth, cfg.search_range, epipoles,
+                    cfg.wrap_around, seed=self._mm_seed)
+                ps.set_sync(self.device)
+        self._mm_seed = mvs_stack
+        with profiling.stage("mm_finish") as ps:
+            ly, lu, lv, recon = mm_codec.enc_finish_p_mm_fused(
+                self.reproj, active, model_idx, mvs_stack, dev, rdev, qp, s,
+                cfg.bit_depth, epipoles, cfg.wrap_around, cfg.deblocking)
+            ps.set_sync(self.device)
+
+        def make_payload():
+            if cfg.merge:
+                lyh, luh, lvh = xfer.pull_levels(ly, lu, lv)
+                return encode_p_slice_mm(
+                    f_midx, active, f_stack, lyh, luh, lvh, s,
+                    self.mvp_conv, ep_mvp, merge_flag=mflag,
+                    merge_idx=midx_m)
+            lyh, luh, lvh, midx_h, stack_h = xfer.pull_levels(
+                ly, lu, lv, model_idx, mvs_stack)
+            return encode_p_slice_mm(
+                midx_h, active, stack_h.astype(np.int64), lyh, luh, lvh, s,
+                self.mvp_conv, ep_mvp)
+
+        return recon, make_payload
 
     def encode_b_frame(self, poc: int, planes: list[np.ndarray],
                        ref0: list[np.ndarray], ref0_poc: int,
@@ -517,10 +614,10 @@ class EncLib:
                        ) -> tuple[NalUnit, FrameResult]:
         """Hierarchical-B encode against past+future references (reference:
         EncGOP compressGOP B pictures; RA GOP table
-        cfg/encoder_randomaccess_vtm.cfg:13-33)."""
+        cfg/encoder_randomaccess_vtm.cfg:13-33).  GED epipoles come from
+        the decoder-mirrored list (exact -> per-POC -> global), so B
+        slices carry no epipole syntax."""
         cfg = self.cfg
-        if not cfg.merge:
-            _todo("multi-model B pictures without merge", "8")
         qp = cfg.qp if qp is None else qp
         t0 = time.time()
         s = cfg.inter_block_size
@@ -528,42 +625,66 @@ class EncLib:
         r0 = self._refs(ref0_poc, ref0)
         r1 = self._refs(ref1_poc, ref1)
         active = cfg.mm.active_models()
-        # whole-motion MM merge: candidate-field SADs ride the search;
-        # host selection snaps (dir, model, mv) triples in coding order
-        with profiling.stage("mm_search_b") as ps:
-            out = mm_codec.search_b_mm_merge(
-                self.reproj, active, dev[0], r0[0], r1[0], qp, s,
-                cfg.bit_depth, cfg.search_range, None, None,
-                cfg.wrap_around)
-            ps.set_sync(self.device)
-        with profiling.stage("mm_select_b+pull"):
-            pulled = xfer.pull_i32(*out)
-            lam_sqrt = quant.lambda_from_qp(qp, intra=False) ** 0.5
-            mer_blk = max(0, self.sps.log2_parallel_merge_level
-                          - (s.bit_length() - 1))
-            (f_m0, f_m1, f_s0, f_s1, f_d, mflag, midx) = select_merge_b_mm(
-                *pulled, active, lam_sqrt, s, self.mvp_conv, None, None,
-                mer_blk)
+        eps0 = eps1 = None
+        if cfg.mm.ged:
+            eps0 = {MotionModelID.GEODESIC_CAMPOSE:
+                    self.coded_epipoles.find_epipole(poc, ref0_poc)}
+            eps1 = {MotionModelID.GEODESIC_CAMPOSE:
+                    self.coded_epipoles.find_epipole(poc, ref1_poc)}
+        ep0 = (eps0 or {}).get(MotionModelID.GEODESIC_CAMPOSE)
+        ep1 = (eps1 or {}).get(MotionModelID.GEODESIC_CAMPOSE)
+        mflag = midx = None
+        if cfg.merge:
+            # whole-motion MM merge: candidate-field SADs ride the search;
+            # host selection snaps (dir, model, mv) triples in coding order
+            with profiling.stage("mm_search_b") as ps:
+                out = mm_codec.search_b_mm_merge(
+                    self.reproj, active, dev[0], r0[0], r1[0], qp, s,
+                    cfg.bit_depth, cfg.search_range, eps0, eps1,
+                    cfg.wrap_around)
+                ps.set_sync(self.device)
+            with profiling.stage("mm_select_b+pull"):
+                pulled = xfer.pull_i32(*out)
+                lam_sqrt = quant.lambda_from_qp(qp, intra=False) ** 0.5
+                (f_m0, f_m1, f_s0, f_s1, f_d, mflag,
+                 midx) = select_merge_b_mm(
+                    *pulled, active, lam_sqrt, s, self.mvp_conv, ep0, ep1,
+                    mer_blocks_log2(self.sps.log2_parallel_merge_level, s))
 
-        def t(a):
-            return torch.from_numpy(a.astype(np.int32)).to(self.device)
+            def t(a):
+                return torch.from_numpy(a.astype(np.int32)).to(self.device)
 
-        midx0, midx1, dirs = t(f_m0), t(f_m1), t(f_d)
-        stack0, stack1 = t(f_s0), t(f_s1)
+            midx0, midx1, dirs = t(f_m0), t(f_m1), t(f_d)
+            stack0, stack1 = t(f_s0), t(f_s1)
+        else:
+            with profiling.stage("mm_search_b") as ps:
+                midx0, midx1, stack0, stack1, dirs = mm_codec.search_b_mm(
+                    self.reproj, active, dev[0], r0[0], r1[0], qp, s,
+                    cfg.bit_depth, cfg.search_range, eps0, eps1,
+                    cfg.wrap_around, seed=self._mm_seed)
+                ps.set_sync(self.device)
         self._mm_seed = stack0
         with profiling.stage("mm_finish_b") as ps:
             ly, lu, lv, recon = mm_codec.enc_finish_b_mm_fused(
                 self.reproj, active, midx0, midx1, stack0, stack1, stack0,
                 stack1, dirs, dev, tuple(r0), tuple(r1), qp, s,
-                cfg.bit_depth, None, None, cfg.wrap_around, cfg.deblocking)
+                cfg.bit_depth, eps0, eps1, cfg.wrap_around, cfg.deblocking)
             ps.set_sync(self.device)
 
         def make_payload():
-            lyh, luh, lvh = xfer.pull_levels(ly, lu, lv)
+            if cfg.merge:
+                lyh, luh, lvh = xfer.pull_levels(ly, lu, lv)
+                return encode_b_slice_mm(
+                    f_m0, f_m1, active, f_s0, f_s1, f_d, lyh, luh, lvh, s,
+                    self.mvp_conv, ep0, ep1, merge_flag=mflag,
+                    merge_idx=midx)
+            (lyh, luh, lvh, m0h, m1h, s0h, s1h,
+             dh) = xfer.pull_levels(ly, lu, lv, midx0, midx1, stack0,
+                                    stack1, dirs)
             return encode_b_slice_mm(
-                f_m0, f_m1, active, f_s0, f_s1, f_d, lyh, luh, lvh, s,
-                self.mvp_conv, None, None, merge_flag=mflag,
-                merge_idx=midx)
+                m0h, m1h, active, s0h.astype(np.int64),
+                s1h.astype(np.int64), dh, lyh, luh, lvh, s, self.mvp_conv,
+                ep0, ep1)
 
         return self._finish_slice_overlap(
             poc, planes, recon, make_payload, qp, t0, SliceType.B,

@@ -5,10 +5,11 @@ Copied from `vvc_mm_tpu/encoder/inter_coder.py` (numpy host code; reference:
 source/Lib/EncoderLib/CABACWriter.cpp cu_skip_flag, merge_idx,
 motion_model():1854, mvd_coding:1575, cbf + residual_coding;
 UnitTools.cpp:872-885 model inheritance through merge, fillMvpCand).  The
-candidate lists are shared bit-exactly by encoder and decoder.  Only the
-multi-model paths of the quadtree P slice and the merge B slice are here;
-the classic, affine, 2-reference, MTT and WPP writers are ROADMAP queue 1
-items 8-11.
+candidate lists are shared bit-exactly by encoder and decoder.  The
+multi-model paths are here: the flat P slice and the B slice (merge on or
+off), the quadtree P slice, and MM-MVP (cross-model candidates converted by
+common/mm/mvp_convert.py); the classic, affine, 2-reference, MTT and WPP
+writers are ROADMAP queue 1 items 8-11.
 """
 from __future__ import annotations
 
@@ -62,10 +63,45 @@ def mvp_median_same_model(mvs: np.ndarray, model_ids: np.ndarray,
                      _median3(int(a[1]), int(b[1]), int(c[1]))], np.int64)
 
 
+def mvp_mm_converted(mvs: np.ndarray, model_ids: np.ndarray, by: int,
+                     bx: int, model: int, s: int, conv, epipole=None
+                     ) -> np.ndarray:
+    """MM-MVP: median over neighbors with cross-model candidates converted
+    into the current model (reference: UnitTools.cpp:2272 fillMvpCand ->
+    MVReprojection::motionVectorInDesiredMotionModel).  `conv` is a
+    mvp_convert.MMVPConverter shared bit-exactly by encoder and decoder."""
+    nby, nbx = mvs.shape[:2]
+    pos = (bx * s, by * s)
+    cur_c = (bx * s + (s - 1) / 2.0, by * s + (s - 1) / 2.0)
+    cand = []
+    for (y, x) in ((by, bx - 1), (by - 1, bx), (by - 1, bx + 1),
+                   (by - 1, bx - 1)):
+        if not (0 <= y < nby and 0 <= x < nbx and (y, x) < (by, bx)):
+            continue
+        cand_model = int(model_ids[y, x])
+        cand_c = (x * s + (s - 1) / 2.0, y * s + (s - 1) / 2.0)
+        mv = conv.convert(pos, mvs[y, x], cand_model, model, cand_c, cur_c,
+                          epipole, epipole)
+        cand.append(mv)
+        if len(cand) == 3:
+            break
+    if not cand:
+        return np.zeros(2, dtype=np.int64)
+    if len(cand) == 1:
+        return cand[0]
+    if len(cand) == 2:
+        a, b = cand
+        return np.array([(int(a[0]) + int(b[0]) + 1) >> 1,
+                         (int(a[1]) + int(b[1]) + 1) >> 1], np.int64)
+    a, b, c = cand[:3]
+    return np.array([_median3(int(a[0]), int(b[0]), int(c[0])),
+                     _median3(int(a[1]), int(b[1]), int(c[1]))], np.int64)
+
+
 def _mm_mvp(mvs, models_sel, by, bx, model, s, conv, epipole):
     if conv is not None:
-        raise NotImplementedError("MM-MVP conversion (MMMVP): ROADMAP "
-                                  "queue 1 item 7")
+        return mvp_mm_converted(mvs, models_sel, by, bx, model, s, conv,
+                                epipole)
     return mvp_median_same_model(mvs, models_sel, by, bx, model)
 
 
@@ -226,6 +262,198 @@ def encode_motion_model(enc: BinEncoder, idx: int, n_active: int) -> None:
         enc.encode_bin(1, ctx_id("MotionModel", min(i, 10)))
     if idx < n_active - 1:
         enc.encode_bin(0, ctx_id("MotionModel", min(idx, 10)))
+
+
+def mer_blocks_log2(log2_parallel_merge_level: int, block_size: int
+                    ) -> int:
+    """The merge-estimation region's side in blocks (log2) from the SPS's
+    log2_parallel_merge_level; encoder and decoder derive it here."""
+    return max(0, log2_parallel_merge_level - (block_size.bit_length() - 1))
+
+
+def merge_candidates_mm(midx_g: np.ndarray, mvs_sel: np.ndarray, by: int,
+                        bx: int, n: int = MERGE_MAX,
+                        mer_blocks_log2: int = 0
+                        ) -> list[tuple[int, tuple[int, int]]]:
+    """MM merge candidates (model_idx, mv) from the causally-decoded
+    grids — candidates carry their motion MODEL, so merge inherits model
+    and MV together (reference: UnitTools.cpp:872-885 model inheritance
+    through merge candidates).  Pairwise averaging applies only between
+    same-model candidates; the list closes with zero-CLASSIC (index 0).
+    Neighbours inside the current block's merge-estimation region
+    (2^mer_blocks_log2 blocks a side) are left out."""
+    nby, nbx = midx_g.shape
+
+    def same_mer(y: int, x: int) -> bool:
+        if mer_blocks_log2 <= 0:
+            return False
+        return ((y >> mer_blocks_log2) == (by >> mer_blocks_log2)
+                and (x >> mer_blocks_log2) == (bx >> mer_blocks_log2))
+
+    cands = []
+    for (y, x) in ((by, bx - 1), (by - 1, bx), (by - 1, bx + 1),
+                   (by - 1, bx - 1)):
+        if (0 <= y < nby and 0 <= x < nbx and (y, x) < (by, bx)
+                and not same_mer(y, x)):
+            cands.append((int(midx_g[y, x]),
+                          (int(mvs_sel[y, x, 0]), int(mvs_sel[y, x, 1]))))
+    out = []
+    for c in cands:
+        if c not in out:
+            out.append(c)
+        if len(out) == n:
+            break
+    if len(out) >= 2 and len(out) < n and out[0][0] == out[1][0]:
+        pw = (out[0][0], ((out[0][1][0] + out[1][1][0] + 1) >> 1,
+                          (out[0][1][1] + out[1][1][1] + 1) >> 1))
+        if pw not in out:
+            out.append(pw)
+    zero = (0, (0, 0))
+    if len(out) < n and zero not in out:
+        out.append(zero)
+    while len(out) < n:
+        out.append(zero)
+    return out
+
+
+def select_merge_mm(midx_me: np.ndarray, mvs_stack: np.ndarray,
+                    sad_sel: np.ndarray, cand_idx: np.ndarray,
+                    cand_mv: np.ndarray, cand_sads: np.ndarray,
+                    active_models: list[int], lam_sqrt: float,
+                    block_size: int, conv=None, epipole=None,
+                    mer_blocks_log2: int = 0):
+    """Encoder MM merge decision in coding order.  Returns
+    (final_midx, final_stack, merge_flag, merge_idx) — final_stack has
+    each block's FINAL mv written into its selected model's layer (the
+    positions/finish read it through final_midx)."""
+    nby, nbx = midx_me.shape
+    n_active = len(active_models)
+    f_midx = midx_me.astype(np.int32).copy()
+    f_stack = mvs_stack.astype(np.int64).copy()
+    mvs_sel = np.take_along_axis(
+        f_stack, f_midx[None, :, :, None].astype(np.int64), axis=0
+    )[0].astype(np.int64)
+    models_sel = np.asarray([active_models[i] for i in f_midx.reshape(-1)],
+                            dtype=np.int32).reshape(nby, nbx)
+    merge_flag = np.zeros((nby, nbx), dtype=bool)
+    merge_idx = np.zeros((nby, nbx), dtype=np.int32)
+    n_fields = cand_idx.shape[0]
+    sad_l = np.asarray(sad_sel).tolist()
+    ci_l = np.asarray(cand_idx).tolist()
+    cm_l = np.asarray(cand_mv).tolist()
+    cs_l = np.asarray(cand_sads).tolist()
+    for by in range(nby):
+        for bx in range(nbx):
+            cands = merge_candidates_mm(f_midx, mvs_sel, by, bx,
+                                        mer_blocks_log2=mer_blocks_log2)
+            me = (int(midx_me[by, bx]),
+                  (int(mvs_sel[by, bx, 0]), int(mvs_sel[by, bx, 1])))
+            best = None
+            for i, c in enumerate(cands):
+                if c == me:
+                    sad = sad_l[by][bx]
+                else:
+                    sad = None
+                    for k in range(n_fields):
+                        mk = cm_l[k][by][bx]
+                        if (ci_l[k][by][bx] == c[0] and mk[0] == c[1][0]
+                                and mk[1] == c[1][1]):
+                            sad = cs_l[k][by][bx]
+                            break
+                    if sad is None:
+                        continue
+                cost = sad + lam_sqrt * (i + 2)
+                if best is None or cost < best[0]:
+                    best = (cost, i, c)
+            model = int(models_sel[by, bx])
+            pred = _mm_mvp(mvs_sel, models_sel, by, bx, model, block_size,
+                           conv, epipole)
+            mvd = np.asarray(me[1], np.int64) - pred
+            model_bins = min(me[0] + 1, n_active - 1)
+            amvp_cost = (sad_l[by][bx]
+                         + lam_sqrt * (2 + model_bins + _mvd_bits(mvd)))
+            if best is not None and best[0] <= amvp_cost:
+                merge_flag[by, bx] = True
+                merge_idx[by, bx] = best[1]
+                ci, cmv = best[2]
+                f_midx[by, bx] = ci
+                f_stack[ci, by, bx] = cmv
+                mvs_sel[by, bx] = cmv
+                models_sel[by, bx] = active_models[ci]
+    return f_midx, f_stack, merge_flag, merge_idx
+
+
+def _code_residual(enc, cbfs, levs) -> None:
+    for cbf, lev, cid in zip(cbfs, levs, (0, 4, 5)):
+        enc.encode_bin(int(cbf), ctx_id("QtCbf", cid))
+        if cbf:
+            enc.encode_coeffs(lev, chroma=(cid != 0))
+
+
+def encode_p_slice_mm(model_idx: np.ndarray, active_models: list[int],
+                      mvs_stack: np.ndarray, lev_y: np.ndarray,
+                      lev_u: np.ndarray, lev_v: np.ndarray,
+                      block_size: int = 16, conv=None,
+                      epipole=None, merge_flag: np.ndarray | None = None,
+                      merge_idx: np.ndarray | None = None) -> bytes:
+    """Flat MM P-slice: per block skip / motion_model / mvd / residual.
+
+    model_idx: (nby, nbx) index into active_models; mvs_stack
+    (n_models, nby, nbx, 2).  With merge_flag/merge_idx (from
+    select_merge_mm), skip means merge+no-residual and candidates carry
+    (model, mv) — model inheritance through the merge list (reference:
+    UnitTools.cpp:872-885).  Without them, skip means the inherited model
+    at its MVP with no residual."""
+    enc = NativeBinEncoder()
+    nby, nbx = model_idx.shape
+    n_active = len(active_models)
+    use_merge = merge_flag is not None
+    mvs_sel = np.take_along_axis(
+        mvs_stack, model_idx[None, :, :, None].astype(np.int64), axis=0
+    )[0].astype(np.int64)                              # (nby, nbx, 2)
+    models_sel = np.asarray([active_models[i]
+                             for i in model_idx.reshape(-1)],
+                            dtype=np.int32).reshape(nby, nbx)
+    cbf_y = (lev_y != 0).any(axis=(2, 3))
+    cbf_u = (lev_u != 0).any(axis=(2, 3))
+    cbf_v = (lev_v != 0).any(axis=(2, 3))
+    for by in range(nby):
+        for bx in range(nbx):
+            midx = int(model_idx[by, bx])
+            model = int(models_sel[by, bx])
+            mv = mvs_sel[by, bx]
+            cbfs = (bool(cbf_y[by, bx]), bool(cbf_u[by, bx]),
+                    bool(cbf_v[by, bx]))
+            levs = (lev_y[by, bx], lev_u[by, bx], lev_v[by, bx])
+            no_resid = not any(cbfs)
+            if use_merge:
+                mrg = bool(merge_flag[by, bx])
+                skip = mrg and no_resid
+                enc.encode_bin(int(skip), ctx_id("SkipFlag"))
+                if skip:
+                    encode_merge_idx(enc, int(merge_idx[by, bx]))
+                    continue
+                enc.encode_bin(int(mrg), ctx_id("MergeFlag"))
+                if mrg:
+                    encode_merge_idx(enc, int(merge_idx[by, bx]))
+                    _code_residual(enc, cbfs, levs)
+                    continue
+            else:
+                inh = inherited_model(models_sel, by, bx)
+                inh_mv = _mm_mvp(mvs_sel, models_sel, by, bx, inh,
+                                 block_size, conv, epipole)
+                skip = (no_resid and model == inh
+                        and mv[0] == inh_mv[0] and mv[1] == inh_mv[1])
+                enc.encode_bin(int(skip), ctx_id("SkipFlag"))
+                if skip:
+                    continue
+            encode_motion_model(enc, midx, n_active)
+            pred = _mm_mvp(mvs_sel, models_sel, by, bx, model, block_size,
+                           conv, epipole)
+            encode_mvd_comp(enc, int(mv[0] - pred[0]))
+            encode_mvd_comp(enc, int(mv[1] - pred[1]))
+            _code_residual(enc, cbfs, levs)
+    return enc.finish()
 
 
 QT_SPLIT_BIAS_BINS = 6.0
@@ -551,13 +779,13 @@ def encode_b_slice_mm(model_idx0: np.ndarray, model_idx1: np.ndarray,
     inter_pred_idc).  With merge_flag/merge_idx (select_merge_b_mm),
     skip means merge+no-residual and candidates carry whole motion incl.
     per-list models; the input grids are the FINAL (already-evolved)
-    fields, so the entropy pass reads them without mutation."""
+    fields, so the entropy pass reads them without mutation.  Without
+    them, skip means the neighbour's direction and each used list's
+    inherited model at its MVP, and the unused list's grid entries take
+    (inherited model, its MVP) as the decoder's do."""
     enc = NativeBinEncoder()
     nby, nbx = dirs.shape
     n_active = len(active_models)
-    if merge_flag is None:
-        raise NotImplementedError("MM B slice without merge: ROADMAP "
-                                  "queue 1 item 8")
     sel0 = np.take_along_axis(
         mvs0_stack, model_idx0[None, :, :, None].astype(np.int64), 0
     )[0].astype(np.int64)
@@ -573,6 +801,56 @@ def encode_b_slice_mm(model_idx0: np.ndarray, model_idx1: np.ndarray,
     cbf_y = (lev_y != 0).any(axis=(2, 3))
     cbf_u = (lev_u != 0).any(axis=(2, 3))
     cbf_v = (lev_v != 0).any(axis=(2, 3))
+    if merge_flag is None:
+        for by in range(nby):
+            for bx in range(nbx):
+                d = int(dirs[by, bx])
+                cbfs = (bool(cbf_y[by, bx]), bool(cbf_u[by, bx]),
+                        bool(cbf_v[by, bx]))
+                no_resid = not any(cbfs)
+                d_pred = (int(dirs[by, bx - 1]) if bx > 0
+                          else int(dirs[by - 1, bx]) if by > 0 else 0)
+                inh0 = inherited_model(models0, by, bx)
+                inh1 = inherited_model(models1, by, bx)
+                p0 = _mm_mvp(sel0, models0, by, bx, int(models0[by, bx]),
+                             block_size, conv, epipole0)
+                p1 = _mm_mvp(sel1, models1, by, bx, int(models1[by, bx]),
+                             block_size, conv, epipole1)
+                mvd0 = sel0[by, bx] - p0
+                mvd1 = sel1[by, bx] - p1
+                used_zero = (((d == 1) or (mvd0 == 0).all())
+                             and ((d == 0) or (mvd1 == 0).all()))
+                skip = (no_resid and d == d_pred and used_zero
+                        and (d == 1 or int(models0[by, bx]) == inh0)
+                        and (d == 0 or int(models1[by, bx]) == inh1))
+                enc.encode_bin(int(skip), ctx_id("SkipFlag"))
+                if not skip:
+                    enc.encode_bin(int(d == 2), ctx_id("InterDir", 0))
+                    if d != 2:
+                        enc.encode_bin(d, ctx_id("InterDir", 1))
+                    if d != 1:
+                        encode_motion_model(enc, int(model_idx0[by, bx]),
+                                            n_active)
+                        encode_mvd_comp(enc, int(mvd0[0]))
+                        encode_mvd_comp(enc, int(mvd0[1]))
+                    if d != 0:
+                        encode_motion_model(enc, int(model_idx1[by, bx]),
+                                            n_active)
+                        encode_mvd_comp(enc, int(mvd1[0]))
+                        encode_mvd_comp(enc, int(mvd1[1]))
+                    _code_residual(enc, cbfs, (lev_y[by, bx], lev_u[by, bx],
+                                               lev_v[by, bx]))
+                # unused-list grid entries take (inherited model, its MVP) so
+                # the MVP/inheritance state evolves identically on the decoder
+                if d == 1:
+                    models0[by, bx] = inh0
+                    sel0[by, bx] = _mm_mvp(sel0, models0, by, bx, inh0,
+                                           block_size, conv, epipole0)
+                if d == 0:
+                    models1[by, bx] = inh1
+                    sel1[by, bx] = _mm_mvp(sel1, models1, by, bx, inh1,
+                                           block_size, conv, epipole1)
+        return enc.finish()
     for by in range(nby):
         for bx in range(nbx):
             d = int(dirs[by, bx])
@@ -607,13 +885,7 @@ def encode_b_slice_mm(model_idx0: np.ndarray, model_idx1: np.ndarray,
                                  conv, epipole1)
                     encode_mvd_comp(enc, int(sel1[by, bx, 0] - p1[0]))
                     encode_mvd_comp(enc, int(sel1[by, bx, 1] - p1[1]))
-            for cbf, lev, cid in ((bool(cbf_y[by, bx]),
-                                   lev_y[by, bx], 0),
-                                  (bool(cbf_u[by, bx]),
-                                   lev_u[by, bx], 4),
-                                  (bool(cbf_v[by, bx]),
-                                   lev_v[by, bx], 5)):
-                enc.encode_bin(int(cbf), ctx_id("QtCbf", cid))
-                if cbf:
-                    enc.encode_coeffs(lev, chroma=(cid != 0))
+            _code_residual(enc, (bool(cbf_y[by, bx]), bool(cbf_u[by, bx]),
+                                 bool(cbf_v[by, bx])),
+                           (lev_y[by, bx], lev_u[by, bx], lev_v[by, bx]))
     return enc.finish()
