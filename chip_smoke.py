@@ -64,6 +64,20 @@ Phases (any failure exits non-zero and prints no result line):
      off-pole epipole (4, 0, 0.3, -0.5, 0.8)), where the card's positions
      equal the CPU's, the card's stream must equal the port's CPU encode
      byte for byte; each is compared with the committed stream NAL by NAL;
+  8c. bench configuration 2 (`ra832x480_qp37_encode_fps`: 832x480, RA,
+     GOP 16, 17 frames, the classic single-model inter path, no 360 tool):
+     encode_sequence on the card, held to the committed JAX stream
+     `ra832x480_qp37_17f` byte for byte; the port's stream and the
+     committed one decoded on the card with 17 of 17 MD5 OK; three more
+     encodes give the median seconds and frames per second (same bytes),
+     one with the stage timers on the stage shares, one under
+     torch.profiler every picture's device operations and idle share.
+     The classic path launches none of K1-K6;
+  8d. bench configuration 5 (`erp6144x3072_ldp_qp37_encode_fps`:
+     6144x3072 ERP, LDP, wrap-around, classic tools), 3 frames: POC 2 is
+     the first two-reference P picture; encode_sequence on the card, the
+     stream decoded on the card with 3 of 3 MD5 OK; seconds per picture
+     and the device memory peak printed;
   9. decision SADs (K6's path): frame_codec._sad_fields_bilin with
      exact=False and exact=True on the tensors captured from the 256x128
      encodes' diamond steps and on one full 2048x1024 grid: the bilinear
@@ -97,7 +111,7 @@ from vvc_mm_tpu_torch.common.inter_frame import (MC_MARGIN, first_argmin,
                                                  pad_ref)
 from vvc_mm_tpu_torch.common.mm import frame_codec
 from vvc_mm_tpu_torch.common.mm.reprojection import MVReprojection
-from vvc_mm_tpu_torch.common.slice_ps import MMConfig
+from vvc_mm_tpu_torch.common.slice_ps import SPS, MMConfig, SliceHeader
 from vvc_mm_tpu_torch.decoder.declib import DecLib
 from vvc_mm_tpu_torch.encoder.enclib import EncCfg, EncLib
 from vvc_mm_tpu_torch.lib360.projection import ERP
@@ -108,6 +122,7 @@ from vvc_mm_tpu_torch.utils.content import psnr, realistic_sequence
 DATA = os.path.join(ROOT, "tests", "data", "torch_port")
 BIG = "erp2048x1024_ra_mm_qp37_5f"
 SMALL = "erp256x128_ra_mm_qp37_5f"
+CONFIG2 = "ra832x480_qp37_17f"      # bench.py:106-108, the JAX encoder's
 PSNR_TOL_DB = 0.1
 BITS_TOL = 1.02
 MIN_PSNR_Y_DB = 25.0           # sanity floor where no record exists
@@ -685,7 +700,21 @@ def print_stages(run: dict) -> None:
 
 def print_device_work(traced: dict, plain: dict) -> None:
     """Per picture: the device operations torch.profiler traced and their
-    device time, against the untraced encode's seconds of that picture."""
+    device time, against the untraced encode's seconds of that picture;
+    then the sums by picture kind."""
+    kinds: dict[str, list] = {}
+    for r, p in zip(traced["rows"], plain["rows"]):
+        if r["device_work"][0]:
+            k = kinds.setdefault(r["kind"], [0, 0, 0.0, 0.0])
+            k[0] += 1
+            k[1] += r["device_work"][0]
+            k[2] += r["device_work"][1]
+            k[3] += p["seconds"]
+    for kind, (n, ops, busy, secs) in sorted(kinds.items()):
+        print(f"{traced['label']} {kind} pictures ({n}): {ops / n:.0f} "
+              f"device operations and {busy / n:.4f} s of device time a "
+              f"picture, {secs / n:.2f} s a picture untraced (host clock): "
+              f"the card idle {100 * (1 - busy / secs):.1f}%")
     for r, p in zip(traced["rows"], plain["rows"]):
         if r["poc"] != p["poc"]:
             fail(f"{traced['label']}: picture order changed between runs")
@@ -767,7 +796,6 @@ def main() -> None:
     # ---- 2. card
     card = card_line()
     print(card)
-
     # ---- 3. kernels vs plain versions
     phase("3. kernels against their plain versions")
     max_err = check_kernels(MC_MARGIN, dev)
@@ -842,6 +870,14 @@ def main() -> None:
     bench_configurations(path_launches)
     mc_kernel.CAPTURED = kept
 
+    # ---- 8c. bench configuration 2: the classic inter path, 832x480
+    phase("8c. bench configuration 2 (classic, 832x480, GOP 16)")
+    bench_configuration_2(path_launches)
+
+    # ---- 8d. bench configuration 5: classic LDP at 6144x3072, two refs
+    phase("8d. bench configuration 5 (classic LDP, 6144x3072)")
+    bench_configuration_5(path_launches)
+
     # ---- 9. decision SADs through K6 (and K5 beside it)
     phase("9. decision SADs")
     positions = card_positions[-1].to(torch.int32).contiguous()
@@ -903,12 +939,13 @@ def sequences_against_record(path_launches: dict, small_positions_off: int
 
 
 def headline_sequence(label: str, cfg: EncCfg, clip: list, need: tuple,
-                      path_launches: dict) -> None:
-    """Phase 8."""
+                      path_launches: dict, record: dict | None = None
+                      ) -> dict:
+    """Phase 8 (and 8c, held to `record`): returns the first run."""
     n = len(clip)
     first = encode_run(label + " (first call)", cfg, clip, "plain")
     path_launches[label] = first["launches"]
-    check_run(first, need)
+    check_run(first, need, record)
     runs = [encode_run(label, cfg, clip, "plain") for _ in range(3)]
     for r in runs:
         if r["data"] != first["data"]:
@@ -961,6 +998,7 @@ def headline_sequence(label: str, cfg: EncCfg, clip: list, need: tuple,
                   f"{i_decode_s:.2f} s: the card is idle "
                   f"{100 * (1 - busy / i_decode_s):.1f}% of it "
                   f"({took:.2f} s under the profiler)")
+    return first
 
 
 def bench_configurations(path_launches: dict) -> None:
@@ -1003,6 +1041,72 @@ def bench_configurations(path_launches: dict) -> None:
         if not same and n_off == 0:
             fail(f"{label}: the card's positions equal the CPU's, yet the "
                  "card's stream differs from the CPU's")
+
+
+def bench_configuration_2(path_launches: dict) -> None:
+    """Phase 8c: `ra832x480_qp37_encode_fps` (bench.py:106-108) against the
+    JAX encoder's stream.  No sphere math runs here, so the card's stream
+    must be the committed one byte for byte."""
+    sd = json.load(open(os.path.join(DATA, CONFIG2 + ".json")))
+    committed = open(os.path.join(DATA, CONFIG2 + ".bin"), "rb").read()
+    cfg = EncCfg(width=832, height=480, qp=37, gop="RA", gop_size=16,
+                 search_range=24)
+    if (sd["width"], sd["height"], sd["qp"], sd["gop"], sd["gop_size"],
+            sd["search_range"], sd["wrap_around"], sd["merge"],
+            sd["models"]) != (cfg.width, cfg.height, cfg.qp, cfg.gop,
+                              cfg.gop_size, cfg.search_range,
+                              cfg.wrap_around, cfg.merge, "CLASSIC"):
+        fail(f"{CONFIG2}: the sidecar names another configuration")
+    clip = realistic_sequence(cfg.width, cfg.height, sd["frames"])
+    label = "config 2 832x480 GOP 16"
+    first = headline_sequence(label, cfg, clip, (), path_launches,
+                              {p["poc"]: p for p in sd["pocs"]})
+    if any(first["launches"][k] for k in SOURCES):
+        fail(f"{label}: the classic path launched a kernel: "
+             f"{first['launches']}")
+    staged = encode_run(label, cfg, clip, "stages")
+    if staged["data"] != first["data"]:
+        fail(f"{label}: the staged encode gave other bytes")
+    print_stages(staged)
+    if not compare_nals(label, first["data"], committed):
+        fail(f"{label}: the card's stream differs from the JAX encoder's")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec = DecLib()
+    frames = dec.decode_bytes(committed)
+    torch.cuda.synchronize()
+    ok = sum(1 for v in dec.hash_status.values() if v == "OK")
+    print(f"{label}: committed {CONFIG2} decoded on the card in "
+          f"{time.perf_counter() - t0:.2f} s (host clock), {ok} of "
+          f"{sd['frames']} MD5 OK")
+    if ok != sd["frames"] or [f.poc for f in frames] != \
+            list(range(sd["frames"])):
+        fail(f"{label}: committed stream, hash {dec.hash_status}")
+
+
+def bench_configuration_5(path_launches: dict) -> None:
+    """Phase 8d: `erp6144x3072_ldp_qp37_encode_fps` (bench.py:121-123), 3
+    frames: POC 1 takes one reference, POC 2 two.  No JAX record exists
+    at this size; the CPU tests hold the two-reference path to JAX."""
+    cfg = EncCfg(width=6144, height=3072, qp=37, gop="LDP",
+                 search_range=24, wrap_around=True)
+    clip = realistic_sequence(cfg.width, cfg.height, 3)
+    label = "config 5 6144x3072 LDP"
+    torch.cuda.reset_peak_memory_stats()
+    run = encode_run(label, cfg, clip, "plain")
+    peak = torch.cuda.max_memory_allocated()
+    path_launches[label] = run["launches"]
+    check_run(run, ())
+    print(f"{label}: device memory peak of the encode "
+          f"{peak / 2 ** 30:.2f} GiB (torch.cuda.max_memory_allocated)")
+    nals = bs.read_annexb(run["data"])
+    sps = SPS.read(bs.BitReader(nals[0].payload))
+    refs = {h.poc: h.ref_pocs_l0 for h in (
+        SliceHeader.read(bs.BitReader(n.payload), sps) for n in nals
+        if n.nal_type == bs.NAL_TRAIL)}
+    print(f"{label}: reference lists {refs}")
+    if refs != {1: [0], 2: [1, 0]}:
+        fail(f"{label}: POC 2 is not a two-reference P picture")
 
 
 def bench_stream(name: str, stream: str):

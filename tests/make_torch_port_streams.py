@@ -1,8 +1,8 @@
 """Write the committed streams that the PyTorch port's tests and its chip
 smoke run decode.
 
-Every stream is ERP at QP37, RA with a GOP of 4 and the CTC QP cascade,
-search range 24, horizontal wrap-around, 5 frames of
+The multi-model streams are ERP at QP37, RA with a GOP of 4 and the CTC
+QP cascade, search range 24, horizontal wrap-around, 5 frames of
 `bench.realistic_sequence` content.  Three configurations:
 
   mm       the headline tools (`bench.py:127-129`): MPA+ROT, the MM quadtree
@@ -14,12 +14,27 @@ search range 24, horizontal wrap-around, 5 frames of
            that the P anchor codes a non-zero picture-header epipole delta
            and a GED rotation that is not the identity.
 
+Beside them, the classic (single-model) inter path: no multi-model tool,
+no wrap-around, QP37, search range 24, every other `EncCfg` field at its
+default, `bench.realistic_sequence` content:
+
+  ra192x96_qp37_9f          RA, GOP 4, 9 frames: POC 8 is a two-reference
+                            P anchor, and 96 rows leave a ragged 64-row
+                            SAO/ALF region;
+  ldp192x96_qp37_4f         LDP, 4 frames: POC 2 and 3 are two-reference
+                            P pictures;
+  ra192x96_nomerge_qp37_5f  RA, GOP 4, 5 frames, merge off;
+  ra832x480_qp37_17f        bench configuration 2 (`bench.py:106-108`,
+                            `ra832x480_qp37_encode_fps`): RA, GOP 16, 17
+                            frames.
+
 Each gets a JSON sidecar with every POC's MD5 and the encoder's Y/U/V PSNR
 and bits.
 
     python tests/make_torch_port_streams.py                   # all streams
     python tests/make_torch_port_streams.py 256x128           # one size
     python tests/make_torch_port_streams.py erp256x128_ra_mpa_qp37_5f
+    python tests/make_torch_port_streams.py classic           # the four
 
 This script imports the JAX package; pytest does not collect it (its name
 does not start with `test_`).
@@ -60,6 +75,13 @@ def stream_name(w: int, h: int, config: str = "mm") -> str:
 STREAMS = {stream_name(*SIZES[size], config): (config, size)
            for config, (_, _, _, sizes) in CONFIGS.items()
            for size in sizes}
+# classic stream -> (width, height, gop, gop_size, frames, merge)
+CLASSIC = {
+    "ra192x96_qp37_9f": (192, 96, "RA", 4, 9, True),
+    "ldp192x96_qp37_4f": (192, 96, "LDP", 4, 4, True),
+    "ra192x96_nomerge_qp37_5f": (192, 96, "RA", 4, 5, False),
+    "ra832x480_qp37_17f": (832, 480, "RA", 16, 17, True),
+}
 
 
 def models_label(mm: dict) -> str:
@@ -88,15 +110,7 @@ def make(w: int, h: int, config: str = "mm") -> dict:
     name = stream_name(w, h, config)
     with open(os.path.join(OUT_DIR, name + ".bin"), "wb") as f:
         f.write(data)
-    pocs = []
-    for r in sorted(enc.results, key=lambda r: r.poc):
-        m = hashlib.md5()
-        for p in r.recon:
-            m.update(np.asarray(p).astype(np.uint8).tobytes())
-        pocs.append(dict(poc=int(r.poc), md5=m.hexdigest(),
-                         psnr_y=float(r.psnr_y),
-                         psnr_u=float(r.psnr_u), psnr_v=float(r.psnr_v),
-                         bits=int(r.bits)))
+    pocs = _sidecar_pocs(enc.results)
     side = dict(width=w, height=h, frames=NUM_FRAMES, qp=QP, gop="RA",
                 gop_size=4, qt_depth=qt_depth, models=models_label(mm),
                 projection="ERP", search_range=24, wrap_around=True,
@@ -112,16 +126,65 @@ def make(w: int, h: int, config: str = "mm") -> dict:
     return side
 
 
+def _sidecar_pocs(results) -> list[dict]:
+    pocs = []
+    for r in sorted(results, key=lambda r: r.poc):
+        m = hashlib.md5()
+        for p in r.recon:
+            m.update(np.asarray(p).astype(np.uint8).tobytes())
+        pocs.append(dict(poc=int(r.poc), md5=m.hexdigest(),
+                         psnr_y=float(r.psnr_y),
+                         psnr_u=float(r.psnr_u), psnr_v=float(r.psnr_v),
+                         bits=int(r.bits)))
+    return pocs
+
+
+def make_classic(name: str) -> dict:
+    """One classic stream of CLASSIC and its sidecar."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from bench import realistic_sequence
+    from vvc_mm_tpu.encoder.enclib import EncCfg, EncLib
+
+    w, h, gop, gop_size, n, merge = CLASSIC[name]
+    cfg = EncCfg(width=w, height=h, qp=QP, gop=gop, gop_size=gop_size,
+                 search_range=24, merge=merge)
+    frames = realistic_sequence(w, h, n)
+    enc = EncLib(cfg)
+    t0 = time.perf_counter()
+    data = enc.encode_sequence(frames)
+    secs = time.perf_counter() - t0
+    with open(os.path.join(OUT_DIR, name + ".bin"), "wb") as f:
+        f.write(data)
+    side = dict(width=w, height=h, frames=n, qp=QP, gop=gop,
+                gop_size=gop_size, qt_depth=0, models="CLASSIC",
+                search_range=24, wrap_around=False, merge=merge,
+                content="bench.realistic_sequence(seed=11)",
+                bytes=len(data), pocs=_sidecar_pocs(enc.results))
+    with open(os.path.join(OUT_DIR, name + ".json"), "w") as f:
+        json.dump(side, f, indent=1)
+        f.write("\n")
+    print(f"{name}: {len(data)} bytes, encode {secs:.1f} s on CPU")
+    return side
+
+
 def main(argv: list[str]) -> None:
-    """Each argument names a stream or a size (every stream of it)."""
+    """Each argument names a stream, a size (every multi-model stream of
+    it) or `classic` (every classic stream)."""
     os.makedirs(OUT_DIR, exist_ok=True)
     names = []
-    for key in (argv or list(STREAMS)):
-        names += ([n for n, (_, size) in STREAMS.items() if size == key]
-                  if key in SIZES else [key])
+    for key in (argv or list(STREAMS) + list(CLASSIC)):
+        if key in SIZES:
+            names += [n for n, (_, size) in STREAMS.items() if size == key]
+        elif key == "classic":
+            names += list(CLASSIC)
+        else:
+            names.append(key)
     for name in names:
-        config, size = STREAMS[name]
-        make(*SIZES[size], config)
+        if name in CLASSIC:
+            make_classic(name)
+        else:
+            make(*SIZES[STREAMS[name][1]], STREAMS[name][0])
 
 
 if __name__ == "__main__":

@@ -219,7 +219,9 @@ def test_unported_branches_raise():
                      (dict(wpp=True), "11"),
                      (dict(target_bitrate_kbps=500), "11"),
                      (dict(scaling_list=(16,) * 64), "9"),
-                     (dict(mm=MMConfig()), "8"),
+                     (dict(mm=MMConfig(), qt_depth=0, tmvp=True), "8"),
+                     (dict(mm=MMConfig(), qt_depth=0, affine=True), "8"),
+                     (dict(mm=MMConfig(), qt_depth=1), "11"),
                      (dict(mm=MMConfig(mpa=True, t3d=True)), "7c"),
                      (dict(mm=MMConfig(mpa=True, ged=True, tan=True)), "7c")):
         cfg = _cfg(EncCfg, MMConfig)

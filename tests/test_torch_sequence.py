@@ -24,6 +24,12 @@
     that, and hold the rest (every CABAC payload, and the decode fed JAX's
     positions) to JAX.  The same configuration with merge off decodes in
     both decoders.
+(f) the classic (single-model) inter path at 192x96 against the committed
+    JAX streams of tests/make_torch_port_streams.py: RA GOP 4 with 9
+    frames (POC 8 a two-reference P anchor), LDP with 4 frames (POC 2 and
+    3 two-reference P pictures) and RA with merge off: the port's CPU
+    encode equals each byte for byte, the port decodes each with every
+    MD5 OK, and the JAX DecLib decodes the port's LDP stream bit-exactly.
 """
 import os
 
@@ -342,3 +348,70 @@ def test_bench_config_without_merge_decodes_in_both_decoders():
         lib.decode_bytes(data)
         assert lib.hash_status == {p: "OK" for p in range(5)}
     assert enc.summary()["psnr_y"] > 27.0
+
+
+# ---------------------------------------------- the classic inter path
+
+# stream -> (gop, frames, merge): tests/make_torch_port_streams.py CLASSIC
+CLASSIC = {"ra192x96_qp37_9f": ("RA", 9, True),
+           "ldp192x96_qp37_4f": ("LDP", 4, True),
+           "ra192x96_nomerge_qp37_5f": ("RA", 5, False)}
+
+
+@pytest.fixture(scope="module")
+def classic_runs():
+    """The port's CPU encode of each classic stream's configuration."""
+    out = {}
+    for name, (gop, n, merge) in CLASSIC.items():
+        enc = EncLib(EncCfg(width=192, height=96, qp=37, gop=gop, gop_size=4,
+                            search_range=24, merge=merge), device="cpu")
+        out[name] = dict(enc=enc, data=enc.encode_sequence(
+            realistic_sequence(192, 96, n)))
+    return out
+
+
+def _classic_stream(name):
+    return open(os.path.join(DATA, name + ".bin"), "rb").read()
+
+
+@pytest.mark.parametrize("name", sorted(CLASSIC))
+def test_classic_sequence_equals_the_committed_jax_stream(classic_runs,
+                                                          name):
+    got = bs.read_annexb(classic_runs[name]["data"])
+    want = bs.read_annexb(_classic_stream(name))
+    assert [n.nal_type for n in got] == [n.nal_type for n in want]
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.temporal_id == b.temporal_id, i
+        assert a.payload == b.payload, f"NAL {i} (type {a.nal_type})"
+    assert classic_runs[name]["data"] == _classic_stream(name)
+    # the two-reference P pictures list both references in their header
+    sps = SPS.read(bs.BitReader(got[0].payload))
+    two_ref = sorted(
+        h.poc for h in (SliceHeader.read(bs.BitReader(n.payload), sps)
+                        for n in got if n.nal_type == bs.NAL_TRAIL)
+        if len(h.ref_pocs_l0) == 2)
+    assert two_ref == {"ra192x96_qp37_9f": [8], "ldp192x96_qp37_4f": [2, 3],
+                       "ra192x96_nomerge_qp37_5f": []}[name]
+
+
+@pytest.mark.parametrize("name", sorted(CLASSIC))
+def test_port_decodes_the_committed_classic_stream(classic_runs, name):
+    dec = DecLib(device="cpu")
+    frames = dec.decode_bytes(_classic_stream(name))
+    n = CLASSIC[name][1]
+    assert dec.hash_status == {p: "OK" for p in range(n)}
+    for f, r in zip(frames, sorted(classic_runs[name]["enc"].results,
+                                   key=lambda r: r.poc)):
+        for a, b in zip(f.numpy(), r.recon):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_jax_decodes_the_port_classic_stream(classic_runs):
+    """The LDP stream: two of its three P pictures take two references."""
+    jdec = JaxDecLib()
+    frames = jdec.decode_bytes(classic_runs["ldp192x96_qp37_4f"]["data"])
+    assert jdec.hash_status == {p: "OK" for p in range(4)}
+    enc = classic_runs["ldp192x96_qp37_4f"]["enc"]
+    for f, r in zip(frames, sorted(enc.results, key=lambda r: r.poc)):
+        for a, b in zip(f.planes, r.recon):
+            np.testing.assert_array_equal(np.asarray(a), b)

@@ -1,15 +1,32 @@
-"""Inter-prediction helpers shared by the multi-model reconstruction.
+"""Batched inter frames: motion compensation, search and reconstruction.
 
-PyTorch counterpart of the helpers in `vvc_mm_tpu/common/inter_frame.py`
-that the MM paths use: the MC margin, reference padding with ERP
-wrap-around, the plane <-> block-batch reshapes and the encoder's residual
-pass.  The classic (per-block MV) inter path is ROADMAP queue 1 item 8.
+PyTorch counterpart of `vvc_mm_tpu/common/inter_frame.py` (reference:
+source/Lib/CommonLib/InterPrediction.cpp — motionCompensation:1681,
+xPredInterBlk:928; EncoderLib/InterSearch.cpp predInterSearch:2695;
+DecoderLib/DecCu.cpp reconstruction).  Inter blocks of a frame do not
+depend on each other, so every block of a frame is predicted, transformed
+and reconstructed at once.  Here are the helpers the multi-model paths
+share (reference padding with ERP wrap-around, the plane <-> block-batch
+reshapes, the residual pass) and the classic (one MV per block) path:
+
+  P   search_p_frame / search_p_frame_2ref (ME + the merge candidate
+      fields' SADs) -> host selection -> finish_p_frame(_2ref); the
+      decoder's reconstruct_p_frame(_2ref) shares the math; encode_p_frame
+      is the one-shot program of merge off;
+  B   search_b_frame(_merge) (per-list ME + uni/bi decision) -> host
+      selection -> bpred_and_residual; the decoder's reconstruct_b_frame
+      shares the math.
+
+Encoder and decoder share the prediction, so the reconstructions agree
+bit for bit.  BDOF, GPM, CIIP, weighted prediction and AMVR (ROADMAP
+queue 1 item 8), DMVR (item 7c), MCTS clamps (item 11) and scaling lists
+(item 9) raise NotImplementedError.
 """
 from __future__ import annotations
 
 import torch
 
-from . import quant, transforms
+from . import interp, quant, transforms
 
 MC_MARGIN = 80     # ref padding: search range + filter taps + slack
 
@@ -53,6 +70,100 @@ def _block_coords(nby: int, nbx: int, s: int, device=None):
     return (idx // nbx) * s, (idx % nbx) * s
 
 
+def mc_predict(ref_y: torch.Tensor, ref_u: torch.Tensor,
+               ref_v: torch.Tensor, mvs: torch.Tensor, s: int, bit_depth: int,
+               wrap_around: bool = False):
+    """Motion-compensated prediction of the full frame from padded refs.
+
+    Args:
+      ref_*: unpadded reconstructed reference planes.
+      mvs: (nby, nbx, 2) 1/16-pel MVs.
+    Returns (pred_y, pred_u, pred_v) pixel-domain planes."""
+    py, pu, pv = _mc_planes_internal(ref_y, ref_u, ref_v, mvs, s, bit_depth,
+                                     wrap_around)
+    nby, nbx = mvs.shape[:2]
+    return tuple(_from_blocks(interp.finalize_uni(p, bit_depth), nby, nbx)
+                 for p in (py, pu, pv))
+
+
+def _mc_planes_internal(ref_y, ref_u, ref_v, mvs, s: int, bit_depth: int,
+                        wrap_around: bool):
+    """Uni-prediction of all planes kept in 14-bit internal precision
+    (block-batched (B, s, s); for bi-prediction averaging, reference:
+    xWeightedAverage)."""
+    h, w = ref_y.shape
+    nby, nbx = h // s, w // s
+    sc = s // 2
+    dev = ref_y.device
+    mv = mvs.reshape(-1, 2)
+    ry = pad_ref(ref_y, MC_MARGIN, wrap_around)
+    ru = pad_ref(ref_u, MC_MARGIN // 2, wrap_around)
+    rv = pad_ref(ref_v, MC_MARGIN // 2, wrap_around)
+    yb, xb = _block_coords(nby, nbx, s, dev)
+    py = interp.mc_luma(ry, mv, yb, xb, s, s, MC_MARGIN, bit_depth)
+    ybc, xbc = _block_coords(nby, nbx, sc, dev)
+    pu = interp.mc_chroma(ru, mv, ybc, xbc, sc, sc, MC_MARGIN // 2,
+                          bit_depth)
+    pv = interp.mc_chroma(rv, mv, ybc, xbc, sc, sc, MC_MARGIN // 2,
+                          bit_depth)
+    return py, pu, pv
+
+
+# Inter tools the port does not carry yet: flag -> (what, ROADMAP queue 1
+# item).  Every classic frame function, writer, parser and the decoder's
+# classic branch refuses through `refuse`.
+_UNPORTED_TOOLS = {
+    "qtree": ("classic quadtree", "11"),
+    "affine": ("affine motion", "8"),
+    "tmvp": ("TMVP/HMVP", "8"),
+    "amvr": ("AMVR", "8"),
+    "bdof": ("BDOF", "8"),
+    "gpm": ("GPM", "8"),
+    "ciip": ("CIIP", "8"),
+    "wp": ("weighted prediction", "8"),
+    "dmvr": ("DMVR", "7c"),
+    "scaling": ("scaling lists", "9"),
+    "mcts": ("MCTS tiles", "11"),
+}
+
+
+def refuse(**flags) -> None:
+    """Raise NotImplementedError naming the ROADMAP queue 1 item of the
+    first set flag (keys of _UNPORTED_TOOLS)."""
+    for name, on in flags.items():
+        if on:
+            what, item = _UNPORTED_TOOLS[name]
+            raise NotImplementedError(f"{what}: ROADMAP queue 1 item {item}")
+
+
+def _combine_bi(int0, int1, dirs, nby, nbx, bit_depth):
+    """Per-block uni/bi finalize: dirs (nby, nbx) 0=L0, 1=L1, 2=BI."""
+    d = dirs.reshape(-1)[:, None, None]
+    uni0 = interp.finalize_uni(int0, bit_depth)
+    uni1 = interp.finalize_uni(int1, bit_depth)
+    bi = interp.finalize_bi(int0, int1, bit_depth)
+    sel = torch.where(d == 2, bi, torch.where(d == 1, uni1, uni0))
+    return _from_blocks(sel, nby, nbx)
+
+
+def _luma_combine(int0, int1, dirs, nby, nbx, bit_depth, bdof: bool):
+    """Luma uni/bi combine (BDOF's arm: ROADMAP queue 1 item 8)."""
+    refuse(bdof=bdof)
+    return _combine_bi(int0, int1, dirs, nby, nbx, bit_depth)
+
+
+def _pred_planes_ext(i0, i1, dirs, gpm_modes, nby, nbx, bit_depth,
+                     bdof: bool, use_gpm: bool, use_ciip: bool,
+                     wp0=None, wp1=None):
+    """All-plane prediction combine, dirs 0=L0, 1=L1, 2=BI (the GPM, CIIP
+    and weighted arms: ROADMAP queue 1 item 8)."""
+    refuse(gpm=use_gpm, ciip=use_ciip,
+           wp=wp0 is not None or wp1 is not None)
+    return (_luma_combine(i0[0], i1[0], dirs, nby, nbx, bit_depth, bdof),
+            _combine_bi(i0[1], i1[1], dirs, nby, nbx, bit_depth),
+            _combine_bi(i0[2], i1[2], dirs, nby, nbx, bit_depth))
+
+
 def _residual_pass(orig: torch.Tensor, pred: torch.Tensor, s: int, qp: int,
                    bit_depth: int):
     """Transform/quant the residual and reconstruct — returns (levels
@@ -81,3 +192,351 @@ def first_argmin(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
     idx = torch.arange(n, device=t.device).reshape(shape)
     mn = t.min(dim=dim, keepdim=True).values
     return torch.where(t == mn, idx, n).min(dim=dim).values
+
+
+def _residual_planes(orig, pred, s: int, qp: int, bit_depth: int):
+    """_residual_pass over Y, U, V -> (lev_y, lev_u, lev_v, recon dict)."""
+    lev_y, rec_y = _residual_pass(orig[0], pred[0], s, qp, bit_depth)
+    lev_u, rec_u = _residual_pass(orig[1], pred[1], s // 2, qp, bit_depth)
+    lev_v, rec_v = _residual_pass(orig[2], pred[2], s // 2, qp, bit_depth)
+    return lev_y, lev_u, lev_v, dict(y=rec_y, u=rec_u, v=rec_v)
+
+
+def _recon_planes(pred, levels, s: int, qp: int, bit_depth: int):
+    """Decoder-side reconstruction of Y, U, V from the prediction planes
+    and the coded levels (the inverse half of _residual_pass)."""
+    out = {}
+    for key, p, lev, size in zip("yuv", pred, levels, (s, s // 2, s // 2)):
+        h, w = p.shape
+        log2s = size.bit_length() - 1
+        dq = quant.dequantize(lev.reshape(-1, size, size), qp, log2s, log2s,
+                              bit_depth)
+        r = transforms.inverse_transform(dq, bit_depth=bit_depth)
+        rec = torch.clamp(_to_blocks(p, size) + r, 0, (1 << bit_depth) - 1)
+        out[key] = _from_blocks(rec, h // size, w // size)
+    return out
+
+
+def _lambda_bits_x16(qp: int) -> int:
+    return int(quant.lambda_from_qp(qp, intra=False) ** 0.5 * 16)
+
+
+def _me(orig_y, ref_padded, s: int, search_range: int, lam_bits_x16: int,
+        bit_depth: int):
+    """Hierarchical integer ME + fractional refine -> (mvs, sad)."""
+    from ..encoder import me as me_mod
+    mv_int, _ = me_mod.hierarchical_search(orig_y, ref_padded, s,
+                                           search_range, MC_MARGIN,
+                                           lam_bits_x16)
+    return me_mod.fractional_refine(orig_y, ref_padded, mv_int, s,
+                                    MC_MARGIN, bit_depth)
+
+
+def encode_p_frame(orig_y, orig_u, orig_v, ref_y, ref_u, ref_v, qp: int,
+                   block_size: int = 16, bit_depth: int = 8,
+                   search_range: int = 24, wrap_around: bool = False,
+                   wp=None, scaling=None, amvr: bool = False, mcts=None):
+    """Full-frame P encode: batched ME -> MC -> residual -> recon, the
+    one-shot program of the merge-off path.  Returns (mvs (nby,nbx,2)
+    1/16-pel, lev_y, lev_u, lev_v, recon dict)."""
+    refuse(wp=wp is not None, scaling=scaling, amvr=amvr, mcts=mcts)
+    s = block_size
+    ry_pad = pad_ref(ref_y, MC_MARGIN, wrap_around)
+    mvs, _ = _me(orig_y, ry_pad, s, search_range, _lambda_bits_x16(qp),
+                 bit_depth)
+    pred = mc_predict(ref_y, ref_u, ref_v, mvs, s, bit_depth, wrap_around)
+    return (mvs,) + _residual_planes((orig_y, orig_u, orig_v), pred, s, qp,
+                                     bit_depth)
+
+
+N_CAND_FIELDS = 5     # left, above, above-right, zero, TMVP
+
+
+def _shift_mv_field(mvs: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """out[by, bx] = mvs[by + dy, bx + dx]; out-of-range entries 0."""
+    nby, nbx = mvs.shape[:2]
+    p = torch.nn.functional.pad(mvs, (0, 0, 1, 1, 1, 1))
+    return p[1 + dy:1 + dy + nby, 1 + dx:1 + dx + nbx]
+
+
+def _shift_i_field(f: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """out[by, bx] = f[by + dy, bx + dx]; out-of-range entries 0."""
+    nby, nbx = f.shape
+    p = torch.nn.functional.pad(f, (1, 1, 1, 1))
+    return p[1 + dy:1 + dy + nby, 1 + dx:1 + dx + nbx]
+
+
+def _field_sad(orig_y, ref_y_padded, mvs, s: int, bit_depth: int):
+    """Per-block SAD of one MV field (batched MC + reduce)."""
+    h, w = orig_y.shape
+    nby, nbx = h // s, w // s
+    yb, xb = _block_coords(nby, nbx, s, orig_y.device)
+    pred = interp.finalize_uni(
+        interp.mc_luma(ref_y_padded, mvs.reshape(-1, 2), yb, xb, s, s,
+                       MC_MARGIN, bit_depth), bit_depth)
+    ob = _to_blocks(orig_y, s)
+    return (pred - ob).abs().sum(dim=(1, 2)).to(torch.int32).reshape(nby,
+                                                                     nbx)
+
+
+def search_p_frame(orig_y, ref_y, col_mvs, qp: int, block_size: int,
+                   bit_depth: int, search_range: int, wrap_around: bool,
+                   amvr: bool = False, mcts=None):
+    """Merge-aware P search: hierarchical ME + fractional refine, then ONE
+    batched MC+SAD pass per candidate field (the left, above and
+    above-right neighbours' MVs, zero, and the co-located `col_mvs`,
+    zeros while TMVP is off).
+
+    Returns (mvs, imv, sad_me, cand_mvs (K,nby,nbx,2), cand_sads (K,...))."""
+    refuse(amvr=amvr, mcts=mcts)
+    s = block_size
+    h, w = orig_y.shape
+    ry_pad = pad_ref(ref_y, MC_MARGIN, wrap_around)
+    mvs, sad_me = _me(orig_y, ry_pad, s, search_range, _lambda_bits_x16(qp),
+                      bit_depth)
+    imv = torch.zeros((h // s, w // s), dtype=torch.int32,
+                      device=orig_y.device)
+    cand_fields = [
+        _shift_mv_field(mvs, 0, -1),       # left neighbour's MV
+        _shift_mv_field(mvs, -1, 0),       # above
+        _shift_mv_field(mvs, -1, 1),       # above-right
+        torch.zeros_like(mvs),             # zero MV
+        col_mvs.to(mvs.dtype),             # TMVP co-located
+    ]
+    cand_sads = torch.stack([_field_sad(orig_y, ry_pad, f, s, bit_depth)
+                             for f in cand_fields])
+    return mvs, imv, sad_me, torch.stack(cand_fields), cand_sads
+
+
+def search_p_frame_2ref(orig_y, ref0_y, ref1_y, col_mvs, qp: int,
+                        block_size: int, bit_depth: int, search_range: int,
+                        wrap_around: bool, amvr: bool = False, mcts=None):
+    """Two-reference merge-aware P search: per-ref ME, a per-block ref_idx
+    decision, then candidate-field SADs where each candidate carries its
+    (ref_idx, mv) and its SAD reads ITS reference (reference: the per-ref
+    ME loop InterSearch.cpp:4937 + ref_idx RD).
+
+    Returns (ref_idx, mvs, imv, sad_sel, cand_ref (K,..), cand_mvs,
+    cand_sads)."""
+    refuse(amvr=amvr, mcts=mcts)
+    s = block_size
+    lam_bits_x16 = _lambda_bits_x16(qp)
+    pads, mvs_r, sads_r = [], [], []
+    for ry in (ref0_y, ref1_y):
+        ry_pad = pad_ref(ry, MC_MARGIN, wrap_around)
+        pads.append(ry_pad)
+        mvs, sad = _me(orig_y, ry_pad, s, search_range, lam_bits_x16,
+                       bit_depth)
+        mvs_r.append(mvs)
+        sads_r.append(sad)
+    # ref decision: the second ref pays one more context bin
+    ref_idx = (sads_r[1] + (lam_bits_x16 >> 4) < sads_r[0]).to(torch.int32)
+    mv_sel = torch.where(ref_idx[..., None] == 1, mvs_r[1], mvs_r[0])
+    sad_sel = torch.where(ref_idx == 1, sads_r[1], sads_r[0])
+    imv_sel = torch.zeros_like(ref_idx)
+
+    def field_sad_ref(rf, mf):
+        s0 = _field_sad(orig_y, pads[0], mf, s, bit_depth)
+        s1 = _field_sad(orig_y, pads[1], mf, s, bit_depth)
+        return torch.where(rf == 1, s1, s0)
+
+    cand_ref, cand_mvs, cand_sads = [], [], []
+    for (dy, dx) in ((0, -1), (-1, 0), (-1, 1)):
+        cr = _shift_i_field(ref_idx, dy, dx)
+        cm = _shift_mv_field(mv_sel, dy, dx)
+        cand_ref.append(cr)
+        cand_mvs.append(cm)
+        cand_sads.append(field_sad_ref(cr, cm))
+    z = torch.zeros_like(ref_idx)
+    for f in (torch.zeros_like(mv_sel), col_mvs.to(mv_sel.dtype)):
+        # the zero and the TMVP candidates ride ref 0
+        cand_ref.append(z)
+        cand_mvs.append(f)
+        cand_sads.append(_field_sad(orig_y, pads[0], f, s, bit_depth))
+    return (ref_idx, mv_sel, imv_sel, sad_sel, torch.stack(cand_ref),
+            torch.stack(cand_mvs), torch.stack(cand_sads))
+
+
+def finish_p_frame(orig_y, orig_u, orig_v, ref_y, ref_u, ref_v, mvs,
+                   qp: int, block_size: int, bit_depth: int,
+                   wrap_around: bool, wp=None, scaling=None):
+    """Residual/levels/recon from a FINAL MV field (encode_p_frame minus
+    the ME).  Returns (lev_y, lev_u, lev_v, recon dict)."""
+    refuse(wp=wp is not None, scaling=scaling)
+    pred = mc_predict(ref_y, ref_u, ref_v, mvs, block_size, bit_depth,
+                      wrap_around)
+    return _residual_planes((orig_y, orig_u, orig_v), pred, block_size, qp,
+                            bit_depth)
+
+
+def reconstruct_p_frame(mvs, lev_y, lev_u, lev_v, ref_y, ref_u, ref_v,
+                        qp: int, block_size: int = 16, bit_depth: int = 8,
+                        wrap_around: bool = False, wp=None, scaling=None):
+    """Decoder-side P reconstruction (shared math with finish_p_frame ->
+    bit-exact)."""
+    refuse(wp=wp is not None, scaling=scaling)
+    pred = mc_predict(ref_y, ref_u, ref_v, mvs, block_size, bit_depth,
+                      wrap_around)
+    return _recon_planes(pred, (lev_y, lev_u, lev_v), block_size, qp,
+                         bit_depth)
+
+
+def _mc_predict_2ref(ref0, ref1, ref_idx, mvs, s: int, bit_depth: int,
+                     wrap_around: bool):
+    """Per-block two-reference MC: both refs motion-compensated, the
+    block's ref_idx selects."""
+    p0 = mc_predict(ref0[0], ref0[1], ref0[2], mvs, s, bit_depth,
+                    wrap_around)
+    p1 = mc_predict(ref1[0], ref1[1], ref1[2], mvs, s, bit_depth,
+                    wrap_around)
+    out = []
+    for i, sub in enumerate((1, 2, 2)):
+        k = s // sub
+        r = ref_idx.repeat_interleave(k, 0).repeat_interleave(k, 1)
+        out.append(torch.where(r == 1, p1[i], p0[i]))
+    return tuple(out)
+
+
+def finish_p_frame_2ref(orig_y, orig_u, orig_v, ref0, ref1, ref_idx, mvs,
+                        qp: int, block_size: int, bit_depth: int,
+                        wrap_around: bool, wp=None, scaling=None):
+    """Residual/levels/recon from FINAL (ref_idx, mv) fields."""
+    refuse(wp=wp is not None, scaling=scaling)
+    pred = _mc_predict_2ref(ref0, ref1, ref_idx, mvs, block_size, bit_depth,
+                            wrap_around)
+    return _residual_planes((orig_y, orig_u, orig_v), pred, block_size, qp,
+                            bit_depth)
+
+
+def reconstruct_p_frame_2ref(ref_idx, mvs, lev_y, lev_u, lev_v, ref0, ref1,
+                             qp: int, block_size: int = 16,
+                             bit_depth: int = 8, wrap_around: bool = False,
+                             wp=None, scaling=None):
+    """Decoder-side two-reference P reconstruction (shared math with
+    finish_p_frame_2ref -> bit-exact)."""
+    refuse(wp=wp is not None, scaling=scaling)
+    pred = _mc_predict_2ref(ref0, ref1, ref_idx, mvs, block_size, bit_depth,
+                            wrap_around)
+    return _recon_planes(pred, (lev_y, lev_u, lev_v), block_size, qp,
+                         bit_depth)
+
+
+def bpred_and_residual(orig_y, orig_u, orig_v, ref0, ref1, mv0, mv1, dirs,
+                       qp: int, block_size: int, bit_depth: int,
+                       wrap_around: bool, bdof: bool = False,
+                       dmvr: bool = False, gpm_modes=None,
+                       gpm: bool = False, ciip: bool = False,
+                       wp0=None, wp1=None):
+    """Shared B prediction + residual path (the decoder's is
+    reconstruct_b_frame).  Returns (lev_y, lev_u, lev_v, recon dict)."""
+    refuse(bdof=bdof, dmvr=dmvr, gpm=gpm, ciip=ciip,
+           wp=wp0 is not None or wp1 is not None)
+    s = block_size
+    h, w = orig_y.shape
+    i0 = _mc_planes_internal(*ref0, mv0, s, bit_depth, wrap_around)
+    i1 = _mc_planes_internal(*ref1, mv1, s, bit_depth, wrap_around)
+    pred = _pred_planes_ext(i0, i1, dirs, gpm_modes, h // s, w // s,
+                            bit_depth, bdof, gpm, ciip)
+    return _residual_planes((orig_y, orig_u, orig_v), pred, s, qp,
+                            bit_depth)
+
+
+def reconstruct_b_frame(mv0, mv1, dirs, lev_y, lev_u, lev_v, ref0, ref1,
+                        qp: int, block_size: int, bit_depth: int = 8,
+                        wrap_around: bool = False, bdof: bool = False,
+                        dmvr: bool = False, gpm_modes=None,
+                        gpm: bool = False, ciip: bool = False,
+                        scaling=None, wp0=None, wp1=None):
+    """Decoder-side B reconstruction (shared with the encoder's recon)."""
+    refuse(bdof=bdof, dmvr=dmvr, gpm=gpm, ciip=ciip,
+           wp=wp0 is not None or wp1 is not None, scaling=scaling)
+    s = block_size
+    h, w = ref0[0].shape
+    i0 = _mc_planes_internal(*ref0, mv0, s, bit_depth, wrap_around)
+    i1 = _mc_planes_internal(*ref1, mv1, s, bit_depth, wrap_around)
+    pred = _pred_planes_ext(i0, i1, dirs, gpm_modes, h // s, w // s,
+                            bit_depth, bdof, gpm, ciip)
+    return _recon_planes(pred, (lev_y, lev_u, lev_v), s, qp, bit_depth)
+
+
+def search_b_frame(orig_y, ref0_y, ref1_y, qp: int, block_size: int,
+                   bit_depth: int, search_range: int, wrap_around: bool,
+                   gpm: bool = False, ciip: bool = False):
+    """Per-list ME + per-block prediction-direction decision (reference:
+    InterSearch::predInterSearch uni L0/L1 + bi; bi uses the uni-best MVs
+    without iterative refinement).  A tie keeps the earlier direction:
+    L0 before L1 before bi.  Returns (mv0, mv1, dirs, gpm_modes)."""
+    refuse(gpm=gpm, ciip=ciip)
+    s = block_size
+    h, w = orig_y.shape
+    nby, nbx = h // s, w // s
+    dev = orig_y.device
+    lam = quant.lambda_from_qp(qp, intra=False)
+    lam16 = int(lam ** 0.5 * 16)
+    yb, xb = _block_coords(nby, nbx, s, dev)
+    mvs, sads, preds = [], [], []
+    for ref in (ref0_y, ref1_y):
+        refp = pad_ref(ref, MC_MARGIN, wrap_around)
+        mv, sad = _me(orig_y, refp, s, search_range, lam16, bit_depth)
+        mvs.append(mv)
+        sads.append(sad)
+        preds.append(interp.mc_luma(refp, mv.reshape(-1, 2), yb, xb, s, s,
+                                    MC_MARGIN, bit_depth))
+    ob = _to_blocks(orig_y, s)
+    bi_pix = interp.finalize_bi(preds[0], preds[1], bit_depth)
+    sad_bi = (bi_pix - ob).abs().sum(dim=(1, 2)).to(torch.int32).reshape(
+        nby, nbx)
+    # direction decision: bi costs two mvds
+    mv_bits = int(lam ** 0.5 * 8)
+    costs = torch.stack([sads[0], sads[1], sad_bi + mv_bits])
+    dirs = first_argmin(costs, 0).to(torch.int32)
+    gpm_modes = torch.zeros((nby, nbx), dtype=torch.int32, device=dev)
+    return mvs[0], mvs[1], dirs, gpm_modes
+
+
+def _b_field_sad(orig_y, r0p, r1p, mv0f, mv1f, dirsf, s: int,
+                 bit_depth: int):
+    """Per-block SAD of one whole-motion B field (dirs 0/1/2)."""
+    h, w = orig_y.shape
+    nby, nbx = h // s, w // s
+    yb, xb = _block_coords(nby, nbx, s, orig_y.device)
+    p0 = interp.mc_luma(r0p, mv0f.reshape(-1, 2), yb, xb, s, s, MC_MARGIN,
+                        bit_depth)
+    p1 = interp.mc_luma(r1p, mv1f.reshape(-1, 2), yb, xb, s, s, MC_MARGIN,
+                        bit_depth)
+    pred = _combine_bi(p0, p1, dirsf, nby, nbx, bit_depth)
+    diff = (pred - orig_y).abs()
+    return diff.reshape(nby, s, nbx, s).sum(dim=(1, 3)).to(torch.int32)
+
+
+def search_b_frame_merge(orig_y, ref0_y, ref1_y, qp: int, block_size: int,
+                         bit_depth: int, search_range: int,
+                         wrap_around: bool, gpm: bool = False,
+                         ciip: bool = False):
+    """Merge-aware B search: the per-list ME + direction decision of
+    search_b_frame, plus per-block SADs of the whole-motion merge
+    candidate fields (neighbour shifts of (mv0, mv1, dirs) and zero-bi).
+
+    Returns (mv0, mv1, dirs, gpm_modes, sad_sel,
+             cand_mv0/mv1 (K,nby,nbx,2), cand_dirs (K,..), cand_sads)."""
+    s = block_size
+    mv0, mv1, dirs, gpm_modes = search_b_frame(
+        orig_y, ref0_y, ref1_y, qp, s, bit_depth, search_range,
+        wrap_around, gpm, ciip)
+    r0p = pad_ref(ref0_y, MC_MARGIN, wrap_around)
+    r1p = pad_ref(ref1_y, MC_MARGIN, wrap_around)
+    sad_sel = _b_field_sad(orig_y, r0p, r1p, mv0, mv1, dirs, s, bit_depth)
+    cand_mv0, cand_mv1, cand_dirs = [], [], []
+    for (dy, dx) in ((0, -1), (-1, 0), (-1, 1)):
+        cand_mv0.append(_shift_mv_field(mv0, dy, dx))
+        cand_mv1.append(_shift_mv_field(mv1, dy, dx))
+        cand_dirs.append(_shift_i_field(dirs, dy, dx))
+    # zero-MV bi candidate
+    cand_mv0.append(torch.zeros_like(mv0))
+    cand_mv1.append(torch.zeros_like(mv0))
+    cand_dirs.append(torch.full_like(dirs, 2))
+    cand_sads = [_b_field_sad(orig_y, r0p, r1p, c0, c1, cd, s, bit_depth)
+                 for c0, c1, cd in zip(cand_mv0, cand_mv1, cand_dirs)]
+    return (mv0, mv1, dirs, gpm_modes, sad_sel, torch.stack(cand_mv0),
+            torch.stack(cand_mv1), torch.stack(cand_dirs),
+            torch.stack(cand_sads))

@@ -4,14 +4,18 @@ PyTorch counterpart of `vvc_mm_tpu/common/interp.py` (reference:
 source/Lib/CommonLib/InterpolationFilter.cpp).  The filter tables are the
 published H.266 coefficients; precision follows the VVC scheme: the
 horizontal pass stays at 14-bit internal precision (IF_INTERNAL_PREC), the
-vertical pass >> 6, and `finalize_uni` rounds back to the
+vertical pass >> 6, and `finalize_uni` / `finalize_bi` round back to the
 pixel domain (MM bi-prediction averages in the pixel domain, see
-mm/frame_codec.py).  All math is int32 on whatever device the tensors live on.
+mm/frame_codec.py).  `mc_luma` / `mc_chroma` predict whole blocks at one
+MV each, the classic inter path.  All math is int32 on whatever device the
+tensors live on.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .typedefs import NTAPS_CHROMA, NTAPS_LUMA
 
 IF_INTERNAL_PREC = 14                # reference: CommonDef.h IF_INTERNAL_PREC
 IF_INTERNAL_OFFS = 1 << (IF_INTERNAL_PREC - 1)
@@ -96,3 +100,54 @@ def finalize_uni(val: torch.Tensor, bit_depth: int = 8) -> torch.Tensor:
     offset = 1 << (shift - 1)
     return torch.clamp((val + offset) >> shift, 0, (1 << bit_depth) - 1)
 
+
+
+def finalize_bi(val0: torch.Tensor, val1: torch.Tensor, bit_depth: int = 8
+                ) -> torch.Tensor:
+    """Average two internal-precision predictions (bi-prediction rounding,
+    reference: InterPrediction xWeightedAverage default path)."""
+    shift = IF_INTERNAL_PREC + 1 - bit_depth
+    offset = 1 << (shift - 1)
+    return torch.clamp((val0 + val1 + offset) >> shift, 0,
+                       (1 << bit_depth) - 1)
+
+
+def mc_luma(ref_padded: torch.Tensor, mv: torch.Tensor, y_blk: torch.Tensor,
+            x_blk: torch.Tensor, h: int, w: int, margin: int,
+            bit_depth: int = 8) -> torch.Tensor:
+    """Motion-compensate B luma blocks from a margin-padded reference plane.
+
+    Args:
+      ref_padded: (H+2m, W+2m) int32 with edge-extended margins m >= search
+        range + 4 taps.
+      mv: (B, 2) int32 motion vectors in 1/16-pel (mv[:,0]=mvx, mv[:,1]=mvy).
+      y_blk/x_blk: (B,) block top-left coords in unpadded frame space.
+    Returns:
+      (B, h, w) int32 prediction in internal 14-bit precision.
+    """
+    mvx, mvy = mv[:, 0], mv[:, 1]
+    ix = x_blk + margin + (mvx >> 4) - (NTAPS_LUMA // 2 - 1)
+    iy = y_blk + margin + (mvy >> 4) - (NTAPS_LUMA // 2 - 1)
+    ix = torch.clamp(ix, 0, ref_padded.shape[1] - (w + NTAPS_LUMA - 1))
+    iy = torch.clamp(iy, 0, ref_padded.shape[0] - (h + NTAPS_LUMA - 1))
+    patch = gather_patches_t(ref_padded, iy, ix, h + NTAPS_LUMA - 1,
+                             w + NTAPS_LUMA - 1)
+    val = interp_luma_t(patch, mvx & 15, mvy & 15, h, w, bit_depth)
+    return val.permute(2, 0, 1)
+
+
+def mc_chroma(ref_padded: torch.Tensor, mv: torch.Tensor,
+              y_blk: torch.Tensor, x_blk: torch.Tensor, h: int, w: int,
+              margin: int, bit_depth: int = 8) -> torch.Tensor:
+    """Motion-compensate B chroma blocks (4:2:0): the luma 1/16-pel MV is
+    read as 1/32-pel at chroma resolution (reference: InterPrediction
+    xPredInterBlk chroma path).  Coords in chroma space."""
+    mvx, mvy = mv[:, 0], mv[:, 1]
+    ix = x_blk + margin + (mvx >> 5) - (NTAPS_CHROMA // 2 - 1)
+    iy = y_blk + margin + (mvy >> 5) - (NTAPS_CHROMA // 2 - 1)
+    ix = torch.clamp(ix, 0, ref_padded.shape[1] - (w + NTAPS_CHROMA - 1))
+    iy = torch.clamp(iy, 0, ref_padded.shape[0] - (h + NTAPS_CHROMA - 1))
+    patch = gather_patches_t(ref_padded, iy, ix, h + NTAPS_CHROMA - 1,
+                             w + NTAPS_CHROMA - 1)
+    val = interp_chroma_t(patch, mvx & 31, mvy & 31, h, w, bit_depth)
+    return val.permute(2, 0, 1)

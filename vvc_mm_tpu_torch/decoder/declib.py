@@ -4,11 +4,12 @@ PyTorch counterpart of `vvc_mm_tpu/decoder/declib.py` (reference:
 source/Lib/DecoderLib/DecLib.cpp — decode:3615 NAL dispatch,
 xDecodeSlice:2699, finishPicture:785 incl. the MD5 hash check at :868).
 
-This slice decodes the multi-model RA configurations: SPS/PPS
-activation, the decoded-picture-hash SEI check, I slices, MM P slices on
-the flat grid or the quadtree (`inter_qt_depth > 0`) and MM B slices, with
-merge on or off, GED epipoles (PH delta against the coded predictor) and
-MM-MVP, each followed by deblocking, SAO and ALF.  Entropy decoding runs
+It decodes SPS/PPS activation, the decoded-picture-hash SEI check, I
+slices, classic (single-model) P slices with one reference or two (a
+per-block ref_idx) and classic B slices, merge on or off, and MM P slices
+on the flat grid or the quadtree (`inter_qt_depth > 0`) and MM B slices,
+with merge on or off, GED epipoles (PH delta against the coded predictor)
+and MM-MVP, each followed by deblocking, SAO and ALF.  Entropy decoding runs
 on the host (numpy + the native CABAC coder); reconstruction, the DPB and
 the loop filters run on `device`, the MC through kernels K1/K2 on CUDA.
 Every other branch raises NotImplementedError naming the ROADMAP queue 1
@@ -22,7 +23,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..common import alf, deblock, sao, wavefront
+from ..common import alf, deblock, inter_frame, sao, wavefront
 from ..common.bitstream import (BitReader, read_annexb, NAL_SPS, NAL_PPS,
                                 NAL_IDR, NAL_SEI, NAL_TRAIL)
 from ..common.mm import epipole as epipole_mod
@@ -36,8 +37,9 @@ from ..common.typedefs import MotionModelID, SliceType
 from ..device import check_device, resolve_device
 from ..lib360.projection import make_projection
 from ..encoder.inter_coder import mer_blocks_log2
-from .inter_parser import (decode_b_slice_mm, decode_p_slice_mm,
-                           decode_p_slice_qt_mm)
+from .inter_parser import (decode_b_slice, decode_b_slice_mm,
+                           decode_p_slice, decode_p_slice_2ref,
+                           decode_p_slice_mm, decode_p_slice_qt_mm)
 from .intra_parser import decode_intra_slice
 
 
@@ -202,7 +204,7 @@ class DecLib:
         if sh.slice_type == SliceType.I:
             self._decode_i(sh, cabac_bytes)
         elif not sps.mm.any_enabled():
-            _todo("classic P/B slices", "8")
+            self._decode_classic(sh, cabac_bytes)
         elif sh.slice_type == SliceType.P:
             self._decode_p_mm(sh, cabac_bytes)
         elif sh.slice_type == SliceType.B:
@@ -246,10 +248,59 @@ class DecLib:
         self.epipole_list.set_epipole(sh.poc, ref_poc, ep)
         return {MotionModelID.GEODESIC_CAMPOSE: ep}
 
+    def _decode_classic(self, sh, cabac_bytes: bytes) -> None:
+        """Classic (single-model) P and B slices on the fixed grid
+        (reference: DecCu + InterPrediction motionCompensation:1681).  A P
+        slice with two references and merge on carries a per-block
+        ref_idx."""
+        sps = self.sps
+        inter_frame.refuse(
+            qtree=sps.inter_qt_depth > 0, affine=sps.affine, tmvp=sps.tmvp,
+            amvr=sps.amvr, bdof=sps.bdof, dmvr=sps.dmvr, gpm=sps.gpm,
+            ciip=sps.ciip,
+            wp=sh.wp_params is not None or sh.wp_params_l1 is not None)
+        s = sps.inter_block_size
+        nby, nbx = sps.height // s, sps.width // s
+        mer = mer_blocks_log2(sps.log2_parallel_merge_level, s)
+        ref = self._ref_by_poc(sh.ref_pocs_l0[0])
+        args = (sh.qp, s, sps.bit_depth, sps.wrap_around)
+        if sh.slice_type == SliceType.B:
+            mv0, mv1, dirs, ly, lu, lv, _ = decode_b_slice(
+                cabac_bytes, nby, nbx, s, use_merge=sps.merge,
+                mer_blocks_log2=mer)
+            ref1 = self._ref_by_poc(sh.ref_pocs_l1[0])
+            recon = inter_frame.reconstruct_b_frame(
+                *self._tensors(mv0, mv1, dirs, ly, lu, lv), ref.planes,
+                ref1.planes, *args)
+            mvs = np.where(dirs[..., None] == 1, mv1, mv0)
+        elif len(sh.ref_pocs_l0) >= 2 and sps.merge:
+            ridx, mvs, ly, lu, lv = decode_p_slice_2ref(
+                cabac_bytes, nby, nbx, s, mer_blocks_log2=mer)
+            ref2 = self._ref_by_poc(sh.ref_pocs_l0[1])
+            recon = inter_frame.reconstruct_p_frame_2ref(
+                *self._tensors(ridx, mvs, ly, lu, lv), ref.planes,
+                ref2.planes, *args)
+        else:
+            mvs, ly, lu, lv = decode_p_slice(
+                cabac_bytes, nby, nbx, s, use_merge=sps.merge,
+                mer_blocks_log2=mer)
+            recon = inter_frame.reconstruct_p_frame(
+                *self._tensors(mvs, ly, lu, lv), *ref.planes, *args)
+        has_resid = ((ly != 0).any((2, 3)) | (lu != 0).any((2, 3))
+                     | (lv != 0).any((2, 3)))
+        bs = deblock.boundary_strengths_inter(
+            *self._tensors(mvs, has_resid))
+        self._store(sh.poc, recon, sh, bs, s)
+
+    def _tensors(self, *arrays):
+        """Host grids as int32 tensors on the decoder's device (bool grids
+        stay bool)."""
+        return tuple(torch.from_numpy(
+            a if a.dtype == np.bool_ else a.astype(np.int32)).to(self.device)
+            for a in arrays)
+
     def _decode_p_mm(self, sh, cabac_bytes: bytes) -> None:
         sps = self.sps
-        if len(sh.ref_pocs_l0) != 1:
-            _todo("two-reference P slices", "8")
         s = sps.inter_block_size
         ref = self._ref_by_poc(sh.ref_pocs_l0[0])
         active = sps.mm.active_models()

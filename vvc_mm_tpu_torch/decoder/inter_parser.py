@@ -1,12 +1,15 @@
-"""Multi-model inter slice entropy decoding.
+"""Inter slice entropy decoding: the exact inverse of
+encoder/inter_coder.py.
 
-PyTorch-port copy of the MM parsers of `vvc_mm_tpu/decoder/inter_parser.py`
-(reference: source/Lib/DecoderLib/CABACReader.cpp — cu_skip_flag,
-merge_idx, motion_model, mvd_coding, residual_coding): the flat and the
-quadtree MM P slice and the MM B slice, with MM-MVP where the SPS turns it
-on.  Host numpy code over the native CABAC decoder.
-The classic, affine, 2-ref, MTT and WPP parsers are ROADMAP queue 1
-items 8 and 11.
+PyTorch-port copy of `vvc_mm_tpu/decoder/inter_parser.py` (reference:
+source/Lib/DecoderLib/CABACReader.cpp — cu_skip_flag, merge_idx,
+ref_idx, inter_pred_idc, motion_model, mvd_coding, residual_coding): the
+classic P slice (one or two references, merge on or off) and B slice,
+and the multi-model ones (the flat and the quadtree MM P slice and the MM
+B slice, with MM-MVP where the SPS turns it on).  Host numpy code over the
+native CABAC decoder.  TMVP/HMVP, AMVR, GPM/CIIP and the affine parser
+(ROADMAP queue 1 item 8) and the classic quadtree, MTT and WPP parsers
+(item 11) are not ported.
 """
 from __future__ import annotations
 
@@ -14,10 +17,13 @@ import numpy as np
 
 from ..common.cabac import BinDecoder
 from ..common.contexts import ctx_id
+from ..common.inter_frame import refuse
 from ..encoder.inter_coder import (MERGE_MAX, _mm_mvp, inherited_model,
-                                   merge_candidates_b_mm,
+                                   merge_candidates, merge_candidates_b, merge_candidates_b_mm,
                                    merge_candidates_mm,
-                                   merge_candidates_qt_mm, mvp_unit_grid_mm)
+                                   merge_candidates_qt_mm,
+                                   merge_candidates_ref, mvp_median,
+                                   mvp_unit_grid_mm)
 from ..utils.native import NativeBinDecoder
 
 
@@ -56,6 +62,134 @@ def _decode_residual(dec: BinDecoder, levs, sizes, by: int, bx: int
     for ci, (lev, size) in enumerate(zip(levs, sizes)):
         if dec.decode_bin(ctx_id("QtCbf", (0, 4, 5)[ci])):
             lev[by, bx] = dec.decode_coeffs(size, size, chroma=(ci != 0))
+
+
+def _new_levels(nby: int, nbx: int, s: int):
+    sc = s // 2
+    return (np.zeros((nby, nbx, s, s), dtype=np.int32),
+            np.zeros((nby, nbx, sc, sc), dtype=np.int32),
+            np.zeros((nby, nbx, sc, sc), dtype=np.int32))
+
+
+def _decode_mvd(dec: BinDecoder) -> np.ndarray:
+    return np.array([decode_mvd_comp(dec), decode_mvd_comp(dec)],
+                    dtype=np.int64)
+
+
+def decode_p_slice(data: bytes, nby: int, nbx: int, s: int,
+                   use_tmvp: bool = False, use_amvr: bool = False,
+                   use_merge: bool = False, mer_blocks_log2: int = 0):
+    """Exact inverse of encoder.inter_coder.encode_p_slice.  Returns (mvs
+    (nby,nbx,2) 1/16-pel, lev_y, lev_u, lev_v).  With use_merge, skip
+    means merge+no-residual and non-skip blocks carry a merge_flag; merge
+    blocks take candidate merge_idx of the shared list (reference:
+    CABACReader merge_data / merge_idx)."""
+    refuse(tmvp=use_tmvp, amvr=use_amvr)
+    dec = NativeBinDecoder(data)
+    mvs = np.zeros((nby, nbx, 2), dtype=np.int64)
+    levs = _new_levels(nby, nbx, s)
+    sizes = (s, s // 2, s // 2)
+    for by in range(nby):
+        for bx in range(nbx):
+            if use_merge:
+                skip = bool(dec.decode_bin(ctx_id("SkipFlag")))
+                if skip or dec.decode_bin(ctx_id("MergeFlag")):
+                    mcands = merge_candidates(
+                        mvs, by, bx, mer_blocks_log2=mer_blocks_log2)
+                    mvs[by, bx] = mcands[decode_merge_idx(dec)]
+                    if not skip:
+                        _decode_residual(dec, levs, sizes, by, bx)
+                    continue
+            pred = mvp_median(mvs, by, bx)
+            if not use_merge and dec.decode_bin(ctx_id("SkipFlag")):
+                mvs[by, bx] = pred
+                continue
+            mvs[by, bx] = pred + _decode_mvd(dec)
+            _decode_residual(dec, levs, sizes, by, bx)
+    return (mvs,) + levs
+
+
+def decode_p_slice_2ref(data: bytes, nby: int, nbx: int, s: int,
+                        use_tmvp: bool = False, use_amvr: bool = False,
+                        mer_blocks_log2: int = 0):
+    """Exact inverse of encoder.inter_coder.encode_p_slice_2ref.  Returns
+    (ref_idx, mvs, lev_y, lev_u, lev_v)."""
+    refuse(tmvp=use_tmvp, amvr=use_amvr)
+    dec = NativeBinDecoder(data)
+    ref_idx = np.zeros((nby, nbx), dtype=np.int32)
+    mvs = np.zeros((nby, nbx, 2), dtype=np.int64)
+    levs = _new_levels(nby, nbx, s)
+    sizes = (s, s // 2, s // 2)
+    for by in range(nby):
+        for bx in range(nbx):
+            skip = bool(dec.decode_bin(ctx_id("SkipFlag")))
+            if skip or dec.decode_bin(ctx_id("MergeFlag")):
+                mcands = merge_candidates_ref(
+                    ref_idx, mvs, by, bx, mer_blocks_log2=mer_blocks_log2)
+                ref_idx[by, bx], mvs[by, bx] = mcands[decode_merge_idx(dec)]
+            else:
+                ref_idx[by, bx] = dec.decode_bin(ctx_id("RefPic", 0))
+                mvs[by, bx] = mvp_median(mvs, by, bx) + _decode_mvd(dec)
+            if not skip:
+                _decode_residual(dec, levs, sizes, by, bx)
+    return (ref_idx, mvs) + levs
+
+
+def decode_b_slice(data: bytes, nby: int, nbx: int, s: int,
+                   use_gpm: bool = False, use_ciip: bool = False,
+                   use_merge: bool = False, mer_blocks_log2: int = 0):
+    """Exact inverse of encoder.inter_coder.encode_b_slice.  Returns (mv0,
+    mv1, dirs, lev_y, lev_u, lev_v, gpm_modes)."""
+    refuse(gpm=use_gpm, ciip=use_ciip)
+    dec = NativeBinDecoder(data)
+    mv0 = np.zeros((nby, nbx, 2), dtype=np.int64)
+    mv1 = np.zeros((nby, nbx, 2), dtype=np.int64)
+    dirs = np.zeros((nby, nbx), dtype=np.int32)
+    gpm_modes = np.zeros((nby, nbx), dtype=np.int32)
+    levs = _new_levels(nby, nbx, s)
+    sizes = (s, s // 2, s // 2)
+    for by in range(nby):
+        for bx in range(nbx):
+            pred0 = mvp_median(mv0, by, bx)
+            pred1 = mvp_median(mv1, by, bx)
+            if use_merge:
+                skip = bool(dec.decode_bin(ctx_id("SkipFlag")))
+                if skip or dec.decode_bin(ctx_id("MergeFlag")):
+                    mcands = merge_candidates_b(
+                        dirs, mv0, mv1, by, bx,
+                        mer_blocks_log2=mer_blocks_log2)
+                    cd, c0, c1 = mcands[decode_merge_idx(dec)]
+                    dirs[by, bx] = cd
+                    # entropy convention: the unused list takes its MVP
+                    mv0[by, bx] = pred0 if cd == 1 else c0
+                    mv1[by, bx] = pred1 if cd == 0 else c1
+                    if not skip:
+                        _decode_residual(dec, levs, sizes, by, bx)
+                    continue
+            elif dec.decode_bin(ctx_id("SkipFlag")):
+                d_pred = (int(dirs[by, bx - 1]) if bx > 0
+                          else int(dirs[by - 1, bx]) if by > 0 else 0)
+                dirs[by, bx] = min(d_pred, 2)
+                mv0[by, bx] = pred0
+                mv1[by, bx] = pred1
+                continue
+            if dec.decode_bin(ctx_id("InterDir", 0)):
+                d = 2
+            else:
+                d = dec.decode_bin(ctx_id("InterDir", 1))
+            dirs[by, bx] = d
+            smvd = d == 2 and bool(dec.decode_bin(ctx_id("SmvdFlag")))
+            mvd = _decode_mvd(dec) if d != 1 else np.zeros(2, np.int64)
+            mv0[by, bx] = pred0 + mvd
+            if d == 0:
+                mv1[by, bx] = pred1
+            elif smvd:
+                # sym_mvd: mvd1 = -mvd0 (reference: smvd_mode)
+                mv1[by, bx] = pred1 - mvd
+            else:
+                mv1[by, bx] = pred1 + _decode_mvd(dec)
+            _decode_residual(dec, levs, sizes, by, bx)
+    return (mv0, mv1, dirs) + levs + (gpm_modes,)
 
 
 def decode_p_slice_mm(data: bytes, nby: int, nbx: int, s: int,

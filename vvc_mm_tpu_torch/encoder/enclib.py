@@ -9,6 +9,13 @@ cascade) order.  The pictures it encodes:
 
   I    wavefront intra encode on the device (common/wavefront.py) -> one
        packed pull -> host CABAC (encoder/intra_coder.py);
+  P/B  classic (single-model) pictures on the fixed grid: P with one
+       reference or two (a per-block ref_idx), merge on or off, and B
+       pictures (whole-motion merge, or per-list AMVP): ME and the merge
+       candidates' SADs on the device (common/inter_frame.py,
+       encoder/me.py; plain torch operations, no kernel) -> one packed
+       pull -> host merge selection (encoder/inter_coder.py) -> finish on
+       the device (MC, transform/quant, deblock);
   P/B  multi-model P pictures (flat grid or quadtree lattice, merge on
        or off) and B pictures (whole-motion merge, or per-list AMVP),
        with GED epipoles coded in the picture header and MM-MVP: search
@@ -29,7 +36,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..common import deblock, qtree, quant, wavefront
+from ..common import deblock, inter_frame, qtree, quant, wavefront
 from ..common.bitstream import (BitWriter, NalUnit, NAL_IDR, NAL_PPS,
                                 NAL_SEI, NAL_SPS, NAL_TRAIL, write_annexb)
 from ..common.mm import epipole as epipole_mod
@@ -43,10 +50,12 @@ from ..device import resolve_device
 from ..lib360.projection import make_projection
 from ..utils import profiling, xfer
 from . import filter_stage
-from .inter_coder import (encode_b_slice_mm, encode_p_slice_mm,
-                          encode_p_slice_qt_mm, mer_blocks_log2,
-                          resolve_tree_qt_mm, select_merge_b_mm,
-                          select_merge_mm, select_qt_mm)
+from .inter_coder import (encode_b_slice, encode_b_slice_mm,
+                          encode_p_slice, encode_p_slice_2ref,
+                          encode_p_slice_mm, encode_p_slice_qt_mm,
+                          mer_blocks_log2, resolve_tree_qt_mm, select_merge_b,
+                          select_merge_b_mm, select_merge_mm,
+                          select_merge_p, select_merge_p_2ref, select_qt_mm)
 from .intra_coder import encode_intra_slice
 
 
@@ -324,8 +333,8 @@ class EncLib:
             if getattr(cfg, name) != carried:
                 _todo(what, item)
         mm = cfg.mm
-        if not mm.any_enabled():
-            _todo("classic (single-model) inter pictures", "8")
+        if not mm.any_enabled() and cfg.qt_depth > 0:
+            _todo("classic quadtree (qtree.py)", "11")
         if mm.t3d or mm.tan:
             _todo("3DT/TAN motion models", "7c")
         self.cfg = cfg
@@ -339,6 +348,9 @@ class EncLib:
         # the model search diamonds (encoder-side state, non-normative)
         self._mm_seed = None
         self._mm_seed_qt = None
+        # POC -> final classic P MV field (host): the co-located field
+        # that TMVP (ROADMAP queue 1 item 8b) reads; pruned with the DPB
+        self._mv_fields: dict[int, np.ndarray] = {}
         self._pending_alf_chroma = None
         self._pending_ccalf = None
         # reference: EncLib.cpp:335-357 projection + MVReprojection init
@@ -366,6 +378,12 @@ class EncLib:
         self.slice_header = None
 
     ra_coding_order = staticmethod(ra_coding_order)
+
+    def _prune_mv_fields(self) -> None:
+        """Keep the MV fields of the pictures still in the DPB only."""
+        for p in list(self._mv_fields):
+            if p not in self._dpb_dev:
+                del self._mv_fields[p]
 
     def _hash_sei(self, poc: int, recon: list[np.ndarray],
                   tid: int = 0) -> NalUnit:
@@ -468,17 +486,26 @@ class EncLib:
                        ref2: list[np.ndarray] | None = None,
                        ref2_poc: int = -1
                        ) -> tuple[NalUnit, FrameResult]:
-        """P encode against one reference reconstruction (reference:
-        EncGOP::compressGOP inter picture path).  `ref2` / `ref2_poc` are
-        the JAX package's second reference: it only acts on the classic
-        merge path there (ROADMAP queue 1 item 8) and is ignored whenever a
-        multi-model tool is on, so it is accepted and ignored here."""
+        """P encode against one or two reference reconstructions
+        (reference: EncGOP::compressGOP inter picture path; per-ref ME
+        InterSearch.cpp:4937).  `ref2` activates a per-block ref_idx on
+        the classic merge path; a multi-model configuration ignores it."""
         cfg = self.cfg
         qp = cfg.qp if qp is None else qp
         t0 = time.time()
-        s = cfg.inter_block_size
         dev = xfer.upload_planes(planes, cfg.bit_depth, self.device)
         rdev = self._refs(ref_poc, ref)
+        if not cfg.mm.any_enabled():
+            # the JAX package's other conditions (no quadtree, affine,
+            # MCTS or WPP) hold: EncLib refuses those configurations
+            use_2ref = ref2 is not None and cfg.max_num_ref >= 2 and \
+                cfg.merge
+            r2dev = self._refs(ref2_poc, ref2) if use_2ref else None
+            recon, make_payload = self._p_classic(poc, dev, rdev, r2dev, qp)
+            return self._finish_slice_overlap(
+                poc, planes, recon, make_payload, qp, t0, SliceType.P,
+                [ref_poc, ref2_poc] if use_2ref else [ref_poc], [], None, 0,
+                dev)
         active = cfg.mm.active_models()
         epipoles, epipole_delta = self._p_epipoles(poc, ref_poc)
         if cfg.qt_depth > 0:
@@ -490,6 +517,99 @@ class EncLib:
         return self._finish_slice_overlap(
             poc, planes, recon, make_payload, qp, t0, SliceType.P,
             [ref_poc], [], epipole_delta, 0, dev)
+
+    def _p_classic(self, poc, dev, rdev, r2dev, qp):
+        """Classic P picture on the fixed grid.  With merge, the device
+        search (ME + the candidate fields' SADs, per reference when
+        `r2dev` is given) -> one pull -> host merge selection in coding
+        order -> the device finish from the FINAL fields (reference: merge
+        candidates UnitTools.cpp:1059, EncCu xCheckRDCostMerge2Nx2N);
+        without it, one program codes the search's MVs.  Returns (recon,
+        make_payload)."""
+        cfg = self.cfg
+        s = cfg.inter_block_size
+        bd = cfg.bit_depth
+        nby, nbx = cfg.height // s, cfg.width // s
+        lam_sqrt = quant.lambda_from_qp(qp, intra=False) ** 0.5
+        mer = mer_blocks_log2(self.sps.log2_parallel_merge_level, s)
+        col = torch.zeros((nby, nbx, 2), dtype=torch.int32,
+                          device=self.device)      # TMVP off: zero field
+
+        def t(a):
+            return torch.from_numpy(a.astype(np.int32)).to(self.device)
+
+        if not cfg.merge:
+            with profiling.stage("finish") as ps:
+                mvs, ly, lu, lv, recon = inter_frame.encode_p_frame(
+                    *dev, *rdev, qp, s, bd, cfg.search_range,
+                    cfg.wrap_around)
+                recon = self._deblock_inter(recon, mvs, (ly, lu, lv), qp)
+                ps.set_sync(self.device)
+        else:
+            with profiling.stage("search") as ps:
+                if r2dev is not None:
+                    out = inter_frame.search_p_frame_2ref(
+                        dev[0], rdev[0], r2dev[0], col, qp, s, bd,
+                        cfg.search_range, cfg.wrap_around)
+                else:
+                    out = inter_frame.search_p_frame(
+                        dev[0], rdev[0], col, qp, s, bd, cfg.search_range,
+                        cfg.wrap_around)
+                ps.set_sync(self.device)
+            with profiling.stage("select+pull"):
+                pulled = xfer.pull_i32(*out)
+                if r2dev is not None:
+                    ref_h, mvs_h, _, sad_h, cref_h, cmv_h, csad_h = pulled
+                    f_ref, final, mflag, midx = select_merge_p_2ref(
+                        ref_h, mvs_h, sad_h, cref_h, cmv_h, csad_h, None,
+                        lam_sqrt, False, mer)
+                else:
+                    mvs_h, _, sad_h, cmv_h, csad_h = pulled
+                    final, mflag, midx = select_merge_p(
+                        mvs_h, sad_h, cmv_h, csad_h, None, lam_sqrt, False,
+                        mer)
+            self._mv_fields[poc] = final
+            mvs = t(final)
+            with profiling.stage("finish") as ps:
+                if r2dev is not None:
+                    ly, lu, lv, recon = inter_frame.finish_p_frame_2ref(
+                        *dev, tuple(rdev), tuple(r2dev), t(f_ref), mvs, qp,
+                        s, bd, cfg.wrap_around)
+                else:
+                    ly, lu, lv, recon = inter_frame.finish_p_frame(
+                        *dev, *rdev, mvs, qp, s, bd, cfg.wrap_around)
+                recon = self._deblock_inter(recon, mvs, (ly, lu, lv), qp)
+                ps.set_sync(self.device)
+
+        def make_payload():
+            if not cfg.merge:
+                lyh, luh, lvh, mvs_h = xfer.pull_levels(ly, lu, lv, mvs)
+                self._mv_fields[poc] = mvs_h.astype(np.int64)
+                return encode_p_slice(mvs_h, lyh, luh, lvh)
+            lyh, luh, lvh = xfer.pull_levels(ly, lu, lv)
+            if r2dev is not None:
+                return encode_p_slice_2ref(f_ref, final, lyh, luh, lvh,
+                                           merge_flag=mflag, merge_idx=midx)
+            return encode_p_slice(final, lyh, luh, lvh, merge_flag=mflag,
+                                  merge_idx=midx)
+
+        return recon, make_payload
+
+    def _deblock_inter(self, recon, mvs, levels, qp):
+        """Deblock a classic inter picture: bs from the per-block MVs and
+        coded residual (reference: xGetBoundaryStrengthSingle)."""
+        cfg = self.cfg
+        if not cfg.deblocking:
+            return recon
+        has_resid = (levels[0] != 0).any(3).any(2)
+        for lev in levels[1:]:
+            has_resid = has_resid | (lev != 0).any(3).any(2)
+        bs_v, bs_h = deblock.boundary_strengths_inter(
+            mvs.to(torch.int32), has_resid)
+        ry, ru, rv = deblock.deblock_frame(
+            recon["y"], recon["u"], recon["v"], bs_v, bs_h,
+            cfg.inter_block_size, qp, cfg.bit_depth)
+        return dict(y=ry, u=ru, v=rv)
 
     def _p_quadtree(self, active, dev, rdev, qp, epipoles):
         """MM x partitioning, merge-aware: the unit level runs the
@@ -624,6 +744,11 @@ class EncLib:
         dev = xfer.upload_planes(planes, cfg.bit_depth, self.device)
         r0 = self._refs(ref0_poc, ref0)
         r1 = self._refs(ref1_poc, ref1)
+        if not cfg.mm.any_enabled():
+            recon, make_payload = self._b_classic(dev, r0, r1, qp)
+            return self._finish_slice_overlap(
+                poc, planes, recon, make_payload, qp, t0, SliceType.B,
+                [ref0_poc], [ref1_poc], None, tid, dev)
         active = cfg.mm.active_models()
         eps0 = eps1 = None
         if cfg.mm.ged:
@@ -689,6 +814,62 @@ class EncLib:
         return self._finish_slice_overlap(
             poc, planes, recon, make_payload, qp, t0, SliceType.B,
             [ref0_poc], [ref1_poc], None, tid, dev)
+
+    def _b_classic(self, dev, r0, r1, qp):
+        """Classic B picture on the fixed grid: per-list ME and the uni/bi
+        decision on the device; with merge, the whole-motion candidate
+        fields' SADs ride the search and the host snaps blocks to (dir,
+        mv0, mv1) candidates in coding order; then prediction, residual,
+        recon and deblock from the FINAL grids.  Returns (recon,
+        make_payload)."""
+        cfg = self.cfg
+        s = cfg.inter_block_size
+        bd = cfg.bit_depth
+        mflag = midx = None
+        with profiling.stage("search_b") as ps:
+            if cfg.merge:
+                out = inter_frame.search_b_frame_merge(
+                    dev[0], r0[0], r1[0], qp, s, bd, cfg.search_range,
+                    cfg.wrap_around)
+            else:
+                mv0, mv1, dirs, _ = inter_frame.search_b_frame(
+                    dev[0], r0[0], r1[0], qp, s, bd, cfg.search_range,
+                    cfg.wrap_around)
+            ps.set_sync(self.device)
+        if cfg.merge:
+            with profiling.stage("select_b+pull"):
+                (mv0_h, mv1_h, dirs_h, _, sad_h, c0_h, c1_h, cd_h,
+                 cs_h) = xfer.pull_i32(*out)
+                lam_sqrt = quant.lambda_from_qp(qp, intra=False) ** 0.5
+                mv0_h, mv1_h, dirs_h, mflag, midx = select_merge_b(
+                    mv0_h, mv1_h, dirs_h, sad_h, c0_h, c1_h, cd_h, cs_h,
+                    lam_sqrt, mer_blocks_log2(
+                        self.sps.log2_parallel_merge_level, s))
+            mv0, mv1, dirs = (torch.from_numpy(a.astype(np.int32))
+                              .to(self.device)
+                              for a in (mv0_h, mv1_h, dirs_h))
+        with profiling.stage("finish_b") as ps:
+            ly, lu, lv, recon = inter_frame.bpred_and_residual(
+                *dev, tuple(r0), tuple(r1), mv0, mv1, dirs, qp, s, bd,
+                cfg.wrap_around)
+            # prediction and deblock both read the USED list, so the
+            # entropy pass's unused-list replacements never reach them
+            recon = self._deblock_inter(
+                recon, torch.where(dirs[..., None] == 1, mv1, mv0),
+                (ly, lu, lv), qp)
+            ps.set_sync(self.device)
+
+        def make_payload():
+            if cfg.merge:
+                lyh, luh, lvh = xfer.pull_levels(ly, lu, lv)
+                m0, m1, d = mv0_h, mv1_h, dirs_h
+            else:
+                lyh, luh, lvh, m0, m1, d = xfer.pull_levels(
+                    ly, lu, lv, mv0, mv1, dirs)
+            return encode_b_slice(m0, m1, d, lyh, luh, lvh,
+                                  merge_flag=mflag, merge_idx=midx)[0]
+
+        return recon, make_payload
 
     def _finish_slice_overlap(self, poc, planes, recon, make_payload, qp,
                               t0, slice_type, ref_pocs_l0, ref_pocs_l1,
@@ -799,6 +980,7 @@ class EncLib:
                 for p in list(self._dpb_dev):
                     if p not in needed:
                         del self._dpb_dev[p]
+                self._prune_mv_fields()
             self.results.sort(key=lambda r: r.poc)
             return write_annexb(nalus)
         last_rec = prev2_rec = None
@@ -817,6 +999,7 @@ class EncLib:
             for p in list(self._dpb_dev):
                 if p not in (poc, last_poc):
                     del self._dpb_dev[p]
+            self._prune_mv_fields()
             if is_intra:
                 prev2_rec, prev2_poc = None, -1   # closed GOP: IDR only
             else:

@@ -1,21 +1,25 @@
-"""Multi-model inter slices on the host: candidate lists, the encoder's
-merge/split selection and the CABAC slice writers.
+"""Inter slices on the host: candidate lists, the encoder's merge/split
+selection and the CABAC slice writers.
 
 Copied from `vvc_mm_tpu/encoder/inter_coder.py` (numpy host code; reference:
 source/Lib/EncoderLib/CABACWriter.cpp cu_skip_flag, merge_idx,
-motion_model():1854, mvd_coding:1575, cbf + residual_coding;
-UnitTools.cpp:872-885 model inheritance through merge, fillMvpCand).  The
-candidate lists are shared bit-exactly by encoder and decoder.  The
-multi-model paths are here: the flat P slice and the B slice (merge on or
-off), the quadtree P slice, and MM-MVP (cross-model candidates converted by
-common/mm/mvp_convert.py); the classic, affine, 2-reference, MTT and WPP
-writers are ROADMAP queue 1 items 8-11.
+ref_idx, inter_pred_idc, motion_model():1854, mvd_coding:1575, cbf +
+residual_coding; UnitTools.cpp:1059 getInterMergeCandidates, :872-885
+model inheritance through merge, fillMvpCand).  The candidate lists are
+shared bit-exactly by encoder and decoder.  Here are the classic paths
+(the P slice with one or two references, merge on or off, and the B
+slice) and the multi-model ones (the flat P slice and the B slice, merge
+on or off, the quadtree P slice, and MM-MVP: cross-model candidates
+converted by common/mm/mvp_convert.py).  TMVP/HMVP and AMVR (ROADMAP
+queue 1 item 8), GPM/CIIP (item 8), the affine writer (item 8) and the
+classic quadtree, MTT and WPP writers (item 11) are not ported.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..common.cabac import BinEncoder
+from ..common.inter_frame import refuse
 from ..common.contexts import ctx_id
 from ..utils.native import NativeBinEncoder
 
@@ -33,6 +37,329 @@ def _mvd_bits(v: np.ndarray) -> int:
 def _median3(a: int, b: int, c: int) -> int:
     """Middle value of three ints (equals np.median for 3 samples)."""
     return a + b + c - min(a, b, c) - max(a, b, c)
+
+
+def mvp_median(mvs: np.ndarray, by: int, bx: int) -> np.ndarray:
+    """Median MV predictor from decoded neighbours (host, shared enc/dec):
+    candidates (left, above, above-right | above-left); 3 -> component
+    median, 2 -> rounding average, 1 -> copy, 0 -> zero."""
+    nbx = mvs.shape[1]
+    if by == 0:
+        if bx == 0:
+            return np.zeros(2, dtype=np.int64)
+        v = mvs[by, bx - 1]
+        return np.array([int(v[0]), int(v[1])], np.int64)
+    a = mvs[by - 1, bx]
+    ax, ay = int(a[0]), int(a[1])
+    if bx + 1 < nbx:
+        c = mvs[by - 1, bx + 1]
+    elif bx > 0:
+        c = mvs[by - 1, bx - 1]
+    else:
+        return np.array([ax, ay], np.int64)
+    cx, cy = int(c[0]), int(c[1])
+    if bx == 0:
+        # no left: rounding average of (above, above-right)
+        return np.array([(ax + cx + 1) >> 1, (ay + cy + 1) >> 1], np.int64)
+    lft = mvs[by, bx - 1]
+    lx, ly = int(lft[0]), int(lft[1])
+    return np.array([_median3(lx, ax, cx), _median3(ly, ay, cy)], np.int64)
+
+
+def _in_other_mer(by: int, bx: int, y: int, x: int,
+                  mer_blocks_log2: int) -> bool:
+    """Whether (y, x) lies outside the merge-estimation region of block
+    (by, bx): spatial candidates inside it are excluded (reference:
+    isDiffMER, UnitTools.cpp:857)."""
+    if mer_blocks_log2 <= 0:
+        return True
+    return ((y >> mer_blocks_log2) != (by >> mer_blocks_log2)
+            or (x >> mer_blocks_log2) != (bx >> mer_blocks_log2))
+
+
+def _spatial_neighbours(nby: int, nbx: int, by: int, bx: int,
+                        mer_blocks_log2: int) -> list[tuple[int, int]]:
+    """A1, B1, B0, B2 of block (by, bx) that are decoded before it and lie
+    outside its merge-estimation region."""
+    return [(y, x) for (y, x) in ((by, bx - 1), (by - 1, bx),
+                                  (by - 1, bx + 1), (by - 1, bx - 1))
+            if (0 <= y < nby and 0 <= x < nbx and (y, x) < (by, bx)
+                and _in_other_mer(by, bx, y, x, mer_blocks_log2))]
+
+
+def merge_candidates(coded: np.ndarray, by: int, bx: int,
+                     n: int = MERGE_MAX,
+                     mer_blocks_log2: int = 0) -> list[tuple[int, int]]:
+    """Merge candidate list from the causally-decoded MV grid, shared
+    bit-exactly by encoder and decoder (reference: UnitTools.cpp:1059
+    getInterMergeCandidates — spatial A1/B1/B0/B2, pairwise-average, zero;
+    the TMVP and HMVP candidates are ROADMAP queue 1 item 8b).
+    `mer_blocks_log2`: the merge-estimation region's side in blocks
+    (log2)."""
+    nby, nbx = coded.shape[:2]
+    cands = [(int(coded[y, x, 0]), int(coded[y, x, 1]))
+             for (y, x) in _spatial_neighbours(nby, nbx, by, bx,
+                                               mer_blocks_log2)]
+    out: list[tuple[int, int]] = []
+    for c in cands:
+        if c not in out:
+            out.append(c)
+        if len(out) == n:
+            break
+    if len(out) >= 2 and len(out) < n:
+        # pairwise average of the first two DISTINCT candidates
+        pw = ((out[0][0] + out[1][0] + 1) >> 1,
+              (out[0][1] + out[1][1] + 1) >> 1)
+        if pw not in out:
+            out.append(pw)
+    if len(out) < n and (0, 0) not in out:
+        out.append((0, 0))
+    while len(out) < n:
+        out.append((0, 0))
+    return out
+
+
+def select_merge_p(mv_me: np.ndarray, sad_me: np.ndarray,
+                   cand_mvs: np.ndarray, cand_sads: np.ndarray,
+                   col_mvs: np.ndarray | None, lam_sqrt: float,
+                   use_tmvp: bool, mer_blocks_log2: int = 0):
+    """Encoder merge decision in coding order (the host pass between the
+    two device programs; reference analog: EncCu::xCheckRDCostMerge2Nx2N).
+
+    For each block, the decoder-mirrored candidate list is derived from
+    the evolving FINAL MV grid; candidates whose SAD is known (they match
+    one of the device-evaluated candidate fields, or the ME MV itself)
+    compete against the AMVP coding of the ME MV on SAD + lambda*bits.  A
+    tie keeps the earlier candidate, and a tie with AMVP merges.
+
+    Returns (final_mvs, merge_flag, merge_idx)."""
+    refuse(tmvp=use_tmvp)
+    nby, nbx = mv_me.shape[:2]
+    final = mv_me.astype(np.int64).copy()
+    merge_flag = np.zeros((nby, nbx), dtype=bool)
+    merge_idx = np.zeros((nby, nbx), dtype=np.int32)
+    n_fields = cand_mvs.shape[0]
+    # plain-list views: python-int indexing is ~10x cheaper than numpy
+    # scalar reads in this per-block host loop
+    mv_l = np.asarray(mv_me).tolist()
+    sad_l = np.asarray(sad_me).tolist()
+    cmv_l = np.asarray(cand_mvs).tolist()
+    csad_l = np.asarray(cand_sads).tolist()
+    for by in range(nby):
+        for bx in range(nbx):
+            cands = merge_candidates(final, by, bx,
+                                     mer_blocks_log2=mer_blocks_log2)
+            me_mv = (mv_l[by][bx][0], mv_l[by][bx][1])
+            best = None                       # (cost, idx, mv)
+            for i, c in enumerate(cands):
+                if c == me_mv:
+                    sad = sad_l[by][bx]
+                else:
+                    sad = None
+                    for k in range(n_fields):
+                        ck = cmv_l[k][by][bx]
+                        if ck[0] == c[0] and ck[1] == c[1]:
+                            sad = csad_l[k][by][bx]
+                            break
+                    if sad is None:
+                        continue
+                cost = sad + lam_sqrt * (i + 2)
+                if best is None or cost < best[0]:
+                    best = (cost, i, c)
+            pred = mvp_median(final, by, bx)
+            mvd = np.asarray(me_mv, dtype=np.int64) - pred
+            amvp_cost = sad_l[by][bx] + lam_sqrt * (2 + _mvd_bits(mvd))
+            if best is not None and best[0] <= amvp_cost:
+                merge_flag[by, bx] = True
+                merge_idx[by, bx] = best[1]
+                final[by, bx] = best[2]
+    return final, merge_flag, merge_idx
+
+
+def merge_candidates_ref(refs_g: np.ndarray, coded: np.ndarray, by: int,
+                         bx: int, n: int = MERGE_MAX, mer_blocks_log2: int = 0
+                         ) -> list[tuple[int, tuple[int, int]]]:
+    """Multi-reference merge candidates (ref_idx, mv): spatial neighbours
+    carry their reference, the pairwise average of the first two (when
+    they share one) rides it, the zero candidate rides ref 0 (reference:
+    merge candidates carry mvField incl. refIdx, UnitTools.cpp:1059)."""
+    nby, nbx = refs_g.shape
+    cands = [(int(refs_g[y, x]), (int(coded[y, x, 0]), int(coded[y, x, 1])))
+             for (y, x) in _spatial_neighbours(nby, nbx, by, bx,
+                                               mer_blocks_log2)]
+    out = []
+    for c in cands:
+        if c not in out:
+            out.append(c)
+        if len(out) == n:
+            break
+    if len(out) >= 2 and len(out) < n and out[0][0] == out[1][0]:
+        pw = (out[0][0], ((out[0][1][0] + out[1][1][0] + 1) >> 1,
+                          (out[0][1][1] + out[1][1][1] + 1) >> 1))
+        if pw not in out:
+            out.append(pw)
+    zero = (0, (0, 0))
+    if len(out) < n and zero not in out:
+        out.append(zero)
+    while len(out) < n:
+        out.append(zero)
+    return out
+
+
+def select_merge_p_2ref(ref_me: np.ndarray, mv_me: np.ndarray,
+                        sad_me: np.ndarray, cand_ref: np.ndarray,
+                        cand_mvs: np.ndarray, cand_sads: np.ndarray,
+                        col_mvs: np.ndarray | None, lam_sqrt: float,
+                        use_tmvp: bool, mer_blocks_log2: int = 0):
+    """Two-reference merge decision in coding order.  Returns
+    (final_ref, final_mvs, merge_flag, merge_idx)."""
+    refuse(tmvp=use_tmvp)
+    nby, nbx = ref_me.shape
+    f_ref = ref_me.astype(np.int32).copy()
+    f_mv = mv_me.astype(np.int64).copy()
+    merge_flag = np.zeros((nby, nbx), dtype=bool)
+    merge_idx = np.zeros((nby, nbx), dtype=np.int32)
+    n_fields = cand_ref.shape[0]
+    for by in range(nby):
+        for bx in range(nbx):
+            cands = merge_candidates_ref(f_ref, f_mv, by, bx,
+                                         mer_blocks_log2=mer_blocks_log2)
+            me = (int(ref_me[by, bx]),
+                  (int(mv_me[by, bx, 0]), int(mv_me[by, bx, 1])))
+            best = None
+            for i, c in enumerate(cands):
+                if c == me:
+                    sad = int(sad_me[by, bx])
+                else:
+                    sad = None
+                    for k in range(n_fields):
+                        if (int(cand_ref[k, by, bx]) == c[0]
+                                and int(cand_mvs[k, by, bx, 0]) == c[1][0]
+                                and int(cand_mvs[k, by, bx, 1]) == c[1][1]):
+                            sad = int(cand_sads[k, by, bx])
+                            break
+                    if sad is None:
+                        continue
+                cost = sad + lam_sqrt * (i + 2)
+                if best is None or cost < best[0]:
+                    best = (cost, i, c)
+            pred = mvp_median(f_mv, by, bx)
+            mvd = np.asarray(me[1], dtype=np.int64) - pred
+            amvp_cost = (int(sad_me[by, bx])
+                         + lam_sqrt * (3 + _mvd_bits(mvd)))
+            if best is not None and best[0] <= amvp_cost:
+                merge_flag[by, bx] = True
+                merge_idx[by, bx] = best[1]
+                f_ref[by, bx] = best[2][0]
+                f_mv[by, bx] = best[2][1]
+    return f_ref, f_mv, merge_flag, merge_idx
+
+
+def merge_candidates_b(dirs_g: np.ndarray, mv0_g: np.ndarray,
+                       mv1_g: np.ndarray, by: int, bx: int,
+                       n: int = MERGE_MAX, mer_blocks_log2: int = 0
+                       ) -> list[tuple[int, tuple[int, int],
+                                       tuple[int, int]]]:
+    """Whole-motion B merge candidates (inter_dir, mv0, mv1) from the
+    causally-decoded grids, shared bit-exactly by encoder and decoder
+    (reference: getInterMergeCandidates carries interDirNeighbours +
+    mvFieldNeighbours for both lists, UnitTools.cpp:1059).  Neighbour
+    dirs clamp to BI; pairwise averages both lists; the list closes with
+    the zero-BI candidate."""
+    nby, nbx = dirs_g.shape
+    cands = [(min(int(dirs_g[y, x]), 2),
+              (int(mv0_g[y, x, 0]), int(mv0_g[y, x, 1])),
+              (int(mv1_g[y, x, 0]), int(mv1_g[y, x, 1])))
+             for (y, x) in _spatial_neighbours(nby, nbx, by, bx,
+                                               mer_blocks_log2)]
+    out = []
+    for c in cands:
+        if c not in out:
+            out.append(c)
+        if len(out) == n:
+            break
+    if len(out) >= 2 and len(out) < n:
+        a, b = out[0], out[1]
+        pw = (2, ((a[1][0] + b[1][0] + 1) >> 1,
+                  (a[1][1] + b[1][1] + 1) >> 1),
+              ((a[2][0] + b[2][0] + 1) >> 1,
+               (a[2][1] + b[2][1] + 1) >> 1))
+        if pw not in out:
+            out.append(pw)
+    zero = (2, (0, 0), (0, 0))
+    if len(out) < n and zero not in out:
+        out.append(zero)
+    while len(out) < n:
+        out.append(zero)
+    return out
+
+
+def select_merge_b(mv0_me: np.ndarray, mv1_me: np.ndarray,
+                   dirs_me: np.ndarray, sad_sel: np.ndarray,
+                   cand_mv0: np.ndarray, cand_mv1: np.ndarray,
+                   cand_dirs: np.ndarray, cand_sads: np.ndarray,
+                   lam_sqrt: float, mer_blocks_log2: int = 0):
+    """Encoder B merge decision in coding order (reference analog:
+    EncCu::xCheckRDCostMerge2Nx2N for B slices).  Returns (mv0, mv1,
+    dirs, merge_flag, merge_idx): grids evolve with the entropy
+    convention (unused-list entries take their MVP)."""
+    nby, nbx = dirs_me.shape
+    f_mv0 = mv0_me.astype(np.int64).copy()
+    f_mv1 = mv1_me.astype(np.int64).copy()
+    f_dirs = dirs_me.astype(np.int32).copy()
+    merge_flag = np.zeros((nby, nbx), dtype=bool)
+    merge_idx = np.zeros((nby, nbx), dtype=np.int32)
+    n_fields = cand_mv0.shape[0]
+    for by in range(nby):
+        for bx in range(nbx):
+            d = int(dirs_me[by, bx])
+            pred0 = mvp_median(f_mv0, by, bx)
+            pred1 = mvp_median(f_mv1, by, bx)
+            if d >= 3:     # GPM/CIIP sub-state is not merge-representable
+                continue
+            cands = merge_candidates_b(f_dirs, f_mv0, f_mv1, by, bx,
+                                       mer_blocks_log2=mer_blocks_log2)
+            me = (d, (int(mv0_me[by, bx, 0]), int(mv0_me[by, bx, 1])),
+                  (int(mv1_me[by, bx, 0]), int(mv1_me[by, bx, 1])))
+            best = None
+            for i, c in enumerate(cands):
+                if c == me:
+                    sad = int(sad_sel[by, bx])
+                else:
+                    sad = None
+                    for k in range(n_fields):
+                        if (int(cand_dirs[k, by, bx]) == c[0]
+                                and int(cand_mv0[k, by, bx, 0]) == c[1][0]
+                                and int(cand_mv0[k, by, bx, 1]) == c[1][1]
+                                and int(cand_mv1[k, by, bx, 0]) == c[2][0]
+                                and int(cand_mv1[k, by, bx, 1]) == c[2][1]):
+                            sad = int(cand_sads[k, by, bx])
+                            break
+                    if sad is None:
+                        continue
+                cost = sad + lam_sqrt * (i + 2)
+                if best is None or cost < best[0]:
+                    best = (cost, i, c)
+            mvd_bits = 0
+            if d != 1:
+                mvd_bits += _mvd_bits(np.asarray(me[1], np.int64) - pred0)
+            if d != 0:
+                mvd_bits += _mvd_bits(np.asarray(me[2], np.int64) - pred1)
+            amvp_cost = int(sad_sel[by, bx]) + lam_sqrt * (3 + mvd_bits)
+            if best is not None and best[0] <= amvp_cost:
+                merge_flag[by, bx] = True
+                merge_idx[by, bx] = best[1]
+                cd, c0, c1 = best[2]
+                f_dirs[by, bx] = cd
+                f_mv0[by, bx] = c0
+                f_mv1[by, bx] = c1
+                d = cd
+            # entropy convention: unused-list grid entries take their MVP
+            if d == 0:
+                f_mv1[by, bx] = pred1
+            elif d == 1:
+                f_mv0[by, bx] = pred0
+    return f_mv0, f_mv1, f_dirs, merge_flag, merge_idx
 
 
 def mvp_median_same_model(mvs: np.ndarray, model_ids: np.ndarray,
@@ -198,23 +525,11 @@ def merge_candidates_b_mm(dirs_g: np.ndarray, midx0_g: np.ndarray,
     UnitTools.cpp:872-885 model inheritance through merge).  Closes with
     zero-BI-CLASSIC."""
     nby, nbx = dirs_g.shape
-
-    def same_mer(y: int, x: int) -> bool:
-        if mer_blocks_log2 <= 0:
-            return False
-        return ((y >> mer_blocks_log2) == (by >> mer_blocks_log2)
-                and (x >> mer_blocks_log2) == (bx >> mer_blocks_log2))
-
-    cands = []
-    for (y, x) in ((by, bx - 1), (by - 1, bx), (by - 1, bx + 1),
-                   (by - 1, bx - 1)):
-        if (0 <= y < nby and 0 <= x < nbx and (y, x) < (by, bx)
-                and not same_mer(y, x)):
-            cands.append((int(dirs_g[y, x]),
-                          (int(midx0_g[y, x]),
-                           (int(mv0_g[y, x, 0]), int(mv0_g[y, x, 1]))),
-                          (int(midx1_g[y, x]),
-                           (int(mv1_g[y, x, 0]), int(mv1_g[y, x, 1])))))
+    cands = [(int(dirs_g[y, x]),
+              (int(midx0_g[y, x]), (int(mv0_g[y, x, 0]), int(mv0_g[y, x, 1]))),
+              (int(midx1_g[y, x]), (int(mv1_g[y, x, 0]), int(mv1_g[y, x, 1]))))
+             for (y, x) in _spatial_neighbours(nby, nbx, by, bx,
+                                               mer_blocks_log2)]
     out = []
     for c in cands:
         if c not in out:
@@ -283,20 +598,10 @@ def merge_candidates_mm(midx_g: np.ndarray, mvs_sel: np.ndarray, by: int,
     Neighbours inside the current block's merge-estimation region
     (2^mer_blocks_log2 blocks a side) are left out."""
     nby, nbx = midx_g.shape
-
-    def same_mer(y: int, x: int) -> bool:
-        if mer_blocks_log2 <= 0:
-            return False
-        return ((y >> mer_blocks_log2) == (by >> mer_blocks_log2)
-                and (x >> mer_blocks_log2) == (bx >> mer_blocks_log2))
-
-    cands = []
-    for (y, x) in ((by, bx - 1), (by - 1, bx), (by - 1, bx + 1),
-                   (by - 1, bx - 1)):
-        if (0 <= y < nby and 0 <= x < nbx and (y, x) < (by, bx)
-                and not same_mer(y, x)):
-            cands.append((int(midx_g[y, x]),
-                          (int(mvs_sel[y, x, 0]), int(mvs_sel[y, x, 1]))))
+    cands = [(int(midx_g[y, x]),
+              (int(mvs_sel[y, x, 0]), int(mvs_sel[y, x, 1])))
+             for (y, x) in _spatial_neighbours(nby, nbx, by, bx,
+                                               mer_blocks_log2)]
     out = []
     for c in cands:
         if c not in out:
@@ -889,3 +1194,174 @@ def encode_b_slice_mm(model_idx0: np.ndarray, model_idx1: np.ndarray,
                                  bool(cbf_v[by, bx])),
                            (lev_y[by, bx], lev_u[by, bx], lev_v[by, bx]))
     return enc.finish()
+
+
+def _cbf_grids(lev_y, lev_u, lev_v):
+    return tuple((lev != 0).any(axis=(2, 3)) for lev in (lev_y, lev_u,
+                                                           lev_v))
+
+
+def encode_p_slice(mvs: np.ndarray, lev_y: np.ndarray, lev_u: np.ndarray,
+                   lev_v: np.ndarray, use_tmvp: bool = False,
+                   imv: np.ndarray | None = None,
+                   merge_flag: np.ndarray | None = None,
+                   merge_idx: np.ndarray | None = None) -> bytes:
+    """Classic P slice: mvs (nby, nbx, 2) 1/16-pel; lev_* (nby, nbx, s, s);
+    raster order.  With merge_flag/merge_idx (from select_merge_p), skip
+    means merge+no-residual and is followed by merge_idx; non-skip blocks
+    signal merge_flag, then either merge_idx (+residual) or the AMVP syntax
+    (reference: CABACWriter merge_flag/merge_idx/cu_skip).  Without them,
+    skip means a zero mvd against the median predictor and no residual."""
+    refuse(tmvp=use_tmvp, amvr=imv is not None)
+    enc = NativeBinEncoder()
+    nby, nbx = mvs.shape[:2]
+    mvs = mvs.astype(np.int64)
+    use_merge = merge_flag is not None
+    cbf_yg, cbf_ug, cbf_vg = _cbf_grids(lev_y, lev_u, lev_v)
+    for by in range(nby):
+        for bx in range(nbx):
+            mv = mvs[by, bx]
+            cbfs = (bool(cbf_yg[by, bx]), bool(cbf_ug[by, bx]),
+                    bool(cbf_vg[by, bx]))
+            levs = (lev_y[by, bx], lev_u[by, bx], lev_v[by, bx])
+            no_resid = not any(cbfs)
+            if use_merge:
+                mrg = bool(merge_flag[by, bx])
+                skip = mrg and no_resid
+                enc.encode_bin(int(skip), ctx_id("SkipFlag"))
+                if skip:
+                    encode_merge_idx(enc, int(merge_idx[by, bx]))
+                    continue
+                enc.encode_bin(int(mrg), ctx_id("MergeFlag"))
+                if mrg:
+                    encode_merge_idx(enc, int(merge_idx[by, bx]))
+                    _code_residual(enc, cbfs, levs)
+                    continue
+            mvd = mv - mvp_median(mvs, by, bx)
+            # skip without merge: zero mvd, no residual
+            skip = (not use_merge and no_resid and mvd[0] == 0
+                    and mvd[1] == 0)
+            if not use_merge:
+                enc.encode_bin(int(skip), ctx_id("SkipFlag"))
+            if not skip:
+                encode_mvd_comp(enc, int(mvd[0]))
+                encode_mvd_comp(enc, int(mvd[1]))
+                _code_residual(enc, cbfs, levs)
+    return enc.finish()
+
+
+def encode_p_slice_2ref(ref_idx: np.ndarray, mvs: np.ndarray,
+                        lev_y: np.ndarray, lev_u: np.ndarray,
+                        lev_v: np.ndarray, use_tmvp: bool = False,
+                        imv: np.ndarray | None = None,
+                        merge_flag: np.ndarray | None = None,
+                        merge_idx: np.ndarray | None = None) -> bytes:
+    """Two-reference P slice: the merge syntax of encode_p_slice plus a
+    context-coded ref_idx bin on AMVP-coded blocks (reference:
+    CABACWriter::ref_idx, Ctx::RefPic)."""
+    refuse(tmvp=use_tmvp, amvr=imv is not None)
+    enc = NativeBinEncoder()
+    nby, nbx = mvs.shape[:2]
+    mvs = mvs.astype(np.int64)
+    cbf_yg, cbf_ug, cbf_vg = _cbf_grids(lev_y, lev_u, lev_v)
+    for by in range(nby):
+        for bx in range(nbx):
+            mv = mvs[by, bx]
+            cbfs = (bool(cbf_yg[by, bx]), bool(cbf_ug[by, bx]),
+                    bool(cbf_vg[by, bx]))
+            mrg = bool(merge_flag[by, bx])
+            skip = mrg and not any(cbfs)
+            enc.encode_bin(int(skip), ctx_id("SkipFlag"))
+            if skip:
+                encode_merge_idx(enc, int(merge_idx[by, bx]))
+                continue
+            enc.encode_bin(int(mrg), ctx_id("MergeFlag"))
+            if mrg:
+                encode_merge_idx(enc, int(merge_idx[by, bx]))
+            else:
+                enc.encode_bin(int(ref_idx[by, bx]), ctx_id("RefPic", 0))
+                mvd = mv - mvp_median(mvs, by, bx)
+                encode_mvd_comp(enc, int(mvd[0]))
+                encode_mvd_comp(enc, int(mvd[1]))
+            _code_residual(enc, cbfs, (lev_y[by, bx], lev_u[by, bx],
+                                       lev_v[by, bx]))
+    return enc.finish()
+
+
+def encode_b_slice(mv0: np.ndarray, mv1: np.ndarray, dirs: np.ndarray,
+                   lev_y: np.ndarray, lev_u: np.ndarray, lev_v: np.ndarray,
+                   gpm_modes: np.ndarray | None = None,
+                   use_gpm: bool = False, use_ciip: bool = False,
+                   merge_flag: np.ndarray | None = None,
+                   merge_idx: np.ndarray | None = None
+                   ) -> tuple[bytes, np.ndarray, np.ndarray]:
+    """Classic B slice: skip / inter_dir / per-list mvd / residual
+    (reference: CABACWriter inter_pred_idc + mvd_coding per list, SMVD).
+    Unused-list entries in the coded MV grids are replaced by their MVP so
+    the dense grid evolves identically on the decoder; returns (payload,
+    coded0, coded1)."""
+    refuse(gpm=use_gpm, ciip=use_ciip)
+    enc = NativeBinEncoder()
+    nby, nbx = dirs.shape
+    use_merge = merge_flag is not None
+    coded0 = mv0.astype(np.int64).copy()
+    coded1 = mv1.astype(np.int64).copy()
+    cbf_y, cbf_u, cbf_v = _cbf_grids(lev_y, lev_u, lev_v)
+    for by in range(nby):
+        for bx in range(nbx):
+            d = int(dirs[by, bx])
+            pred0 = mvp_median(coded0, by, bx)
+            pred1 = mvp_median(coded1, by, bx)
+            cbfs = (bool(cbf_y[by, bx]), bool(cbf_u[by, bx]),
+                    bool(cbf_v[by, bx]))
+            levs = (lev_y[by, bx], lev_u[by, bx], lev_v[by, bx])
+            no_resid = not any(cbfs)
+            if use_merge:
+                mrg = bool(merge_flag[by, bx])
+                skip = mrg and no_resid
+                enc.encode_bin(int(skip), ctx_id("SkipFlag"))
+                if skip:
+                    encode_merge_idx(enc, int(merge_idx[by, bx]))
+                    continue
+                enc.encode_bin(int(mrg), ctx_id("MergeFlag"))
+                if mrg:
+                    encode_merge_idx(enc, int(merge_idx[by, bx]))
+                    _code_residual(enc, cbfs, levs)
+                    continue
+            if d == 0:
+                coded1[by, bx] = pred1
+            elif d == 1:
+                coded0[by, bx] = pred0
+            mvd0x = int(coded0[by, bx, 0]) - int(pred0[0])
+            mvd0y = int(coded0[by, bx, 1]) - int(pred0[1])
+            mvd1x = int(coded1[by, bx, 0]) - int(pred1[0])
+            mvd1y = int(coded1[by, bx, 1]) - int(pred1[1])
+            # skip inherits the neighbour direction clamped to BI
+            d_pred = (int(dirs[by, bx - 1]) if bx > 0
+                      else int(dirs[by - 1, bx]) if by > 0 else 0)
+            d_pred = min(d_pred, 2)
+            used_zero = ((d == 1 or (mvd0x == 0 and mvd0y == 0))
+                         and (d == 0 or (mvd1x == 0 and mvd1y == 0)))
+            # with merge on, skip means merge and was coded above
+            skip = (not use_merge and no_resid and d == d_pred
+                    and used_zero)
+            if not use_merge:
+                enc.encode_bin(int(skip), ctx_id("SkipFlag"))
+            if skip:
+                continue
+            enc.encode_bin(int(d >= 2), ctx_id("InterDir", 0))
+            if d < 2:
+                enc.encode_bin(d, ctx_id("InterDir", 1))
+            # SMVD: mirrored bi-prediction sends one mvd (reference:
+            # sym_mvd_flag, CABACWriter smvd_mode; mvd1 = -mvd0)
+            smvd = (d == 2 and mvd1x == -mvd0x and mvd1y == -mvd0y)
+            if d == 2:
+                enc.encode_bin(int(smvd), ctx_id("SmvdFlag"))
+            if d != 1:
+                encode_mvd_comp(enc, mvd0x)
+                encode_mvd_comp(enc, mvd0y)
+            if d != 0 and not smvd:
+                encode_mvd_comp(enc, mvd1x)
+                encode_mvd_comp(enc, mvd1y)
+            _code_residual(enc, cbfs, levs)
+    return enc.finish(), coded0, coded1
