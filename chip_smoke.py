@@ -78,6 +78,25 @@ Phases (any failure exits non-zero and prints no result line):
      the first two-reference P picture; encode_sequence on the card, the
      stream decoded on the card with 3 of 3 MD5 OK; seconds per picture
      and the device memory peak printed;
+  8e. bench configuration 4 plus the last two motion models and projected
+     DMVR (`erp2048x1024_ra_qp37_allmm_dmvr`: MPA+3DT+TAN+ROT+GED+MMMVP,
+     8 active models, epipole (1, 0, 0, 0, 1), dmvr on), 5 frames at GOP
+     4, 2048x1024: held to the committed JAX stream's sidecar and IDR NAL
+     as in 8b, the port's stream decoded on the card (every MD5 OK), K1
+     launched by projected DMVR's bilateral costs (one row of the
+     subblocks of a model pair's bi blocks) and held to its plain version
+     on the largest of them (tolerance 0);
+     stage shares and device operations per picture; the committed stream
+     decoded on the card (I picture MD5 OK, every Y-PSNR within 0.1 dB)
+     and on the CPU fed the card's positions, projected DMVR's candidate
+     positions among them: bit-exact with the card;
+  8f. bench configuration 2 with BDOF and DMVR on (`ra832x480_qp37_bdof_
+     dmvr`): the card's stream equals the committed JAX stream byte for
+     byte, both decode on the card with 17 of 17 MD5 OK; seconds, frames
+     per second and device operations per picture;
+  8g. bench configuration 1 (`ai416x240_qp37_encode_fps`: AI, 416x240, 2
+     frames): the card's stream equals the committed JAX stream byte for
+     byte and decodes on the card with 2 of 2 MD5 OK;
   9. decision SADs (K6's path): frame_codec._sad_fields_bilin with
      exact=False and exact=True on the tensors captured from the 256x128
      encodes' diamond steps and on one full 2048x1024 grid: the bilinear
@@ -85,8 +104,9 @@ Phases (any failure exits non-zero and prints no result line):
      launched, and the blocks whose best candidate is the same under both
      filters are counted;
  10. time each kernel and its plain version on inputs captured from those
-     runs, after a launch floor (the device time of a one-element fill),
-     print the `kernels` line (K3-K5 launches also by shape), then the
+     runs (K1 also on projected DMVR's row), after a launch floor (the
+     device time of a one-element fill), print the `kernels` line (K1-K5
+     launches also by shape), then the
      result line.  Before it, K5's and K6's launch rule is timed against
      its alternatives on the same inputs (each held to the plain version).
 """
@@ -123,6 +143,9 @@ DATA = os.path.join(ROOT, "tests", "data", "torch_port")
 BIG = "erp2048x1024_ra_mm_qp37_5f"
 SMALL = "erp256x128_ra_mm_qp37_5f"
 CONFIG2 = "ra832x480_qp37_17f"      # bench.py:106-108, the JAX encoder's
+CONFIG2_TOOLS = "ra832x480_bdof_dmvr_qp37_17f"  # the same, BDOF and DMVR on
+CONFIG1 = "ai416x240_qp37_2f"       # bench.py:101-102
+ALLMM = "erp2048x1024_ra_allmm_dmvr_qp37_5f"
 PSNR_TOL_DB = 0.1
 BITS_TOL = 1.02
 MIN_PSNR_Y_DB = 25.0           # sanity floor where no record exists
@@ -225,12 +248,26 @@ def bound_ms(n_words: int, macs: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def mc_bound(ref, positions, s: int, taps: int) -> tuple[float, str]:
-    """K1/K2: reference, positions and output once each; the separable
-    filter's MACs per subblock."""
+def mc_bound(ref, positions, margin: int, s: int, taps: int
+             ) -> tuple[float, str]:
+    """K1/K2: the reference words that the positions' windows cover (their
+    union, each word once), the positions and the output; the separable
+    filter's MACs per subblock.  The windows are placed as the plain
+    versions place them (mc_kernel.mc_*_positions_plain)."""
     nsy, nsx, _ = positions.shape
-    return bound_ms(ref.numel() + positions.numel() + nsy * nsx * s * s,
-                    nsy * nsx * ((s + taps - 1) * s * taps + s * s * taps))
+    n = s + taps - 1
+    shift = 4 if s == 4 else 5           # luma 1/16 pel, chroma 1/32 pel
+    pos = positions.reshape(-1, 2)
+    xi = torch.clamp((pos[:, 0] >> shift) + margin - (taps // 2 - 1), 0,
+                     ref.shape[1] - n)
+    yi = torch.clamp((pos[:, 1] >> shift) + margin - (taps // 2 - 1), 0,
+                     ref.shape[0] - n)
+    covered = torch.zeros(ref.shape, dtype=torch.bool, device=ref.device)
+    cols = xi[:, None] + torch.arange(n, device=ref.device)
+    for dy in range(n):
+        covered[(yi + dy)[:, None], cols] = True
+    return bound_ms(int(covered.sum()) + positions.numel() + nsy * nsx * s * s,
+                    nsy * nsx * (n * s * taps + s * s * taps))
 
 
 def search_bound(name: str, case: dict) -> tuple[float, str]:
@@ -540,13 +577,18 @@ class MeasuredEncLib(EncLib):
 
 
 # bench.py:110-117, configurations 3 and 4 (and 4 with an off-pole
-# epipole): MMConfig fields and the signalled (curPOC, refPOC, x, y, z)
+# epipole): MMConfig fields, the signalled (curPOC, refPOC, x, y, z) and
+# the EncCfg fields beside the models
 BENCH_CONFIGS = {
-    "mpa": (dict(mpa=True), []),
+    "mpa": (dict(mpa=True), [], {}),
     "fullmm": (dict(mpa=True, ged=True, rot=True, mmmvp=True),
-               [(1, 0, 0.0, 0.0, 1.0)]),
+               [(1, 0, 0.0, 0.0, 1.0)], {}),
     "fullmm_ep": (dict(mpa=True, ged=True, rot=True, mmmvp=True),
-                  [(4, 0, 0.3, -0.5, 0.8)]),
+                  [(4, 0, 0.3, -0.5, 0.8)], {}),
+    # bench configuration 4 plus the last two models and projected DMVR
+    "allmm_dmvr": (dict(mpa=True, t3d=True, tan=True, rot=True, ged=True,
+                        mmmvp=True), [(1, 0, 0.0, 0.0, 1.0)],
+                   dict(dmvr=True)),
 }
 
 
@@ -555,11 +597,11 @@ def bench_cfg(name: str, w: int, h: int, qp: int, gop_size: int,
     """Bench configurations 3 (`mpa`) and 4 (`fullmm`, `fullmm_ep`): ERP,
     RA with the QP cascade, the flat grid (qt_depth 0), merge,
     deblock+SAO+ALF."""
-    mm, eps = BENCH_CONFIGS[name]
+    mm, eps, tools = BENCH_CONFIGS[name]
     return EncCfg(width=w, height=h, qp=qp, gop="RA", gop_size=gop_size,
                   qt_depth=0, inter_block_size=16, search_range=search_range,
                   wrap_around=True, merge=True, mm=MMConfig(**mm),
-                  epipoles=list(eps))
+                  epipoles=list(eps), **tools)
 
 
 def headline_cfg(w: int, h: int, qp: int, gop_size: int,
@@ -734,13 +776,15 @@ def print_device_work(traced: dict, plain: dict) -> None:
 def compare_positions(data: bytes, w: int, h: int):
     """Decode `data` on the card, computing every merged-positions tensor
     on the card and with the same code on the CPU (GED pictures with their
-    epipoles): returns the card's tensors, the (differing, total) subblock
-    counts per call, and the decoded frames."""
-    card_positions, mismatches = [], []
+    epipoles): returns the card's tensors (projected DMVR's candidate
+    positions among them, in call order), the (differing, total) subblock
+    counts per merged-positions call (projected DMVR's candidates counted
+    apart), and the decoded frames."""
+    card_positions, mismatches, dmvr_mismatches = [], [], []
     dec = DecLib(positions_fn=lambda *a: compare(*a))
     cpu_reproj = None
 
-    def compare(active, midx, stack, bsize, epipoles):
+    def compare(active, midx, stack, bsize, epipoles, row_step):
         nonlocal cpu_reproj
         if cpu_reproj is None:
             cpu_reproj = MVReprojection(ERP(w, h), w, h,
@@ -748,12 +792,15 @@ def compare_positions(data: bytes, w: int, h: int):
                                         int(dec.sps.mm.ged_flavor),
                                         device="cpu")
         on_card = frame_codec.merged_positions(dec.reproj, active, midx,
-                                               stack, bsize, epipoles)
-        on_cpu = frame_codec.merged_positions(cpu_reproj, active, midx,
-                                              stack, bsize, epipoles)
-        diff = (on_card.cpu() != on_cpu).any(-1)
-        mismatches.append((int(diff.sum()), diff.numel()))
+                                               stack, bsize, epipoles,
+                                               row_step)
         card_positions.append(on_card)
+        on_cpu = frame_codec.merged_positions(cpu_reproj, active, midx,
+                                              stack, bsize, epipoles,
+                                              row_step)
+        diff = (on_card.cpu() != on_cpu).any(-1)
+        (dmvr_mismatches if row_step > 1 else mismatches).append(
+            (int(diff.sum()), diff.numel()))
         return on_card
 
     frames = dec.decode_bytes(data)
@@ -763,6 +810,11 @@ def compare_positions(data: bytes, w: int, h: int):
     print(f"{w}x{h} position mismatches card vs CPU: "
           f"{sum(n for n, _ in mismatches)} of "
           f"{sum(t for _, t in mismatches)} subblocks")
+    if dmvr_mismatches:
+        print(f"{w}x{h} projected-DMVR candidate positions ("
+              f"{len(dmvr_mismatches)} tensors, row step > 1), mismatches "
+              f"card vs CPU: {sum(n for n, _ in dmvr_mismatches)} of "
+              f"{sum(t for _, t in dmvr_mismatches)} subblocks")
     return card_positions, mismatches, frames
 
 
@@ -878,6 +930,18 @@ def main() -> None:
     phase("8d. bench configuration 5 (classic LDP, 6144x3072)")
     bench_configuration_5(path_launches)
 
+    # ---- 8e. all eight models and projected DMVR, 2048x1024
+    phase("8e. configuration 4 + 3DT + TAN + projected DMVR (2048x1024)")
+    dmvr_case = allmm_dmvr_path(path_launches, max_err)
+
+    # ---- 8f. bench configuration 2 with BDOF and DMVR
+    phase("8f. bench configuration 2 with BDOF and DMVR (832x480)")
+    bench_configuration_2_tools(path_launches)
+
+    # ---- 8g. bench configuration 1: AI at 416x240
+    phase("8g. bench configuration 1 (AI, 416x240)")
+    bench_configuration_1(path_launches)
+
     # ---- 9. decision SADs through K6 (and K5 beside it)
     phase("9. decision SADs")
     positions = card_positions[-1].to(torch.int32).contiguous()
@@ -888,8 +952,8 @@ def main() -> None:
 
     # ---- 10. time the kernels on the main paths' inputs
     phase("10. kernel times")
-    out = time_kernels(captured, full_grid, ref_pic, positions, max_err,
-                       path_launches, card, w, h)
+    out = time_kernels(captured, full_grid, ref_pic, positions, dmvr_case,
+                       max_err, path_launches, card, w, h)
     phase("done")
     print(json.dumps({"kernels": list(out.values())}))
     print(card)
@@ -1051,12 +1115,7 @@ def bench_configuration_2(path_launches: dict) -> None:
     committed = open(os.path.join(DATA, CONFIG2 + ".bin"), "rb").read()
     cfg = EncCfg(width=832, height=480, qp=37, gop="RA", gop_size=16,
                  search_range=24)
-    if (sd["width"], sd["height"], sd["qp"], sd["gop"], sd["gop_size"],
-            sd["search_range"], sd["wrap_around"], sd["merge"],
-            sd["models"]) != (cfg.width, cfg.height, cfg.qp, cfg.gop,
-                              cfg.gop_size, cfg.search_range,
-                              cfg.wrap_around, cfg.merge, "CLASSIC"):
-        fail(f"{CONFIG2}: the sidecar names another configuration")
+    check_classic_sidecar(CONFIG2, sd, cfg)
     clip = realistic_sequence(cfg.width, cfg.height, sd["frames"])
     label = "config 2 832x480 GOP 16"
     first = headline_sequence(label, cfg, clip, (), path_launches,
@@ -1070,18 +1129,128 @@ def bench_configuration_2(path_launches: dict) -> None:
     print_stages(staged)
     if not compare_nals(label, first["data"], committed):
         fail(f"{label}: the card's stream differs from the JAX encoder's")
+    decode_all_ok(label, CONFIG2, committed, sd["frames"])
+
+
+def check_classic_sidecar(stream: str, sd: dict, cfg: EncCfg) -> None:
+    """A classic stream's sidecar must name `cfg`."""
+    if (sd["width"], sd["height"], sd["qp"], sd["gop"], sd["gop_size"],
+            sd["search_range"], sd["wrap_around"], sd["merge"],
+            sd["models"]) != (cfg.width, cfg.height, cfg.qp, cfg.gop,
+                              cfg.gop_size, cfg.search_range,
+                              cfg.wrap_around, cfg.merge, "CLASSIC") \
+            or sidecar_tools(sd) != cfg_tools(cfg):
+        fail(f"{stream}: the sidecar names another configuration")
+
+
+def decode_all_ok(label: str, stream: str, data: bytes, n: int) -> None:
+    """A committed stream decoded on the card: every MD5 OK."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dec = DecLib()
-    frames = dec.decode_bytes(committed)
+    frames = dec.decode_bytes(data)
     torch.cuda.synchronize()
     ok = sum(1 for v in dec.hash_status.values() if v == "OK")
-    print(f"{label}: committed {CONFIG2} decoded on the card in "
-          f"{time.perf_counter() - t0:.2f} s (host clock), {ok} of "
-          f"{sd['frames']} MD5 OK")
-    if ok != sd["frames"] or [f.poc for f in frames] != \
-            list(range(sd["frames"])):
+    print(f"{label}: committed {stream} decoded on the card in "
+          f"{time.perf_counter() - t0:.2f} s (host clock), {ok} of {n} MD5 "
+          "OK")
+    if ok != n or [f.poc for f in frames] != list(range(n)):
         fail(f"{label}: committed stream, hash {dec.hash_status}")
+
+
+def allmm_dmvr_path(path_launches: dict, max_err: dict) -> dict:
+    """Phase 8e: bench configuration 4 plus 3DT, TAN and projected DMVR at
+    2048x1024 against the JAX encoder's record.  Returns the K1 inputs of
+    one projected-DMVR bilateral cost, held here to the plain version."""
+    sd, committed, cfg, clip = bench_stream("allmm_dmvr", ALLMM)
+    label = "config allmm+DMVR 2048x1024 GOP 4"
+    print(f"{label}: {len(cfg.mm.active_models())} active models "
+          f"{cfg.mm.active_models()}, dmvr {cfg.dmvr}")
+    kept, mc_kernel.CAPTURED = mc_kernel.CAPTURED, {}
+    run = encode_run(label, cfg, clip, "plain")
+    # projected DMVR launches K1 on one row of subblocks (its pair's bi
+    # blocks); keep the largest such launch
+    rows = [c for (name, shape, _), c in mc_kernel.CAPTURED.items()
+            if name == "mc_luma_positions" and shape[0] == 1]
+    case = max(rows, key=lambda c: c["positions"].shape[1], default=None)
+    mc_kernel.CAPTURED = kept
+    path_launches[label] = run["launches"]
+    check_run(run, ("mc_luma_positions", "mc_chroma_positions",
+                    "sad_block_positions", "mc_block_positions"),
+              {p["poc"]: p for p in sd["pocs"]}, hold=True)
+    k1 = run["launches"]["by_shape"]["mc_luma_positions"]
+    print(f"{label}: K1 launches by subblock grid {k1}; projected DMVR's "
+          f"bilateral costs (one row of a pair's bi blocks' subblocks, row "
+          f"step 4): {k1.get('one row', 0)} over "
+          f"{sum(1 for r in run['rows'] if r['kind'].startswith('B'))} B "
+          "pictures")
+    if not k1.get("one row") or case is None:
+        fail(f"{label}: projected DMVR did not launch K1")
+    args = (case["ref_padded"], case["positions"], case["margin"],
+            case["bit_depth"])
+    err = int((mc_kernel.mc_luma_positions(*args)
+               - mc_kernel.mc_luma_positions_plain(*args)).abs().max())
+    torch.cuda.synchronize()
+    print(f"mc_luma_positions on a projected-DMVR bilateral cost's "
+          f"positions {tuple(case['positions'].shape)}: max |kernel - "
+          f"plain| = {err} (tolerance 0)")
+    max_err["mc_luma_positions"] = max(max_err["mc_luma_positions"], err)
+    if err:
+        fail("mc_luma_positions differs from its plain version on the "
+             "projected-DMVR positions")
+    staged = encode_run(label, cfg, clip, "stages")
+    traced = encode_run(label + " (traced)", cfg, clip, "trace")
+    for other in (staged, traced):
+        if other["data"] != run["data"]:
+            fail(f"{label}: another encode gave other bytes")
+    print_stages(staged)
+    print_device_work(traced, run)
+    if not compare_nals(label, run["data"], committed, only=bs.NAL_IDR):
+        fail(f"{label}: the IDR NAL differs from the JAX encoder's")
+    decode_committed(label, ALLMM, sd, committed, clip)
+    return case
+
+
+def bench_configuration_2_tools(path_launches: dict) -> None:
+    """Phase 8f: bench configuration 2 with BDOF and DMVR (the random-
+    access common test conditions' setting) against the JAX encoder's
+    stream: no float math, so byte for byte."""
+    sd = json.load(open(os.path.join(DATA, CONFIG2_TOOLS + ".json")))
+    committed = open(os.path.join(DATA, CONFIG2_TOOLS + ".bin"), "rb").read()
+    cfg = EncCfg(width=832, height=480, qp=37, gop="RA", gop_size=16,
+                 search_range=24, bdof=True, dmvr=True)
+    check_classic_sidecar(CONFIG2_TOOLS, sd, cfg)
+    clip = realistic_sequence(cfg.width, cfg.height, sd["frames"])
+    label = "config 2+BDOF+DMVR 832x480 GOP 16"
+    run = encode_run(label, cfg, clip, "plain")
+    path_launches[label] = run["launches"]
+    check_run(run, (), {p["poc"]: p for p in sd["pocs"]})
+    if any(run["launches"][k] for k in SOURCES):
+        fail(f"{label}: the classic path launched a kernel: "
+             f"{run['launches']}")
+    traced = encode_run(label + " (traced)", cfg, clip, "trace")
+    if traced["data"] != run["data"]:
+        fail(f"{label}: the traced encode gave other bytes")
+    print_device_work(traced, run)
+    if not compare_nals(label, run["data"], committed):
+        fail(f"{label}: the card's stream differs from the JAX encoder's")
+    decode_all_ok(label, CONFIG2_TOOLS, committed, sd["frames"])
+
+
+def bench_configuration_1(path_launches: dict) -> None:
+    """Phase 8g: `ai416x240_qp37_encode_fps` (bench.py:101-102), AI, 2
+    frames, against the JAX encoder's stream byte for byte."""
+    sd = json.load(open(os.path.join(DATA, CONFIG1 + ".json")))
+    committed = open(os.path.join(DATA, CONFIG1 + ".bin"), "rb").read()
+    cfg = EncCfg(width=416, height=240, qp=37, gop="AI")
+    check_classic_sidecar(CONFIG1, sd, cfg)
+    clip = realistic_sequence(cfg.width, cfg.height, sd["frames"])
+    label = "config 1 416x240 AI"
+    run = encode_run(label, cfg, clip, "plain")
+    path_launches[label] = run["launches"]
+    check_run(run, (), {p["poc"]: p for p in sd["pocs"]})
+    if not compare_nals(label, run["data"], committed):
+        fail(f"{label}: the card's stream differs from the JAX encoder's")
 
 
 def bench_configuration_5(path_launches: dict) -> None:
@@ -1119,10 +1288,22 @@ def bench_stream(name: str, stream: str):
     if (sd["gop"], sd["qt_depth"], sd["wrap_around"], sd.get("config"),
             [tuple(e) for e in sd["epipoles"]]) != \
             (cfg.gop, cfg.qt_depth, cfg.wrap_around, name,
-             [tuple(e) for e in cfg.epipoles]):
+             [tuple(e) for e in cfg.epipoles]) \
+            or sidecar_tools(sd) != cfg_tools(cfg):
         fail(f"{stream}: the sidecar names another configuration")
     return sd, committed, cfg, realistic_sequence(sd["width"], sd["height"],
                                                   sd["frames"])
+
+
+def sidecar_tools(sd: dict) -> tuple:
+    """(t3d, tan, dmvr, bdof) a sidecar records; sidecars written before
+    those fields existed name configurations with all four off."""
+    return tuple(bool(sd.get(k, False)) for k in ("t3d", "tan", "dmvr",
+                                                   "bdof"))
+
+
+def cfg_tools(cfg: EncCfg) -> tuple:
+    return (cfg.mm.t3d, cfg.mm.tan, cfg.dmvr, cfg.bdof)
 
 
 def decode_committed(label: str, stream: str, sd: dict, data: bytes,
@@ -1306,8 +1487,8 @@ def launch_variants(cases: list, card: str) -> list:
 
 
 def time_kernels(captured: dict, full_grid: dict, ref_pic, positions,
-                 max_err: dict, path_launches: dict, card: str, w: int,
-                 h: int) -> dict:
+                 dmvr_case: dict, max_err: dict, path_launches: dict,
+                 card: str, w: int, h: int) -> dict:
     """Phase 10: the `kernels` records, by kernel name."""
     timed_cases = []       # (kernel, label, kernel call, plain, bound)
     for name, plane, s, taps, m in (
@@ -1320,7 +1501,15 @@ def time_kernels(captured: dict, full_grid: dict, ref_pic, positions,
             name, "256x512 subblocks (decode)",
             lambda fn=fn, r=refp, m=m: fn(r, positions, m, 8),
             lambda fn=plain, r=refp, m=m: fn(r, positions, m, 8),
-            mc_bound(refp, positions, s, taps)))
+            mc_bound(refp, positions, m, s, taps)))
+    dmvr_args = (dmvr_case["ref_padded"], dmvr_case["positions"],
+                 dmvr_case["margin"], dmvr_case["bit_depth"])
+    timed_cases.append((
+        "mc_luma_positions", f"{dmvr_args[1].shape[1]} subblocks in one row "
+        "(projected DMVR, 2048x1024)",
+        lambda: mc_kernel.mc_luma_positions(*dmvr_args),
+        lambda: mc_kernel.mc_luma_positions_plain(*dmvr_args),
+        mc_bound(dmvr_args[0], dmvr_args[1], dmvr_args[2], 4, 8)))
     # K3: its most launched shapes on the headline sequence first (s=16, K
     # = 4 and 5), then s=8 K=5 and s=16 K=6
     wanted = (("sad_block_positions", (4, h // 16, w // 16, 2), 16),

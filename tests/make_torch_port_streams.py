@@ -12,7 +12,10 @@ QP cascade, search range 24, horizontal wrap-around, 5 frames of
            the flat grid, with the signalled epipole (1, 0, 0, 0, 1); the
            `fullmm_ep` variant signals (4, 0, 0.3, -0.5, 0.8) instead, so
            that the P anchor codes a non-zero picture-header epipole delta
-           and a GED rotation that is not the identity.
+           and a GED rotation that is not the identity;
+  allmm_dmvr bench configuration 4 plus the last two motion models and
+           projected DMVR: MPA+3DT+TAN+ROT+GED+MMMVP (8 active models) on
+           the flat grid with the epipole (1, 0, 0, 0, 1), `dmvr=True`.
 
 Beside them, the classic (single-model) inter path: no multi-model tool,
 no wrap-around, QP37, search range 24, every other `EncCfg` field at its
@@ -26,7 +29,13 @@ default, `bench.realistic_sequence` content:
   ra192x96_nomerge_qp37_5f  RA, GOP 4, 5 frames, merge off;
   ra832x480_qp37_17f        bench configuration 2 (`bench.py:106-108`,
                             `ra832x480_qp37_encode_fps`): RA, GOP 16, 17
-                            frames.
+                            frames;
+  ra192x96_bdof_dmvr_qp37_9f    RA, GOP 4, 9 frames, with BDOF and DMVR;
+  ra832x480_bdof_dmvr_qp37_17f  bench configuration 2 with BDOF and DMVR
+                            (the random-access common test conditions turn
+                            both on);
+  ai416x240_qp37_2f         bench configuration 1 (`bench.py:101-102`,
+                            `ai416x240_qp37_encode_fps`): AI, 2 frames.
 
 Each gets a JSON sidecar with every POC's MD5 and the encoder's Y/U/V PSNR
 and bits.
@@ -34,7 +43,7 @@ and bits.
     python tests/make_torch_port_streams.py                   # all streams
     python tests/make_torch_port_streams.py 256x128           # one size
     python tests/make_torch_port_streams.py erp256x128_ra_mpa_qp37_5f
-    python tests/make_torch_port_streams.py classic           # the four
+    python tests/make_torch_port_streams.py classic           # the seven
 
 This script imports the JAX package; pytest does not collect it (its name
 does not start with `test_`).
@@ -65,7 +74,12 @@ CONFIGS = {
                [(1, 0, 0.0, 0.0, 1.0)], ("256x128", "2048x1024")),
     "fullmm_ep": (dict(mpa=True, ged=True, rot=True, mmmvp=True), 0,
                   [(4, 0, 0.3, -0.5, 0.8)], ("256x128",)),
+    "allmm_dmvr": (dict(mpa=True, t3d=True, tan=True, rot=True, ged=True,
+                        mmmvp=True), 0, [(1, 0, 0.0, 0.0, 1.0)],
+                   ("256x128", "2048x1024")),
 }
+# configurations that also turn on decoder-side refinement (EncCfg fields)
+TOOLS = {"allmm_dmvr": dict(dmvr=True)}
 
 
 def stream_name(w: int, h: int, config: str = "mm") -> str:
@@ -75,18 +89,23 @@ def stream_name(w: int, h: int, config: str = "mm") -> str:
 STREAMS = {stream_name(*SIZES[size], config): (config, size)
            for config, (_, _, _, sizes) in CONFIGS.items()
            for size in sizes}
-# classic stream -> (width, height, gop, gop_size, frames, merge)
+# classic stream -> (width, height, gop, gop_size, frames, merge, tools)
 CLASSIC = {
-    "ra192x96_qp37_9f": (192, 96, "RA", 4, 9, True),
-    "ldp192x96_qp37_4f": (192, 96, "LDP", 4, 4, True),
-    "ra192x96_nomerge_qp37_5f": (192, 96, "RA", 4, 5, False),
-    "ra832x480_qp37_17f": (832, 480, "RA", 16, 17, True),
+    "ra192x96_qp37_9f": (192, 96, "RA", 4, 9, True, {}),
+    "ldp192x96_qp37_4f": (192, 96, "LDP", 4, 4, True, {}),
+    "ra192x96_nomerge_qp37_5f": (192, 96, "RA", 4, 5, False, {}),
+    "ra832x480_qp37_17f": (832, 480, "RA", 16, 17, True, {}),
+    "ra192x96_bdof_dmvr_qp37_9f": (192, 96, "RA", 4, 9, True,
+                                   dict(bdof=True, dmvr=True)),
+    "ra832x480_bdof_dmvr_qp37_17f": (832, 480, "RA", 16, 17, True,
+                                     dict(bdof=True, dmvr=True)),
+    "ai416x240_qp37_2f": (416, 240, "AI", 8, 2, True, {}),
 }
 
 
 def models_label(mm: dict) -> str:
-    return "+".join(k.upper() for k in ("mpa", "ged", "rot", "mmmvp")
-                    if mm.get(k))
+    return "+".join(k.upper() for k in ("mpa", "t3d", "tan", "ged", "rot",
+                                        "mmmvp") if mm.get(k))
 
 
 def make(w: int, h: int, config: str = "mm") -> dict:
@@ -98,10 +117,11 @@ def make(w: int, h: int, config: str = "mm") -> dict:
     from vvc_mm_tpu.encoder.enclib import EncCfg, EncLib
 
     mm, qt_depth, epipoles, _ = CONFIGS[config]
+    tools = TOOLS.get(config, {})
     cfg = EncCfg(width=w, height=h, qp=QP, gop="RA", gop_size=4,
                  qt_depth=qt_depth, search_range=24, wrap_around=True,
                  mm=MMConfig(projection=ProjectionID.EQUIRECTANGULAR, **mm),
-                 epipoles=list(epipoles))
+                 epipoles=list(epipoles), **tools)
     frames = realistic_sequence(w, h, NUM_FRAMES)
     enc = EncLib(cfg)
     t0 = time.perf_counter()
@@ -119,6 +139,10 @@ def make(w: int, h: int, config: str = "mm") -> dict:
     if config != "mm":
         side.update(config=config, merge=True,
                     epipoles=[list(e) for e in epipoles])
+    if tools:
+        side.update(t3d=bool(mm.get("t3d")), tan=bool(mm.get("tan")),
+                    dmvr=bool(tools.get("dmvr")),
+                    bdof=bool(tools.get("bdof")))
     with open(os.path.join(OUT_DIR, name + ".json"), "w") as f:
         json.dump(side, f, indent=1)
         f.write("\n")
@@ -146,9 +170,12 @@ def make_classic(name: str) -> dict:
     from bench import realistic_sequence
     from vvc_mm_tpu.encoder.enclib import EncCfg, EncLib
 
-    w, h, gop, gop_size, n, merge = CLASSIC[name]
-    cfg = EncCfg(width=w, height=h, qp=QP, gop=gop, gop_size=gop_size,
-                 search_range=24, merge=merge)
+    w, h, gop, gop_size, n, merge, tools = CLASSIC[name]
+    if gop == "AI":     # bench configuration 1 sets no other field
+        cfg = EncCfg(width=w, height=h, qp=QP, gop=gop)
+    else:
+        cfg = EncCfg(width=w, height=h, qp=QP, gop=gop, gop_size=gop_size,
+                     search_range=24, merge=merge, **tools)
     frames = realistic_sequence(w, h, n)
     enc = EncLib(cfg)
     t0 = time.perf_counter()
@@ -157,10 +184,13 @@ def make_classic(name: str) -> dict:
     with open(os.path.join(OUT_DIR, name + ".bin"), "wb") as f:
         f.write(data)
     side = dict(width=w, height=h, frames=n, qp=QP, gop=gop,
-                gop_size=gop_size, qt_depth=0, models="CLASSIC",
-                search_range=24, wrap_around=False, merge=merge,
-                content="bench.realistic_sequence(seed=11)",
+                gop_size=cfg.gop_size, qt_depth=0, models="CLASSIC",
+                search_range=cfg.search_range, wrap_around=False,
+                merge=merge, content="bench.realistic_sequence(seed=11)",
                 bytes=len(data), pocs=_sidecar_pocs(enc.results))
+    if tools:
+        side.update(t3d=False, tan=False, dmvr=bool(tools.get("dmvr")),
+                    bdof=bool(tools.get("bdof")))
     with open(os.path.join(OUT_DIR, name + ".json"), "w") as f:
         json.dump(side, f, indent=1)
         f.write("\n")

@@ -479,8 +479,8 @@ def test_candidate_lists_equal_jax(grids, mer):
 
 
 def test_unported_inter_tools_raise(pics):
-    """TMVP/HMVP, AMVR, BDOF, GPM/CIIP and weighted prediction name ROADMAP
-    queue 1 item 8, DMVR item 7c."""
+    """TMVP/HMVP, AMVR, GPM/CIIP and weighted prediction name ROADMAP
+    queue 1 item 8; BDOF and DMVR are accepted."""
     lev = np.zeros((NBY, NBX, S, S), np.int32)
     levc = np.zeros((NBY, NBX, S // 2, S // 2), np.int32)
     mvs = np.zeros((NBY, NBX, 2), np.int64)
@@ -501,11 +501,12 @@ def test_unported_inter_tools_raise(pics):
     o, r0, r1 = _tt(pics["orig"]), tuple(_tt(pics["ref0"])), \
         tuple(_tt(pics["ref1"]))
     m, d = _t(mvs), _t(z)
-    for kw, item in ((dict(bdof=True), "8"), (dict(gpm=True), "8"),
-                     (dict(ciip=True), "8"),
-                     (dict(wp0=torch.zeros(3, 2)), "8"),
-                     (dict(dmvr=True), "7c")):
+    for kw, item in ((dict(gpm=True), "8"), (dict(ciip=True), "8"),
+                     (dict(wp0=torch.zeros(3, 2)), "8")):
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP queue 1 item {item}$"):
             tif.bpred_and_residual(*o, r0, r1, m, m, d, QP, S, BD, False,
                                    **kw)
+    for kw in (dict(bdof=True), dict(dmvr=True)):
+        assert len(tif.bpred_and_residual(*o, r0, r1, m, m, d, QP, S, BD,
+                                          False, **kw)) == 4

@@ -74,7 +74,8 @@ def test_port_decodes_stream_like_jax(stream, jax_dec):
 def test_each_inter_picture_bit_exact_from_jax_state(stream, jax_dec):
     """One slice at a time, against the exact references and positions
     the JAX decoder used."""
-    def jax_positions(active, midx, stack, block_size, epipoles):
+    def jax_positions(active, midx, stack, block_size, epipoles, row_step):
+        assert row_step == 1            # no projected DMVR in this stream
         return np.asarray(jax_fc.merged_positions(
             jax_dec.reproj, active, jnp.asarray(midx), jnp.asarray(stack),
             block_size, epipoles))

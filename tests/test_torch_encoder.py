@@ -208,35 +208,54 @@ def test_summary_and_cascade(runs):
     assert ctc_qp(2, "I") == 1
 
 
-def test_unported_branches_raise():
-    with pytest.raises(RuntimeError):
-        if not torch.cuda.is_available():
-            EncLib(_cfg(EncCfg, MMConfig))          # no card: no CPU fallback
-        else:
-            raise RuntimeError("a card is present")
-    # each refusal names the ROADMAP queue 1 item that ports it
-    for kw, item in ((dict(dmvr=True), "7c"), (dict(affine=True), "8"),
-                     (dict(wpp=True), "11"),
-                     (dict(target_bitrate_kbps=500), "11"),
-                     (dict(scaling_list=(16,) * 64), "9"),
-                     (dict(mm=MMConfig(), qt_depth=0, tmvp=True), "8"),
-                     (dict(mm=MMConfig(), qt_depth=0, affine=True), "8"),
-                     (dict(mm=MMConfig(), qt_depth=1), "11"),
-                     (dict(mm=MMConfig(mpa=True, t3d=True)), "7c"),
-                     (dict(mm=MMConfig(mpa=True, ged=True, tan=True)), "7c")):
-        cfg = _cfg(EncCfg, MMConfig)
-        for k, v in kw.items():
-            setattr(cfg, k, v)
+# each refusal names the ROADMAP queue 1 item that ports it; the
+# accepted configurations are what items 7 and 8 ported (GED with
+# epipoles, MM-MVP, the flat P path, B pictures without merge, 3DT, TAN,
+# projected DMVR, and DMVR and BDOF on the classic path)
+REFUSED = {"affine": (dict(affine=True), "8"),
+           "wpp": (dict(wpp=True), "11"),
+           "rate_control": (dict(target_bitrate_kbps=500), "11"),
+           "scaling_list": (dict(scaling_list=(16,) * 64), "9"),
+           "classic_tmvp": (dict(mm=MMConfig(), qt_depth=0, tmvp=True), "8"),
+           "classic_affine": (dict(mm=MMConfig(), qt_depth=0, affine=True),
+                              "8"),
+           "classic_qtree": (dict(mm=MMConfig(), qt_depth=1), "11"),
+           "gpm": (dict(mm=MMConfig(), qt_depth=0, gpm=True), "8"),
+           "weighted_bipred": (dict(mm=MMConfig(), qt_depth=0,
+                                    weighted_bipred=True), "8")}
+ACCEPTED = {
+    "fullmm": dict(mm=MMConfig(mpa=True, ged=True, rot=True, mmmvp=True),
+                   epipoles=[(1, 0, 0.0, 0.0, 1.0)], qt_depth=0),
+    "geda_nomerge": dict(mm=MMConfig(mpa=True, geda=True), merge=False),
+    "t3d": dict(mm=MMConfig(mpa=True, t3d=True)),
+    "tan": dict(mm=MMConfig(mpa=True, ged=True, tan=True)),
+    "projected_dmvr": dict(dmvr=True),
+    "classic_bdof_dmvr": dict(mm=MMConfig(), qt_depth=0, bdof=True,
+                              dmvr=True)}
+CASES = (["no_card"] + [f"refused-{k}" for k in REFUSED]
+         + [f"accepted-{k}" for k in ACCEPTED])
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_unported_branches_raise(case):
+    if case == "no_card":
+        with pytest.raises(RuntimeError):
+            if not torch.cuda.is_available():
+                EncLib(_cfg(EncCfg, MMConfig))      # no card: no CPU fallback
+            else:
+                raise RuntimeError("a card is present")
+        return
+    kind, name = case.split("-", 1)
+    kw, item = REFUSED[name] if kind == "refused" else (ACCEPTED[name], None)
+    cfg = _cfg(EncCfg, MMConfig)
+    for k, v in kw.items():
+        setattr(cfg, k, v)
+    if item is not None:
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP queue 1 item {item}$"):
             EncLib(cfg, device="cpu")
-    # what item 7 ported: GED with epipoles, MM-MVP, the flat P path and
-    # B pictures without merge are accepted
-    for kw in (dict(mm=MMConfig(mpa=True, ged=True, rot=True, mmmvp=True),
-                    epipoles=[(1, 0, 0.0, 0.0, 1.0)], qt_depth=0),
-               dict(mm=MMConfig(mpa=True, geda=True), merge=False)):
-        cfg = _cfg(EncCfg, MMConfig)
-        for k, v in kw.items():
-            setattr(cfg, k, v)
-        assert EncLib(cfg, device="cpu").mvp_conv is not None \
-            or not cfg.mm.mmmvp
+        return
+    enc = EncLib(cfg, device="cpu")
+    assert enc.mvp_conv is not None or not cfg.mm.mmmvp
+    assert enc.sps.mm.active_models() == cfg.mm.active_models()
+    assert (enc.sps.dmvr, enc.sps.bdof) == (cfg.dmvr, cfg.bdof)

@@ -23,22 +23,29 @@
     2 and the two pictures that refer to it differ; these tests pin exactly
     that, and hold the rest (every CABAC payload, and the decode fed JAX's
     positions) to JAX.  The same configuration with merge off decodes in
-    both decoders.
+    both decoders.  Configuration 4 plus 3DT, TAN and projected DMVR
+    (`allmm_dmvr`, 8 active models) is byte for byte too; fed JAX's
+    positions, projected DMVR's candidates among them, the port decodes
+    the committed stream as well.
 (f) the classic (single-model) inter path at 192x96 against the committed
     JAX streams of tests/make_torch_port_streams.py: RA GOP 4 with 9
     frames (POC 8 a two-reference P anchor), LDP with 4 frames (POC 2 and
-    3 two-reference P pictures) and RA with merge off: the port's CPU
-    encode equals each byte for byte, the port decodes each with every
-    MD5 OK, and the JAX DecLib decodes the port's LDP stream bit-exactly.
+    3 two-reference P pictures), RA with merge off and RA with BDOF and
+    DMVR: the port's CPU encode equals each byte for byte, the port
+    decodes each with every MD5 OK, and the JAX DecLib decodes the port's
+    LDP and BDOF+DMVR streams bit-exactly.  Bench configuration 1 (AI,
+    416x240, 2 frames) equals its committed JAX stream byte for byte.
 """
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from vvc_mm_tpu.common.mm import frame_codec as jax_fc
+from vvc_mm_tpu.common.mm import mc as jax_mc
 from vvc_mm_tpu.common.mm.reprojection import MVReprojection as JaxReproj
 from vvc_mm_tpu.common.slice_ps import MMConfig as JaxMMConfig
 from vvc_mm_tpu.decoder.declib import DecLib as JaxDecLib
@@ -47,6 +54,7 @@ from vvc_mm_tpu.lib360.projection import ERP as JaxERP
 from vvc_mm_tpu_torch.common import bitstream as bs
 from vvc_mm_tpu_torch.common.mm import epipole
 from vvc_mm_tpu_torch.common.slice_ps import SPS, MMConfig, SliceHeader
+from vvc_mm_tpu_torch.common.typedefs import SliceType
 from vvc_mm_tpu_torch.decoder.declib import DecLib
 from vvc_mm_tpu_torch.encoder.enclib import EncCfg, EncLib
 from vvc_mm_tpu_torch.utils.content import realistic_sequence
@@ -212,28 +220,33 @@ def test_low_delay_sequence_decodes_in_both_decoders():
 
 # ----------------------------------------------- bench configurations 3, 4
 
-# name -> (MMConfig fields, epipoles): the configurations of
-# tests/make_torch_port_streams.py, flat grid, merge on
+# name -> (MMConfig fields, epipoles, EncCfg fields beside the models):
+# the configurations of tests/make_torch_port_streams.py, flat grid, merge
+# on
 BENCH = {
-    "mpa": (dict(mpa=True), []),
+    "mpa": (dict(mpa=True), [], {}),
     "fullmm": (dict(mpa=True, ged=True, rot=True, mmmvp=True),
-               [(1, 0, 0.0, 0.0, 1.0)]),
+               [(1, 0, 0.0, 0.0, 1.0)], {}),
     "fullmm_ep": (dict(mpa=True, ged=True, rot=True, mmmvp=True),
-                  [(4, 0, 0.3, -0.5, 0.8)]),
+                  [(4, 0, 0.3, -0.5, 0.8)], {}),
+    "allmm_dmvr": (dict(mpa=True, t3d=True, tan=True, rot=True, ged=True,
+                        mmmvp=True), [(1, 0, 0.0, 0.0, 1.0)],
+                   dict(dmvr=True)),
 }
 # NAL indices (0 SPS, 1 PPS, 2 IDR, 3 its SEI, then slice and SEI of POC
 # 4, 2, 1, 3) where the port's CPU stream differs from the committed JAX
 # one (ROADMAP queue 3 fault 1: one position of POC 2 under config 3), and
 # the port decoder's MD5 verdicts on the committed stream there
-NAL_DIFFS = {"mpa": [6, 7, 9, 10, 11], "fullmm": [], "fullmm_ep": []}
+NAL_DIFFS = {"mpa": [6, 7, 9, 10, 11], "fullmm": [], "fullmm_ep": [],
+             "allmm_dmvr": []}
 OWN_POSITIONS_HASH = {
     "mpa": {0: "OK", 4: "OK", 2: "MISMATCH", 1: "MISMATCH", 3: "MISMATCH"}}
 
 
 def _bench_cfg(cls, mm_cls, name, **kw):
-    mm, eps = BENCH[name]
+    mm, eps, tools = BENCH[name]
     return _cfg(cls, mm_cls, qt_depth=0, mm=mm_cls(**mm), epipoles=list(eps),
-                **kw)
+                **tools, **kw)
 
 
 def _bench_stream(name):
@@ -252,13 +265,24 @@ def bench_runs():
 
 
 def _jax_positions(w=256, h=128):
-    """A DecLib positions_fn giving the JAX decoder's merged positions."""
+    """A DecLib positions_fn giving the JAX decoder's merged positions,
+    and for projected DMVR's candidates (a one-model list at a row step)
+    the JAX package's one-model positions under jax.jit."""
     jr = JaxReproj(JaxERP(w, h), w, h, 1, 1)
 
-    def fn(active, midx, stack, block_size, epipoles):
-        return np.array(jax_fc.merged_positions(
-            jr, active, jnp.asarray(np.asarray(midx, np.int32)),
-            jnp.asarray(np.asarray(stack, np.int32)), block_size, epipoles))
+    def fn(active, midx, stack, block_size, epipoles, row_step):
+        stack = jnp.asarray(np.asarray(stack, np.int32))
+        if row_step == 1:
+            return np.array(jax_fc.merged_positions(
+                jr, active, jnp.asarray(np.asarray(midx, np.int32)), stack,
+                block_size, epipoles))
+        (model,) = active
+        ep = (epipoles or {}).get(model)
+        if model == 0:
+            return np.array(jax_mc.classic_positions(
+                jr.offset, w, h, stack[0], block_size, row_step))
+        return np.array(jax.jit(lambda mvs: jr.reproject_frame(
+            model, mvs, block_size, ep, row_step))(stack[0]))
     return fn
 
 
@@ -352,19 +376,23 @@ def test_bench_config_without_merge_decodes_in_both_decoders():
 
 # ---------------------------------------------- the classic inter path
 
-# stream -> (gop, frames, merge): tests/make_torch_port_streams.py CLASSIC
-CLASSIC = {"ra192x96_qp37_9f": ("RA", 9, True),
-           "ldp192x96_qp37_4f": ("LDP", 4, True),
-           "ra192x96_nomerge_qp37_5f": ("RA", 5, False)}
+# stream -> (gop, frames, merge, tools): tests/make_torch_port_streams.py
+# CLASSIC
+CLASSIC = {"ra192x96_qp37_9f": ("RA", 9, True, {}),
+           "ldp192x96_qp37_4f": ("LDP", 4, True, {}),
+           "ra192x96_nomerge_qp37_5f": ("RA", 5, False, {}),
+           "ra192x96_bdof_dmvr_qp37_9f": ("RA", 9, True,
+                                          dict(bdof=True, dmvr=True))}
 
 
 @pytest.fixture(scope="module")
 def classic_runs():
     """The port's CPU encode of each classic stream's configuration."""
     out = {}
-    for name, (gop, n, merge) in CLASSIC.items():
+    for name, (gop, n, merge, tools) in CLASSIC.items():
         enc = EncLib(EncCfg(width=192, height=96, qp=37, gop=gop, gop_size=4,
-                            search_range=24, merge=merge), device="cpu")
+                            search_range=24, merge=merge, **tools),
+                     device="cpu")
         out[name] = dict(enc=enc, data=enc.encode_sequence(
             realistic_sequence(192, 96, n)))
     return out
@@ -391,7 +419,10 @@ def test_classic_sequence_equals_the_committed_jax_stream(classic_runs,
                         for n in got if n.nal_type == bs.NAL_TRAIL)
         if len(h.ref_pocs_l0) == 2)
     assert two_ref == {"ra192x96_qp37_9f": [8], "ldp192x96_qp37_4f": [2, 3],
-                       "ra192x96_nomerge_qp37_5f": []}[name]
+                       "ra192x96_nomerge_qp37_5f": [],
+                       "ra192x96_bdof_dmvr_qp37_9f": [8]}[name]
+    assert (sps.bdof, sps.dmvr) == (CLASSIC[name][3].get("bdof", False),
+                                    CLASSIC[name][3].get("dmvr", False))
 
 
 @pytest.mark.parametrize("name", sorted(CLASSIC))
@@ -406,12 +437,48 @@ def test_port_decodes_the_committed_classic_stream(classic_runs, name):
             np.testing.assert_array_equal(a, b)
 
 
-def test_jax_decodes_the_port_classic_stream(classic_runs):
-    """The LDP stream: two of its three P pictures take two references."""
+@pytest.mark.parametrize("name", ["ldp192x96_qp37_4f",
+                                  "ra192x96_bdof_dmvr_qp37_9f"])
+def test_jax_decodes_the_port_classic_stream(classic_runs, name):
+    """The LDP stream (two of its three P pictures take two references)
+    and the RA stream with BDOF and DMVR on its B pictures."""
     jdec = JaxDecLib()
-    frames = jdec.decode_bytes(classic_runs["ldp192x96_qp37_4f"]["data"])
-    assert jdec.hash_status == {p: "OK" for p in range(4)}
-    enc = classic_runs["ldp192x96_qp37_4f"]["enc"]
+    frames = jdec.decode_bytes(classic_runs[name]["data"])
+    n = CLASSIC[name][1]
+    assert jdec.hash_status == {p: "OK" for p in range(n)}
+    enc = classic_runs[name]["enc"]
     for f, r in zip(frames, sorted(enc.results, key=lambda r: r.poc)):
         for a, b in zip(f.planes, r.recon):
             np.testing.assert_array_equal(np.asarray(a), b)
+
+
+def test_bdof_dmvr_change_the_classic_stream(classic_runs):
+    """BDOF and DMVR act on the RA stream's B pictures only: against the
+    same configuration without them, the I and P pictures' payloads are
+    equal (no P picture refers to a B picture) and some B picture's
+    differ."""
+    got = bs.read_annexb(classic_runs["ra192x96_bdof_dmvr_qp37_9f"]["data"])
+    plain = bs.read_annexb(classic_runs["ra192x96_qp37_9f"]["data"])
+    sps = SPS.read(bs.BitReader(got[0].payload))
+    same = {}
+    for a, b in zip(got, plain):
+        if a.nal_type in (bs.NAL_IDR, bs.NAL_TRAIL):
+            kind = SliceHeader.read(bs.BitReader(a.payload), sps).slice_type
+            same.setdefault(kind == SliceType.B, []).append(
+                a.payload == b.payload)
+    assert all(same[False]) and len(same[False]) == 3
+    assert not all(same[True]) and len(same[True]) == 6
+
+
+def test_bench_configuration_1_equals_the_committed_jax_stream():
+    """`ai416x240_qp37_encode_fps` (bench.py:101-102): AI at 416x240, every
+    other EncCfg field at its default, 2 frames: the port's CPU encode is
+    the JAX encoder's stream byte for byte, and the port decodes it with
+    every MD5 OK."""
+    want = open(os.path.join(DATA, "ai416x240_qp37_2f.bin"), "rb").read()
+    got = EncLib(EncCfg(width=416, height=240, qp=37, gop="AI"),
+                 device="cpu").encode_sequence(realistic_sequence(416, 240, 2))
+    assert got == want
+    dec = DecLib(device="cpu")
+    dec.decode_bytes(want)
+    assert dec.hash_status == {0: "OK", 1: "OK"}

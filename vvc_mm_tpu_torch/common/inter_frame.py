@@ -18,9 +18,10 @@ reshapes, the residual pass) and the classic (one MV per block) path:
       shares the math.
 
 Encoder and decoder share the prediction, so the reconstructions agree
-bit for bit.  BDOF, GPM, CIIP, weighted prediction and AMVR (ROADMAP
-queue 1 item 8), DMVR (item 7c), MCTS clamps (item 11) and scaling lists
-(item 9) raise NotImplementedError.
+bit for bit; that includes the signalling-free refinements of bi blocks,
+DMVR (common/dmvr.py) and BDOF (common/bdof.py).  GPM, CIIP, weighted
+prediction and AMVR (ROADMAP queue 1 item 8), MCTS clamps (item 11) and
+scaling lists (item 9) raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -117,11 +118,9 @@ _UNPORTED_TOOLS = {
     "affine": ("affine motion", "8"),
     "tmvp": ("TMVP/HMVP", "8"),
     "amvr": ("AMVR", "8"),
-    "bdof": ("BDOF", "8"),
     "gpm": ("GPM", "8"),
     "ciip": ("CIIP", "8"),
     "wp": ("weighted prediction", "8"),
-    "dmvr": ("DMVR", "7c"),
     "scaling": ("scaling lists", "9"),
     "mcts": ("MCTS tiles", "11"),
 }
@@ -147,8 +146,11 @@ def _combine_bi(int0, int1, dirs, nby, nbx, bit_depth):
 
 
 def _luma_combine(int0, int1, dirs, nby, nbx, bit_depth, bdof: bool):
-    """Luma uni/bi combine (BDOF's arm: ROADMAP queue 1 item 8)."""
-    refuse(bdof=bdof)
+    """Luma uni/bi combine, BDOF-refined on bi blocks when `bdof` (luma
+    only, reference: BDOF applies to luma bi blocks)."""
+    if bdof:
+        from .bdof import combine_bi_bdof
+        return combine_bi_bdof(int0, int1, dirs, nby, nbx, bit_depth)
     return _combine_bi(int0, int1, dirs, nby, nbx, bit_depth)
 
 
@@ -421,6 +423,13 @@ def reconstruct_p_frame_2ref(ref_idx, mvs, lev_y, lev_u, lev_v, ref0, ref1,
                          bit_depth)
 
 
+def _dmvr(ref0, ref1, mv0, mv1, dirs, s: int, wrap_around: bool):
+    from .dmvr import dmvr_refine
+    return dmvr_refine(pad_ref(ref0[0], MC_MARGIN, wrap_around),
+                       pad_ref(ref1[0], MC_MARGIN, wrap_around), mv0, mv1,
+                       dirs, s, MC_MARGIN)
+
+
 def bpred_and_residual(orig_y, orig_u, orig_v, ref0, ref1, mv0, mv1, dirs,
                        qp: int, block_size: int, bit_depth: int,
                        wrap_around: bool, bdof: bool = False,
@@ -428,11 +437,15 @@ def bpred_and_residual(orig_y, orig_u, orig_v, ref0, ref1, mv0, mv1, dirs,
                        gpm: bool = False, ciip: bool = False,
                        wp0=None, wp1=None):
     """Shared B prediction + residual path (the decoder's is
-    reconstruct_b_frame).  Returns (lev_y, lev_u, lev_v, recon dict)."""
-    refuse(bdof=bdof, dmvr=dmvr, gpm=gpm, ciip=ciip,
-           wp=wp0 is not None or wp1 is not None)
+    reconstruct_b_frame).  With `dmvr` the bi blocks' MV pairs are first
+    refined by bilateral matching (common/dmvr.py), with `bdof` their luma
+    takes the optical-flow correction.  Returns (lev_y, lev_u, lev_v, recon
+    dict)."""
+    refuse(gpm=gpm, ciip=ciip, wp=wp0 is not None or wp1 is not None)
     s = block_size
     h, w = orig_y.shape
+    if dmvr:
+        mv0, mv1 = _dmvr(ref0, ref1, mv0, mv1, dirs, s, wrap_around)
     i0 = _mc_planes_internal(*ref0, mv0, s, bit_depth, wrap_around)
     i1 = _mc_planes_internal(*ref1, mv1, s, bit_depth, wrap_around)
     pred = _pred_planes_ext(i0, i1, dirs, gpm_modes, h // s, w // s,
@@ -448,10 +461,12 @@ def reconstruct_b_frame(mv0, mv1, dirs, lev_y, lev_u, lev_v, ref0, ref1,
                         gpm: bool = False, ciip: bool = False,
                         scaling=None, wp0=None, wp1=None):
     """Decoder-side B reconstruction (shared with the encoder's recon)."""
-    refuse(bdof=bdof, dmvr=dmvr, gpm=gpm, ciip=ciip,
-           wp=wp0 is not None or wp1 is not None, scaling=scaling)
+    refuse(gpm=gpm, ciip=ciip, wp=wp0 is not None or wp1 is not None,
+           scaling=scaling)
     s = block_size
     h, w = ref0[0].shape
+    if dmvr:
+        mv0, mv1 = _dmvr(ref0, ref1, mv0, mv1, dirs, s, wrap_around)
     i0 = _mc_planes_internal(*ref0, mv0, s, bit_depth, wrap_around)
     i1 = _mc_planes_internal(*ref1, mv1, s, bit_depth, wrap_around)
     pred = _pred_planes_ext(i0, i1, dirs, gpm_modes, h // s, w // s,

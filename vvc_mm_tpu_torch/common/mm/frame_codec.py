@@ -17,12 +17,13 @@ bands).  The search only picks MVs and models: float drift in its
 positions can change a decision, never break decode.  The JAX package
 traces each search as one program; here they are plain functions.
 
-Each reconstruct function takes an optional `positions=` argument: the
-merged positions tensor (a pair of them for B frames) to use instead of
-computing them.  The positions are float32 sphere math rounded to 1/16
-pel, and this lets a caller reconstruct from positions computed elsewhere
-(the JAX package's, in the tests).  Projected DMVR is ROADMAP queue 1
-item 7c.
+The P reconstruct functions take an optional `positions=` argument, the
+merged positions tensor to use instead of computing it; the B ones, whose
+projected DMVR (the signalling-free bilateral refinement of bi blocks)
+computes positions of its own, a `positions_fn` that replaces every
+positions computation.  The positions are float32 sphere math rounded to
+1/16 pel, and this lets a caller reconstruct from positions computed
+elsewhere (the JAX package's in the tests, the card's in a CPU check).
 """
 from __future__ import annotations
 
@@ -42,6 +43,18 @@ def _up(t: torch.Tensor, rep: int) -> torch.Tensor:
     return t.repeat_interleave(rep, 0).repeat_interleave(rep, 1)
 
 
+def _model_positions(reproj: MVReprojection, model_id: int,
+                     mvs: torch.Tensor, block_size: int, epipole,
+                     row_step: int) -> torch.Tensor:
+    """One model's per-subblock positions for a (nby, nbx, 2) MV field:
+    integer math for CLASSIC, the reprojection otherwise."""
+    if model_id == M.CLASSIC:
+        return mm_mc.classic_positions(reproj.width, reproj.height, mvs,
+                                       block_size, row_step)
+    return reproj.reproject_frame(model_id, mvs, block_size, epipole,
+                                  row_step)
+
+
 def merged_positions(reproj: MVReprojection, active_models: list[int],
                      model_idx: torch.Tensor, mvs_stack: torch.Tensor,
                      block_size: int, epipoles: dict | None = None,
@@ -56,18 +69,10 @@ def merged_positions(reproj: MVReprojection, active_models: list[int],
     dev = reproj.device
     model_idx = torch.as_tensor(model_idx, device=dev)
     mvs_stack = torch.as_tensor(mvs_stack, device=dev)
-    pos_all = []
-    for i, model_id in enumerate(active_models):
-        if model_id == M.CLASSIC:
-            pos = mm_mc.classic_positions(reproj.width, reproj.height,
-                                          mvs_stack[i], block_size,
-                                          row_step)
-        else:
-            ep = (epipoles or {}).get(model_id)
-            pos = reproj.reproject_frame(model_id, mvs_stack[i], block_size,
-                                         ep, row_step)
-        pos_all.append(pos)
-    pos_all = torch.stack(pos_all)                   # (n, nsy, nsx, 2)
+    pos_all = torch.stack([
+        _model_positions(reproj, m, mvs_stack[i], block_size,
+                         (epipoles or {}).get(m), row_step)
+        for i, m in enumerate(active_models)])       # (n, nsy, nsx, 2)
     idx_sb = _up(model_idx.to(torch.int64), block_size // SUBBLK)
     if row_step > 1:
         idx_sb = idx_sb[::row_step]
@@ -131,22 +136,150 @@ def _bi_combine_px(p0, p1, dirs, block_size, sub, bit_depth):
     return torch.where(d == 0, p0, torch.where(d == 1, p1, avg))
 
 
+def make_eval_bilateral(reproj: MVReprojection, model0: int, model1: int,
+                        block_size: int, bit_depth: int, ep0=None, ep1=None,
+                        positions_fn=None):
+    """Bilateral cost (ref0_padded, ref1_padded, mv0, mv1, offsets (K, 2),
+    blocks) -> (K, len(blocks)): for each listed block (flat index into
+    the (nby, nbx) grid), the SAD between the two list predictions under
+    mirrored candidate offsets — the projected-DMVR matching function
+    (reference: InterPrediction.cpp:2442 xProcessDMVRProjected; offsets
+    applied in each model's own MV domain and taken through the
+    reprojection).  The predictions are K1 on the row-subsampled subblock
+    grid (SAD_ROW_STEP) and the SAD is _block_sad_sub's, as in the JAX
+    package, which costs every block of the frame; here K1 predicts only
+    the listed blocks' subblocks, laid out as one row (a block's SAD reads
+    only its own subblocks, so the costs are the same).
+
+    ep0/ep1 are the lists' {GEODESIC_CAMPOSE: epipole} dicts or None.
+    `positions_fn(active_models, model_idx, mvs_stack, block_size,
+    epipoles, row_step)`, when given, computes each prediction's positions
+    as merged_positions would for the one-model list [model]."""
+    s = block_size
+    row_step = SAD_ROW_STEP if s // 4 >= SAD_ROW_STEP else 1
+    rows_pb = s // 4 // row_step          # kept subblock rows a block
+
+    def pos_of(model_id, mvs, eps):
+        if positions_fn is None:
+            return _model_positions(reproj, model_id, mvs, s,
+                                    (eps or {}).get(model_id), row_step)
+        zero = torch.zeros(mvs.shape[:2], dtype=torch.int32,
+                           device=mvs.device)
+        return torch.as_tensor(positions_fn(
+            [model_id], zero, mvs[None], s, eps, row_step),
+            dtype=torch.int32, device=mvs.device)
+
+    def listed(pos, blocks):
+        """(nsy_sub, nsx, 2) positions -> the listed blocks' subblocks as
+        one row (1, len(blocks) * rows_pb * s/4, 2), block by block."""
+        nby, nbx = pos.shape[0] // rows_pb, pos.shape[1] // (s // 4)
+        per_block = pos.reshape(nby, rows_pb, nbx, s // 4, 2).permute(
+            0, 2, 1, 3, 4).reshape(nby * nbx, rows_pb * (s // 4), 2)
+        return per_block[blocks].reshape(1, -1, 2)
+
+    def eval_cands(ref0_padded, ref1_padded, mv0, mv1, offsets, blocks):
+        out = []
+        for k in range(offsets.shape[0]):
+            d = offsets[k][None, None, :]
+            p0 = mm_mc.mc_luma_positions(
+                ref0_padded, listed(pos_of(model0, mv0 + d, ep0), blocks),
+                MC_MARGIN, bit_depth)
+            p1 = mm_mc.mc_luma_positions(
+                ref1_padded, listed(pos_of(model1, mv1 - d, ep1), blocks),
+                MC_MARGIN, bit_depth)
+            diff = (p0 - p1).abs().reshape(4, blocks.shape[0], -1)
+            out.append((diff.sum(dim=(0, 2)) * row_step).to(torch.int32))
+        return torch.stack(out)
+
+    return eval_cands
+
+
+_DMVR_OFFS = np.array([(0, 0), (-4, 0), (4, 0), (0, -4), (0, 4)],
+                      dtype=np.int32)     # quarter-pel plus pattern
+
+
+def _host(a) -> np.ndarray:
+    return np.asarray(a.cpu() if torch.is_tensor(a) else a)
+
+
+def dmvr_pairs(active_models: list[int], model_idx0, model_idx1,
+               dirs) -> list[tuple[int, int]]:
+    """The (list-0, list-1) model-index pairs projected DMVR evaluates, in
+    the JAX package's loop order: pairs of the same model and pairs with
+    CLASSIC on one side, and of those only the pairs some bi block
+    selected (a pair without one changes no MV, so it is skipped).  The
+    grids are read on the host."""
+    i0, i1, d = _host(model_idx0), _host(model_idx1), _host(dirs)
+    n = len(active_models)
+    bi = d == 2
+    used = set(zip(i0[bi].tolist(), i1[bi].tolist()))
+    return [(a, b) for a in range(n) for b in range(n)
+            if (a, b) in used and (a == b or M.CLASSIC in
+                                   (active_models[a], active_models[b]))]
+
+
+def projected_dmvr(reproj: MVReprojection, active_models: list[int],
+                   model_idx0, model_idx1, mvs0_stack, mvs1_stack, dirs,
+                   ref0_y, ref1_y, block_size: int, bit_depth: int,
+                   epipoles0=None, epipoles1=None, wrap_around=False,
+                   positions_fn=None):
+    """Signalling-free bilateral refinement of bi-predicted MM blocks
+    (projected DMVR).  Encoder and decoder run it identically on the
+    signalled MVs; returns the refined (mvs0_stack, mvs1_stack), where only
+    each block's SELECTED model entry changes, and only where dirs == 2.
+    For every pair of dmvr_pairs the five quarter-pel mirrored offsets
+    (centre first) are costed on the pair's bi blocks and the first
+    minimum wins.  The model and direction grids are read on the host."""
+    dev = reproj.device
+    r0 = pad_ref(ref0_y, MC_MARGIN, wrap_around)
+    r1 = pad_ref(ref1_y, MC_MARGIN, wrap_around)
+    i0h, i1h, dh = _host(model_idx0), _host(model_idx1), _host(dirs)
+    st0 = torch.as_tensor(mvs0_stack, device=dev).to(torch.int32)
+    st1 = torch.as_tensor(mvs1_stack, device=dev).to(torch.int32)
+    offs = torch.as_tensor(_DMVR_OFFS, device=dev)
+    out0, out1 = st0.clone(), st1.clone()
+    for i0, i1 in dmvr_pairs(active_models, i0h, i1h, dh):
+        m0, m1 = active_models[i0], active_models[i1]
+        blocks = torch.as_tensor(np.flatnonzero(
+            (dh == 2) & (i0h == i0) & (i1h == i1)), device=dev)
+        ev = make_eval_bilateral(reproj, m0, m1, block_size, bit_depth,
+                                 epipoles0, epipoles1, positions_fn)
+        sads = ev(r0, r1, st0[i0], st1[i1], offs, blocks)
+        d = offs[first_argmin(sads, 0)]                     # (n, 2)
+        out0[i0].view(-1, 2)[blocks] = st0[i0].view(-1, 2)[blocks] + d
+        out1[i1].view(-1, 2)[blocks] = st1[i1].view(-1, 2)[blocks] - d
+    return out0, out1
+
+
 def predict_b_mm(reproj, active_models, model_idx0, model_idx1, mvs0_stack,
                  mvs1_stack, dirs, ref0, ref1, block_size, bit_depth,
                  epipoles0=None, epipoles1=None, wrap_around=False,
-                 dmvr=False, positions=None):
+                 dmvr=False, positions_fn=None):
     """Mixed-model bi-prediction: per-list merged positions -> two MC
-    passes -> per-block uni/bi combine."""
+    passes -> per-block uni/bi combine.  With `dmvr` the bi blocks first
+    go through projected DMVR (shared by encoder and decoder).
+    `positions_fn(active_models, model_idx, mvs_stack, block_size,
+    epipoles, row_step)`, when given, replaces every positions
+    computation: each list's merged positions (row step 1) and projected
+    DMVR's candidates."""
     if dmvr:
-        raise NotImplementedError("projected DMVR: ROADMAP queue 1 item 7c")
-    if positions is None:
-        positions = (
-            merged_positions(reproj, active_models, model_idx0, mvs0_stack,
-                             block_size, epipoles0),
-            merged_positions(reproj, active_models, model_idx1, mvs1_stack,
-                             block_size, epipoles1))
-    p0 = predict_from_positions(positions[0], *ref0, bit_depth, wrap_around)
-    p1 = predict_from_positions(positions[1], *ref1, bit_depth, wrap_around)
+        mvs0_stack, mvs1_stack = projected_dmvr(
+            reproj, active_models, model_idx0, model_idx1, mvs0_stack,
+            mvs1_stack, dirs, ref0[0], ref1[0], block_size, bit_depth,
+            epipoles0, epipoles1, wrap_around, positions_fn)
+
+    def positions(idx, stack, eps):
+        if positions_fn is None:
+            return merged_positions(reproj, active_models, idx, stack,
+                                    block_size, eps)
+        return torch.as_tensor(
+            positions_fn(active_models, idx, stack, block_size, eps, 1),
+            dtype=torch.int32, device=reproj.device)
+
+    p0 = predict_from_positions(positions(model_idx0, mvs0_stack, epipoles0),
+                                *ref0, bit_depth, wrap_around)
+    p1 = predict_from_positions(positions(model_idx1, mvs1_stack, epipoles1),
+                                *ref1, bit_depth, wrap_around)
     dirs = torch.as_tensor(dirs, device=p0[0].device)
     py = _bi_combine_px(p0[0], p1[0], dirs, block_size, 1, bit_depth)
     pu = _bi_combine_px(p0[1], p1[1], dirs, block_size, 2, bit_depth)
@@ -158,16 +291,16 @@ def reconstruct_b_frame_mm(reproj, active_models, model_idx0, model_idx1,
                            mvs0_stack, mvs1_stack, dirs, lev_y, lev_u,
                            lev_v, ref0, ref1, qp, block_size,
                            bit_depth=8, epipoles0=None, epipoles1=None,
-                           wrap_around=False, dmvr=False, positions=None):
-    """Decoder reconstruction of a multi-model B frame.  `positions` is an
-    optional (list 0, list 1) pair of merged position tensors."""
+                           wrap_around=False, dmvr=False, positions_fn=None):
+    """Decoder reconstruction of a multi-model B frame (predict_b_mm, then
+    the residual)."""
     s = block_size
     h, w = ref0[0].shape
     nby, nbx = h // s, w // s
     py, pu, pv = predict_b_mm(
         reproj, active_models, model_idx0, model_idx1, mvs0_stack,
         mvs1_stack, dirs, ref0, ref1, s, bit_depth, epipoles0, epipoles1,
-        wrap_around, dmvr, positions)
+        wrap_around, dmvr, positions_fn)
     return dict(y=_rec_plane(py, lev_y, s, nby, nbx, qp, bit_depth),
                 u=_rec_plane(pu, lev_u, s // 2, nby, nbx, qp, bit_depth),
                 v=_rec_plane(pv, lev_v, s // 2, nby, nbx, qp, bit_depth))

@@ -1,18 +1,28 @@
 """The multi-model motion models of the decoder slice — elementwise torch.
 
 PyTorch counterpart of `vvc_mm_tpu/common/mm/models.py` (reference:
-source/Lib/CommonLib/MotionModels/).  The port carries CLASSIC
-(translational), the three MPA planes, ROT and the geodesic family (GED
-with a signalled epipole, GEDA on the fixed axes); 3DT and TAN, and the
-`*_mv_for_shift` inverses (MM-MVP converts through the host's
-mvp_convert.py instead), are ROADMAP queue 1 item 7c.
+source/Lib/CommonLib/MotionModels/): CLASSIC (translational), the three MPA
+planes, 3-D translational (3DT), tangential (TAN), ROT and the geodesic
+family (GED with a signalled epipole, GEDA on the fixed axes).
 
-model_motion(grid_x, grid_y, mv_x, mv_y, cx, cy) -> (moved_x, moved_y) maps
-each subblock center of the current block to where it lands in the
-reference frame.  Arguments broadcast, so one call models every subblock of
-a frame.  MV units are pixels (float32); the 1/16-pel rounding lives in
-reprojection.py.  The operation order is the JAX package's, so the float32
-results differ from it only where the math libraries round differently.
+Each model is two elementwise functions:
+
+  model_motion(grid_x, grid_y, mv_x, mv_y, cx, cy) -> (moved_x, moved_y)
+      maps each subblock center of the current block to where it lands in
+      the reference frame.  Arguments broadcast, so one call models every
+      subblock of a frame.
+  mv_for_shift(px, py, sx, sy, cx, cy) -> (mv_x, mv_y)
+      the closed-form inverse (reference: MotionModel.h
+      motionVectorForEquivalentPixelShiftAt), used by
+      reprojection.mv_in_desired_model; the codec's MM-MVP converts
+      through the host's mvp_convert.py instead.
+
+MV units are pixels (float32); the 1/16-pel rounding lives in
+reprojection.py.  A model may give NaN (a point behind the camera, TAN's
+0/0 at rho = 0, an arcsin argument that rounds past 1); the callers turn
+NaN into "no motion".  The operation order is the JAX package's, so the
+float32 results differ from it only where the math libraries round
+differently.
 """
 from __future__ import annotations
 
@@ -29,6 +39,10 @@ from ..typedefs import MotionModelID as M
 # ---------------------------------------------------------------------------
 def translational_motion(grid_x, grid_y, mv_x, mv_y, cx=None, cy=None):
     return grid_x + mv_x, grid_y + mv_y
+
+
+def translational_mv_for_shift(px, py, sx, sy, cx=None, cy=None):
+    return sx - px, sy - py
 
 
 # ---------------------------------------------------------------------------
@@ -85,6 +99,100 @@ def mpa_motion(proj, plane: int, grid_x, grid_y, mv_x, mv_y, cx=None, cy=None,
                                 py + mv_y * sign, vip)
 
 
+def mpa_mv_for_shift(proj, plane: int, px_, py_, sx_, sy_, cx=None,
+                     cy=None):
+    """Equivalent motion-plane MV for a pixel shift.  NaN where the original
+    and the shifted position fall on different image planes (the caller
+    zeroes it)."""
+    ox, oy, ovip = mpa_to_perspective(proj, plane, px_, py_)
+    mx, my, mvip = mpa_to_perspective(proj, plane, sx_, sy_)
+    sign = torch.where(mvip, -1.0, 1.0).to(mx.dtype)
+    bad = ovip != mvip
+    nan = torch.tensor(float("nan"), dtype=mx.dtype, device=mx.device)
+    return (torch.where(bad, nan, (mx - ox) * sign),
+            torch.where(bad, nan, (my - oy) * sign))
+
+
+# ---------------------------------------------------------------------------
+# 3-D translational (3DT) — reference: ThreeDTranslationalMotionModel.cpp
+# ---------------------------------------------------------------------------
+def t3d_motion(proj, grid_x, grid_y, mv_x, mv_y, cx, cy):
+    """The block center's displacement on the sphere, (center + mv) minus
+    center in 3-D, added to every grid point and projected back."""
+    c3x, c3y, c3z = proj.to_sphere(cx, cy)
+    m3x, m3y, m3z = proj.to_sphere(cx + mv_x, cy + mv_y)
+    gx, gy, gz = proj.to_sphere(grid_x, grid_y)
+    out_x, out_y = proj.from_sphere(gx + (m3x - c3x), gy + (m3y - c3y),
+                                    gz + (m3z - c3z))
+    zero = (mv_x == 0) & (mv_y == 0)
+    return (torch.where(zero, grid_x, out_x), torch.where(zero, grid_y, out_y))
+
+
+def t3d_mv_for_shift(proj, px, py, sx, sy, cx, cy):
+    c3 = proj.to_sphere(cx, cy)
+    p3 = proj.to_sphere(px, py)
+    s3 = proj.to_sphere(sx, sy)
+    moved = tuple(s - p + c for s, p, c in zip(s3, p3, c3))
+    mx, my = proj.from_sphere(*moved)
+    return mx - cx, my - cy
+
+
+# ---------------------------------------------------------------------------
+# Tangential (TAN) — reference: TangentialMotionModel.cpp
+# ---------------------------------------------------------------------------
+def _tan_to_plane(proj, x, y, eps_c, alpha_c):
+    """Gnomonic projection onto the tangent plane at the block center
+    (elevation eps = pi/2 - theta, azimuth alpha = phi)."""
+    gx, gy, gz = proj.to_sphere(x, y)
+    _, theta, phi = cartesian_to_spherical(gx, gy, gz)
+    eps = PI / 2 - theta
+    d_alpha = phi - alpha_c
+    cos_psi = (torch.sin(eps_c) * torch.sin(eps)
+               + torch.cos(eps_c) * torch.cos(eps) * torch.cos(d_alpha))
+    plane_y = (torch.sin(eps) * torch.cos(eps_c)
+               - torch.sin(eps_c) * torch.cos(eps) * torch.cos(d_alpha)) \
+        / cos_psi
+    plane_x = (torch.sin(d_alpha) * torch.cos(eps)) / cos_psi
+    return plane_x, plane_y
+
+
+def _center_angles(proj, cx, cy):
+    c3 = proj.to_sphere(cx, cy)
+    _, theta_c, phi_c = cartesian_to_spherical(*c3)
+    return PI / 2 - theta_c, phi_c
+
+
+def tan_motion(proj, angle_res: float, grid_x, grid_y, mv_x, mv_y, cx, cy):
+    """Move on the block center's tangent plane by -mv * angle_res, then
+    the inverse gnomonic projection (reference:
+    TangentialMotionModel.cpp:35-44).  A grid point at the tangent point
+    with a zero plane move gives rho = 0 and 0/0 = NaN, and an arcsin
+    argument that rounds past 1 gives NaN: both are "no motion" for the
+    caller, as in the JAX package."""
+    eps_c, alpha_c = _center_angles(proj, cx, cy)
+    plane_x, plane_y = _tan_to_plane(proj, grid_x, grid_y, eps_c, alpha_c)
+    pxm = plane_x - mv_x * angle_res
+    pym = plane_y - mv_y * angle_res
+    rho = torch.sqrt(pxm * pxm + pym * pym)
+    eta = torch.arctan(rho)
+    gamma = (rho * torch.cos(eps_c) * torch.cos(eta)
+             - pym * torch.sin(eps_c) * torch.sin(eta))
+    alpha_m = alpha_c + torch.arctan((pxm * torch.sin(eta)) / gamma)
+    eps_m = torch.arcsin(torch.cos(eta) * torch.sin(eps_c)
+                         + (pym * torch.sin(eta) * torch.cos(eps_c)) / rho)
+    c = spherical_to_cartesian(1.0, PI / 2 - eps_m, alpha_m)
+    out_x, out_y = proj.from_sphere(*c)
+    zero = (mv_x == 0) & (mv_y == 0)
+    return (torch.where(zero, grid_x, out_x), torch.where(zero, grid_y, out_y))
+
+
+def tan_mv_for_shift(proj, angle_res: float, px, py, sx, sy, cx, cy):
+    eps_c, alpha_c = _center_angles(proj, cx, cy)
+    ox, oy = _tan_to_plane(proj, px, py, eps_c, alpha_c)
+    mx, my = _tan_to_plane(proj, sx, sy, eps_c, alpha_c)
+    return (ox - mx) / angle_res, (oy - my) / angle_res
+
+
 # ---------------------------------------------------------------------------
 # Rotational (ROT) — reference: RotationalMotionModel.cpp
 # ---------------------------------------------------------------------------
@@ -112,6 +220,19 @@ def rot_motion(proj, angle_res: float, grid_x, grid_y, mv_x, mv_y, cx, cy):
     out_x, out_y = proj.from_sphere(*o)
     zero = (mv_x == 0) & (mv_y == 0)
     return (torch.where(zero, grid_x, out_x), torch.where(zero, grid_y, out_y))
+
+
+def rot_mv_for_shift(proj, angle_res: float, px, py, sx, sy, cx, cy):
+    """Estimated equivalent rotation MV (the reference notes that the exact
+    inverse needs nonlinear optimization; this is its estimate)."""
+    c3 = proj.to_sphere(cx, cy)
+    _, theta_c, phi_c = cartesian_to_spherical(*c3)
+    beta = PI / 2 - theta_c
+    p_al = _rot_y(beta, *_rot_z(-phi_c, *proj.to_sphere(px, py)))
+    s_al = _rot_y(beta, *_rot_z(-phi_c, *proj.to_sphere(sx, sy)))
+    _, th_p, ph_p = cartesian_to_spherical(*p_al)
+    _, th_s, ph_s = cartesian_to_spherical(*s_al)
+    return _wrap_angle(ph_p - ph_s) / angle_res, (th_s - th_p) / angle_res
 
 
 # ---------------------------------------------------------------------------
@@ -177,6 +298,30 @@ def ged_motion(proj, angle_res: float, rot_mat, flavor: int,
     out_x, out_y = proj.from_sphere(ox, oy, oz)
     zero = (mv_x == 0) & (mv_y == 0)
     return (torch.where(zero, grid_x, out_x), torch.where(zero, grid_y, out_y))
+
+
+def _wrap_angle(a):
+    """Wrap an angle difference into [-pi, pi) (floor modulo, as
+    jnp.mod)."""
+    return torch.remainder(a + PI, 2 * PI) - PI
+
+
+def ged_mv_for_shift(proj, angle_res: float, rot_mat, flavor: int,
+                     px, py, sx, sy, cx, cy):
+    m = torch.as_tensor(rot_mat, dtype=torch.float32, device=px.device)
+    _, th_p, ph_p = cartesian_to_spherical(
+        *_mat_apply(m, *proj.to_sphere(px, py)))
+    _, th_s, ph_s = cartesian_to_spherical(
+        *_mat_apply(m, *proj.to_sphere(sx, sy)))
+    mv_y = _wrap_angle(ph_s - ph_p) / angle_res
+    if flavor == VISHWANATH_ORIGINAL:
+        return (th_s - th_p) / angle_res, mv_y
+    _, th_c, _ = cartesian_to_spherical(
+        *_mat_apply(m, *proj.to_sphere(cx, cy)))
+    d_theta = th_s - th_p
+    k = torch.sin(d_theta + th_p) / torch.sin(d_theta)
+    d_theta_c = torch.arctan(torch.sin(th_c) / (k - torch.cos(th_c)))
+    return d_theta_c / angle_res, mv_y
 
 
 GEDA_EPIPOLES = {

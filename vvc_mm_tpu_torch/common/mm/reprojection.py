@@ -139,16 +139,9 @@ class MVReprojection:
             cache = tuple(c[::row_step] for c in self.mpa_cache(model_id))
             ox, oy = models.mpa_motion(p, model_id, gx, gy, mv_x, mv_y,
                                        pers_cache=cache)
-        elif model_id == M.ROTATIONAL:
-            ox, oy = models.rot_motion(p, self.angle_res, gx, gy, mv_x, mv_y,
-                                       c_x, c_y)
-        elif model_id in _GED:
-            ox, oy = self._ged(model_id, epipole, gx, gy, mv_x, mv_y, c_x,
-                               c_y)
         else:
-            raise NotImplementedError(
-                f"motion model {M(model_id).name}: 3DT/TAN are ROADMAP "
-                "queue 1 item 7c")
+            ox, oy = self._model_motion_pointwise(model_id, gx, gy, mv_x,
+                                                  mv_y, c_x, c_y, epipole)
         # NaN -> no motion (reference: MVReprojection.cpp:158-161)
         bad = torch.isnan(ox) | torch.isnan(oy)
         ox = torch.where(bad, gx, ox) - self.offset
@@ -188,6 +181,39 @@ class MVReprojection:
         fy = torch.round((oy - half) * 16.0).to(torch.int32)
         return torch.stack([fx, fy], dim=-1)
 
+    def mv_in_desired_model(self, pos_xy, mv_orig_16th, model_orig: int,
+                            model_desired: int, center_cand_xy,
+                            center_cur_xy, epipole_orig=None,
+                            epipole_des=None) -> torch.Tensor:
+        """Candidate MV conversion between models, batched over candidates
+        (reference: MVReprojection.cpp:168
+        motionVectorInDesiredMotionModel — forward-map the candidate MV at
+        `pos`, then the closed-form inverse in the desired model).  The
+        positional arguments are (..., 2) float pixel tensors (MVs in
+        1/16 pel) that broadcast together.
+
+        Returns (..., 2) int32 1/16-pel MVs, 0 where NaN or where the
+        candidate MV is zero."""
+        def f32(t):
+            return torch.as_tensor(t, dtype=torch.float32,
+                                   device=self.device)
+        pos, cc, kc = f32(pos_xy), f32(center_cand_xy), f32(center_cur_xy)
+        mvf = f32(mv_orig_16th) / 16.0
+        px, py = pos[..., 0], pos[..., 1]
+        sx, sy = self._model_motion_pointwise(
+            model_orig, px, py, mvf[..., 0], mvf[..., 1], cc[..., 0],
+            cc[..., 1], epipole_orig)
+        mx, my = self._mv_for_shift(model_desired, px, py, sx, sy,
+                                    kc[..., 0], kc[..., 1], epipole_des)
+        bad = torch.isnan(mx) | torch.isnan(my)
+        zero = (mvf[..., 0] == 0) & (mvf[..., 1] == 0)
+        out_x = torch.where(bad | zero, 0.0, torch.round(mx * 16.0))
+        out_y = torch.where(bad | zero, 0.0, torch.round(my * 16.0))
+        # an inverse can blow up (a perspective plane near its horizon):
+        # values beyond int32 saturate, as XLA's float -> int32 does
+        out = torch.stack([out_x, out_y], -1).to(torch.float64)
+        return torch.clamp(out, -2.0 ** 31, 2.0 ** 31 - 1).to(torch.int32)
+
     def _model_motion_pointwise(self, model_id, px, py, mvx, mvy, cx, cy,
                                 epipole):
         p = self.proj
@@ -195,11 +221,39 @@ class MVReprojection:
             return models.translational_motion(px, py, mvx, mvy)
         if model_id in _MPA:
             return models.mpa_motion(p, model_id, px, py, mvx, mvy)
+        if model_id == M.THREE_D_TRANSLATIONAL:
+            return models.t3d_motion(p, px, py, mvx, mvy, cx, cy)
+        if model_id == M.TANGENTIAL:
+            return models.tan_motion(p, self.angle_res, px, py, mvx, mvy,
+                                     cx, cy)
         if model_id == M.ROTATIONAL:
             return models.rot_motion(p, self.angle_res, px, py, mvx, mvy,
                                      cx, cy)
         if model_id in _GED:
             return self._ged(model_id, epipole, px, py, mvx, mvy, cx, cy)
-        raise NotImplementedError(
-            f"motion model {M(model_id).name}: 3DT/TAN are ROADMAP "
-            "queue 1 item 7c")
+        raise ValueError(f"unknown model {model_id}")
+
+    def _mv_for_shift(self, model_id, px, py, sx, sy, cx, cy, epipole):
+        p = self.proj
+        if model_id == M.CLASSIC:
+            return models.translational_mv_for_shift(px, py, sx, sy)
+        if model_id in _MPA:
+            return models.mpa_mv_for_shift(p, model_id, px, py, sx, sy)
+        if model_id == M.THREE_D_TRANSLATIONAL:
+            return models.t3d_mv_for_shift(p, px, py, sx, sy, cx, cy)
+        if model_id == M.TANGENTIAL:
+            return models.tan_mv_for_shift(p, self.angle_res, px, py, sx,
+                                           sy, cx, cy)
+        if model_id == M.ROTATIONAL:
+            return models.rot_mv_for_shift(p, self.angle_res, px, py, sx,
+                                           sy, cx, cy)
+        if model_id not in _GED:
+            raise ValueError(f"unknown model {model_id}")
+        if model_id != M.GEODESIC_CAMPOSE:
+            epipole = models.GEDA_EPIPOLES[M(model_id)]
+        if epipole is None:
+            raise ValueError("GEODESIC_CAMPOSE needs an epipole")
+        return models.ged_mv_for_shift(p, self.angle_res,
+                                       self.ged_rot(epipole),
+                                       self.ged_flavor, px, py, sx, sy, cx,
+                                       cy)

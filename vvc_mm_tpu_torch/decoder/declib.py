@@ -70,9 +70,12 @@ class DecLib:
 
     positions_fn, when given, replaces the port's merged-positions
     computation: positions_fn(active_models, model_idx, mvs_stack,
-    block_size, epipoles) -> (nsy, nsx, 2) int positions, where epipoles
-    is the picture's (list's) {GEODESIC_CAMPOSE: epipole} dict or None.
-    Everything downstream of the positions tensor is the port's."""
+    block_size, epipoles, row_step) -> (nsy // row_step, nsx, 2) int
+    positions, where epipoles is the picture's (list's)
+    {GEODESIC_CAMPOSE: epipole} dict or None.  The merged positions of a
+    picture take row_step 1; projected DMVR's candidate positions are
+    requested as those of the one-model list [model] at the search's row
+    step.  Everything downstream of the positions tensors is the port's."""
 
     def __init__(self, device=None, positions_fn=None) -> None:
         self.device = resolve_device(device)
@@ -92,8 +95,6 @@ class DecLib:
             _todo("LMCS", "11")
         if sps.wpp:
             _todo("WPP", "11")
-        if sps.mm.t3d or sps.mm.tan:
-            _todo("3DT/TAN motion models", "7c")
         self.sps = sps
         if sps.mm.any_enabled():
             proj = make_projection(int(sps.mm.projection), sps.width,
@@ -186,11 +187,13 @@ class DecLib:
             poc, [recon[k].to(torch.int32) for k in "yuv"]))
 
     def _positions(self, active, model_idx, mvs_stack, block_size,
-                   epipoles):
+                   epipoles, row_step: int = 1):
+        """positions_fn's positions as int32 on the decoder's device, None
+        without a positions_fn."""
         if self.positions_fn is None:
             return None
         pos = self.positions_fn(active, model_idx, mvs_stack, block_size,
-                                epipoles)
+                                epipoles, row_step)
         if not torch.is_tensor(pos):
             pos = torch.from_numpy(np.array(pos))
         return pos.to(device=self.device, dtype=torch.int32)
@@ -256,8 +259,7 @@ class DecLib:
         sps = self.sps
         inter_frame.refuse(
             qtree=sps.inter_qt_depth > 0, affine=sps.affine, tmvp=sps.tmvp,
-            amvr=sps.amvr, bdof=sps.bdof, dmvr=sps.dmvr, gpm=sps.gpm,
-            ciip=sps.ciip,
+            amvr=sps.amvr, gpm=sps.gpm, ciip=sps.ciip,
             wp=sh.wp_params is not None or sh.wp_params_l1 is not None)
         s = sps.inter_block_size
         nby, nbx = sps.height // s, sps.width // s
@@ -271,7 +273,7 @@ class DecLib:
             ref1 = self._ref_by_poc(sh.ref_pocs_l1[0])
             recon = inter_frame.reconstruct_b_frame(
                 *self._tensors(mv0, mv1, dirs, ly, lu, lv), ref.planes,
-                ref1.planes, *args)
+                ref1.planes, *args, bdof=sps.bdof, dmvr=sps.dmvr)
             mvs = np.where(dirs[..., None] == 1, mv1, mv0)
         elif len(sh.ref_pocs_l0) >= 2 and sps.merge:
             ridx, mvs, ly, lu, lv = decode_p_slice_2ref(
@@ -352,8 +354,6 @@ class DecLib:
 
     def _decode_b_mm(self, sh, cabac_bytes: bytes) -> None:
         sps = self.sps
-        if sps.dmvr:
-            _todo("projected DMVR", "7c")
         s = sps.inter_block_size
         nby, nbx = sps.height // s, sps.width // s
         ref0 = self._ref_by_poc(sh.ref_pocs_l0[0])
@@ -377,15 +377,13 @@ class DecLib:
         n_active = len(active)
         stacks = [_stack_of(midx0, mv0, n_active),
                   _stack_of(midx1, mv1, n_active)]
-        positions = None
-        if self.positions_fn is not None:
-            positions = tuple(self._positions(active, m, st, s, eps)
-                              for m, st, eps in ((midx0, stacks[0], eps0),
-                                                 (midx1, stacks[1], eps1)))
+        # projected DMVR refines the prediction's MVs; deblocking reads the
+        # signalled ones
         recon = mm_codec.reconstruct_b_frame_mm(
             self.reproj, active, midx0, midx1, stacks[0], stacks[1], dirs,
             ly, lu, lv, ref0.planes, ref1.planes, sh.qp, s, sps.bit_depth,
-            eps0, eps1, sps.wrap_around, False, positions=positions)
+            eps0, eps1, sps.wrap_around, sps.dmvr,
+            None if self.positions_fn is None else self._positions)
         has_resid = ((ly != 0).any((2, 3)) | (lu != 0).any((2, 3))
                      | (lv != 0).any((2, 3)))
         sel_mv = np.where(dirs[..., None] == 1, mv1, mv0)

@@ -296,8 +296,6 @@ _UNPORTED = (
     ("target_bitrate_kbps", 0, "rate control", "11"),
     ("mctf", False, "MCTF pre-filter", "11"),
     ("lmcs", False, "LMCS", "11"),
-    ("bdof", False, "BDOF", "8"),
-    ("dmvr", False, "DMVR / projected DMVR", "7c"),
     ("gpm", False, "GPM", "8"),
     ("ciip", False, "CIIP", "8"),
     ("ibc", False, "IBC", "9"),
@@ -335,8 +333,6 @@ class EncLib:
         mm = cfg.mm
         if not mm.any_enabled() and cfg.qt_depth > 0:
             _todo("classic quadtree (qtree.py)", "11")
-        if mm.t3d or mm.tan:
-            _todo("3DT/TAN motion models", "7c")
         self.cfg = cfg
         self.sps = cfg.make_sps()
         self.pps = PPS(base_qp=cfg.qp)
@@ -789,10 +785,21 @@ class EncLib:
                     cfg.wrap_around, seed=self._mm_seed)
                 ps.set_sync(self.device)
         self._mm_seed = stack0
+        rstack0, rstack1 = stack0, stack1
+        if cfg.dmvr:
+            # projected DMVR refines the PREDICTION's MVs (the decoder runs
+            # the same on the signalled stacks); the signalled stacks and
+            # the deblocking MV field stay unrefined
+            with profiling.stage("mm_dmvr_b") as ps:
+                rstack0, rstack1 = mm_codec.projected_dmvr(
+                    self.reproj, active, midx0, midx1, stack0, stack1, dirs,
+                    r0[0], r1[0], s, cfg.bit_depth, eps0, eps1,
+                    cfg.wrap_around)
+                ps.set_sync(self.device)
         with profiling.stage("mm_finish_b") as ps:
             ly, lu, lv, recon = mm_codec.enc_finish_b_mm_fused(
-                self.reproj, active, midx0, midx1, stack0, stack1, stack0,
-                stack1, dirs, dev, tuple(r0), tuple(r1), qp, s,
+                self.reproj, active, midx0, midx1, stack0, stack1, rstack0,
+                rstack1, dirs, dev, tuple(r0), tuple(r1), qp, s,
                 cfg.bit_depth, eps0, eps1, cfg.wrap_around, cfg.deblocking)
             ps.set_sync(self.device)
 
@@ -849,9 +856,11 @@ class EncLib:
                               .to(self.device)
                               for a in (mv0_h, mv1_h, dirs_h))
         with profiling.stage("finish_b") as ps:
+            # weighted prediction stays refused, so no slice gates BDOF or
+            # DMVR off
             ly, lu, lv, recon = inter_frame.bpred_and_residual(
                 *dev, tuple(r0), tuple(r1), mv0, mv1, dirs, qp, s, bd,
-                cfg.wrap_around)
+                cfg.wrap_around, cfg.bdof, cfg.dmvr)
             # prediction and deblock both read the USED list, so the
             # entropy pass's unused-list replacements never reach them
             recon = self._deblock_inter(

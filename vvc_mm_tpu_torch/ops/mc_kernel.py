@@ -48,9 +48,13 @@ from . import cuda_lib
 LAUNCHES = {"mc_luma_positions": 0, "mc_chroma_positions": 0,
             "sad_block_positions": 0, "mc_block_positions": 0,
             "sad_luma_positions": 0, "sad_bilinear_positions": 0}
-# K3/K4 launches by block width and candidate count, e.g. "s=8 K=5"; K5's
-# by field count and subblock grid, e.g. "K=5 8x32"
-LAUNCHES_BY_SHAPE: dict[str, dict[str, int]] = {"sad_block_positions": {},
+# K1/K2 launches by subblock grid, e.g. "256x512" ("one row": a list of
+# subblocks, as projected DMVR's bilateral costs take); K3/K4's by block
+# width and candidate count, e.g. "s=8 K=5"; K5's by field count and
+# subblock grid, e.g. "K=5 8x32"
+LAUNCHES_BY_SHAPE: dict[str, dict[str, int]] = {"mc_luma_positions": {},
+                                                "mc_chroma_positions": {},
+                                                "sad_block_positions": {},
                                                 "mc_block_positions": {},
                                                 "sad_luma_positions": {}}
 
@@ -74,9 +78,9 @@ _KERNELS = {
 _BOUND: dict = {}
 
 
-# When a dict, the search kernels' wrappers keep the tensors of their last
-# launch in it, keyed by (kernel, positions shape, block width): a timing run
-# replays a kernel on the inputs the encoder really gave it.
+# When a dict, the kernels' wrappers keep the tensors of their last launch
+# in it, keyed by (kernel, positions shape, block width or None): a timing
+# run replays a kernel on the inputs the encoder really gave it.
 CAPTURED: dict | None = None
 
 
@@ -186,6 +190,13 @@ def _launch(name: str, s: int, ref_padded: torch.Tensor,
     _launch_kernel(name, ref_padded.device, ref_c.data_ptr(), hp, wp,
                    pos_c.data_ptr(), nsy, nsx, margin, bit_depth,
                    out.data_ptr())
+    shapes = LAUNCHES_BY_SHAPE[name]
+    key = f"{nsy}x{nsx}" if nsy > 1 else "one row"    # a list of subblocks
+    shapes[key] = shapes.get(key, 0) + 1
+    if CAPTURED is not None:
+        CAPTURED[(name, tuple(positions.shape), None)] = dict(
+            ref_padded=ref_c, positions=pos_c, orig=None, margin=margin,
+            s=None, bit_depth=bit_depth)
     return out
 
 
