@@ -9,7 +9,8 @@ Phases (any failure exits non-zero and prints no result line):
      (block-band MC), K5 (per-subblock SAD) and K6 (bilinear per-subblock
      SAD) against their plain PyTorch versions on the card, on random and
      on extreme (clamped) positions at the main paths' shapes, K1/K2 also
-     on coherent positions, at 256x128 and at 10 bit on 536x1000, K3/K4
+     on coherent positions, at 256x128, at 832x480 (the affine path's
+     grid) and at 10 bit on 536x1000, K3/K4
      also on diamond-like positions, at block widths 24 and 32, K = 1 and
      10 bit, K5/K6 also on coherent and diamond positions, at 10 bit on
      536x1000 and K = 1, all six on a plane whose rows are not 16-byte
@@ -97,6 +98,24 @@ Phases (any failure exits non-zero and prints no result line):
   8g. bench configuration 1 (`ai416x240_qp37_encode_fps`: AI, 416x240, 2
      frames): the card's stream equals the committed JAX stream byte for
      byte and decodes on the card with 2 of 2 MD5 OK;
+  8h. path C, configuration 2 with the random-access tool set (TMVP/HMVP,
+     AMVR, GPM, CIIP, BDOF, DMVR; `ra832x480_ctc_tools_qp37_17f`): the
+     card's stream equals the committed JAX stream byte for byte, both
+     decode on the card with 17 of 17 MD5 OK, no kernel launched; an
+     encode with the stage timers on and one under torch.profiler give the
+     stage shares and every picture's device operations and idle share;
+  8i. path D, affine (configuration 2's clip, LDP, 9 frames;
+     `ldp832x480_affine_qp37_9f`): the encode byte for byte with the JAX
+     stream, or within 0.1 dB and 2% of its sidecar with the IDR NAL
+     equal; the blocks whose affine parameters differ are counted; the
+     port's and the committed stream decode on the card with 9 of 9 MD5
+     OK; K1/K2 launches by shape printed, their last launches on the
+     (120, 208, 2) affine grid held to the plain versions (tolerance 0);
+     stage shares and device operations as in 8h;
+  8j. path E, the fade (frame i at gain 1 - 0.04 i) with weighted
+     prediction on P and B slices, BDOF, DMVR, GPM and CIIP
+     (`ra832x480_fade_wp_qp37_17f`): as 8h, and the count of slices that
+     carry weight tables;
   9. decision SADs (K6's path): frame_codec._sad_fields_bilin with
      exact=False and exact=True on the tensors captured from the 256x128
      encodes' diamond steps and on one full 2048x1024 grid: the bilinear
@@ -104,7 +123,8 @@ Phases (any failure exits non-zero and prints no result line):
      launched, and the blocks whose best candidate is the same under both
      filters are counted;
  10. time each kernel and its plain version on inputs captured from those
-     runs (K1 also on projected DMVR's row), after a launch floor (the
+     runs (K1 also on projected DMVR's row, K1/K2 also on path D's affine
+     grid), after a launch floor (the
      device time of a one-element fill), print the `kernels` line (K1-K5
      launches also by shape), then the
      result line.  Before it, K5's and K6's launch rule is timed against
@@ -137,7 +157,9 @@ from vvc_mm_tpu_torch.encoder.enclib import EncCfg, EncLib
 from vvc_mm_tpu_torch.lib360.projection import ERP
 from vvc_mm_tpu_torch.ops import cuda_lib, mc_kernel
 from vvc_mm_tpu_torch.utils import profiling
-from vvc_mm_tpu_torch.utils.content import psnr, realistic_sequence
+from vvc_mm_tpu_torch.decoder.inter_parser import decode_p_slice_affine
+from vvc_mm_tpu_torch.utils.content import (fade_sequence, psnr,
+                                            realistic_sequence)
 
 DATA = os.path.join(ROOT, "tests", "data", "torch_port")
 BIG = "erp2048x1024_ra_mm_qp37_5f"
@@ -145,6 +167,13 @@ SMALL = "erp256x128_ra_mm_qp37_5f"
 CONFIG2 = "ra832x480_qp37_17f"      # bench.py:106-108, the JAX encoder's
 CONFIG2_TOOLS = "ra832x480_bdof_dmvr_qp37_17f"  # the same, BDOF and DMVR on
 CONFIG1 = "ai416x240_qp37_2f"       # bench.py:101-102
+# configuration 2's clip and size with the classic random-access tools:
+# path C (TMVP/HMVP, AMVR, GPM, CIIP, BDOF, DMVR), path D (affine, LDP) and
+# path E (the fade with weighted prediction on P and B slices)
+PATH_C = "ra832x480_ctc_tools_qp37_17f"
+PATH_D = "ldp832x480_affine_qp37_9f"
+PATH_E = "ra832x480_fade_wp_qp37_17f"
+FADE_STEP = 0.04
 ALLMM = "erp2048x1024_ra_allmm_dmvr_qp37_5f"
 PSNR_TOL_DB = 0.1
 BITS_TOL = 1.02
@@ -385,6 +414,7 @@ def check_kernels(margin: int, dev) -> dict:
     ref_y = plane(h, w, margin)
     ref_c = plane(h // 2, w // 2, margin // 2)
     ref_small = plane(128, 256, margin)
+    ref_832 = plane(480, 832, margin)      # the affine path's grid
     # 10 bit, 536x1000: no block count a row is a multiple of a K3/K4 tile
     ref_10 = torch.as_tensor(rng.integers(0, 1024, (536 + 2 * margin,
                                                     1000 + 2 * margin),
@@ -396,6 +426,7 @@ def check_kernels(margin: int, dev) -> dict:
     # rows are not 16-byte aligned (the scalar-load path); chroma planes are
     # the luma planes subsampled; random, clamped and coherent positions
     for luma, bd, label in ((ref_y, 8, "2048x1024"), (ref_small, 8, "256x128"),
+                            (ref_832, 8, "832x480"),
                             (ref_10, 10, "536x1000"),
                             (ref_odd, 10, "536x1000 cut by 3 columns")):
         chroma = ref_c if luma is ref_y else luma[::2, ::2].contiguous()
@@ -942,6 +973,14 @@ def main() -> None:
     phase("8g. bench configuration 1 (AI, 416x240)")
     bench_configuration_1(path_launches)
 
+    # ---- 8h-8j. configuration 2 with the classic random-access tools
+    phase("8h. path C: the random-access tool set (832x480, GOP 16)")
+    tools_path("path C 832x480 RA tools", PATH_C, path_launches)
+    phase("8i. path D: affine (832x480, LDP)")
+    affine_cases = affine_path(path_launches, max_err)
+    phase("8j. path E: a fade with weighted prediction (832x480, GOP 16)")
+    tools_path("path E 832x480 fade WP", PATH_E, path_launches)
+
     # ---- 9. decision SADs through K6 (and K5 beside it)
     phase("9. decision SADs")
     positions = card_positions[-1].to(torch.int32).contiguous()
@@ -953,7 +992,7 @@ def main() -> None:
     # ---- 10. time the kernels on the main paths' inputs
     phase("10. kernel times")
     out = time_kernels(captured, full_grid, ref_pic, positions, dmvr_case,
-                       max_err, path_launches, card, w, h)
+                       affine_cases, max_err, path_launches, card, w, h)
     phase("done")
     print(json.dumps({"kernels": list(out.values())}))
     print(card)
@@ -1132,14 +1171,15 @@ def bench_configuration_2(path_launches: dict) -> None:
     decode_all_ok(label, CONFIG2, committed, sd["frames"])
 
 
-def check_classic_sidecar(stream: str, sd: dict, cfg: EncCfg) -> None:
-    """A classic stream's sidecar must name `cfg`."""
+def check_classic_sidecar(stream: str, sd: dict, cfg: EncCfg,
+                          fade: float | None = None) -> None:
+    """A classic stream's sidecar must name `cfg` (and the clip's fade)."""
     if (sd["width"], sd["height"], sd["qp"], sd["gop"], sd["gop_size"],
             sd["search_range"], sd["wrap_around"], sd["merge"],
             sd["models"]) != (cfg.width, cfg.height, cfg.qp, cfg.gop,
                               cfg.gop_size, cfg.search_range,
                               cfg.wrap_around, cfg.merge, "CLASSIC") \
-            or sidecar_tools(sd) != cfg_tools(cfg):
+            or sidecar_tools(sd) != cfg_tools(cfg, fade):
         fail(f"{stream}: the sidecar names another configuration")
 
 
@@ -1237,6 +1277,161 @@ def bench_configuration_2_tools(path_launches: dict) -> None:
     decode_all_ok(label, CONFIG2_TOOLS, committed, sd["frames"])
 
 
+# path -> (EncCfg fields beside configuration 2's, fade step of the clip)
+TOOLS_PATHS = {
+    PATH_C: (dict(gop="RA", gop_size=16, tmvp=True, amvr=True, gpm=True,
+                  ciip=True, bdof=True, dmvr=True), None),
+    PATH_D: (dict(gop="LDP", gop_size=4, affine=True), None),
+    PATH_E: (dict(gop="RA", gop_size=16, weighted_pred=True,
+                  weighted_bipred=True, bdof=True, dmvr=True, gpm=True,
+                  ciip=True), FADE_STEP),
+}
+
+
+def tools_stream(stream: str):
+    """A tools path's sidecar, committed bytes, EncCfg (checked against the
+    sidecar) and source clip (configuration 2's, faded where the path
+    says)."""
+    sd = json.load(open(os.path.join(DATA, stream + ".json")))
+    committed = open(os.path.join(DATA, stream + ".bin"), "rb").read()
+    fields, fade = TOOLS_PATHS[stream]
+    cfg = EncCfg(width=832, height=480, qp=37, search_range=24, **fields)
+    check_classic_sidecar(stream, sd, cfg, fade)
+    clip = realistic_sequence(cfg.width, cfg.height, sd["frames"])
+    if fade:
+        clip = fade_sequence(clip, fade)
+    return sd, committed, cfg, clip
+
+
+def tools_runs(label: str, cfg: EncCfg, clip: list, path_launches: dict,
+               record: dict, hold: bool) -> dict:
+    """One plain encode (held to `record` with `hold`, its own stream
+    decoded on the card), then one with the stage timers and one under the
+    profiler (same bytes): seconds, frames per second, stage shares and
+    device operations per picture by kind.  Returns the plain run."""
+    run = encode_run(label, cfg, clip, "plain")
+    path_launches[label] = run["launches"]
+    check_run(run, (), record, hold=hold)
+    staged = encode_run(label, cfg, clip, "stages")
+    traced = encode_run(label + " (traced)", cfg, clip, "trace")
+    for other in (staged, traced):
+        if other["data"] != run["data"]:
+            fail(f"{label}: another encode gave other bytes")
+    print_stages(staged)
+    print_device_work(traced, run)
+    return run
+
+
+def weight_tables(data: bytes) -> list[tuple[int, str, bool, bool]]:
+    """(POC, slice type, list-0 table, list-1 table) of every inter slice."""
+    nals = bs.read_annexb(data)
+    sps = SPS.read(bs.BitReader(nals[0].payload))
+    out = []
+    for n in nals:
+        if n.nal_type == bs.NAL_TRAIL:
+            h = SliceHeader.read(bs.BitReader(n.payload), sps)
+            out.append((h.poc, h.slice_type.name, h.wp_params is not None,
+                        h.wp_params_l1 is not None))
+    return out
+
+
+def tools_path(label: str, stream: str, path_launches: dict) -> None:
+    """Phases 8h (path C) and 8j (path E): no float math on these paths,
+    so the card's stream must be the committed JAX stream byte for byte,
+    and both decode on the card with every MD5 OK."""
+    sd, committed, cfg, clip = tools_stream(stream)
+    run = tools_runs(label, cfg, clip, path_launches,
+                     {p["poc"]: p for p in sd["pocs"]}, hold=False)
+    if any(run["launches"][k] for k in SOURCES):
+        fail(f"{label}: the classic path launched a kernel: "
+             f"{run['launches']}")
+    if cfg.weighted_pred or cfg.weighted_bipred:
+        tables = weight_tables(run["data"])
+        print(f"{label}: {sum(1 for t in tables if t[2] or t[3])} of "
+              f"{len(tables)} inter slices carry weight tables (BDOF, DMVR, "
+              f"GPM and CIIP off on those B slices): {tables}")
+    if not compare_nals(label, run["data"], committed):
+        fail(f"{label}: the card's stream differs from the JAX encoder's")
+    decode_all_ok(label, stream, committed, sd["frames"])
+
+
+def affine_parameters(data: bytes) -> list[tuple]:
+    """(mvs, affine flags, dmv) of each affine P slice of a stream."""
+    nals = bs.read_annexb(data)
+    sps = SPS.read(bs.BitReader(nals[0].payload))
+    s = sps.inter_block_size
+    out = []
+    for n in nals:
+        if n.nal_type == bs.NAL_TRAIL:
+            br = bs.BitReader(n.payload)
+            SliceHeader.read(br, sps)
+            out.append(decode_p_slice_affine(
+                bytes(n.payload[br._pos // 8:]), sps.height // s,
+                sps.width // s, s)[:3])
+    return out
+
+
+def affine_path(path_launches: dict, max_err: dict) -> dict:
+    """Phase 8i, path D: configuration 2's clip, LDP, 9 frames, affine on.
+    The search is float32 (einsum, batched solve), so the encode may
+    differ from the JAX encoder's: byte for byte is the aim, else within
+    0.1 dB and 2% of the sidecar with the IDR NAL equal; the blocks whose
+    affine parameters differ are counted either way.  The decoder is
+    integer only: the committed stream decodes with every MD5 OK.  K1 and
+    K2 run on the affine grid (search: K1 three times a picture; final
+    prediction: K1 once, K2 twice); their last launches there are held to
+    the plain versions (tolerance 0).  Returns those launches' inputs."""
+    sd, committed, cfg, clip = tools_stream(PATH_D)
+    label = "path D 832x480 LDP affine"
+    grid = (cfg.height // 4, cfg.width // 4, 2)
+    kept, mc_kernel.CAPTURED = mc_kernel.CAPTURED, {}
+    run = tools_runs(label, cfg, clip, path_launches,
+                     {p["poc"]: p for p in sd["pocs"]}, hold=True)
+    captured, mc_kernel.CAPTURED = mc_kernel.CAPTURED, kept
+    shapes = run["launches"]["by_shape"]
+    print(f"{label}: K1 launches by subblock grid "
+          f"{shapes['mc_luma_positions']}, K2 "
+          f"{shapes['mc_chroma_positions']} over "
+          f"{sum(1 for r in run['rows'] if r['kind'] == 'P')} affine P "
+          "pictures")
+    key = f"{grid[0]}x{grid[1]}"
+    if not shapes["mc_luma_positions"].get(key) or \
+            not shapes["mc_chroma_positions"].get(key):
+        fail(f"{label}: K1/K2 were not launched on the {key} affine grid")
+    cases = {}
+    for name in ("mc_luma_positions", "mc_chroma_positions"):
+        c = captured.get((name, grid, None))
+        if c is None:
+            fail(f"{label}: no {name} launch on {grid} was captured")
+        args = (c["ref_padded"], c["positions"], c["margin"],
+                c["bit_depth"])
+        err = int((getattr(mc_kernel, name)(*args)
+                   - getattr(mc_kernel, name + "_plain")(*args)).abs().max())
+        torch.cuda.synchronize()
+        print(f"{name} on the affine grid {grid}: max |kernel - plain| = "
+              f"{err} (tolerance 0)")
+        max_err[name] = max(max_err[name], err)
+        if err:
+            fail(f"{name} differs from its plain version on the affine "
+                 "grid")
+        cases[name] = c
+    same = compare_nals(label, run["data"], committed)
+    ours, theirs = affine_parameters(run["data"]), \
+        affine_parameters(committed)
+    off = sum(int(((a[0] != b[0]).any(-1) | (a[1] != b[1])
+                   | (a[2] != b[2]).any(-1)).sum())
+              for a, b in zip(ours, theirs))
+    print(f"{label}: affine blocks {[int(a[1].sum()) for a in ours]} by P "
+          f"picture (JAX encoder {[int(b[1].sum()) for b in theirs]}); "
+          f"blocks whose (mv, affine flag, dmv) differ from the JAX "
+          f"encoder's: {off} of {sum(a[1].size for a in ours)}")
+    if not same and not compare_nals(label, run["data"], committed,
+                                     only=bs.NAL_IDR):
+        fail(f"{label}: the IDR NAL differs from the JAX encoder's")
+    decode_all_ok(label, PATH_D, committed, sd["frames"])
+    return cases
+
+
 def bench_configuration_1(path_launches: dict) -> None:
     """Phase 8g: `ai416x240_qp37_encode_fps` (bench.py:101-102), AI, 2
     frames, against the JAX encoder's stream byte for byte."""
@@ -1295,15 +1490,22 @@ def bench_stream(name: str, stream: str):
                                                   sd["frames"])
 
 
+# EncCfg tool fields a sidecar records beside the models
+TOOL_FIELDS = ("dmvr", "bdof", "tmvp", "amvr", "gpm", "ciip", "affine",
+               "weighted_pred", "weighted_bipred")
+
+
 def sidecar_tools(sd: dict) -> tuple:
-    """(t3d, tan, dmvr, bdof) a sidecar records; sidecars written before
-    those fields existed name configurations with all four off."""
-    return tuple(bool(sd.get(k, False)) for k in ("t3d", "tan", "dmvr",
-                                                   "bdof"))
+    """(t3d, tan, the TOOL_FIELDS, fade step) a sidecar records; sidecars
+    written before those fields existed name configurations with them off
+    (and no fade)."""
+    return tuple(bool(sd.get(k, False)) for k in ("t3d", "tan")
+                 + TOOL_FIELDS) + (sd.get("fade"),)
 
 
-def cfg_tools(cfg: EncCfg) -> tuple:
-    return (cfg.mm.t3d, cfg.mm.tan, cfg.dmvr, cfg.bdof)
+def cfg_tools(cfg: EncCfg, fade: float | None = None) -> tuple:
+    return (cfg.mm.t3d, cfg.mm.tan) + tuple(
+        getattr(cfg, k) for k in TOOL_FIELDS) + (fade,)
 
 
 def decode_committed(label: str, stream: str, sd: dict, data: bytes,
@@ -1487,8 +1689,8 @@ def launch_variants(cases: list, card: str) -> list:
 
 
 def time_kernels(captured: dict, full_grid: dict, ref_pic, positions,
-                 dmvr_case: dict, max_err: dict, path_launches: dict,
-                 card: str, w: int, h: int) -> dict:
+                 dmvr_case: dict, affine_cases: dict, max_err: dict,
+                 path_launches: dict, card: str, w: int, h: int) -> dict:
     """Phase 10: the `kernels` records, by kernel name."""
     timed_cases = []       # (kernel, label, kernel call, plain, bound)
     for name, plane, s, taps, m in (
@@ -1510,6 +1712,18 @@ def time_kernels(captured: dict, full_grid: dict, ref_pic, positions,
         lambda: mc_kernel.mc_luma_positions(*dmvr_args),
         lambda: mc_kernel.mc_luma_positions_plain(*dmvr_args),
         mc_bound(dmvr_args[0], dmvr_args[1], dmvr_args[2], 4, 8)))
+    # K1/K2 on path D's affine grid (the last final prediction's inputs)
+    for name, (s_sub, taps) in (("mc_luma_positions", (4, 8)),
+                                ("mc_chroma_positions", (2, 4))):
+        c = affine_cases[name]
+        args = (c["ref_padded"], c["positions"], c["margin"],
+                c["bit_depth"])
+        timed_cases.append((
+            name, f"{c['positions'].shape[0]}x{c['positions'].shape[1]} "
+            "subblocks (affine, 832x480)",
+            lambda fn=getattr(mc_kernel, name), a=args: fn(*a),
+            lambda fn=getattr(mc_kernel, name + "_plain"), a=args: fn(*a),
+            mc_bound(args[0], args[1], args[2], s_sub, taps)))
     # K3: its most launched shapes on the headline sequence first (s=16, K
     # = 4 and 5), then s=8 K=5 and s=16 K=6
     wanted = (("sad_block_positions", (4, h // 16, w // 16, 2), 16),

@@ -35,15 +35,30 @@ default, `bench.realistic_sequence` content:
                             (the random-access common test conditions turn
                             both on);
   ai416x240_qp37_2f         bench configuration 1 (`bench.py:101-102`,
-                            `ai416x240_qp37_encode_fps`): AI, 2 frames.
+                            `ai416x240_qp37_encode_fps`): AI, 2 frames;
+  ra192x96_ctc_tools_qp37_9f    the random-access tool set: RA, GOP 4, 9
+                            frames, TMVP/HMVP, AMVR, GPM, CIIP, BDOF and
+                            DMVR (the P anchors take the two-reference
+                            merge path with TMVP and AMVR);
+  ra832x480_ctc_tools_qp37_17f  bench configuration 2 with that tool set;
+  ldp192x96_affine_qp37_4f  LDP, 4 frames, affine (three affine P
+                            pictures);
+  ldp832x480_affine_qp37_9f bench configuration 2's clip, LDP, 9 frames,
+                            affine;
+  ra192x96_fade_wp_qp37_9f  a fade (`fade_sequence`, step 0.04) of the
+                            clip, RA, GOP 4, 9 frames, weighted prediction
+                            on P and B slices with BDOF, DMVR, GPM and CIIP
+                            (off on the slices that carry weights);
+  ra832x480_fade_wp_qp37_17f    the same at bench configuration 2's size,
+                            GOP 16, 17 frames.
 
-Each gets a JSON sidecar with every POC's MD5 and the encoder's Y/U/V PSNR
-and bits.
+Each gets a JSON sidecar with every POC's MD5, the encoder's Y/U/V PSNR
+and bits, and the tools it turns on.
 
     python tests/make_torch_port_streams.py                   # all streams
     python tests/make_torch_port_streams.py 256x128           # one size
     python tests/make_torch_port_streams.py erp256x128_ra_mpa_qp37_5f
-    python tests/make_torch_port_streams.py classic           # the seven
+    python tests/make_torch_port_streams.py classic           # the 13
 
 This script imports the JAX package; pytest does not collect it (its name
 does not start with `test_`).
@@ -89,6 +104,12 @@ def stream_name(w: int, h: int, config: str = "mm") -> str:
 STREAMS = {stream_name(*SIZES[size], config): (config, size)
            for config, (_, _, _, sizes) in CONFIGS.items()
            for size in sizes}
+# the random-access tool set of the classic path (VTM's CTC turns these on)
+CTC_TOOLS = dict(tmvp=True, amvr=True, gpm=True, ciip=True, bdof=True,
+                 dmvr=True)
+# weighted prediction on P and B slices beside the B tools it gates per slice
+WP_TOOLS = dict(weighted_pred=True, weighted_bipred=True, bdof=True,
+                dmvr=True, gpm=True, ciip=True)
 # classic stream -> (width, height, gop, gop_size, frames, merge, tools)
 CLASSIC = {
     "ra192x96_qp37_9f": (192, 96, "RA", 4, 9, True, {}),
@@ -100,7 +121,21 @@ CLASSIC = {
     "ra832x480_bdof_dmvr_qp37_17f": (832, 480, "RA", 16, 17, True,
                                      dict(bdof=True, dmvr=True)),
     "ai416x240_qp37_2f": (416, 240, "AI", 8, 2, True, {}),
+    "ra192x96_ctc_tools_qp37_9f": (192, 96, "RA", 4, 9, True, CTC_TOOLS),
+    "ra832x480_ctc_tools_qp37_17f": (832, 480, "RA", 16, 17, True,
+                                     CTC_TOOLS),
+    "ldp192x96_affine_qp37_4f": (192, 96, "LDP", 4, 4, True,
+                                 dict(affine=True)),
+    "ldp832x480_affine_qp37_9f": (832, 480, "LDP", 4, 9, True,
+                                  dict(affine=True)),
+    "ra192x96_fade_wp_qp37_9f": (192, 96, "RA", 4, 9, True, WP_TOOLS),
+    "ra832x480_fade_wp_qp37_17f": (832, 480, "RA", 16, 17, True, WP_TOOLS),
 }
+# streams whose clip is the fade of `bench.realistic_sequence` at this step
+FADE = {"ra192x96_fade_wp_qp37_9f": 0.04, "ra832x480_fade_wp_qp37_17f": 0.04}
+# the EncCfg tool fields a classic sidecar records
+SIDECAR_TOOLS = ("dmvr", "bdof", "tmvp", "amvr", "gpm", "ciip", "affine",
+                 "weighted_pred", "weighted_bipred")
 
 
 def models_label(mm: dict) -> str:
@@ -177,6 +212,10 @@ def make_classic(name: str) -> dict:
         cfg = EncCfg(width=w, height=h, qp=QP, gop=gop, gop_size=gop_size,
                      search_range=24, merge=merge, **tools)
     frames = realistic_sequence(w, h, n)
+    fade = FADE.get(name)
+    if fade:
+        from vvc_mm_tpu_torch.utils.content import fade_sequence
+        frames = fade_sequence(frames, fade)
     enc = EncLib(cfg)
     t0 = time.perf_counter()
     data = enc.encode_sequence(frames)
@@ -189,8 +228,10 @@ def make_classic(name: str) -> dict:
                 merge=merge, content="bench.realistic_sequence(seed=11)",
                 bytes=len(data), pocs=_sidecar_pocs(enc.results))
     if tools:
-        side.update(t3d=False, tan=False, dmvr=bool(tools.get("dmvr")),
-                    bdof=bool(tools.get("bdof")))
+        side.update(t3d=False, tan=False)
+        side.update({k: bool(tools.get(k)) for k in SIDECAR_TOOLS})
+    if fade:
+        side.update(fade=fade)
     with open(os.path.join(OUT_DIR, name + ".json"), "w") as f:
         json.dump(side, f, indent=1)
         f.write("\n")

@@ -479,34 +479,38 @@ def test_candidate_lists_equal_jax(grids, mer):
 
 
 def test_unported_inter_tools_raise(pics):
-    """TMVP/HMVP, AMVR, GPM/CIIP and weighted prediction name ROADMAP
-    queue 1 item 8; BDOF and DMVR are accepted."""
+    """Scaling lists name ROADMAP queue 1 item 9 and MCTS clamps item 11;
+    the tools of item 8 (TMVP/HMVP, AMVR, GPM/CIIP, weighted prediction,
+    BDOF, DMVR) are accepted by the writers, the parsers and the frame
+    functions (tests/test_torch_tmvp_amvr.py and test_torch_gpm_wp.py hold
+    them to JAX)."""
     lev = np.zeros((NBY, NBX, S, S), np.int32)
     levc = np.zeros((NBY, NBX, S // 2, S // 2), np.int32)
     mvs = np.zeros((NBY, NBX, 2), np.int64)
     z = np.zeros((NBY, NBX), np.int32)
-    item8 = "ROADMAP queue 1 item 8$"
-    for call in (
-            lambda: inter_coder.encode_p_slice(mvs, lev, levc, levc,
-                                               use_tmvp=True),
-            lambda: inter_coder.encode_p_slice(mvs, lev, levc, levc, imv=z),
-            lambda: inter_coder.encode_b_slice(mvs, mvs, z, lev, levc, levc,
-                                               use_gpm=True),
-            lambda: inter_parser.decode_p_slice(b"", NBY, NBX, S,
-                                                use_amvr=True),
-            lambda: inter_coder.select_merge_p(mvs, z, mvs[None], z[None],
-                                               None, 1.0, True)):
-        with pytest.raises(NotImplementedError, match=item8):
-            call()
     o, r0, r1 = _tt(pics["orig"]), tuple(_tt(pics["ref0"])), \
         tuple(_tt(pics["ref1"]))
     m, d = _t(mvs), _t(z)
-    for kw, item in ((dict(gpm=True), "8"), (dict(ciip=True), "8"),
-                     (dict(wp0=torch.zeros(3, 2)), "8")):
+    for call, item in (
+            (lambda: tif.finish_p_frame(*o, *r0, m, QP, S, BD, False,
+                                        scaling=(16,) * 64), "9"),
+            (lambda: tif.reconstruct_b_frame(m, m, d, _t(lev), _t(levc),
+                                             _t(levc), r0, r1, QP, S, BD,
+                                             scaling=(16,) * 64), "9"),
+            (lambda: tif.search_p_frame(o[0], r0[0], m, QP, S, BD, SR,
+                                        False, mcts=(2, 1)), "11")):
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP queue 1 item {item}$"):
-            tif.bpred_and_residual(*o, r0, r1, m, m, d, QP, S, BD, False,
-                                   **kw)
-    for kw in (dict(bdof=True), dict(dmvr=True)):
+            call()
+    assert isinstance(inter_coder.encode_p_slice(mvs, lev, levc, levc,
+                                                 use_tmvp=True, imv=z), bytes)
+    assert isinstance(inter_coder.encode_b_slice(mvs, mvs, z, lev, levc,
+                                                 levc, use_gpm=True)[0],
+                      bytes)
+    assert len(inter_coder.select_merge_p(mvs, z, mvs[None], z[None], None,
+                                          1.0, True)) == 3
+    for kw in (dict(bdof=True), dict(dmvr=True), dict(gpm=True),
+               dict(ciip=True), dict(wp0=torch.full((3, 2), 64),
+                                     wp1=torch.full((3, 2), 64))):
         assert len(tif.bpred_and_residual(*o, r0, r1, m, m, d, QP, S, BD,
                                           False, **kw)) == 4

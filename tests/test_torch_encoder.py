@@ -211,18 +211,15 @@ def test_summary_and_cascade(runs):
 # each refusal names the ROADMAP queue 1 item that ports it; the
 # accepted configurations are what items 7 and 8 ported (GED with
 # epipoles, MM-MVP, the flat P path, B pictures without merge, 3DT, TAN,
-# projected DMVR, and DMVR and BDOF on the classic path)
-REFUSED = {"affine": (dict(affine=True), "8"),
-           "wpp": (dict(wpp=True), "11"),
+# projected DMVR; on the classic path DMVR, BDOF and the random-access
+# tools of 8b: TMVP/HMVP, AMVR, GPM, CIIP, weighted prediction and affine;
+# under a multi-model configuration affine is carried and ignored, as in
+# the JAX package)
+REFUSED = {"wpp": (dict(wpp=True), "11"),
            "rate_control": (dict(target_bitrate_kbps=500), "11"),
            "scaling_list": (dict(scaling_list=(16,) * 64), "9"),
-           "classic_tmvp": (dict(mm=MMConfig(), qt_depth=0, tmvp=True), "8"),
-           "classic_affine": (dict(mm=MMConfig(), qt_depth=0, affine=True),
-                              "8"),
-           "classic_qtree": (dict(mm=MMConfig(), qt_depth=1), "11"),
-           "gpm": (dict(mm=MMConfig(), qt_depth=0, gpm=True), "8"),
-           "weighted_bipred": (dict(mm=MMConfig(), qt_depth=0,
-                                    weighted_bipred=True), "8")}
+           "classic_qtree": (dict(mm=MMConfig(), qt_depth=1), "11")}
+CLASSIC = dict(mm=MMConfig(), qt_depth=0)
 ACCEPTED = {
     "fullmm": dict(mm=MMConfig(mpa=True, ged=True, rot=True, mmmvp=True),
                    epipoles=[(1, 0, 0.0, 0.0, 1.0)], qt_depth=0),
@@ -230,8 +227,15 @@ ACCEPTED = {
     "t3d": dict(mm=MMConfig(mpa=True, t3d=True)),
     "tan": dict(mm=MMConfig(mpa=True, ged=True, tan=True)),
     "projected_dmvr": dict(dmvr=True),
-    "classic_bdof_dmvr": dict(mm=MMConfig(), qt_depth=0, bdof=True,
-                              dmvr=True)}
+    "classic_bdof_dmvr": dict(CLASSIC, bdof=True, dmvr=True),
+    "affine": dict(affine=True),
+    "classic_tmvp": dict(CLASSIC, tmvp=True),
+    "classic_affine": dict(CLASSIC, affine=True),
+    "gpm": dict(CLASSIC, gpm=True),
+    "weighted_bipred": dict(CLASSIC, weighted_bipred=True),
+    "amvr": dict(CLASSIC, amvr=True),
+    "ciip": dict(CLASSIC, ciip=True),
+    "weighted_pred": dict(CLASSIC, weighted_pred=True)}
 CASES = (["no_card"] + [f"refused-{k}" for k in REFUSED]
          + [f"accepted-{k}" for k in ACCEPTED])
 
@@ -258,4 +262,5 @@ def test_unported_branches_raise(case):
     enc = EncLib(cfg, device="cpu")
     assert enc.mvp_conv is not None or not cfg.mm.mmmvp
     assert enc.sps.mm.active_models() == cfg.mm.active_models()
-    assert (enc.sps.dmvr, enc.sps.bdof) == (cfg.dmvr, cfg.bdof)
+    for tool in ("dmvr", "bdof", "affine", "tmvp", "amvr", "gpm", "ciip"):
+        assert getattr(enc.sps, tool) == getattr(cfg, tool), tool

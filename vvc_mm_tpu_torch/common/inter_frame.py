@@ -9,19 +9,21 @@ and reconstructed at once.  Here are the helpers the multi-model paths
 share (reference padding with ERP wrap-around, the plane <-> block-batch
 reshapes, the residual pass) and the classic (one MV per block) path:
 
-  P   search_p_frame / search_p_frame_2ref (ME + the merge candidate
-      fields' SADs) -> host selection -> finish_p_frame(_2ref); the
-      decoder's reconstruct_p_frame(_2ref) shares the math; encode_p_frame
-      is the one-shot program of merge off;
-  B   search_b_frame(_merge) (per-list ME + uni/bi decision) -> host
-      selection -> bpred_and_residual; the decoder's reconstruct_b_frame
-      shares the math.
+  P   search_p_frame / search_p_frame_2ref (ME, the AMVR decision, the
+      merge candidate fields' SADs, the co-located TMVP field among them)
+      -> host selection -> finish_p_frame(_2ref); the decoder's
+      reconstruct_p_frame(_2ref) shares the math; encode_p_frame is the
+      one-shot program of merge off;
+  B   search_b_frame(_merge) (per-list ME + the uni/bi/GPM/CIIP decision)
+      -> host selection -> bpred_and_residual; the decoder's
+      reconstruct_b_frame shares the math.
 
 Encoder and decoder share the prediction, so the reconstructions agree
 bit for bit; that includes the signalling-free refinements of bi blocks,
-DMVR (common/dmvr.py) and BDOF (common/bdof.py).  GPM, CIIP, weighted
-prediction and AMVR (ROADMAP queue 1 item 8), MCTS clamps (item 11) and
-scaling lists (item 9) raise NotImplementedError.
+DMVR (common/dmvr.py) and BDOF (common/bdof.py), the GPM and CIIP blends
+(common/gpm.py) and explicit weighted prediction (`apply_wp`, the weighted
+bi combine).  MCTS clamps (ROADMAP queue 1 item 11) and scaling lists
+(item 9) raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -111,16 +113,10 @@ def _mc_planes_internal(ref_y, ref_u, ref_v, mvs, s: int, bit_depth: int,
 
 
 # Inter tools the port does not carry yet: flag -> (what, ROADMAP queue 1
-# item).  Every classic frame function, writer, parser and the decoder's
-# classic branch refuses through `refuse`.
+# item).  Every classic frame function and the decoder's classic branch
+# refuses through `refuse`.
 _UNPORTED_TOOLS = {
     "qtree": ("classic quadtree", "11"),
-    "affine": ("affine motion", "8"),
-    "tmvp": ("TMVP/HMVP", "8"),
-    "amvr": ("AMVR", "8"),
-    "gpm": ("GPM", "8"),
-    "ciip": ("CIIP", "8"),
-    "wp": ("weighted prediction", "8"),
     "scaling": ("scaling lists", "9"),
     "mcts": ("MCTS tiles", "11"),
 }
@@ -135,12 +131,93 @@ def refuse(**flags) -> None:
             raise NotImplementedError(f"{what}: ROADMAP queue 1 item {item}")
 
 
-def _combine_bi(int0, int1, dirs, nby, nbx, bit_depth):
-    """Per-block uni/bi finalize: dirs (nby, nbx) 0=L0, 1=L1, 2=BI."""
+AMVR_SHIFTS = (2, 4, 6)    # 1/16-pel grid shifts: quarter-, full-, 4-pel
+                           # (reference: IMV modes 0/1/2, TypeDef.h IMV_FPEL
+                           # /IMV_4PEL; EncCu.cpp:775-782 IMV mode loop)
+
+
+def round_mv_amvr(mv, shift: int):
+    """Round a 1/16-pel MV (int array, tensor or scalar) to the AMVR grid —
+    round half away from zero, shared enc/dec (reference:
+    Mv::roundToAmvrSignalPrec via roundAffinePrecInternal2Amvr)."""
+    if shift == 0:
+        return mv
+    off = 1 << (shift - 1)
+    neg = (mv < 0)
+    if torch.is_tensor(mv):
+        neg = neg.to(mv.dtype)
+    return ((mv + off - neg) >> shift) << shift
+
+
+def amvr_decide(orig_y, ref_y_padded, mvs, block_size: int, bit_depth: int,
+                lam_bits_x16: int):
+    """Per-block adaptive-MV-resolution decision (reference: the EncCu IMV
+    mode loop, EncCu.cpp:775-782 / xCheckRDCostInterIMV:4346): the three
+    roundings of every block's MV are motion-compensated and SAD-scored at
+    once, and the first minimum of SAD + lambda*mvd-bits picks the mode.
+
+    Returns (imv (nby,nbx) int32 in {0,1,2}, mvs_rounded (nby,nbx,2))."""
+    s = block_size
+    h, w = orig_y.shape
+    nby, nbx = h // s, w // s
+    yb, xb = _block_coords(nby, nbx, s, orig_y.device)
+    ob = _to_blocks(orig_y, s)
+    cands, costs = [], []
+    for m, sh in enumerate(AMVR_SHIFTS):
+        mvr = round_mv_amvr(mvs.to(torch.int32), sh)
+        pred = interp.finalize_uni(
+            interp.mc_luma(ref_y_padded, mvr.reshape(-1, 2), yb, xb, s, s,
+                           MC_MARGIN, bit_depth), bit_depth)
+        sad = (pred - ob).abs().sum(dim=(1, 2)).to(torch.int32).reshape(
+            nby, nbx)
+        # rate proxy: EG-ish bit length of each mvd component at the
+        # signalled precision + the imv flag bins (float32, as in JAX)
+        mag = (mvr >> sh).abs()
+        bits = (2 * torch.log2(1.0 + mag.to(torch.float32)).sum(-1)
+                + 2.0 + (1 if m == 0 else 2))
+        costs.append(sad + ((bits * lam_bits_x16).to(torch.int32) >> 4))
+        cands.append(mvr)
+    imv = first_argmin(torch.stack(costs), 0).to(torch.int32)
+    mv_sel = torch.stack(cands).gather(
+        0, imv.long()[None, :, :, None].expand(1, nby, nbx, 2))[0]
+    return imv, mv_sel
+
+
+def apply_wp(plane: torch.Tensor, w, o, bit_depth: int) -> torch.Tensor:
+    """Explicit weighted prediction, log2Wd = 6 (reference:
+    WeightPrediction.cpp — pred' = clip(((pred*w + 32) >> 6) + o))."""
+    return torch.clamp(((plane * w + 32) >> 6) + o, 0, (1 << bit_depth) - 1)
+
+
+def _wp_planes(pred, wp, bit_depth: int):
+    """apply_wp over (Y, U, V) with a (3, 2) table of (w, o); a None
+    table leaves the prediction as it is."""
+    if wp is None:
+        return pred
+    return tuple(apply_wp(p, wp[i, 0], wp[i, 1], bit_depth)
+                 for i, p in enumerate(pred))
+
+
+def _combine_bi(int0, int1, dirs, nby, nbx, bit_depth, wp0=None, wp1=None,
+                plane: int = 0):
+    """Per-block uni/bi finalize: dirs (nby, nbx) 0=L0, 1=L1, 2=BI.
+
+    With per-list explicit weights wp0/wp1 ((3, 2) int (w, o) per plane,
+    log2Wd 6 — reference: WeightPrediction.cpp xWeightedPredictionBi),
+    uni blocks apply their list's weight and bi blocks combine as
+    ((p0*w0 + p1*w1 + 64) >> 7) + ((o0 + o1 + 1) >> 1)."""
     d = dirs.reshape(-1)[:, None, None]
     uni0 = interp.finalize_uni(int0, bit_depth)
     uni1 = interp.finalize_uni(int1, bit_depth)
-    bi = interp.finalize_bi(int0, int1, bit_depth)
+    if wp0 is not None:
+        w0, o0 = wp0[plane, 0], wp0[plane, 1]
+        w1, o1 = wp1[plane, 0], wp1[plane, 1]
+        bi = torch.clamp(((uni0 * w0 + uni1 * w1 + 64) >> 7)
+                         + ((o0 + o1 + 1) >> 1), 0, (1 << bit_depth) - 1)
+        uni0 = apply_wp(uni0, w0, o0, bit_depth)
+        uni1 = apply_wp(uni1, w1, o1, bit_depth)
+    else:
+        bi = interp.finalize_bi(int0, int1, bit_depth)
     sel = torch.where(d == 2, bi, torch.where(d == 1, uni1, uni0))
     return _from_blocks(sel, nby, nbx)
 
@@ -157,13 +234,44 @@ def _luma_combine(int0, int1, dirs, nby, nbx, bit_depth, bdof: bool):
 def _pred_planes_ext(i0, i1, dirs, gpm_modes, nby, nbx, bit_depth,
                      bdof: bool, use_gpm: bool, use_ciip: bool,
                      wp0=None, wp1=None):
-    """All-plane prediction combine, dirs 0=L0, 1=L1, 2=BI (the GPM, CIIP
-    and weighted arms: ROADMAP queue 1 item 8)."""
-    refuse(gpm=use_gpm, ciip=use_ciip,
-           wp=wp0 is not None or wp1 is not None)
-    return (_luma_combine(i0[0], i1[0], dirs, nby, nbx, bit_depth, bdof),
-            _combine_bi(i0[1], i1[1], dirs, nby, nbx, bit_depth),
-            _combine_bi(i0[2], i1[2], dirs, nby, nbx, bit_depth))
+    """All-plane prediction combine incl. the GPM / CIIP block modes.
+
+    dirs: 0=L0, 1=L1, 2=BI, 3=GPM (per-block mask in gpm_modes), 4=CIIP
+    (bi inter + planar-from-prediction; reference: GEO weightedGeoBlk and
+    the CIIP blend, InterPrediction.cpp / DecCu.cpp).  GPM/CIIP overlay the
+    base uni/bi combine, so with both tools off this is the plain path.
+    With explicit weights (wp0/wp1) every block takes the weighted
+    combine: the caller turns BDOF, GPM and CIIP off on such slices."""
+    from . import gpm as gpm_mod
+    d = dirs.reshape(-1)[:, None, None]
+    # CIIP's inter component is the bi average
+    d_base = torch.where(dirs == 4, 2, dirs) if use_ciip else dirs
+    if wp0 is not None:
+        return tuple(_combine_bi(i0[p], i1[p], d_base, nby, nbx, bit_depth,
+                                 wp0, wp1, p) for p in range(3))
+    pred = [_luma_combine(i0[0], i1[0], d_base, nby, nbx, bit_depth, bdof),
+            _combine_bi(i0[1], i1[1], d_base, nby, nbx, bit_depth),
+            _combine_bi(i0[2], i1[2], d_base, nby, nbx, bit_depth)]
+    s = pred[0].shape[0] // nby
+    sizes = (s, s // 2, s // 2)
+    if use_gpm:
+        g = (gpm_modes.reshape(-1) if gpm_modes is not None else
+             torch.zeros(nby * nbx, dtype=torch.int32, device=dirs.device))
+        blends = [gpm_mod.gpm_blend if p == 0 else gpm_mod.gpm_blend_chroma
+                  for p in range(3)]
+        for p in range(3):
+            b = blends[p](interp.finalize_uni(i0[p], bit_depth),
+                          interp.finalize_uni(i1[p], bit_depth), g)
+            pred[p] = _from_blocks(
+                torch.where(d == 3, b, _to_blocks(pred[p], sizes[p])),
+                nby, nbx)
+    if use_ciip:
+        for p in range(3):
+            c = gpm_mod.ciip_from_pred(pred[p], sizes[p])
+            pred[p] = _from_blocks(
+                torch.where(d == 4, c, _to_blocks(pred[p], sizes[p])),
+                nby, nbx)
+    return tuple(pred)
 
 
 def _residual_pass(orig: torch.Tensor, pred: torch.Tensor, s: int, qp: int,
@@ -238,17 +346,25 @@ def encode_p_frame(orig_y, orig_u, orig_v, ref_y, ref_u, ref_v, qp: int,
                    block_size: int = 16, bit_depth: int = 8,
                    search_range: int = 24, wrap_around: bool = False,
                    wp=None, scaling=None, amvr: bool = False, mcts=None):
-    """Full-frame P encode: batched ME -> MC -> residual -> recon, the
-    one-shot program of the merge-off path.  Returns (mvs (nby,nbx,2)
-    1/16-pel, lev_y, lev_u, lev_v, recon dict)."""
-    refuse(wp=wp is not None, scaling=scaling, amvr=amvr, mcts=mcts)
+    """Full-frame P encode: batched ME (+ the AMVR decision) -> MC (+
+    explicit weights `wp`, (3, 2) (w, o) per plane) -> residual -> recon,
+    the one-shot program of the merge-off path.  Returns (mvs (nby,nbx,2)
+    1/16-pel, lev_y, lev_u, lev_v, recon dict); with `amvr`, (mvs, imv,
+    lev_y, lev_u, lev_v, recon), mvs already rounded to each block's
+    signalled precision."""
+    refuse(scaling=scaling, mcts=mcts)
     s = block_size
+    lam_bits_x16 = _lambda_bits_x16(qp)
     ry_pad = pad_ref(ref_y, MC_MARGIN, wrap_around)
-    mvs, _ = _me(orig_y, ry_pad, s, search_range, _lambda_bits_x16(qp),
-                 bit_depth)
-    pred = mc_predict(ref_y, ref_u, ref_v, mvs, s, bit_depth, wrap_around)
-    return (mvs,) + _residual_planes((orig_y, orig_u, orig_v), pred, s, qp,
-                                     bit_depth)
+    mvs, _ = _me(orig_y, ry_pad, s, search_range, lam_bits_x16, bit_depth)
+    imv = None
+    if amvr:
+        imv, mvs = amvr_decide(orig_y, ry_pad, mvs, s, bit_depth,
+                               lam_bits_x16)
+    pred = _wp_planes(mc_predict(ref_y, ref_u, ref_v, mvs, s, bit_depth,
+                                 wrap_around), wp, bit_depth)
+    out = _residual_planes((orig_y, orig_u, orig_v), pred, s, qp, bit_depth)
+    return ((mvs, imv) if amvr else (mvs,)) + out
 
 
 N_CAND_FIELDS = 5     # left, above, above-right, zero, TMVP
@@ -284,20 +400,26 @@ def _field_sad(orig_y, ref_y_padded, mvs, s: int, bit_depth: int):
 def search_p_frame(orig_y, ref_y, col_mvs, qp: int, block_size: int,
                    bit_depth: int, search_range: int, wrap_around: bool,
                    amvr: bool = False, mcts=None):
-    """Merge-aware P search: hierarchical ME + fractional refine, then ONE
-    batched MC+SAD pass per candidate field (the left, above and
-    above-right neighbours' MVs, zero, and the co-located `col_mvs`,
-    zeros while TMVP is off).
+    """Merge-aware P search: hierarchical ME + fractional refine (+ the
+    AMVR rounding), then ONE batched MC+SAD pass per candidate field (the
+    left, above and above-right neighbours' MVs, zero, and the co-located
+    TMVP field `col_mvs`, zeros when absent).
 
     Returns (mvs, imv, sad_me, cand_mvs (K,nby,nbx,2), cand_sads (K,...))."""
-    refuse(amvr=amvr, mcts=mcts)
+    refuse(mcts=mcts)
     s = block_size
     h, w = orig_y.shape
+    lam_bits_x16 = _lambda_bits_x16(qp)
     ry_pad = pad_ref(ref_y, MC_MARGIN, wrap_around)
-    mvs, sad_me = _me(orig_y, ry_pad, s, search_range, _lambda_bits_x16(qp),
+    mvs, sad_me = _me(orig_y, ry_pad, s, search_range, lam_bits_x16,
                       bit_depth)
     imv = torch.zeros((h // s, w // s), dtype=torch.int32,
                       device=orig_y.device)
+    if amvr:
+        imv, mvs = amvr_decide(orig_y, ry_pad, mvs, s, bit_depth,
+                               lam_bits_x16)
+        # post-rounding SAD so merge-vs-AMVP costs compare like for like
+        sad_me = _field_sad(orig_y, ry_pad, mvs, s, bit_depth)
     cand_fields = [
         _shift_mv_field(mvs, 0, -1),       # left neighbour's MV
         _shift_mv_field(mvs, -1, 0),       # above
@@ -320,22 +442,28 @@ def search_p_frame_2ref(orig_y, ref0_y, ref1_y, col_mvs, qp: int,
 
     Returns (ref_idx, mvs, imv, sad_sel, cand_ref (K,..), cand_mvs,
     cand_sads)."""
-    refuse(amvr=amvr, mcts=mcts)
+    refuse(mcts=mcts)
     s = block_size
     lam_bits_x16 = _lambda_bits_x16(qp)
-    pads, mvs_r, sads_r = [], [], []
+    pads, mvs_r, sads_r, imvs_r = [], [], [], []
     for ry in (ref0_y, ref1_y):
         ry_pad = pad_ref(ry, MC_MARGIN, wrap_around)
         pads.append(ry_pad)
         mvs, sad = _me(orig_y, ry_pad, s, search_range, lam_bits_x16,
                        bit_depth)
+        imv = torch.zeros_like(sad)
+        if amvr:
+            imv, mvs = amvr_decide(orig_y, ry_pad, mvs, s, bit_depth,
+                                   lam_bits_x16)
+            sad = _field_sad(orig_y, ry_pad, mvs, s, bit_depth)
         mvs_r.append(mvs)
         sads_r.append(sad)
+        imvs_r.append(imv)
     # ref decision: the second ref pays one more context bin
     ref_idx = (sads_r[1] + (lam_bits_x16 >> 4) < sads_r[0]).to(torch.int32)
     mv_sel = torch.where(ref_idx[..., None] == 1, mvs_r[1], mvs_r[0])
     sad_sel = torch.where(ref_idx == 1, sads_r[1], sads_r[0])
-    imv_sel = torch.zeros_like(ref_idx)
+    imv_sel = torch.where(ref_idx == 1, imvs_r[1], imvs_r[0])
 
     def field_sad_ref(rf, mf):
         s0 = _field_sad(orig_y, pads[0], mf, s, bit_depth)
@@ -364,9 +492,9 @@ def finish_p_frame(orig_y, orig_u, orig_v, ref_y, ref_u, ref_v, mvs,
                    wrap_around: bool, wp=None, scaling=None):
     """Residual/levels/recon from a FINAL MV field (encode_p_frame minus
     the ME).  Returns (lev_y, lev_u, lev_v, recon dict)."""
-    refuse(wp=wp is not None, scaling=scaling)
-    pred = mc_predict(ref_y, ref_u, ref_v, mvs, block_size, bit_depth,
-                      wrap_around)
+    refuse(scaling=scaling)
+    pred = _wp_planes(mc_predict(ref_y, ref_u, ref_v, mvs, block_size,
+                                 bit_depth, wrap_around), wp, bit_depth)
     return _residual_planes((orig_y, orig_u, orig_v), pred, block_size, qp,
                             bit_depth)
 
@@ -376,9 +504,9 @@ def reconstruct_p_frame(mvs, lev_y, lev_u, lev_v, ref_y, ref_u, ref_v,
                         wrap_around: bool = False, wp=None, scaling=None):
     """Decoder-side P reconstruction (shared math with finish_p_frame ->
     bit-exact)."""
-    refuse(wp=wp is not None, scaling=scaling)
-    pred = mc_predict(ref_y, ref_u, ref_v, mvs, block_size, bit_depth,
-                      wrap_around)
+    refuse(scaling=scaling)
+    pred = _wp_planes(mc_predict(ref_y, ref_u, ref_v, mvs, block_size,
+                                 bit_depth, wrap_around), wp, bit_depth)
     return _recon_planes(pred, (lev_y, lev_u, lev_v), block_size, qp,
                          bit_depth)
 
@@ -403,9 +531,10 @@ def finish_p_frame_2ref(orig_y, orig_u, orig_v, ref0, ref1, ref_idx, mvs,
                         qp: int, block_size: int, bit_depth: int,
                         wrap_around: bool, wp=None, scaling=None):
     """Residual/levels/recon from FINAL (ref_idx, mv) fields."""
-    refuse(wp=wp is not None, scaling=scaling)
-    pred = _mc_predict_2ref(ref0, ref1, ref_idx, mvs, block_size, bit_depth,
-                            wrap_around)
+    refuse(scaling=scaling)
+    pred = _wp_planes(_mc_predict_2ref(ref0, ref1, ref_idx, mvs, block_size,
+                                       bit_depth, wrap_around), wp,
+                      bit_depth)
     return _residual_planes((orig_y, orig_u, orig_v), pred, block_size, qp,
                             bit_depth)
 
@@ -416,9 +545,10 @@ def reconstruct_p_frame_2ref(ref_idx, mvs, lev_y, lev_u, lev_v, ref0, ref1,
                              wp=None, scaling=None):
     """Decoder-side two-reference P reconstruction (shared math with
     finish_p_frame_2ref -> bit-exact)."""
-    refuse(wp=wp is not None, scaling=scaling)
-    pred = _mc_predict_2ref(ref0, ref1, ref_idx, mvs, block_size, bit_depth,
-                            wrap_around)
+    refuse(scaling=scaling)
+    pred = _wp_planes(_mc_predict_2ref(ref0, ref1, ref_idx, mvs, block_size,
+                                       bit_depth, wrap_around), wp,
+                      bit_depth)
     return _recon_planes(pred, (lev_y, lev_u, lev_v), block_size, qp,
                          bit_depth)
 
@@ -439,9 +569,9 @@ def bpred_and_residual(orig_y, orig_u, orig_v, ref0, ref1, mv0, mv1, dirs,
     """Shared B prediction + residual path (the decoder's is
     reconstruct_b_frame).  With `dmvr` the bi blocks' MV pairs are first
     refined by bilateral matching (common/dmvr.py), with `bdof` their luma
-    takes the optical-flow correction.  Returns (lev_y, lev_u, lev_v, recon
-    dict)."""
-    refuse(gpm=gpm, ciip=ciip, wp=wp0 is not None or wp1 is not None)
+    takes the optical-flow correction; `gpm`/`ciip` blend the blocks of
+    dirs 3/4 (common/gpm.py); wp0/wp1 weight each list ((3, 2) (w, o) per
+    plane).  Returns (lev_y, lev_u, lev_v, recon dict)."""
     s = block_size
     h, w = orig_y.shape
     if dmvr:
@@ -449,7 +579,7 @@ def bpred_and_residual(orig_y, orig_u, orig_v, ref0, ref1, mv0, mv1, dirs,
     i0 = _mc_planes_internal(*ref0, mv0, s, bit_depth, wrap_around)
     i1 = _mc_planes_internal(*ref1, mv1, s, bit_depth, wrap_around)
     pred = _pred_planes_ext(i0, i1, dirs, gpm_modes, h // s, w // s,
-                            bit_depth, bdof, gpm, ciip)
+                            bit_depth, bdof, gpm, ciip, wp0, wp1)
     return _residual_planes((orig_y, orig_u, orig_v), pred, s, qp,
                             bit_depth)
 
@@ -461,8 +591,7 @@ def reconstruct_b_frame(mv0, mv1, dirs, lev_y, lev_u, lev_v, ref0, ref1,
                         gpm: bool = False, ciip: bool = False,
                         scaling=None, wp0=None, wp1=None):
     """Decoder-side B reconstruction (shared with the encoder's recon)."""
-    refuse(gpm=gpm, ciip=ciip, wp=wp0 is not None or wp1 is not None,
-           scaling=scaling)
+    refuse(scaling=scaling)
     s = block_size
     h, w = ref0[0].shape
     if dmvr:
@@ -470,7 +599,7 @@ def reconstruct_b_frame(mv0, mv1, dirs, lev_y, lev_u, lev_v, ref0, ref1,
     i0 = _mc_planes_internal(*ref0, mv0, s, bit_depth, wrap_around)
     i1 = _mc_planes_internal(*ref1, mv1, s, bit_depth, wrap_around)
     pred = _pred_planes_ext(i0, i1, dirs, gpm_modes, h // s, w // s,
-                            bit_depth, bdof, gpm, ciip)
+                            bit_depth, bdof, gpm, ciip, wp0, wp1)
     return _recon_planes(pred, (lev_y, lev_u, lev_v), s, qp, bit_depth)
 
 
@@ -479,9 +608,10 @@ def search_b_frame(orig_y, ref0_y, ref1_y, qp: int, block_size: int,
                    gpm: bool = False, ciip: bool = False):
     """Per-list ME + per-block prediction-direction decision (reference:
     InterSearch::predInterSearch uni L0/L1 + bi; bi uses the uni-best MVs
-    without iterative refinement).  A tie keeps the earlier direction:
-    L0 before L1 before bi.  Returns (mv0, mv1, dirs, gpm_modes)."""
-    refuse(gpm=gpm, ciip=ciip)
+    without iterative refinement).  With gpm/ciip the decision extends to
+    dirs 3 (GPM, its mask by a batched SAD over all masks) and 4 (CIIP).
+    A tie keeps the earlier direction: L0, L1, bi, GPM, CIIP.  Returns
+    (mv0, mv1, dirs, gpm_modes)."""
     s = block_size
     h, w = orig_y.shape
     nby, nbx = h // s, w // s
@@ -503,9 +633,27 @@ def search_b_frame(orig_y, ref0_y, ref1_y, qp: int, block_size: int,
         nby, nbx)
     # direction decision: bi costs two mvds
     mv_bits = int(lam ** 0.5 * 8)
-    costs = torch.stack([sads[0], sads[1], sad_bi + mv_bits])
-    dirs = first_argmin(costs, 0).to(torch.int32)
+    costs = [sads[0], sads[1], sad_bi + mv_bits]
     gpm_modes = torch.zeros((nby, nbx), dtype=torch.int32, device=dev)
+    if gpm or ciip:
+        from . import gpm as gpm_mod
+        big = torch.full((nby, nbx), 1 << 30, dtype=torch.int32, device=dev)
+        if gpm:
+            gmode, gsad = gpm_mod.gpm_search(
+                ob, interp.finalize_uni(preds[0], bit_depth),
+                interp.finalize_uni(preds[1], bit_depth))
+            gpm_modes = gmode.reshape(nby, nbx)
+            # GPM pays two mvds + the 4-bit mask index
+            costs.append(gsad.reshape(nby, nbx) + mv_bits + (mv_bits >> 1))
+        else:
+            costs.append(big)
+        if ciip:
+            cblk = gpm_mod.ciip_from_pred(_from_blocks(bi_pix, nby, nbx), s)
+            csad = (cblk - ob).abs().sum(dim=(1, 2)).to(torch.int32)
+            costs.append(csad.reshape(nby, nbx) + mv_bits)
+        else:
+            costs.append(big)
+    dirs = first_argmin(torch.stack(costs), 0).to(torch.int32)
     return mvs[0], mvs[1], dirs, gpm_modes
 
 
@@ -531,6 +679,9 @@ def search_b_frame_merge(orig_y, ref0_y, ref1_y, qp: int, block_size: int,
     """Merge-aware B search: the per-list ME + direction decision of
     search_b_frame, plus per-block SADs of the whole-motion merge
     candidate fields (neighbour shifts of (mv0, mv1, dirs) and zero-bi).
+    Candidate dirs from GPM/CIIP neighbours collapse to BI — a merge
+    candidate carries motion, not the mask/intra sub-state (reference:
+    GEO neighbours contribute their stored bi motion to merge lists).
 
     Returns (mv0, mv1, dirs, gpm_modes, sad_sel,
              cand_mv0/mv1 (K,nby,nbx,2), cand_dirs (K,..), cand_sads)."""
@@ -540,12 +691,13 @@ def search_b_frame_merge(orig_y, ref0_y, ref1_y, qp: int, block_size: int,
         wrap_around, gpm, ciip)
     r0p = pad_ref(ref0_y, MC_MARGIN, wrap_around)
     r1p = pad_ref(ref1_y, MC_MARGIN, wrap_around)
-    sad_sel = _b_field_sad(orig_y, r0p, r1p, mv0, mv1, dirs, s, bit_depth)
+    sad_sel = _b_field_sad(orig_y, r0p, r1p, mv0, mv1,
+                           torch.clamp(dirs, max=2), s, bit_depth)
     cand_mv0, cand_mv1, cand_dirs = [], [], []
     for (dy, dx) in ((0, -1), (-1, 0), (-1, 1)):
         cand_mv0.append(_shift_mv_field(mv0, dy, dx))
         cand_mv1.append(_shift_mv_field(mv1, dy, dx))
-        cand_dirs.append(_shift_i_field(dirs, dy, dx))
+        cand_dirs.append(torch.clamp(_shift_i_field(dirs, dy, dx), max=2))
     # zero-MV bi candidate
     cand_mv0.append(torch.zeros_like(mv0))
     cand_mv1.append(torch.zeros_like(mv0))

@@ -6,7 +6,9 @@ xDecodeSlice:2699, finishPicture:785 incl. the MD5 hash check at :868).
 
 It decodes SPS/PPS activation, the decoded-picture-hash SEI check, I
 slices, classic (single-model) P slices with one reference or two (a
-per-block ref_idx) and classic B slices, merge on or off, and MM P slices
+per-block ref_idx) and classic B slices, merge on or off, with the
+random-access tools (TMVP/HMVP, AMVR, GPM, CIIP, explicit weights from the
+slice header, and affine P slices predicted through K1/K2), and MM P slices
 on the flat grid or the quadtree (`inter_qt_depth > 0`) and MM B slices,
 with merge on or off, GED epipoles (PH delta against the coded predictor)
 and MM-MVP, each followed by deblocking, SAO and ALF.  Entropy decoding runs
@@ -23,6 +25,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..common import affine as affine_mod
 from ..common import alf, deblock, inter_frame, sao, wavefront
 from ..common.bitstream import (BitReader, read_annexb, NAL_SPS, NAL_PPS,
                                 NAL_IDR, NAL_SEI, NAL_TRAIL)
@@ -39,6 +42,7 @@ from ..lib360.projection import make_projection
 from ..encoder.inter_coder import mer_blocks_log2
 from .inter_parser import (decode_b_slice, decode_b_slice_mm,
                            decode_p_slice, decode_p_slice_2ref,
+                           decode_p_slice_affine,
                            decode_p_slice_mm, decode_p_slice_qt_mm)
 from .intra_parser import decode_intra_slice
 
@@ -88,6 +92,9 @@ class DecLib:
         self.mvp_conv: MMVPConverter | None = None
         # POC -> "OK"/"MISMATCH"/"MISSING" from decoded-picture-hash SEI
         self.hash_status: dict[int, str] = {}
+        # POC -> decoded classic P MV field (host): the co-located field
+        # TMVP reads (mirrors EncLib._mv_fields)
+        self._mv_fields: dict[int, np.ndarray] = {}
 
     def _activate_sps(self, sps: SPS) -> None:
         """reference: DecLib.cpp:1904 xActivateParameterSets."""
@@ -255,39 +262,59 @@ class DecLib:
         """Classic (single-model) P and B slices on the fixed grid
         (reference: DecCu + InterPrediction motionCompensation:1681).  A P
         slice with two references and merge on carries a per-block
-        ref_idx."""
+        ref_idx; an affine SPS makes every P slice affine.  Explicit
+        weights win per slice: a B slice whose header carries weight
+        tables has BDOF, DMVR, GPM and CIIP off (reference: BDOF
+        biocheck0 / DMVR's no-WP condition, InterPrediction.cpp:566,252;
+        the encoder's mirror is EncLib._b_classic)."""
         sps = self.sps
-        inter_frame.refuse(
-            qtree=sps.inter_qt_depth > 0, affine=sps.affine, tmvp=sps.tmvp,
-            amvr=sps.amvr, gpm=sps.gpm, ciip=sps.ciip,
-            wp=sh.wp_params is not None or sh.wp_params_l1 is not None)
+        inter_frame.refuse(qtree=sps.inter_qt_depth > 0)
         s = sps.inter_block_size
         nby, nbx = sps.height // s, sps.width // s
         mer = mer_blocks_log2(sps.log2_parallel_merge_level, s)
         ref = self._ref_by_poc(sh.ref_pocs_l0[0])
         args = (sh.qp, s, sps.bit_depth, sps.wrap_around)
+        wp0, wp1 = (None if w is None else self._tensors(np.asarray(w))[0]
+                    for w in (sh.wp_params, sh.wp_params_l1))
+        col = (self._mv_fields.get(sh.ref_pocs_l0[0]) if sps.tmvp
+               else None)
+        tools = dict(col_mvs=col, use_tmvp=sps.tmvp, use_amvr=sps.amvr)
         if sh.slice_type == SliceType.B:
-            mv0, mv1, dirs, ly, lu, lv, _ = decode_b_slice(
-                cabac_bytes, nby, nbx, s, use_merge=sps.merge,
-                mer_blocks_log2=mer)
+            sl_bdof, sl_dmvr, sl_gpm, sl_ciip = (
+                on and wp0 is None and wp1 is None
+                for on in (sps.bdof, sps.dmvr, sps.gpm, sps.ciip))
+            mv0, mv1, dirs, ly, lu, lv, gpm_modes = decode_b_slice(
+                cabac_bytes, nby, nbx, s, use_gpm=sl_gpm, use_ciip=sl_ciip,
+                use_merge=sps.merge, mer_blocks_log2=mer)
             ref1 = self._ref_by_poc(sh.ref_pocs_l1[0])
             recon = inter_frame.reconstruct_b_frame(
                 *self._tensors(mv0, mv1, dirs, ly, lu, lv), ref.planes,
-                ref1.planes, *args, bdof=sps.bdof, dmvr=sps.dmvr)
+                ref1.planes, *args, bdof=sl_bdof, dmvr=sl_dmvr,
+                gpm_modes=self._tensors(gpm_modes)[0], gpm=sl_gpm,
+                ciip=sl_ciip, wp0=wp0, wp1=wp1)
             mvs = np.where(dirs[..., None] == 1, mv1, mv0)
+        elif sps.affine:
+            mvs, aff, dmv, ly, lu, lv = decode_p_slice_affine(
+                cabac_bytes, nby, nbx, s)
+            recon = affine_mod.reconstruct_p_frame_affine(
+                *self._tensors(mvs, aff, dmv, ly, lu, lv), *ref.planes,
+                *args)
         elif len(sh.ref_pocs_l0) >= 2 and sps.merge:
             ridx, mvs, ly, lu, lv = decode_p_slice_2ref(
-                cabac_bytes, nby, nbx, s, mer_blocks_log2=mer)
+                cabac_bytes, nby, nbx, s, mer_blocks_log2=mer, **tools)
+            self._mv_fields[sh.poc] = mvs
             ref2 = self._ref_by_poc(sh.ref_pocs_l0[1])
             recon = inter_frame.reconstruct_p_frame_2ref(
                 *self._tensors(ridx, mvs, ly, lu, lv), ref.planes,
-                ref2.planes, *args)
+                ref2.planes, *args, wp=wp0)
         else:
             mvs, ly, lu, lv = decode_p_slice(
                 cabac_bytes, nby, nbx, s, use_merge=sps.merge,
-                mer_blocks_log2=mer)
+                mer_blocks_log2=mer, **tools)
+            self._mv_fields[sh.poc] = mvs
             recon = inter_frame.reconstruct_p_frame(
-                *self._tensors(mvs, ly, lu, lv), *ref.planes, *args)
+                *self._tensors(mvs, ly, lu, lv), *ref.planes, *args,
+                wp=wp0)
         has_resid = ((ly != 0).any((2, 3)) | (lu != 0).any((2, 3))
                      | (lv != 0).any((2, 3)))
         bs = deblock.boundary_strengths_inter(

@@ -6,10 +6,10 @@ source/Lib/DecoderLib/CABACReader.cpp — cu_skip_flag, merge_idx,
 ref_idx, inter_pred_idc, motion_model, mvd_coding, residual_coding): the
 classic P slice (one or two references, merge on or off) and B slice,
 and the multi-model ones (the flat and the quadtree MM P slice and the MM
-B slice, with MM-MVP where the SPS turns it on).  Host numpy code over the
-native CABAC decoder.  TMVP/HMVP, AMVR, GPM/CIIP and the affine parser
-(ROADMAP queue 1 item 8) and the classic quadtree, MTT and WPP parsers
-(item 11) are not ported.
+B slice, with MM-MVP where the SPS turns it on), with the classic
+random-access tools: TMVP/HMVP, AMVR, GPM/CIIP and the affine P slice.
+Host numpy code over the native CABAC decoder.  The classic quadtree, MTT
+and WPP parsers (ROADMAP queue 1 item 11) are not ported.
 """
 from __future__ import annotations
 
@@ -17,9 +17,10 @@ import numpy as np
 
 from ..common.cabac import BinDecoder
 from ..common.contexts import ctx_id
-from ..common.inter_frame import refuse
-from ..encoder.inter_coder import (MERGE_MAX, _mm_mvp, inherited_model,
-                                   merge_candidates, merge_candidates_b, merge_candidates_b_mm,
+from ..common.inter_frame import AMVR_SHIFTS, round_mv_amvr
+from ..encoder.inter_coder import (MERGE_MAX, HmvpList, _mm_mvp, amvp_list,
+                                   inherited_model, merge_candidates,
+                                   merge_candidates_b, merge_candidates_b_mm,
                                    merge_candidates_mm,
                                    merge_candidates_qt_mm,
                                    merge_candidates_ref, mvp_median,
@@ -76,71 +77,129 @@ def _decode_mvd(dec: BinDecoder) -> np.ndarray:
                     dtype=np.int64)
 
 
+def _decode_amvp_mv(dec: BinDecoder, cands, use_tmvp: bool,
+                    use_amvr: bool) -> np.ndarray:
+    """The mvp index (TMVP), the AMVR precision and the mvd of an AMVP
+    block -> its MV (inverse of inter_coder._code_amvp_mvd)."""
+    idx = dec.decode_bin(ctx_id("MvpIdx")) if use_tmvp else 0
+    if not use_amvr:
+        return cands[idx] + _decode_mvd(dec)
+    m = 0
+    if dec.decode_bin(ctx_id("Amvr", 0)):
+        m = 1 + dec.decode_bin(ctx_id("Amvr", 1))
+    sh = AMVR_SHIFTS[m]
+    return round_mv_amvr(cands[idx], sh) + (_decode_mvd(dec) << sh)
+
+
 def decode_p_slice(data: bytes, nby: int, nbx: int, s: int,
+                   col_mvs: np.ndarray | None = None,
                    use_tmvp: bool = False, use_amvr: bool = False,
                    use_merge: bool = False, mer_blocks_log2: int = 0):
     """Exact inverse of encoder.inter_coder.encode_p_slice.  Returns (mvs
     (nby,nbx,2) 1/16-pel, lev_y, lev_u, lev_v).  With use_merge, skip
     means merge+no-residual and non-skip blocks carry a merge_flag; merge
     blocks take candidate merge_idx of the shared list (reference:
-    CABACReader merge_data / merge_idx)."""
-    refuse(tmvp=use_tmvp, amvr=use_amvr)
+    CABACReader merge_data / merge_idx).  With use_tmvp the merge and AMVP
+    lists carry the co-located MV (`col_mvs`) and the HMVP FIFO; with
+    use_amvr each AMVP block's precision scales its mvd."""
     dec = NativeBinDecoder(data)
     mvs = np.zeros((nby, nbx, 2), dtype=np.int64)
     levs = _new_levels(nby, nbx, s)
     sizes = (s, s // 2, s // 2)
+    hist = HmvpList() if use_tmvp else None
     for by in range(nby):
         for bx in range(nbx):
+            col = (col_mvs[by, bx]
+                   if (use_tmvp and col_mvs is not None) else None)
+            mrg = False
             if use_merge:
                 skip = bool(dec.decode_bin(ctx_id("SkipFlag")))
-                if skip or dec.decode_bin(ctx_id("MergeFlag")):
+                mrg = skip or bool(dec.decode_bin(ctx_id("MergeFlag")))
+                if mrg:
                     mcands = merge_candidates(
-                        mvs, by, bx, mer_blocks_log2=mer_blocks_log2)
+                        mvs, by, bx, col, hist,
+                        mer_blocks_log2=mer_blocks_log2)
                     mvs[by, bx] = mcands[decode_merge_idx(dec)]
                     if not skip:
                         _decode_residual(dec, levs, sizes, by, bx)
-                    continue
-            pred = mvp_median(mvs, by, bx)
-            if not use_merge and dec.decode_bin(ctx_id("SkipFlag")):
-                mvs[by, bx] = pred
-                continue
-            mvs[by, bx] = pred + _decode_mvd(dec)
-            _decode_residual(dec, levs, sizes, by, bx)
+            if not mrg:
+                cands = (amvp_list(mvs, by, bx, col, hist) if use_tmvp
+                         else [mvp_median(mvs, by, bx)])
+                if not use_merge and dec.decode_bin(ctx_id("SkipFlag")):
+                    mvs[by, bx] = cands[0]
+                else:
+                    mvs[by, bx] = _decode_amvp_mv(dec, cands, use_tmvp,
+                                                  use_amvr)
+                    _decode_residual(dec, levs, sizes, by, bx)
+            if hist is not None:
+                hist.push(mvs[by, bx])
     return (mvs,) + levs
 
 
 def decode_p_slice_2ref(data: bytes, nby: int, nbx: int, s: int,
+                        col_mvs: np.ndarray | None = None,
                         use_tmvp: bool = False, use_amvr: bool = False,
                         mer_blocks_log2: int = 0):
     """Exact inverse of encoder.inter_coder.encode_p_slice_2ref.  Returns
     (ref_idx, mvs, lev_y, lev_u, lev_v)."""
-    refuse(tmvp=use_tmvp, amvr=use_amvr)
     dec = NativeBinDecoder(data)
     ref_idx = np.zeros((nby, nbx), dtype=np.int32)
     mvs = np.zeros((nby, nbx, 2), dtype=np.int64)
     levs = _new_levels(nby, nbx, s)
     sizes = (s, s // 2, s // 2)
+    hist = HmvpList() if use_tmvp else None
     for by in range(nby):
         for bx in range(nbx):
+            col = (col_mvs[by, bx]
+                   if (use_tmvp and col_mvs is not None) else None)
             skip = bool(dec.decode_bin(ctx_id("SkipFlag")))
             if skip or dec.decode_bin(ctx_id("MergeFlag")):
                 mcands = merge_candidates_ref(
-                    ref_idx, mvs, by, bx, mer_blocks_log2=mer_blocks_log2)
+                    ref_idx, mvs, by, bx, col, hist,
+                    mer_blocks_log2=mer_blocks_log2)
                 ref_idx[by, bx], mvs[by, bx] = mcands[decode_merge_idx(dec)]
             else:
                 ref_idx[by, bx] = dec.decode_bin(ctx_id("RefPic", 0))
-                mvs[by, bx] = mvp_median(mvs, by, bx) + _decode_mvd(dec)
+                cands = (amvp_list(mvs, by, bx, col, hist) if use_tmvp
+                         else [mvp_median(mvs, by, bx)])
+                mvs[by, bx] = _decode_amvp_mv(dec, cands, use_tmvp,
+                                              use_amvr)
             if not skip:
                 _decode_residual(dec, levs, sizes, by, bx)
+            if hist is not None:
+                hist.push(mvs[by, bx])
     return (ref_idx, mvs) + levs
+
+
+def decode_p_slice_affine(data: bytes, nby: int, nbx: int, s: int):
+    """Exact inverse of encoder.inter_coder.encode_p_slice_affine.
+    Returns (mvs, aff, dmv, lev_y, lev_u, lev_v)."""
+    dec = NativeBinDecoder(data)
+    mvs = np.zeros((nby, nbx, 2), dtype=np.int64)
+    aff = np.zeros((nby, nbx), dtype=bool)
+    dmv = np.zeros((nby, nbx, 2), dtype=np.int64)
+    levs = _new_levels(nby, nbx, s)
+    sizes = (s, s // 2, s // 2)
+    for by in range(nby):
+        for bx in range(nbx):
+            pred = mvp_median(mvs, by, bx)
+            if dec.decode_bin(ctx_id("SkipFlag")):
+                mvs[by, bx] = pred
+                continue
+            aff[by, bx] = bool(dec.decode_bin(ctx_id("AffineFlag", 0)))
+            mvs[by, bx] = pred + _decode_mvd(dec)
+            if aff[by, bx]:
+                dmv[by, bx] = _decode_mvd(dec)
+            _decode_residual(dec, levs, sizes, by, bx)
+    return (mvs, aff, dmv) + levs
 
 
 def decode_b_slice(data: bytes, nby: int, nbx: int, s: int,
                    use_gpm: bool = False, use_ciip: bool = False,
                    use_merge: bool = False, mer_blocks_log2: int = 0):
     """Exact inverse of encoder.inter_coder.encode_b_slice.  Returns (mv0,
-    mv1, dirs, lev_y, lev_u, lev_v, gpm_modes)."""
-    refuse(gpm=use_gpm, ciip=use_ciip)
+    mv1, dirs, lev_y, lev_u, lev_v, gpm_modes): dirs 3 (GPM, its mask in
+    gpm_modes) and 4 (CIIP) are read where the SPS gates their bins in."""
     dec = NativeBinDecoder(data)
     mv0 = np.zeros((nby, nbx, 2), dtype=np.int64)
     mv1 = np.zeros((nby, nbx, 2), dtype=np.int64)
@@ -175,6 +234,20 @@ def decode_b_slice(data: bytes, nby: int, nbx: int, s: int,
                 continue
             if dec.decode_bin(ctx_id("InterDir", 0)):
                 d = 2
+                if use_gpm and use_ciip:
+                    if dec.decode_bin(ctx_id("GeoFlag")):
+                        d = 4 if dec.decode_bin(ctx_id("CiipFlag")) else 3
+                elif use_gpm:
+                    if dec.decode_bin(ctx_id("GeoFlag")):
+                        d = 3
+                elif use_ciip:
+                    if dec.decode_bin(ctx_id("CiipFlag")):
+                        d = 4
+                if d == 3:
+                    g = 0
+                    for _ in range(4):
+                        g = (g << 1) | dec.decode_bin_ep()
+                    gpm_modes[by, bx] = g
             else:
                 d = dec.decode_bin(ctx_id("InterDir", 1))
             dirs[by, bx] = d

@@ -15,7 +15,12 @@ cascade) order.  The pictures it encodes:
        candidates' SADs on the device (common/inter_frame.py,
        encoder/me.py; plain torch operations, no kernel) -> one packed
        pull -> host merge selection (encoder/inter_coder.py) -> finish on
-       the device (MC, transform/quant, deblock);
+       the device (MC, transform/quant, deblock).  The random-access
+       tools ride these paths: TMVP/HMVP and AMVR on P, GPM and CIIP on
+       B, explicit weights (estimated per slice on the host) on both;
+  P    affine pictures: the per-block translational/affine decision
+       (common/affine.py), predicted by kernels K1/K2 from the affine
+       subblock positions;
   P/B  multi-model P pictures (flat grid or quadtree lattice, merge on
        or off) and B pictures (whole-motion merge, or per-list AMVP),
        with GED epipoles coded in the picture header and MM-MVP: search
@@ -36,6 +41,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..common import affine as affine_mod
 from ..common import deblock, inter_frame, qtree, quant, wavefront
 from ..common.bitstream import (BitWriter, NalUnit, NAL_IDR, NAL_PPS,
                                 NAL_SEI, NAL_SPS, NAL_TRAIL, write_annexb)
@@ -52,11 +58,17 @@ from ..utils import profiling, xfer
 from . import filter_stage
 from .inter_coder import (encode_b_slice, encode_b_slice_mm,
                           encode_p_slice, encode_p_slice_2ref,
+                          encode_p_slice_affine,
                           encode_p_slice_mm, encode_p_slice_qt_mm,
                           mer_blocks_log2, resolve_tree_qt_mm, select_merge_b,
                           select_merge_b_mm, select_merge_mm,
                           select_merge_p, select_merge_p_2ref, select_qt_mm)
 from .intra_coder import encode_intra_slice
+
+
+def _wp_table(wp) -> tuple | None:
+    """A slice header's weight table: ((w, o) per plane) as ints."""
+    return None if wp is None else tuple((int(a), int(b)) for a, b in wp)
 
 
 def _todo(what: str, item: str):
@@ -291,27 +303,20 @@ def ra_coding_order(n: int, gop_size: int) -> list[tuple[int, int, int,
 # what, ROADMAP queue 1 item)
 _UNPORTED = (
     ("mtt", False, "BT/TT splits", "11"),
-    ("affine", False, "affine motion", "8"),
     ("metrics_360", False, "WS-PSNR/S-PSNR/CPP-PSNR", "11"),
     ("target_bitrate_kbps", 0, "rate control", "11"),
     ("mctf", False, "MCTF pre-filter", "11"),
     ("lmcs", False, "LMCS", "11"),
-    ("gpm", False, "GPM", "8"),
-    ("ciip", False, "CIIP", "8"),
     ("ibc", False, "IBC", "9"),
     ("rdoq", False, "RDOQ", "9"),
     ("dep_quant", False, "dependent quantization", "9"),
     ("cclm", False, "CCLM", "9"),
     ("mip", False, "MIP", "9"),
     ("lfnst", False, "LFNST", "9"),
-    ("tmvp", False, "TMVP/HMVP", "8"),
     ("mts", False, "MTS", "9"),
-    ("amvr", False, "AMVR", "8"),
     ("mrl", False, "MRL", "9"),
     ("intra_split", False, "intra partitioning", "9"),
     ("wpp", False, "WPP", "11"),
-    ("weighted_bipred", False, "weighted bi-prediction", "8"),
-    ("weighted_pred", False, "weighted prediction", "8"),
     ("transform_skip", False, "transform skip", "9"),
     ("bdpcm", False, "BDPCM", "9"),
     ("film_grain", False, "film grain SEI", "11"),
@@ -345,7 +350,7 @@ class EncLib:
         self._mm_seed = None
         self._mm_seed_qt = None
         # POC -> final classic P MV field (host): the co-located field
-        # that TMVP (ROADMAP queue 1 item 8b) reads; pruned with the DPB
+        # that TMVP reads; pruned with the DPB
         self._mv_fields: dict[int, np.ndarray] = {}
         self._pending_alf_chroma = None
         self._pending_ccalf = None
@@ -492,16 +497,24 @@ class EncLib:
         dev = xfer.upload_planes(planes, cfg.bit_depth, self.device)
         rdev = self._refs(ref_poc, ref)
         if not cfg.mm.any_enabled():
-            # the JAX package's other conditions (no quadtree, affine,
-            # MCTS or WPP) hold: EncLib refuses those configurations
+            if cfg.affine:
+                recon, make_payload = self._p_affine(dev, rdev, qp)
+                return self._finish_slice_overlap(
+                    poc, planes, recon, make_payload, qp, t0, SliceType.P,
+                    [ref_poc], [], None, 0, dev)
+            # the JAX package's other conditions (no quadtree, MCTS or
+            # WPP) hold: EncLib refuses those configurations
             use_2ref = ref2 is not None and cfg.max_num_ref >= 2 and \
                 cfg.merge
             r2dev = self._refs(ref2_poc, ref2) if use_2ref else None
-            recon, make_payload = self._p_classic(poc, dev, rdev, r2dev, qp)
+            wp = (self._estimate_wp(planes, ref) if cfg.weighted_pred
+                  else None)
+            recon, make_payload = self._p_classic(poc, dev, rdev, r2dev, qp,
+                                                  ref_poc, wp)
             return self._finish_slice_overlap(
                 poc, planes, recon, make_payload, qp, t0, SliceType.P,
                 [ref_poc, ref2_poc] if use_2ref else [ref_poc], [], None, 0,
-                dev)
+                dev, wp_params=wp)
         active = cfg.mm.active_models()
         epipoles, epipole_delta = self._p_epipoles(poc, ref_poc)
         if cfg.qt_depth > 0:
@@ -514,82 +527,138 @@ class EncLib:
             poc, planes, recon, make_payload, qp, t0, SliceType.P,
             [ref_poc], [], epipole_delta, 0, dev)
 
-    def _p_classic(self, poc, dev, rdev, r2dev, qp):
+    def _p_classic(self, poc, dev, rdev, r2dev, qp, ref_poc, wp):
         """Classic P picture on the fixed grid.  With merge, the device
-        search (ME + the candidate fields' SADs, per reference when
-        `r2dev` is given) -> one pull -> host merge selection in coding
-        order -> the device finish from the FINAL fields (reference: merge
-        candidates UnitTools.cpp:1059, EncCu xCheckRDCostMerge2Nx2N);
-        without it, one program codes the search's MVs.  Returns (recon,
-        make_payload)."""
+        search (ME, the AMVR decision, the candidate fields' SADs, per
+        reference when `r2dev` is given) -> one pull -> host merge
+        selection in coding order -> the device finish from the FINAL
+        fields (reference: merge candidates UnitTools.cpp:1059, EncCu
+        xCheckRDCostMerge2Nx2N); without it, one program codes the
+        search's MVs.  TMVP reads the reference's final MV field (none
+        after an I picture); `wp` ((w, o) per plane, or None) weights the
+        prediction.  Returns (recon, make_payload)."""
         cfg = self.cfg
         s = cfg.inter_block_size
         bd = cfg.bit_depth
         nby, nbx = cfg.height // s, cfg.width // s
         lam_sqrt = quant.lambda_from_qp(qp, intra=False) ** 0.5
         mer = mer_blocks_log2(self.sps.log2_parallel_merge_level, s)
-        col = torch.zeros((nby, nbx, 2), dtype=torch.int32,
-                          device=self.device)      # TMVP off: zero field
+        col_h = self._mv_fields.get(ref_poc) if cfg.tmvp else None
+        imv = None
 
         def t(a):
             return torch.from_numpy(a.astype(np.int32)).to(self.device)
 
+        wp_d = None if wp is None else t(np.asarray(wp))
         if not cfg.merge:
             with profiling.stage("finish") as ps:
-                mvs, ly, lu, lv, recon = inter_frame.encode_p_frame(
+                out = inter_frame.encode_p_frame(
                     *dev, *rdev, qp, s, bd, cfg.search_range,
-                    cfg.wrap_around)
+                    cfg.wrap_around, wp=wp_d, amvr=cfg.amvr)
+                mvs, ly, lu, lv, recon = out[0], *out[-4:]
+                imv = out[1] if cfg.amvr else None
                 recon = self._deblock_inter(recon, mvs, (ly, lu, lv), qp)
                 ps.set_sync(self.device)
         else:
+            col = (t(col_h) if col_h is not None else
+                   torch.zeros((nby, nbx, 2), dtype=torch.int32,
+                               device=self.device))
             with profiling.stage("search") as ps:
                 if r2dev is not None:
                     out = inter_frame.search_p_frame_2ref(
                         dev[0], rdev[0], r2dev[0], col, qp, s, bd,
-                        cfg.search_range, cfg.wrap_around)
+                        cfg.search_range, cfg.wrap_around, amvr=cfg.amvr)
                 else:
                     out = inter_frame.search_p_frame(
                         dev[0], rdev[0], col, qp, s, bd, cfg.search_range,
-                        cfg.wrap_around)
+                        cfg.wrap_around, amvr=cfg.amvr)
                 ps.set_sync(self.device)
             with profiling.stage("select+pull"):
                 pulled = xfer.pull_i32(*out)
                 if r2dev is not None:
-                    ref_h, mvs_h, _, sad_h, cref_h, cmv_h, csad_h = pulled
+                    (ref_h, mvs_h, imv_h, sad_h, cref_h, cmv_h,
+                     csad_h) = pulled
                     f_ref, final, mflag, midx = select_merge_p_2ref(
-                        ref_h, mvs_h, sad_h, cref_h, cmv_h, csad_h, None,
-                        lam_sqrt, False, mer)
+                        ref_h, mvs_h, sad_h, cref_h, cmv_h, csad_h, col_h,
+                        lam_sqrt, cfg.tmvp, mer)
                 else:
-                    mvs_h, _, sad_h, cmv_h, csad_h = pulled
+                    mvs_h, imv_h, sad_h, cmv_h, csad_h = pulled
                     final, mflag, midx = select_merge_p(
-                        mvs_h, sad_h, cmv_h, csad_h, None, lam_sqrt, False,
-                        mer)
+                        mvs_h, sad_h, cmv_h, csad_h, col_h, lam_sqrt,
+                        cfg.tmvp, mer)
+                imv = imv_h if cfg.amvr else None
             self._mv_fields[poc] = final
             mvs = t(final)
             with profiling.stage("finish") as ps:
                 if r2dev is not None:
                     ly, lu, lv, recon = inter_frame.finish_p_frame_2ref(
                         *dev, tuple(rdev), tuple(r2dev), t(f_ref), mvs, qp,
-                        s, bd, cfg.wrap_around)
+                        s, bd, cfg.wrap_around, wp=wp_d)
                 else:
                     ly, lu, lv, recon = inter_frame.finish_p_frame(
-                        *dev, *rdev, mvs, qp, s, bd, cfg.wrap_around)
+                        *dev, *rdev, mvs, qp, s, bd, cfg.wrap_around,
+                        wp=wp_d)
                 recon = self._deblock_inter(recon, mvs, (ly, lu, lv), qp)
                 ps.set_sync(self.device)
 
         def make_payload():
+            tools = dict(col_mvs=col_h, use_tmvp=cfg.tmvp)
             if not cfg.merge:
-                lyh, luh, lvh, mvs_h = xfer.pull_levels(ly, lu, lv, mvs)
+                lyh, luh, lvh, mvs_h, *imv_h = xfer.pull_levels(
+                    ly, lu, lv, mvs, *([] if imv is None else [imv]))
                 self._mv_fields[poc] = mvs_h.astype(np.int64)
-                return encode_p_slice(mvs_h, lyh, luh, lvh)
+                return encode_p_slice(mvs_h, lyh, luh, lvh,
+                                      imv=imv_h[0] if imv_h else None,
+                                      **tools)
             lyh, luh, lvh = xfer.pull_levels(ly, lu, lv)
             if r2dev is not None:
                 return encode_p_slice_2ref(f_ref, final, lyh, luh, lvh,
-                                           merge_flag=mflag, merge_idx=midx)
-            return encode_p_slice(final, lyh, luh, lvh, merge_flag=mflag,
-                                  merge_idx=midx)
+                                           imv=imv, merge_flag=mflag,
+                                           merge_idx=midx, **tools)
+            return encode_p_slice(final, lyh, luh, lvh, imv=imv,
+                                  merge_flag=mflag, merge_idx=midx, **tools)
 
         return recon, make_payload
+
+    def _p_affine(self, dev, rdev, qp):
+        """Affine P picture (common/affine.py): the translational ME, the
+        batched affine search (K1 three times) and the per-block decision,
+        then one prediction of all planes from the mixed positions (K1
+        once, K2 twice) and the residual pass.  Returns (recon,
+        make_payload)."""
+        cfg = self.cfg
+        s = cfg.inter_block_size
+        with profiling.stage("affine") as ps:
+            mvs, aff, dmv, ly, lu, lv, recon = \
+                affine_mod.encode_p_frame_affine(
+                    *dev, *rdev, qp, s, cfg.bit_depth, cfg.search_range,
+                    cfg.wrap_around)
+            recon = self._deblock_inter(recon, mvs, (ly, lu, lv), qp)
+            ps.set_sync(self.device)
+
+        def make_payload():
+            lyh, luh, lvh, mvs_h, aff_h, dmv_h = xfer.pull_levels(
+                ly, lu, lv, mvs, aff, dmv)
+            return encode_p_slice_affine(mvs_h, aff_h, dmv_h, lyh, luh, lvh)
+
+        return recon, make_payload
+
+    def _estimate_wp(self, planes, ref):
+        """DC/AC weight estimation (reference: WeightPredAnalysis): match
+        each plane's mean/std to the reference; identity -> None."""
+        out = []
+        for o, r in zip(planes, ref):
+            so, sr = float(np.std(o)), float(np.std(r))
+            w = int(np.clip(round(64.0 * so / sr), 1, 255)) if sr > 1e-3 \
+                else 64
+            off = int(np.clip(round(float(np.mean(o))
+                                    - w * float(np.mean(r)) / 64.0),
+                              -128, 127))
+            out.append((w, off))
+        # signal only on a clear luma-level change (fades); chroma stats on
+        # ordinary content are too noisy to pay the table for
+        wy, oy = out[0]
+        return out if (abs(wy - 64) > 2 or abs(oy) > 2) else None
 
     def _deblock_inter(self, recon, mvs, levels, qp):
         """Deblock a classic inter picture: bs from the per-block MVs and
@@ -741,10 +810,19 @@ class EncLib:
         r0 = self._refs(ref0_poc, ref0)
         r1 = self._refs(ref1_poc, ref1)
         if not cfg.mm.any_enabled():
-            recon, make_payload = self._b_classic(dev, r0, r1, qp)
+            wp0 = wp1 = None
+            if cfg.weighted_bipred:
+                wp0 = self._estimate_wp(planes, ref0)
+                wp1 = self._estimate_wp(planes, ref1)
+                if wp0 is not None or wp1 is not None:
+                    ident = [(64, 0)] * 3
+                    wp0 = wp0 if wp0 is not None else ident
+                    wp1 = wp1 if wp1 is not None else ident
+            recon, make_payload = self._b_classic(dev, r0, r1, qp, wp0, wp1)
             return self._finish_slice_overlap(
                 poc, planes, recon, make_payload, qp, t0, SliceType.B,
-                [ref0_poc], [ref1_poc], None, tid, dev)
+                [ref0_poc], [ref1_poc], None, tid, dev, wp_params=wp0,
+                wp_params_l1=wp1)
         active = cfg.mm.active_models()
         eps0 = eps1 = None
         if cfg.mm.ged:
@@ -822,45 +900,56 @@ class EncLib:
             poc, planes, recon, make_payload, qp, t0, SliceType.B,
             [ref0_poc], [ref1_poc], None, tid, dev)
 
-    def _b_classic(self, dev, r0, r1, qp):
-        """Classic B picture on the fixed grid: per-list ME and the uni/bi
-        decision on the device; with merge, the whole-motion candidate
-        fields' SADs ride the search and the host snaps blocks to (dir,
-        mv0, mv1) candidates in coding order; then prediction, residual,
-        recon and deblock from the FINAL grids.  Returns (recon,
-        make_payload)."""
+    def _b_classic(self, dev, r0, r1, qp, wp0, wp1):
+        """Classic B picture on the fixed grid: per-list ME and the
+        uni/bi/GPM/CIIP decision on the device; with merge, the
+        whole-motion candidate fields' SADs ride the search and the host
+        snaps blocks to (dir, mv0, mv1) candidates in coding order; then
+        prediction, residual, recon and deblock from the FINAL grids.
+        Explicit weights win per slice: where `wp0`/`wp1` are given, BDOF,
+        DMVR, GPM and CIIP are off for this slice (reference: BDOF's
+        biocheck0 / DMVR's no-WP condition, InterPrediction.cpp:566,252;
+        GPM/CIIP never combine with explicit weights in VVC); the decoder
+        mirrors it from the slice header.  Returns (recon, make_payload)."""
         cfg = self.cfg
         s = cfg.inter_block_size
         bd = cfg.bit_depth
+        use_wpb = wp0 is not None
+        sl_bdof, sl_dmvr, sl_gpm, sl_ciip = (
+            on and not use_wpb for on in (cfg.bdof, cfg.dmvr, cfg.gpm,
+                                          cfg.ciip))
         mflag = midx = None
         with profiling.stage("search_b") as ps:
             if cfg.merge:
                 out = inter_frame.search_b_frame_merge(
                     dev[0], r0[0], r1[0], qp, s, bd, cfg.search_range,
-                    cfg.wrap_around)
+                    cfg.wrap_around, sl_gpm, sl_ciip)
             else:
-                mv0, mv1, dirs, _ = inter_frame.search_b_frame(
+                mv0, mv1, dirs, gpm_modes = inter_frame.search_b_frame(
                     dev[0], r0[0], r1[0], qp, s, bd, cfg.search_range,
-                    cfg.wrap_around)
+                    cfg.wrap_around, sl_gpm, sl_ciip)
             ps.set_sync(self.device)
+
+        def t(a):
+            return torch.from_numpy(a.astype(np.int32)).to(self.device)
+
         if cfg.merge:
             with profiling.stage("select_b+pull"):
-                (mv0_h, mv1_h, dirs_h, _, sad_h, c0_h, c1_h, cd_h,
+                (mv0_h, mv1_h, dirs_h, gpm_h, sad_h, c0_h, c1_h, cd_h,
                  cs_h) = xfer.pull_i32(*out)
                 lam_sqrt = quant.lambda_from_qp(qp, intra=False) ** 0.5
                 mv0_h, mv1_h, dirs_h, mflag, midx = select_merge_b(
                     mv0_h, mv1_h, dirs_h, sad_h, c0_h, c1_h, cd_h, cs_h,
                     lam_sqrt, mer_blocks_log2(
                         self.sps.log2_parallel_merge_level, s))
-            mv0, mv1, dirs = (torch.from_numpy(a.astype(np.int32))
-                              .to(self.device)
-                              for a in (mv0_h, mv1_h, dirs_h))
+            mv0, mv1, dirs, gpm_modes = (t(a) for a in (mv0_h, mv1_h,
+                                                        dirs_h, gpm_h))
+        wp = [None if w is None else t(np.asarray(w)) for w in (wp0, wp1)]
         with profiling.stage("finish_b") as ps:
-            # weighted prediction stays refused, so no slice gates BDOF or
-            # DMVR off
             ly, lu, lv, recon = inter_frame.bpred_and_residual(
                 *dev, tuple(r0), tuple(r1), mv0, mv1, dirs, qp, s, bd,
-                cfg.wrap_around, cfg.bdof, cfg.dmvr)
+                cfg.wrap_around, sl_bdof, sl_dmvr, gpm_modes=gpm_modes,
+                gpm=sl_gpm, ciip=sl_ciip, wp0=wp[0], wp1=wp[1])
             # prediction and deblock both read the USED list, so the
             # entropy pass's unused-list replacements never reach them
             recon = self._deblock_inter(
@@ -871,18 +960,20 @@ class EncLib:
         def make_payload():
             if cfg.merge:
                 lyh, luh, lvh = xfer.pull_levels(ly, lu, lv)
-                m0, m1, d = mv0_h, mv1_h, dirs_h
+                m0, m1, d, g = mv0_h, mv1_h, dirs_h, gpm_h
             else:
-                lyh, luh, lvh, m0, m1, d = xfer.pull_levels(
-                    ly, lu, lv, mv0, mv1, dirs)
-            return encode_b_slice(m0, m1, d, lyh, luh, lvh,
+                lyh, luh, lvh, m0, m1, d, g = xfer.pull_levels(
+                    ly, lu, lv, mv0, mv1, dirs, gpm_modes)
+            return encode_b_slice(m0, m1, d, lyh, luh, lvh, gpm_modes=g,
+                                  use_gpm=sl_gpm, use_ciip=sl_ciip,
                                   merge_flag=mflag, merge_idx=midx)[0]
 
         return recon, make_payload
 
     def _finish_slice_overlap(self, poc, planes, recon, make_payload, qp,
                               t0, slice_type, ref_pocs_l0, ref_pocs_l1,
-                              epipole_delta, tid, dev, nal_type=NAL_TRAIL):
+                              epipole_delta, tid, dev, nal_type=NAL_TRAIL,
+                              wp_params=None, wp_params_l1=None):
         """Picture tail with entropy/filter overlap: enqueue the
         SAO + ALF-stats device stages first (no host wait), run the host
         entropy pass (make_payload pulls the coded grids and writes CABAC)
@@ -923,7 +1014,9 @@ class EncLib:
                          epipole_delta=epipole_delta,
                          sao_params=sao_params, alf_params=alf_params,
                          alf_chroma_params=self._pending_alf_chroma,
-                         ccalf_params=self._pending_ccalf)
+                         ccalf_params=self._pending_ccalf,
+                         wp_params=_wp_table(wp_params),
+                         wp_params_l1=_wp_table(wp_params_l1))
         self.slice_header = sh
         bw = BitWriter()
         sh.write(bw, self.sps)

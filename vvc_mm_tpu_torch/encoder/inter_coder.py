@@ -10,16 +10,18 @@ shared bit-exactly by encoder and decoder.  Here are the classic paths
 (the P slice with one or two references, merge on or off, and the B
 slice) and the multi-model ones (the flat P slice and the B slice, merge
 on or off, the quadtree P slice, and MM-MVP: cross-model candidates
-converted by common/mm/mvp_convert.py).  TMVP/HMVP and AMVR (ROADMAP
-queue 1 item 8), GPM/CIIP (item 8), the affine writer (item 8) and the
-classic quadtree, MTT and WPP writers (item 11) are not ported.
+converted by common/mm/mvp_convert.py).  The classic paths carry the
+random-access tools: TMVP/HMVP (the co-located field and the history FIFO
+in the merge and AMVP lists), AMVR (the per-block MVD precision), GPM and
+CIIP (B block modes) and the affine P slice.  The classic quadtree, MTT
+and WPP writers (ROADMAP queue 1 item 11) are not ported.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..common.cabac import BinEncoder
-from ..common.inter_frame import refuse
+from ..common.inter_frame import AMVR_SHIFTS, round_mv_amvr
 from ..common.contexts import ctx_id
 from ..utils.native import NativeBinEncoder
 
@@ -66,6 +68,51 @@ def mvp_median(mvs: np.ndarray, by: int, bx: int) -> np.ndarray:
     return np.array([_median3(lx, ax, cx), _median3(ly, ay, cy)], np.int64)
 
 
+HMVP_SIZE = 5
+
+
+class HmvpList:
+    """History-based MVP FIFO (reference: HMVP LUT, UnitTools.cpp:3178
+    addAMVPHMVPCand; redundancy-checked append, size 5).  Updated in block
+    coding order identically by encoder and decoder."""
+
+    def __init__(self) -> None:
+        self.lut: list[tuple[int, int]] = []
+
+    def push(self, mv) -> None:
+        t = (int(mv[0]), int(mv[1]))
+        if t in self.lut:
+            self.lut.remove(t)
+        self.lut.append(t)
+        if len(self.lut) > HMVP_SIZE:
+            self.lut.pop(0)
+
+    def cands(self) -> list[np.ndarray]:
+        return [np.array(t, np.int64) for t in reversed(self.lut)]
+
+
+def amvp_list(mvs: np.ndarray, by: int, bx: int, col_mv=None,
+              hist: HmvpList | None = None, n: int = 2) -> list[np.ndarray]:
+    """AMVP candidate list: spatial median, TMVP co-located MV, HMVP
+    entries, zero — deduped, padded with zero to n (reference:
+    UnitTools.cpp:2172 fillMvpCand — spatial, :2272 TMVP, :3178 HMVP)."""
+    cands = [mvp_median(mvs, by, bx)]
+    if col_mv is not None:
+        cands.append(np.asarray(col_mv, dtype=np.int64))
+    if hist is not None:
+        cands.extend(hist.cands())
+    cands.append(np.zeros(2, dtype=np.int64))
+    out: list[np.ndarray] = []
+    for c in cands:
+        if not any(c[0] == o[0] and c[1] == o[1] for o in out):
+            out.append(c)
+        if len(out) == n:
+            break
+    while len(out) < n:
+        out.append(np.zeros(2, dtype=np.int64))
+    return out
+
+
 def _in_other_mer(by: int, bx: int, y: int, x: int,
                   mer_blocks_log2: int) -> bool:
     """Whether (y, x) lies outside the merge-estimation region of block
@@ -87,19 +134,22 @@ def _spatial_neighbours(nby: int, nbx: int, by: int, bx: int,
                 and _in_other_mer(by, bx, y, x, mer_blocks_log2))]
 
 
-def merge_candidates(coded: np.ndarray, by: int, bx: int,
-                     n: int = MERGE_MAX,
+def merge_candidates(coded: np.ndarray, by: int, bx: int, col_mv=None,
+                     hist: HmvpList | None = None, n: int = MERGE_MAX,
                      mer_blocks_log2: int = 0) -> list[tuple[int, int]]:
     """Merge candidate list from the causally-decoded MV grid, shared
     bit-exactly by encoder and decoder (reference: UnitTools.cpp:1059
-    getInterMergeCandidates — spatial A1/B1/B0/B2, pairwise-average, zero;
-    the TMVP and HMVP candidates are ROADMAP queue 1 item 8b).
-    `mer_blocks_log2`: the merge-estimation region's side in blocks
-    (log2)."""
+    getInterMergeCandidates — spatial A1/B1/B0/B2, TMVP, HMVP,
+    pairwise-average, zero).  `mer_blocks_log2`: the merge-estimation
+    region's side in blocks (log2)."""
     nby, nbx = coded.shape[:2]
     cands = [(int(coded[y, x, 0]), int(coded[y, x, 1]))
              for (y, x) in _spatial_neighbours(nby, nbx, by, bx,
                                                mer_blocks_log2)]
+    if col_mv is not None:
+        cands.append((int(col_mv[0]), int(col_mv[1])))
+    if hist is not None:
+        cands += [(int(c[0]), int(c[1])) for c in hist.cands()]
     out: list[tuple[int, int]] = []
     for c in cands:
         if c not in out:
@@ -130,14 +180,16 @@ def select_merge_p(mv_me: np.ndarray, sad_me: np.ndarray,
     the evolving FINAL MV grid; candidates whose SAD is known (they match
     one of the device-evaluated candidate fields, or the ME MV itself)
     compete against the AMVP coding of the ME MV on SAD + lambda*bits.  A
-    tie keeps the earlier candidate, and a tie with AMVP merges.
+    tie keeps the earlier candidate, and a tie with AMVP merges.  With
+    use_tmvp the lists carry the co-located MV (`col_mvs`, None when the
+    reference has no field) and the HMVP FIFO, pushed in coding order.
 
     Returns (final_mvs, merge_flag, merge_idx)."""
-    refuse(tmvp=use_tmvp)
     nby, nbx = mv_me.shape[:2]
     final = mv_me.astype(np.int64).copy()
     merge_flag = np.zeros((nby, nbx), dtype=bool)
     merge_idx = np.zeros((nby, nbx), dtype=np.int32)
+    hist = HmvpList() if use_tmvp else None
     n_fields = cand_mvs.shape[0]
     # plain-list views: python-int indexing is ~10x cheaper than numpy
     # scalar reads in this per-block host loop
@@ -147,7 +199,9 @@ def select_merge_p(mv_me: np.ndarray, sad_me: np.ndarray,
     csad_l = np.asarray(cand_sads).tolist()
     for by in range(nby):
         for bx in range(nbx):
-            cands = merge_candidates(final, by, bx,
+            col = (col_mvs[by, bx] if (use_tmvp and col_mvs is not None)
+                   else None)
+            cands = merge_candidates(final, by, bx, col, hist,
                                      mer_blocks_log2=mer_blocks_log2)
             me_mv = (mv_l[by][bx][0], mv_l[by][bx][1])
             best = None                       # (cost, idx, mv)
@@ -173,20 +227,28 @@ def select_merge_p(mv_me: np.ndarray, sad_me: np.ndarray,
                 merge_flag[by, bx] = True
                 merge_idx[by, bx] = best[1]
                 final[by, bx] = best[2]
+            if hist is not None:
+                hist.push(final[by, bx])
     return final, merge_flag, merge_idx
 
 
 def merge_candidates_ref(refs_g: np.ndarray, coded: np.ndarray, by: int,
-                         bx: int, n: int = MERGE_MAX, mer_blocks_log2: int = 0
+                         bx: int, col_mv=None, hist: HmvpList | None = None,
+                         n: int = MERGE_MAX, mer_blocks_log2: int = 0
                          ) -> list[tuple[int, tuple[int, int]]]:
     """Multi-reference merge candidates (ref_idx, mv): spatial neighbours
-    carry their reference, the pairwise average of the first two (when
-    they share one) rides it, the zero candidate rides ref 0 (reference:
-    merge candidates carry mvField incl. refIdx, UnitTools.cpp:1059)."""
+    carry their reference; TMVP and HMVP ride ref 0, the pairwise average
+    of the first two (when they share one) rides it, the zero candidate
+    rides ref 0 (reference: merge candidates carry mvField incl. refIdx,
+    UnitTools.cpp:1059)."""
     nby, nbx = refs_g.shape
     cands = [(int(refs_g[y, x]), (int(coded[y, x, 0]), int(coded[y, x, 1])))
              for (y, x) in _spatial_neighbours(nby, nbx, by, bx,
                                                mer_blocks_log2)]
+    if col_mv is not None:
+        cands.append((0, (int(col_mv[0]), int(col_mv[1]))))
+    if hist is not None:
+        cands += [(0, (int(c[0]), int(c[1]))) for c in hist.cands()]
     out = []
     for c in cands:
         if c not in out:
@@ -211,18 +273,21 @@ def select_merge_p_2ref(ref_me: np.ndarray, mv_me: np.ndarray,
                         cand_mvs: np.ndarray, cand_sads: np.ndarray,
                         col_mvs: np.ndarray | None, lam_sqrt: float,
                         use_tmvp: bool, mer_blocks_log2: int = 0):
-    """Two-reference merge decision in coding order.  Returns
-    (final_ref, final_mvs, merge_flag, merge_idx)."""
-    refuse(tmvp=use_tmvp)
+    """Two-reference merge decision in coding order (TMVP/HMVP as in
+    select_merge_p).  Returns (final_ref, final_mvs, merge_flag,
+    merge_idx)."""
     nby, nbx = ref_me.shape
     f_ref = ref_me.astype(np.int32).copy()
     f_mv = mv_me.astype(np.int64).copy()
     merge_flag = np.zeros((nby, nbx), dtype=bool)
     merge_idx = np.zeros((nby, nbx), dtype=np.int32)
+    hist = HmvpList() if use_tmvp else None
     n_fields = cand_ref.shape[0]
     for by in range(nby):
         for bx in range(nbx):
-            cands = merge_candidates_ref(f_ref, f_mv, by, bx,
+            col = (col_mvs[by, bx] if (use_tmvp and col_mvs is not None)
+                   else None)
+            cands = merge_candidates_ref(f_ref, f_mv, by, bx, col, hist,
                                          mer_blocks_log2=mer_blocks_log2)
             me = (int(ref_me[by, bx]),
                   (int(mv_me[by, bx, 0]), int(mv_me[by, bx, 1])))
@@ -252,6 +317,8 @@ def select_merge_p_2ref(ref_me: np.ndarray, mv_me: np.ndarray,
                 merge_idx[by, bx] = best[1]
                 f_ref[by, bx] = best[2][0]
                 f_mv[by, bx] = best[2][1]
+            if hist is not None:
+                hist.push(f_mv[by, bx])
     return f_ref, f_mv, merge_flag, merge_idx
 
 
@@ -1201,8 +1268,39 @@ def _cbf_grids(lev_y, lev_u, lev_v):
                                                            lev_v))
 
 
+def _amvp_pred(mvs, by: int, bx: int, col_mvs, hist, use_tmvp: bool):
+    """The AMVP predictor of block (by, bx) and its mvd: with TMVP, the
+    list candidate of the cheapest mvd (its index coded); else the
+    median.  Returns (idx, pred, mvd); the caller codes the index."""
+    mv = mvs[by, bx]
+    if not use_tmvp:
+        pred = mvp_median(mvs, by, bx)
+        return 0, pred, mv - pred
+    col = col_mvs[by, bx] if col_mvs is not None else None
+    cands = amvp_list(mvs, by, bx, col, hist)
+    mvds = [mv - c for c in cands]
+    idx = int(np.argmin([_mvd_bits(d) for d in mvds]))
+    return idx, cands[idx], mvds[idx]
+
+
+def _code_amvp_mvd(enc, mv, pred, mvd, imv, by: int, bx: int) -> None:
+    """The imv bins (AMVR precision) and the mvd, on the block's grid
+    against the grid-rounded predictor (reference: CABACWriter amvr_mode /
+    imv syntax)."""
+    if imv is not None:
+        m = int(imv[by, bx])
+        sh = AMVR_SHIFTS[m]
+        enc.encode_bin(int(m > 0), ctx_id("Amvr", 0))
+        if m > 0:
+            enc.encode_bin(int(m > 1), ctx_id("Amvr", 1))
+        mvd = (mv - round_mv_amvr(pred, sh)) >> sh
+    encode_mvd_comp(enc, int(mvd[0]))
+    encode_mvd_comp(enc, int(mvd[1]))
+
+
 def encode_p_slice(mvs: np.ndarray, lev_y: np.ndarray, lev_u: np.ndarray,
-                   lev_v: np.ndarray, use_tmvp: bool = False,
+                   lev_v: np.ndarray, col_mvs: np.ndarray | None = None,
+                   use_tmvp: bool = False,
                    imv: np.ndarray | None = None,
                    merge_flag: np.ndarray | None = None,
                    merge_idx: np.ndarray | None = None) -> bytes:
@@ -1211,12 +1309,18 @@ def encode_p_slice(mvs: np.ndarray, lev_y: np.ndarray, lev_u: np.ndarray,
     means merge+no-residual and is followed by merge_idx; non-skip blocks
     signal merge_flag, then either merge_idx (+residual) or the AMVP syntax
     (reference: CABACWriter merge_flag/merge_idx/cu_skip).  Without them,
-    skip means a zero mvd against the median predictor and no residual."""
-    refuse(tmvp=use_tmvp, amvr=imv is not None)
+    skip means a zero mvd against candidate 0 and no residual.
+
+    With use_tmvp the predictor comes from a 2-candidate AMVP list
+    (spatial / TMVP col_mvs / HMVP / zero) with a context-coded mvp index,
+    and the HMVP FIFO takes every block's MV (reference: fillMvpCand +
+    HMVP LUT).  With imv ((nby, nbx) in {0, 1, 2}) each AMVP block
+    signals its AMVR precision and codes the mvd on that grid."""
     enc = NativeBinEncoder()
     nby, nbx = mvs.shape[:2]
     mvs = mvs.astype(np.int64)
     use_merge = merge_flag is not None
+    hist = HmvpList() if use_tmvp else None
     cbf_yg, cbf_ug, cbf_vg = _cbf_grids(lev_y, lev_u, lev_v)
     for by in range(nby):
         for bx in range(nbx):
@@ -1225,44 +1329,52 @@ def encode_p_slice(mvs: np.ndarray, lev_y: np.ndarray, lev_u: np.ndarray,
                     bool(cbf_vg[by, bx]))
             levs = (lev_y[by, bx], lev_u[by, bx], lev_v[by, bx])
             no_resid = not any(cbfs)
+            mrg = use_merge and bool(merge_flag[by, bx])
             if use_merge:
-                mrg = bool(merge_flag[by, bx])
                 skip = mrg and no_resid
                 enc.encode_bin(int(skip), ctx_id("SkipFlag"))
                 if skip:
                     encode_merge_idx(enc, int(merge_idx[by, bx]))
-                    continue
-                enc.encode_bin(int(mrg), ctx_id("MergeFlag"))
-                if mrg:
-                    encode_merge_idx(enc, int(merge_idx[by, bx]))
+                else:
+                    enc.encode_bin(int(mrg), ctx_id("MergeFlag"))
+                    if mrg:
+                        encode_merge_idx(enc, int(merge_idx[by, bx]))
+                        _code_residual(enc, cbfs, levs)
+            if not mrg:
+                idx, pred, mvd = _amvp_pred(mvs, by, bx, col_mvs,
+                                            hist, use_tmvp)
+                # skip without merge: zero mvd against candidate 0, no
+                # residual
+                skip = (not use_merge and no_resid and mvd[0] == 0
+                        and mvd[1] == 0 and idx == 0)
+                if not use_merge:
+                    enc.encode_bin(int(skip), ctx_id("SkipFlag"))
+                if not skip:
+                    if use_tmvp:
+                        enc.encode_bin(idx, ctx_id("MvpIdx"))
+                    _code_amvp_mvd(enc, mv, pred, mvd, imv, by, bx)
                     _code_residual(enc, cbfs, levs)
-                    continue
-            mvd = mv - mvp_median(mvs, by, bx)
-            # skip without merge: zero mvd, no residual
-            skip = (not use_merge and no_resid and mvd[0] == 0
-                    and mvd[1] == 0)
-            if not use_merge:
-                enc.encode_bin(int(skip), ctx_id("SkipFlag"))
-            if not skip:
-                encode_mvd_comp(enc, int(mvd[0]))
-                encode_mvd_comp(enc, int(mvd[1]))
-                _code_residual(enc, cbfs, levs)
+            if hist is not None:
+                hist.push(mv)
     return enc.finish()
 
 
 def encode_p_slice_2ref(ref_idx: np.ndarray, mvs: np.ndarray,
                         lev_y: np.ndarray, lev_u: np.ndarray,
-                        lev_v: np.ndarray, use_tmvp: bool = False,
+                        lev_v: np.ndarray,
+                        col_mvs: np.ndarray | None = None,
+                        use_tmvp: bool = False,
                         imv: np.ndarray | None = None,
                         merge_flag: np.ndarray | None = None,
                         merge_idx: np.ndarray | None = None) -> bytes:
     """Two-reference P slice: the merge syntax of encode_p_slice plus a
     context-coded ref_idx bin on AMVP-coded blocks (reference:
-    CABACWriter::ref_idx, Ctx::RefPic)."""
-    refuse(tmvp=use_tmvp, amvr=imv is not None)
+    CABACWriter::ref_idx, Ctx::RefPic); TMVP/HMVP and AMVR as in
+    encode_p_slice."""
     enc = NativeBinEncoder()
     nby, nbx = mvs.shape[:2]
     mvs = mvs.astype(np.int64)
+    hist = HmvpList() if use_tmvp else None
     cbf_yg, cbf_ug, cbf_vg = _cbf_grids(lev_y, lev_u, lev_v)
     for by in range(nby):
         for bx in range(nbx):
@@ -1274,15 +1386,52 @@ def encode_p_slice_2ref(ref_idx: np.ndarray, mvs: np.ndarray,
             enc.encode_bin(int(skip), ctx_id("SkipFlag"))
             if skip:
                 encode_merge_idx(enc, int(merge_idx[by, bx]))
-                continue
-            enc.encode_bin(int(mrg), ctx_id("MergeFlag"))
-            if mrg:
-                encode_merge_idx(enc, int(merge_idx[by, bx]))
             else:
-                enc.encode_bin(int(ref_idx[by, bx]), ctx_id("RefPic", 0))
-                mvd = mv - mvp_median(mvs, by, bx)
-                encode_mvd_comp(enc, int(mvd[0]))
-                encode_mvd_comp(enc, int(mvd[1]))
+                enc.encode_bin(int(mrg), ctx_id("MergeFlag"))
+                if mrg:
+                    encode_merge_idx(enc, int(merge_idx[by, bx]))
+                else:
+                    enc.encode_bin(int(ref_idx[by, bx]), ctx_id("RefPic", 0))
+                    idx, pred, mvd = _amvp_pred(mvs, by, bx, col_mvs,
+                                                hist, use_tmvp)
+                    if use_tmvp:
+                        enc.encode_bin(idx, ctx_id("MvpIdx"))
+                    _code_amvp_mvd(enc, mv, pred, mvd, imv, by, bx)
+                _code_residual(enc, cbfs, (lev_y[by, bx], lev_u[by, bx],
+                                           lev_v[by, bx]))
+            if hist is not None:
+                hist.push(mv)
+    return enc.finish()
+
+
+def encode_p_slice_affine(mvs: np.ndarray, aff: np.ndarray,
+                          dmv: np.ndarray, lev_y: np.ndarray,
+                          lev_u: np.ndarray, lev_v: np.ndarray) -> bytes:
+    """P slice with per-block affine flags (reference: CABACWriter
+    affine_flag after the skip/merge syntax, CABACWriter.cpp:1774 region).
+    mvs holds the TL CPMV for affine blocks; dmv the extra (TR-TL) pair,
+    coded as a second mvd."""
+    enc = NativeBinEncoder()
+    nby, nbx = mvs.shape[:2]
+    mvs = mvs.astype(np.int64)
+    cbf_yg, cbf_ug, cbf_vg = _cbf_grids(lev_y, lev_u, lev_v)
+    for by in range(nby):
+        for bx in range(nbx):
+            mvd = mvs[by, bx] - mvp_median(mvs, by, bx)
+            cbfs = (bool(cbf_yg[by, bx]), bool(cbf_ug[by, bx]),
+                    bool(cbf_vg[by, bx]))
+            a = bool(aff[by, bx])
+            skip = (not any(cbfs) and mvd[0] == 0 and mvd[1] == 0
+                    and not a)
+            enc.encode_bin(int(skip), ctx_id("SkipFlag"))
+            if skip:
+                continue
+            enc.encode_bin(int(a), ctx_id("AffineFlag", 0))
+            encode_mvd_comp(enc, int(mvd[0]))
+            encode_mvd_comp(enc, int(mvd[1]))
+            if a:
+                encode_mvd_comp(enc, int(dmv[by, bx, 0]))
+                encode_mvd_comp(enc, int(dmv[by, bx, 1]))
             _code_residual(enc, cbfs, (lev_y[by, bx], lev_u[by, bx],
                                        lev_v[by, bx]))
     return enc.finish()
@@ -1296,11 +1445,13 @@ def encode_b_slice(mv0: np.ndarray, mv1: np.ndarray, dirs: np.ndarray,
                    merge_idx: np.ndarray | None = None
                    ) -> tuple[bytes, np.ndarray, np.ndarray]:
     """Classic B slice: skip / inter_dir / per-list mvd / residual
-    (reference: CABACWriter inter_pred_idc + mvd_coding per list, SMVD).
-    Unused-list entries in the coded MV grids are replaced by their MVP so
-    the dense grid evolves identically on the decoder; returns (payload,
-    coded0, coded1)."""
-    refuse(gpm=use_gpm, ciip=use_ciip)
+    (reference: CABACWriter inter_pred_idc + mvd_coding per list, SMVD;
+    GEO merge_gpm_partition_idx and ciip_flag, CABACWriter.cpp
+    merge_data).  dirs 3 (GPM) and 4 (CIIP) are signalled as a both-list
+    mode with a sub-type bin gated by the SPS tool flags; GPM adds a 4-bit
+    EP mask index.  Unused-list entries in the coded MV grids are replaced
+    by their MVP so the dense grid evolves identically on the decoder;
+    returns (payload, coded0, coded1)."""
     enc = NativeBinEncoder()
     nby, nbx = dirs.shape
     use_merge = merge_flag is not None
@@ -1336,7 +1487,8 @@ def encode_b_slice(mv0: np.ndarray, mv1: np.ndarray, dirs: np.ndarray,
             mvd0y = int(coded0[by, bx, 1]) - int(pred0[1])
             mvd1x = int(coded1[by, bx, 0]) - int(pred1[0])
             mvd1y = int(coded1[by, bx, 1]) - int(pred1[1])
-            # skip inherits the neighbour direction clamped to BI
+            # skip inherits the neighbour direction clamped to BI (GPM/CIIP
+            # blocks never skip: the mask/intra state is not inherited)
             d_pred = (int(dirs[by, bx - 1]) if bx > 0
                       else int(dirs[by - 1, bx]) if by > 0 else 0)
             d_pred = min(d_pred, 2)
@@ -1352,6 +1504,21 @@ def encode_b_slice(mv0: np.ndarray, mv1: np.ndarray, dirs: np.ndarray,
             enc.encode_bin(int(d >= 2), ctx_id("InterDir", 0))
             if d < 2:
                 enc.encode_bin(d, ctx_id("InterDir", 1))
+            else:
+                if use_gpm and use_ciip:
+                    enc.encode_bin(int(d != 2), ctx_id("GeoFlag"))
+                    if d != 2:
+                        enc.encode_bin(int(d == 4), ctx_id("CiipFlag"))
+                elif use_gpm:
+                    enc.encode_bin(int(d == 3), ctx_id("GeoFlag"))
+                elif use_ciip:
+                    enc.encode_bin(int(d == 4), ctx_id("CiipFlag"))
+                if d == 3:
+                    # GPM mask index, fixed-length EP (reference:
+                    # merge_gpm_partition_idx)
+                    g = int(gpm_modes[by, bx])
+                    for bit in range(3, -1, -1):
+                        enc.encode_bin_ep((g >> bit) & 1)
             # SMVD: mirrored bi-prediction sends one mvd (reference:
             # sym_mvd_flag, CABACWriter smvd_mode; mvd1 = -mvd0)
             smvd = (d == 2 and mvd1x == -mvd0x and mvd1y == -mvd0y)

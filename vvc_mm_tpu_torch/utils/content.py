@@ -5,7 +5,8 @@ clip): two noise octaves under a global pan + slow zoom, a rotating bright
 disc and a static high-contrast grid region, 8-bit 4:2:0.  The committed
 streams under tests/data/torch_port/ were encoded from this content, so
 the port can score its decoded pictures against the source without the
-JAX package.
+JAX package.  `fade_sequence` turns a clip into the fade that the weighted
+prediction streams code.
 """
 from __future__ import annotations
 
@@ -62,6 +63,21 @@ def realistic_sequence(width: int, height: int, num_frames: int,
             yp[1::2, ::2] // 16)
         frames.append([yp, np.clip(u, 0, 255), np.clip(v, 0, 255)])
     return frames
+
+
+def fade_sequence(frames, step: float):
+    """A fade to black over `frames` ([y, u, v] int planes): frame i keeps
+    the gain g = 1 - step*i, luma y*g and chroma 128 + (c - 128)*g,
+    clipped to 0..255 and truncated to int32 (the fade of the JAX
+    package's tests/test_weighted_pred.py)."""
+    out = []
+    for i, (y, u, v) in enumerate(frames):
+        g = 1.0 - step * i
+        out.append([np.clip(np.asarray(y, np.float64) * g, 0, 255)
+                    .astype(np.int32)]
+                   + [np.clip(128 + (np.asarray(c, np.float64) - 128) * g,
+                              0, 255).astype(np.int32) for c in (u, v)])
+    return out
 
 
 def psnr(orig: np.ndarray, recon: np.ndarray, bit_depth: int = 8) -> float:
