@@ -14,7 +14,11 @@ Phases (any failure exits non-zero and prints no result line):
      also on diamond-like positions, at block widths 24 and 32, K = 1 and
      10 bit, K5/K6 also on coherent and diamond positions, at 10 bit on
      536x1000 and K = 1, all six on a plane whose rows are not 16-byte
-     aligned and on an 8-bit 6144x3072 plane: bit-exact (tolerance 0);
+     aligned and on an 8-bit 6144x3072 plane: bit-exact (tolerance 0); and
+     D1 (dependent quantization's trellis) and D2 (its dequantizer) at the
+     I picture's shapes (896, 8, 8) and (256, 4, 4) and at (4096, 16, 16),
+     on Laplacian, all-zero and saturating blocks, at QP 0, 37 and 51:
+     levels and reconstructions equal;
   4. decode the committed 2048x1024 ERP multi-model RA stream with
      DecLib() on CUDA, counting kernel launches: the I picture's MD5 must
      match, and every picture's Y-PSNR against the regenerated source must
@@ -46,7 +50,7 @@ Phases (any failure exits non-zero and prints no result line):
      through encode_sequence on the card, then DecLib() on the card: 17 of
      17 MD5s must match and K1-K4 must be launched; per-picture bits,
      Y-PSNR and seconds, the frames per second and the stream's SHA-256
-     are printed.  Three more
+     are printed.  Two more
      encodes give the median and the spread of the sequence's seconds and
      must give the same bytes; one more under torch.profiler gives every
      picture's device operations, device time and idle share, and the I
@@ -69,7 +73,7 @@ Phases (any failure exits non-zero and prints no result line):
      GOP 16, 17 frames, the classic single-model inter path, no 360 tool):
      encode_sequence on the card, held to the committed JAX stream
      `ra832x480_qp37_17f` byte for byte; the port's stream and the
-     committed one decoded on the card with 17 of 17 MD5 OK; three more
+     committed one decoded on the card with 17 of 17 MD5 OK; two more
      encodes give the median seconds and frames per second (same bytes),
      one with the stage timers on the stage shares, one under
      torch.profiler every picture's device operations and idle share.
@@ -116,6 +120,23 @@ Phases (any failure exits non-zero and prints no result line):
      prediction on P and B slices, BDOF, DMVR, GPM and CIIP
      (`ra832x480_fade_wp_qp37_17f`): as 8h, and the count of slices that
      carry weight tables;
+  8k. the headline tools with make_bd_r05.py's CTC-like preset (TMVP,
+     RDOQ, dependent quantization, MTS, LFNST) at 2048x1024, 5 frames at
+     GOP 4: held to the committed JAX stream's sidecar (0.1 dB, 2%) and its
+     IDR NAL byte for byte, D1/D2 launched on every wavefront step, the
+     port's stream decoded on the card (every MD5 OK), the committed
+     stream decoded on the card (the I picture's MD5 OK, every Y-PSNR
+     within 0.1 dB); then the headline's 17 frames at GOP 16 with the
+     preset: seconds, and for the I picture its seconds, device
+     operations, D1/D2 launches and device time;
+  8l. bench configuration 1 with dependent quantization, MTS, LFNST,
+     transform skip and BDPCM, and lossless, and RDOQ with transform skip
+     and BDPCM at 192x96: each byte for byte against its committed JAX
+     stream, both decoded on the card with every MD5 OK, the lossless
+     reconstruction and decode equal to the source;
+  8m. configuration 2's clip and size, LDP, 9 frames, a non-flat scaling
+     list on the P pictures: byte for byte against the committed JAX
+     stream, both decoded on the card with every MD5 OK;
   9. decision SADs (K6's path): frame_codec._sad_fields_bilin with
      exact=False and exact=True on the tensors captured from the 256x128
      encodes' diamond steps and on one full 2048x1024 grid: the bilinear
@@ -124,7 +145,8 @@ Phases (any failure exits non-zero and prints no result line):
      filters are counted;
  10. time each kernel and its plain version on inputs captured from those
      runs (K1 also on projected DMVR's row, K1/K2 also on path D's affine
-     grid), after a launch floor (the
+     grid, D1/D2 on phase 8k's I-picture luma batch), after a launch floor
+     (the
      device time of a one-element fill), print the `kernels` line (K1-K5
      launches also by shape), then the
      result line.  Before it, K5's and K6's launch rule is timed against
@@ -155,7 +177,8 @@ from vvc_mm_tpu_torch.common.slice_ps import SPS, MMConfig, SliceHeader
 from vvc_mm_tpu_torch.decoder.declib import DecLib
 from vvc_mm_tpu_torch.encoder.enclib import EncCfg, EncLib
 from vvc_mm_tpu_torch.lib360.projection import ERP
-from vvc_mm_tpu_torch.ops import cuda_lib, mc_kernel
+from vvc_mm_tpu_torch.common import depquant
+from vvc_mm_tpu_torch.ops import cuda_lib, depquant_kernel, mc_kernel
 from vvc_mm_tpu_torch.utils import profiling
 from vvc_mm_tpu_torch.decoder.inter_parser import decode_p_slice_affine
 from vvc_mm_tpu_torch.utils.content import (fade_sequence, psnr,
@@ -175,6 +198,22 @@ PATH_D = "ldp832x480_affine_qp37_9f"
 PATH_E = "ra832x480_fade_wp_qp37_17f"
 FADE_STEP = 0.04
 ALLMM = "erp2048x1024_ra_allmm_dmvr_qp37_5f"
+# the headline tools with make_bd_r05.py:75-77's CTC-like preset (phase 8k)
+PRESET = "erp2048x1024_ra_ctcpreset_qp37_5f"
+PRESET_TOOLS = dict(tmvp=True, rdoq=True, dep_quant=True, mts=True,
+                    lfnst=True)
+# I-picture blocks whose decisions on the card differ from the JAX
+# encoder's at 2048x1024 with the preset: 0 measured, so the IDR NAL must
+# equal the committed one byte for byte
+PRESET_I_DECISIONS_OFF = 0
+# bench configuration 1 with the I picture's residual tools, and lossless
+# (phase 8l); configuration 2's clip with a scaling list (phase 8m)
+CONFIG1_TOOLS = "ai416x240_tools_qp37_2f"
+CONFIG1_LOSSLESS = "ai416x240_lossless_2f"
+# RDOQ unshadowed, transform skip and BDPCM (AI 192x96; phase 8l)
+RDOQ_TS = "ai192x96_rdoq_ts_bdpcm_qp37_2f"
+SCALING = "ldp832x480_scaling_qp37_9f"
+STEEP = tuple(int(16 + 2 * (x + y)) for y in range(8) for x in range(8))
 PSNR_TOL_DB = 0.1
 BITS_TOL = 1.02
 MIN_PSNR_Y_DB = 25.0           # sanity floor where no record exists
@@ -186,18 +225,29 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 # of the port filters in int32, so this rate, not the 67 TFLOP/s of fp32,
 # bounds their operations.
 I32_OPS_PER_S = 33.5e12
+# H100 SXM float32 rate outside the tensor cores (NVIDIA's data sheet)
+F32_OPS_PER_S = 67e12
 SOURCES = {"mc_luma_positions": "mc_positions.cu",
            "mc_chroma_positions": "mc_positions.cu",
            "sad_block_positions": "sad_positions.cu",
            "mc_block_positions": "sad_positions.cu",
            "sad_luma_positions": "sad_positions.cu",
-           "sad_bilinear_positions": "sad_positions.cu"}
+           "sad_bilinear_positions": "sad_positions.cu",
+           "quantize_dep": "depquant.cu",
+           "dequantize_dep": "depquant.cu"}
 REPLACES = {"mc_luma_positions": "vvc_mm_tpu/ops/mc_kernel.py:191",
             "mc_chroma_positions": "vvc_mm_tpu/ops/mc_kernel.py:817",
             "sad_block_positions": "vvc_mm_tpu/ops/mc_kernel.py:565",
             "mc_block_positions": "vvc_mm_tpu/ops/mc_kernel.py:505",
             "sad_luma_positions": "vvc_mm_tpu/ops/mc_kernel.py:291",
-            "sad_bilinear_positions": "vvc_mm_tpu/ops/mc_kernel.py:688"}
+            "sad_bilinear_positions": "vvc_mm_tpu/ops/mc_kernel.py:688",
+            "quantize_dep": "vvc_mm_tpu/common/depquant.py:70 (lax.scan, "
+                            "no Pallas)",
+            "dequantize_dep": "vvc_mm_tpu/common/depquant.py:165 (lax.scan, "
+                              "no Pallas)"}
+# D1/D2: the (kernel, block batch shape) of the I picture's luma launch at
+# 2048x1024 with MTS and LFNST (128 blocks x 7 candidates), timed in phase 10
+DQ_PATH_SHAPE = (896, 8, 8)
 
 
 _T0 = time.perf_counter()
@@ -235,7 +285,8 @@ def cuda_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20) -> float | None:
+def device_ms(fn, iters: int = 20, tag: str = "positions_kernel"
+              ) -> float | None:
     """Mean device time of the one kernel a wrapper call fn() launches, from
     torch.profiler's device events of the port's kernels (their names hold
     "positions_kernel"): the gaps between launches, which the CUDA-event
@@ -249,8 +300,7 @@ def device_ms(fn, iters: int = 20) -> float | None:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        own = [t for name, t in device_events(prof)
-               if "positions_kernel" in name]
+        own = [t for name, t in device_events(prof) if tag in name]
         if 0 < len(own) <= iters:
             return sum(own) / len(own) * 1e3
     print(f"  (the profiler caught {len(own)} kernels for {iters} calls)")
@@ -508,6 +558,7 @@ def check_kernels(margin: int, dev) -> dict:
                           mc_kernel.sad_bilinear_positions_plain(r, o, p,
                                                                  margin)))
     cases += plane_6k_cases(rng, margin, dev)
+    cases += depquant_cases(rng, dev)
     max_err = {name: 0 for name in SOURCES}
     for name, label, fn, plain in cases:
         got, want = fn(), plain()
@@ -526,10 +577,59 @@ def check_kernels(margin: int, dev) -> dict:
     return max_err
 
 
+def reset_launches() -> None:
+    mc_kernel.reset_launches()
+    depquant_kernel.reset_launches()
+
+
+def all_launches() -> dict:
+    """Every kernel's launch count: K1-K6 and D1/D2."""
+    return dict(mc_kernel.LAUNCHES, **depquant_kernel.LAUNCHES)
+
+
+def depquant_cases(rng, dev) -> list:
+    """D1/D2 against their plain versions: at the I picture's shapes at
+    2048x1024 (128 luma blocks x 7 MTS/LFNST candidates, U and V of 128
+    blocks), at (4096, 16, 16) (the global-scratch path), on Laplacian,
+    all-zero and saturating blocks, at QP 0, 37 and 51.  D2 takes the
+    levels D1's plain version gives."""
+    cases = []
+    for shape in (DQ_PATH_SHAPE, (256, 4, 4), (4096, 16, 16)):
+        b, s, _ = shape
+        log2s = s.bit_length() - 1
+        yy, xx = np.mgrid[0:s, 0:s]
+        for kind in ("laplace", "zero", "saturating"):
+            if kind == "laplace":
+                c = (rng.laplace(0, 1, shape) * 400.0
+                     / (1 + yy + xx) ** 1.3).round()
+            elif kind == "zero":
+                c = np.zeros(shape)
+            else:
+                c = rng.choice([-32768, 32767, -30000, 31000], shape)
+            c = torch.from_numpy(c.astype(np.int32))
+            for qp in (0, 37, 51):
+                cd = c.to(dev)
+                lev = depquant.quantize_dep_plain(cd, qp, log2s, log2s)
+                label = f"{shape} {kind} QP {qp}"
+                cases.append((
+                    "quantize_dep", label,
+                    lambda cd=cd, qp=qp, l=log2s:
+                    depquant.quantize_dep(cd, qp, l, l),
+                    lambda cd=cd, qp=qp, l=log2s:
+                    depquant.quantize_dep_plain(cd, qp, l, l)))
+                cases.append((
+                    "dequantize_dep", label,
+                    lambda lv=lev, qp=qp, l=log2s:
+                    depquant.dequantize_dep(lv, qp, l, l),
+                    lambda lv=lev, qp=qp, l=log2s:
+                    depquant.dequantize_dep_plain(lv, qp, l, l)))
+    return cases
+
+
 def launch_counts() -> dict:
     """Kernel launches since the last reset_launches(), with K3-K5's by
     shape under "by_shape"."""
-    return dict(mc_kernel.LAUNCHES, by_shape={
+    return dict(all_launches(), by_shape={
         n: dict(d) for n, d in mc_kernel.LAUNCHES_BY_SHAPE.items()})
 
 
@@ -545,6 +645,14 @@ def device_events(prof) -> list[tuple[str, float]]:
                 if e.device_type() == DeviceType.CUDA]
     return [(e.name, e.time_range.elapsed_us() * 1e-6)
             for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def dq_device_s(prof) -> tuple[float, float]:
+    """Device seconds of D1's and D2's kernels in a profile."""
+    evs = device_events(prof)
+    return (sum(t for n, t in evs if "quantize_dep_kernel" in n
+                and "dequantize" not in n),
+            sum(t for n, t in evs if "dequantize_dep_kernel" in n))
 
 
 def device_work(prof) -> tuple[int, float]:
@@ -574,7 +682,7 @@ class MeasuredEncLib(EncLib):
         self.rows: list[dict] = []
 
     def _measured(self, kind: str, method, poc: int, *args, **kw):
-        before = dict(mc_kernel.LAUNCHES)
+        before = all_launches()
         stages_before = profiling.totals()
         prof = None
         if self.mode == "trace":
@@ -590,8 +698,9 @@ class MeasuredEncLib(EncLib):
             stages={k: v - stages_before.get(k, 0.0)
                     for k, v in profiling.totals().items()},
             device_work=device_work(prof) if prof is not None else None,
+            dq_device_s=dq_device_s(prof) if prof is not None else None,
             launches={k: v - before[k]
-                      for k, v in mc_kernel.LAUNCHES.items()}))
+                      for k, v in all_launches().items()}))
         return nal, res
 
     def encode_intra_frame(self, poc, *args, **kw):
@@ -651,7 +760,7 @@ def encode_run(label: str, cfg: EncCfg, src: list, mode: str) -> dict:
     synchronised) and the launch counts of this run alone."""
     profiling.reset()
     profiling.enable(mode == "stages")
-    mc_kernel.reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     enc = MeasuredEncLib(cfg, mode)
@@ -889,7 +998,7 @@ def main() -> None:
     path_launches = {}
     side = json.load(open(os.path.join(DATA, BIG + ".json")))
     data = open(os.path.join(DATA, BIG + ".bin"), "rb").read()
-    mc_kernel.reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dec = DecLib()
@@ -981,6 +1090,14 @@ def main() -> None:
     phase("8j. path E: a fade with weighted prediction (832x480, GOP 16)")
     tools_path("path E 832x480 fade WP", PATH_E, path_launches)
 
+    # ---- 8k-8m. the I picture's quantization and transform tools
+    phase("8k. the CTC-like preset on the headline tools (2048x1024)")
+    dq_captured = preset_path(path_launches)
+    phase("8l. bench configuration 1 with the residual tools, and lossless")
+    intra_tools_path(path_launches)
+    phase("8m. configuration 2's clip, LDP, a scaling list (832x480)")
+    scaling_path(path_launches)
+
     # ---- 9. decision SADs through K6 (and K5 beside it)
     phase("9. decision SADs")
     positions = card_positions[-1].to(torch.int32).contiguous()
@@ -992,7 +1109,8 @@ def main() -> None:
     # ---- 10. time the kernels on the main paths' inputs
     phase("10. kernel times")
     out = time_kernels(captured, full_grid, ref_pic, positions, dmvr_case,
-                       affine_cases, max_err, path_launches, card, w, h)
+                       affine_cases, max_err, path_launches, card, w, h,
+                       dq_captured)
     phase("done")
     print(json.dumps({"kernels": list(out.values())}))
     print(card)
@@ -1049,13 +1167,15 @@ def headline_sequence(label: str, cfg: EncCfg, clip: list, need: tuple,
     first = encode_run(label + " (first call)", cfg, clip, "plain")
     path_launches[label] = first["launches"]
     check_run(first, need, record)
-    runs = [encode_run(label, cfg, clip, "plain") for _ in range(3)]
+    # two timed encodes after the first (three before the preset's phase
+    # 8k joined the run: the smoke's time limit is shared)
+    runs = [encode_run(label, cfg, clip, "plain") for _ in range(2)]
     for r in runs:
         if r["data"] != first["data"]:
             fail(f"{label}: another encode gave other bytes")
     secs = sorted(r["seconds"] for r in runs)
     med = statistics.median(secs)
-    print(f"{label}: first call {first['seconds']:.2f} s; three more: "
+    print(f"{label}: first call {first['seconds']:.2f} s; two more: "
           f"{', '.join(f'{x:.2f}' for x in secs)} s (host clock), median "
           f"{med:.2f} s = {n / med:.3f} frames per second, spread "
           f"(max - min) {secs[-1] - secs[0]:.2f} s = "
@@ -1448,6 +1568,181 @@ def bench_configuration_1(path_launches: dict) -> None:
         fail(f"{label}: the card's stream differs from the JAX encoder's")
 
 
+def preset_cfg(gop_size: int) -> EncCfg:
+    """The headline configuration at 2048x1024 with the CTC-like preset."""
+    cfg = headline_cfg(2048, 1024, 37, gop_size)
+    for k, v in PRESET_TOOLS.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def preset_path(path_launches: dict) -> dict:
+    """Phase 8k: the headline tools with make_bd_r05.py's CTC-like preset
+    (TMVP, RDOQ, dependent quantization, MTS, LFNST) at 2048x1024.  TMVP
+    is inert on multi-model pictures and dependent quantization shadows
+    RDOQ, so the preset's new work is the I picture's: D1/D2 on every
+    wavefront step.  5 frames at GOP 4 against the JAX encoder's sidecar
+    (0.1 dB, 2%, the IDR NAL byte for byte: PRESET_I_DECISIONS_OFF), the
+    port's stream decoded on the card (every MD5 OK), the committed stream
+    decoded on the card (the I picture's MD5 OK: D2 in the decoder; every
+    Y-PSNR within 0.1 dB); the 5-frame encode runs under the profiler.
+    Then the headline's own 17 frames at GOP 16, untraced, with the I
+    picture's seconds, device operations, D1/D2 launches and device time
+    (its I picture is the 5-frame run's).  Returns D1/D2's captured
+    launches."""
+    sd = json.load(open(os.path.join(DATA, PRESET + ".json")))
+    committed = open(os.path.join(DATA, PRESET + ".bin"), "rb").read()
+    cfg = preset_cfg(4)
+    if (sd["width"], sd["height"], sd["gop"], sd["gop_size"], sd["qt_depth"],
+            sd["models"], sd["wrap_around"], sd["search_range"]) != \
+            (cfg.width, cfg.height, cfg.gop, cfg.gop_size, cfg.qt_depth,
+             "MPA+ROT", cfg.wrap_around, cfg.search_range) \
+            or any(sd.get(k) is not True for k in PRESET_TOOLS):
+        fail(f"{PRESET}: the sidecar names another configuration")
+    clip = realistic_sequence(sd["width"], sd["height"], sd["frames"])
+    label = "preset 2048x1024 GOP 4"
+    need = ("mc_luma_positions", "mc_chroma_positions",
+            "sad_block_positions", "mc_block_positions", "quantize_dep",
+            "dequantize_dep")
+    # traced: every picture's device operations and D1/D2's device time
+    depquant_kernel.CAPTURED = {}
+    run = encode_run(label, cfg, clip, "trace")
+    dq_captured, depquant_kernel.CAPTURED = depquant_kernel.CAPTURED, None
+    path_launches[label] = run["launches"]
+    check_run(run, need, {p["poc"]: p for p in sd["pocs"]}, hold=True)
+    same_idr = compare_nals(label, run["data"], committed, only=bs.NAL_IDR)
+    print(f"{label}: I-picture decisions apart from the JAX encoder's "
+          f"pinned at {PRESET_I_DECISIONS_OFF}; IDR NAL equal: {same_idr}")
+    if not same_idr and PRESET_I_DECISIONS_OFF == 0:
+        fail(f"{label}: the IDR NAL differs from the JAX encoder's")
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec = DecLib()
+    frames = dec.decode_bytes(committed)
+    torch.cuda.synchronize()
+    print(f"{label}: committed {PRESET} decoded on the card in "
+          f"{time.perf_counter() - t0:.2f} s (host clock), launches "
+          f"{all_launches()}")
+    if depquant_kernel.LAUNCHES["dequantize_dep"] == 0:
+        fail(f"{label}: the decode did not launch dequantize_dep")
+    hold_to_record(f"{label} committed", frames, dec.hash_status, sd, clip)
+    # the headline's own sequence with the preset
+    hlabel = "preset 2048x1024 GOP 16"
+    hcfg = preset_cfg(HEADLINE_GOP)
+    hclip = realistic_sequence(2048, 1024, HEADLINE_FRAMES)
+    hrun = encode_run(hlabel, hcfg, hclip, "plain")
+    path_launches[hlabel] = hrun["launches"]
+    check_run(hrun, need)
+    # both sequences open with the same I picture (POC 0, QP 34, the same
+    # tools): its device work is the 5-frame traced run's
+    i_plain = next(r for r in hrun["rows"] if r["kind"] == "I")
+    i_traced = next(r for r in run["rows"] if r["kind"] == "I")
+    if i_traced["bits"] != i_plain["bits"]:
+        fail(f"{hlabel}: the I picture differs from the 5-frame run's")
+    for r in run["rows"]:
+        print(f"{label} POC {r['poc']} ({r['kind']}) traced: "
+              f"{r['device_work'][0]} device operations, "
+              f"{r['device_work'][1]:.4f} s of device time")
+    n_ops, busy = i_traced["device_work"]
+    d1_s, d2_s = i_traced["dq_device_s"]
+    print(f"{hlabel}: {hrun['seconds']:.2f} s for {HEADLINE_FRAMES} "
+          f"pictures; I picture {i_plain['seconds']:.2f} s (host clock), "
+          f"{n_ops} device operations, {busy:.4f} s of device time, D1 "
+          f"{i_plain['launches']['quantize_dep']} launches "
+          f"({1e3 * d1_s:.2f} ms of device time), D2 "
+          f"{i_plain['launches']['dequantize_dep']} launches "
+          f"({1e3 * d2_s:.2f} ms); the card idle "
+          f"{100 * (1 - busy / i_plain['seconds']):.1f}% of the I picture")
+    return dq_captured
+
+
+def intra_tools_path(path_launches: dict) -> None:
+    """Phase 8l: bench configuration 1 (AI, 416x240, 2 frames) with
+    dependent quantization, MTS, LFNST, transform skip and BDPCM, and the
+    same lossless; RDOQ (unshadowed) with transform skip and BDPCM at
+    192x96: each byte for byte against its committed JAX stream, both
+    streams decoded on the card with every MD5 OK; the lossless
+    reconstructions and decodes equal their source."""
+    for stream, size, fields in (
+            (CONFIG1_TOOLS, (416, 240), dict(dep_quant=True, mts=True,
+                                             lfnst=True, transform_skip=True,
+                                             bdpcm=True)),
+            (CONFIG1_LOSSLESS, (416, 240), dict(lossless=True)),
+            (RDOQ_TS, (192, 96), dict(rdoq=True, transform_skip=True,
+                                      bdpcm=True))):
+        sd = json.load(open(os.path.join(DATA, stream + ".json")))
+        committed = open(os.path.join(DATA, stream + ".bin"), "rb").read()
+        cfg = EncCfg(width=size[0], height=size[1], qp=37, gop="AI",
+                     **fields)
+        check_classic_sidecar(stream, sd, cfg)
+        clip = realistic_sequence(cfg.width, cfg.height, sd["frames"])
+        label = f"AI {size[0]}x{size[1]} {'+'.join(fields)}"
+        run = encode_run(label, cfg, clip, "plain")
+        path_launches[label] = run["launches"]
+        if cfg.lossless:
+            lossless_run(run, clip)
+        else:
+            check_run(run, ("quantize_dep", "dequantize_dep")
+                      if cfg.dep_quant else (),
+                      {p["poc"]: p for p in sd["pocs"]})
+        if not compare_nals(label, run["data"], committed):
+            fail(f"{label}: the card's stream differs from the JAX "
+                 "encoder's")
+        decode_all_ok(label, stream, committed, sd["frames"])
+
+
+def lossless_run(run: dict, clip: list) -> None:
+    """A lossless run: every picture's reconstruction equals its source
+    (the PSNR of equal planes, 999.99 dB), and the stream decodes on the
+    card with every MD5 OK to the source itself."""
+    label, n = run["label"], run["frames"]
+    for r in run["rows"]:
+        print(f"{label} POC {r['poc']} ({r['kind']}): {r['bits']} bits, "
+              f"PSNR Y/U/V {r['psnr']}, {r['seconds']:.2f} s (host clock), "
+              f"launches {r['launches']}")
+        if min(r["psnr"]) < 999.99:    # utils.content.psnr of equal planes
+            fail(f"{label} POC {r['poc']}: not lossless, PSNR {r['psnr']}")
+    print(f"{label}: {n} pictures, {len(run['data'])} bytes in "
+          f"{run['seconds']:.2f} s (host clock)")
+    dec = DecLib()
+    frames = dec.decode_bytes(run["data"])
+    torch.cuda.synchronize()
+    ok = sum(1 for v in dec.hash_status.values() if v == "OK")
+    print(f"{label}: own stream decoded on the card, {ok} of {n} MD5 OK")
+    if ok != n or [f.poc for f in frames] != list(range(n)):
+        fail(f"{label}: hash {dec.hash_status}")
+    for f in frames:
+        if any(not np.array_equal(p, s) for p, s in
+               zip(f.numpy(), clip[f.poc])):
+            fail(f"{label} POC {f.poc}: the decode differs from the source")
+
+
+def scaling_path(path_launches: dict) -> None:
+    """Phase 8m: configuration 2's size and clip, LDP, 9 frames, the steep
+    scaling list on the P pictures (one reference at POC 1, two after),
+    byte for byte against the committed JAX stream; both decoded on the
+    card with every MD5 OK.  The classic path launches no kernel."""
+    sd = json.load(open(os.path.join(DATA, SCALING + ".json")))
+    committed = open(os.path.join(DATA, SCALING + ".bin"), "rb").read()
+    cfg = EncCfg(width=832, height=480, qp=37, gop="LDP", gop_size=4,
+                 search_range=24, scaling_list=STEEP)
+    check_classic_sidecar(SCALING, sd, cfg)
+    if tuple(sd.get("scaling_list", ())) != STEEP:
+        fail(f"{SCALING}: the sidecar names another scaling list")
+    clip = realistic_sequence(cfg.width, cfg.height, sd["frames"])
+    label = "config 2 clip 832x480 LDP scaling list"
+    run = encode_run(label, cfg, clip, "plain")
+    path_launches[label] = run["launches"]
+    check_run(run, (), {p["poc"]: p for p in sd["pocs"]})
+    if any(run["launches"][k] for k in SOURCES):
+        fail(f"{label}: the classic path launched a kernel: "
+             f"{run['launches']}")
+    if not compare_nals(label, run["data"], committed):
+        fail(f"{label}: the card's stream differs from the JAX encoder's")
+    decode_all_ok(label, SCALING, committed, sd["frames"])
+
+
 def bench_configuration_5(path_launches: dict) -> None:
     """Phase 8d: `erp6144x3072_ldp_qp37_encode_fps` (bench.py:121-123), 3
     frames: POC 1 takes one reference, POC 2 two.  No JAX record exists
@@ -1492,7 +1787,8 @@ def bench_stream(name: str, stream: str):
 
 # EncCfg tool fields a sidecar records beside the models
 TOOL_FIELDS = ("dmvr", "bdof", "tmvp", "amvr", "gpm", "ciip", "affine",
-               "weighted_pred", "weighted_bipred")
+               "weighted_pred", "weighted_bipred", "rdoq", "dep_quant",
+               "mts", "lfnst", "transform_skip", "bdpcm", "lossless")
 
 
 def sidecar_tools(sd: dict) -> tuple:
@@ -1598,7 +1894,7 @@ def decision_sads(full_grid: dict, path_launches: dict) -> None:
                       (captured_case(("sad_luma_positions", (5, 8, 32, 2),
                                       None)), 16, 4, 2),
                       (full_grid, 16, 1, 1)]
-    mc_kernel.reset_launches()
+    reset_launches()
     for c, s_blk, row_step, col_step in decision_cases:
         args = (c["ref_padded"], c["orig"], c["positions"])
         tail = (s_blk, row_step, col_step)
@@ -1688,9 +1984,52 @@ def launch_variants(cases: list, card: str) -> list:
     return records
 
 
+def dq_bound(name: str, b: int, n: int, max_level: int
+             ) -> tuple[float, str]:
+    """D1/D2: every input and output word once (the blocks in, the levels
+    or coefficients out, the coding order, and for D1 the rate entries up to
+    the largest candidate level this input needs) against their operations:
+    D1 per coefficient and state 2 float32 operations for the lattice
+    levels, per candidate (12) 6 (the error, its fused square and add, the
+    rate's product and add) and a compare-select for each of the 4
+    destinations, over the float32 rate; D2 12 integer operations a
+    coefficient over the int32 rate."""
+    words = 2 * b * n + n
+    if name == "quantize_dep":
+        words += max_level + 2
+        t_ops = b * n * (4 * 2 + 12 * 6 + 4 * 12) / F32_OPS_PER_S * 1e3
+    else:
+        t_ops = b * n * 12 / I32_OPS_PER_S * 1e3
+    t_bytes = 4 * words / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def depquant_timed_cases(dq_captured: dict) -> list:
+    """D1/D2 on the inputs of their last launch at the I picture's luma
+    shape in phase 8k."""
+    cases = []
+    for name in ("quantize_dep", "dequantize_dep"):
+        key = (name, DQ_PATH_SHAPE)
+        if key not in dq_captured:
+            fail(f"phase 8k never launched {key}; captured "
+                 f"{sorted(dq_captured, key=str)}")
+        t, *args = dq_captured[key]
+        fn = getattr(depquant, name)
+        plain = getattr(depquant, name + "_plain")
+        b, h, w_ = t.shape
+        top = (int(t.abs().max()) if name == "dequantize_dep" else
+               int(depquant.quantize_dep_plain(t, *args).abs().max()))
+        cases.append((name, f"{DQ_PATH_SHAPE} (I picture luma, 2048x1024)",
+                      lambda fn=fn, t=t, a=args: fn(t, *a),
+                      lambda fn=plain, t=t, a=args: fn(t, *a),
+                      dq_bound(name, b, h * w_, top)))
+    return cases
+
+
 def time_kernels(captured: dict, full_grid: dict, ref_pic, positions,
                  dmvr_case: dict, affine_cases: dict, max_err: dict,
-                 path_launches: dict, card: str, w: int, h: int) -> dict:
+                 path_launches: dict, card: str, w: int, h: int,
+                 dq_captured: dict) -> dict:
     """Phase 10: the `kernels` records, by kernel name."""
     timed_cases = []       # (kernel, label, kernel call, plain, bound)
     for name, plane, s, taps, m in (
@@ -1767,13 +2106,17 @@ def time_kernels(captured: dict, full_grid: dict, ref_pic, positions,
           f"torch.zeros(1) on the card): "
           f"{'not measured' if floor is None else f'{floor:.4f} ms'}, "
           f"{card}")
+    timed_cases += depquant_timed_cases(dq_captured)
     out = {}
     for name, label, fn, plain, (b_ms, b_by) in timed_cases:
-        before = dict(mc_kernel.LAUNCHES)
+        tag = "dep_kernel" if name in depquant_kernel.LAUNCHES \
+            else "positions_kernel"
+        before = dict(mc_kernel.LAUNCHES), dict(depquant_kernel.LAUNCHES)
         ms = cuda_ms(fn)
         plain_ms = cuda_ms(plain, iters=5)
-        dev_ms = device_ms(fn)
-        mc_kernel.LAUNCHES.update(before)    # timing is not a main path
+        dev_ms = device_ms(fn, tag=tag)
+        mc_kernel.LAUNCHES.update(before[0])    # timing is not a main path
+        depquant_kernel.LAUNCHES.update(before[1])
         alone = "not measured by the profiler" if dev_ms is None \
             else f"{dev_ms:.4f} ms"
         print(f"{name} [{label}]: {ms:.4f} ms kernel (device time alone "

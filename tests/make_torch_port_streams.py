@@ -15,7 +15,12 @@ QP cascade, search range 24, horizontal wrap-around, 5 frames of
            and a GED rotation that is not the identity;
   allmm_dmvr bench configuration 4 plus the last two motion models and
            projected DMVR: MPA+3DT+TAN+ROT+GED+MMMVP (8 active models) on
-           the flat grid with the epipole (1, 0, 0, 0, 1), `dmvr=True`.
+           the flat grid with the epipole (1, 0, 0, 0, 1), `dmvr=True`;
+  ctcpreset the headline tools with `make_bd_r05.py:75-77`'s "CTC-like
+           preset": TMVP, RDOQ, dependent quantization, MTS and LFNST
+           (TMVP is inert on multi-model pictures and dependent
+           quantization shadows RDOQ, so the I picture carries the new
+           tools).
 
 Beside them, the classic (single-model) inter path: no multi-model tool,
 no wrap-around, QP37, search range 24, every other `EncCfg` field at its
@@ -50,7 +55,22 @@ default, `bench.realistic_sequence` content:
                             on P and B slices with BDOF, DMVR, GPM and CIIP
                             (off on the slices that carry weights);
   ra832x480_fade_wp_qp37_17f    the same at bench configuration 2's size,
-                            GOP 16, 17 frames.
+                            GOP 16, 17 frames;
+  ai192x96_rdoq_ts_bdpcm_qp37_2f  AI, 2 frames, RDOQ (not shadowed),
+                            transform skip and BDPCM;
+  ai192x96_lfnst_dq_qp37_2f AI, 2 frames, LFNST and dependent
+                            quantization without MTS;
+  ai192x96_lossless_2f      AI, 2 frames, lossless (QP 4 transform skip,
+                            filters off: decoded == source);
+  ldp192x96_scaling_qp37_4f LDP, 4 frames, a non-flat scaling list (the
+                            steep matrix of tests/test_scaling_list.py,
+                            16 + 2 (x + y)): one- and two-reference P;
+  ai416x240_tools_qp37_2f   bench configuration 1 with dependent
+                            quantization, MTS, LFNST, transform skip and
+                            BDPCM;
+  ai416x240_lossless_2f     bench configuration 1, lossless;
+  ldp832x480_scaling_qp37_9f    bench configuration 2's clip, LDP, 9
+                            frames, the steep scaling list.
 
 Each gets a JSON sidecar with every POC's MD5, the encoder's Y/U/V PSNR
 and bits, and the tools it turns on.
@@ -58,7 +78,7 @@ and bits, and the tools it turns on.
     python tests/make_torch_port_streams.py                   # all streams
     python tests/make_torch_port_streams.py 256x128           # one size
     python tests/make_torch_port_streams.py erp256x128_ra_mpa_qp37_5f
-    python tests/make_torch_port_streams.py classic           # the 13
+    python tests/make_torch_port_streams.py classic           # the 20
 
 This script imports the JAX package; pytest does not collect it (its name
 does not start with `test_`).
@@ -92,9 +112,14 @@ CONFIGS = {
     "allmm_dmvr": (dict(mpa=True, t3d=True, tan=True, rot=True, ged=True,
                         mmmvp=True), 0, [(1, 0, 0.0, 0.0, 1.0)],
                    ("256x128", "2048x1024")),
+    "ctcpreset": (dict(mpa=True, rot=True), 1, [], ("256x128",
+                                                    "2048x1024")),
 }
-# configurations that also turn on decoder-side refinement (EncCfg fields)
-TOOLS = {"allmm_dmvr": dict(dmvr=True)}
+# configurations that also turn on other tools (EncCfg fields): decoder-side
+# refinement, the CTC-like preset (make_bd_r05.py:75-77)
+TOOLS = {"allmm_dmvr": dict(dmvr=True),
+         "ctcpreset": dict(tmvp=True, rdoq=True, dep_quant=True, mts=True,
+                           lfnst=True)}
 
 
 def stream_name(w: int, h: int, config: str = "mm") -> str:
@@ -110,6 +135,12 @@ CTC_TOOLS = dict(tmvp=True, amvr=True, gpm=True, ciip=True, bdof=True,
 # weighted prediction on P and B slices beside the B tools it gates per slice
 WP_TOOLS = dict(weighted_pred=True, weighted_bipred=True, bdof=True,
                 dmvr=True, gpm=True, ciip=True)
+# the intra residual tools of bench configuration 1's tool stream
+INTRA_TOOLS = dict(dep_quant=True, mts=True, lfnst=True, transform_skip=True,
+                   bdpcm=True)
+# a non-flat scaling list: heavier quantization toward high frequencies
+# (tests/test_scaling_list.py's STEEP)
+STEEP = tuple(int(16 + 2 * (x + y)) for y in range(8) for x in range(8))
 # classic stream -> (width, height, gop, gop_size, frames, merge, tools)
 CLASSIC = {
     "ra192x96_qp37_9f": (192, 96, "RA", 4, 9, True, {}),
@@ -130,12 +161,27 @@ CLASSIC = {
                                   dict(affine=True)),
     "ra192x96_fade_wp_qp37_9f": (192, 96, "RA", 4, 9, True, WP_TOOLS),
     "ra832x480_fade_wp_qp37_17f": (832, 480, "RA", 16, 17, True, WP_TOOLS),
+    "ai192x96_rdoq_ts_bdpcm_qp37_2f": (192, 96, "AI", 8, 2, True,
+                                       dict(rdoq=True, transform_skip=True,
+                                            bdpcm=True)),
+    "ai192x96_lfnst_dq_qp37_2f": (192, 96, "AI", 8, 2, True,
+                                  dict(lfnst=True, dep_quant=True)),
+    "ai192x96_lossless_2f": (192, 96, "AI", 8, 2, True,
+                             dict(lossless=True)),
+    "ldp192x96_scaling_qp37_4f": (192, 96, "LDP", 4, 4, True,
+                                  dict(scaling_list=STEEP)),
+    "ai416x240_tools_qp37_2f": (416, 240, "AI", 8, 2, True, INTRA_TOOLS),
+    "ai416x240_lossless_2f": (416, 240, "AI", 8, 2, True,
+                              dict(lossless=True)),
+    "ldp832x480_scaling_qp37_9f": (832, 480, "LDP", 4, 9, True,
+                                   dict(scaling_list=STEEP)),
 }
 # streams whose clip is the fade of `bench.realistic_sequence` at this step
 FADE = {"ra192x96_fade_wp_qp37_9f": 0.04, "ra832x480_fade_wp_qp37_17f": 0.04}
 # the EncCfg tool fields a classic sidecar records
 SIDECAR_TOOLS = ("dmvr", "bdof", "tmvp", "amvr", "gpm", "ciip", "affine",
-                 "weighted_pred", "weighted_bipred")
+                 "weighted_pred", "weighted_bipred", "rdoq", "dep_quant",
+                 "mts", "lfnst", "transform_skip", "bdpcm", "lossless")
 
 
 def models_label(mm: dict) -> str:
@@ -178,6 +224,7 @@ def make(w: int, h: int, config: str = "mm") -> dict:
         side.update(t3d=bool(mm.get("t3d")), tan=bool(mm.get("tan")),
                     dmvr=bool(tools.get("dmvr")),
                     bdof=bool(tools.get("bdof")))
+        side.update({k: True for k, v in tools.items() if v})
     with open(os.path.join(OUT_DIR, name + ".json"), "w") as f:
         json.dump(side, f, indent=1)
         f.write("\n")
@@ -207,7 +254,7 @@ def make_classic(name: str) -> dict:
 
     w, h, gop, gop_size, n, merge, tools = CLASSIC[name]
     if gop == "AI":     # bench configuration 1 sets no other field
-        cfg = EncCfg(width=w, height=h, qp=QP, gop=gop)
+        cfg = EncCfg(width=w, height=h, qp=QP, gop=gop, **tools)
     else:
         cfg = EncCfg(width=w, height=h, qp=QP, gop=gop, gop_size=gop_size,
                      search_range=24, merge=merge, **tools)
@@ -230,6 +277,8 @@ def make_classic(name: str) -> dict:
     if tools:
         side.update(t3d=False, tan=False)
         side.update({k: bool(tools.get(k)) for k in SIDECAR_TOOLS})
+        if "scaling_list" in tools:
+            side.update(scaling_list=list(tools["scaling_list"]))
     if fade:
         side.update(fade=fade)
     with open(os.path.join(OUT_DIR, name + ".json"), "w") as f:

@@ -479,11 +479,12 @@ def test_candidate_lists_equal_jax(grids, mer):
 
 
 def test_unported_inter_tools_raise(pics):
-    """Scaling lists name ROADMAP queue 1 item 9 and MCTS clamps item 11;
-    the tools of item 8 (TMVP/HMVP, AMVR, GPM/CIIP, weighted prediction,
-    BDOF, DMVR) are accepted by the writers, the parsers and the frame
-    functions (tests/test_torch_tmvp_amvr.py and test_torch_gpm_wp.py hold
-    them to JAX)."""
+    """MCTS clamps name ROADMAP queue 1 item 11; scaling lists (item 9)
+    and the tools of item 8 (TMVP/HMVP, AMVR, GPM/CIIP, weighted
+    prediction, BDOF, DMVR) are accepted by the writers, the parsers and
+    the frame functions (tests/test_torch_tmvp_amvr.py,
+    test_torch_gpm_wp.py and test_torch_intra_streams.py hold them to
+    JAX)."""
     lev = np.zeros((NBY, NBX, S, S), np.int32)
     levc = np.zeros((NBY, NBX, S // 2, S // 2), np.int32)
     mvs = np.zeros((NBY, NBX, 2), np.int64)
@@ -491,17 +492,20 @@ def test_unported_inter_tools_raise(pics):
     o, r0, r1 = _tt(pics["orig"]), tuple(_tt(pics["ref0"])), \
         tuple(_tt(pics["ref1"]))
     m, d = _t(mvs), _t(z)
-    for call, item in (
-            (lambda: tif.finish_p_frame(*o, *r0, m, QP, S, BD, False,
-                                        scaling=(16,) * 64), "9"),
-            (lambda: tif.reconstruct_b_frame(m, m, d, _t(lev), _t(levc),
-                                             _t(levc), r0, r1, QP, S, BD,
-                                             scaling=(16,) * 64), "9"),
-            (lambda: tif.search_p_frame(o[0], r0[0], m, QP, S, BD, SR,
-                                        False, mcts=(2, 1)), "11")):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP queue 1 item {item}$"):
-            call()
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue 1 item 11$"):
+        tif.search_p_frame(o[0], r0[0], m, QP, S, BD, SR, False,
+                           mcts=(2, 1))
+    steep = tuple(int(16 + 2 * (x + y)) for y in range(8) for x in range(8))
+    ly, lu, lv, rec = tif.finish_p_frame(*o, *r0, m, QP, S, BD, False,
+                                         scaling=steep)
+    back = tif.reconstruct_p_frame(m, ly, lu, lv, *r0, QP, S, BD,
+                                   scaling=steep)
+    for k in "yuv":
+        assert torch.equal(back[k], rec[k])
+    assert len(tif.reconstruct_b_frame(m, m, d, _t(lev), _t(levc),
+                                       _t(levc), r0, r1, QP, S, BD,
+                                       scaling=steep)) == 3
     assert isinstance(inter_coder.encode_p_slice(mvs, lev, levc, levc,
                                                  use_tmvp=True, imv=z), bytes)
     assert isinstance(inter_coder.encode_b_slice(mvs, mvs, z, lev, levc,

@@ -209,15 +209,20 @@ def test_summary_and_cascade(runs):
 
 
 # each refusal names the ROADMAP queue 1 item that ports it; the
-# accepted configurations are what items 7 and 8 ported (GED with
+# accepted configurations are what items 7, 8 and 9a-9c ported (GED with
 # epipoles, MM-MVP, the flat P path, B pictures without merge, 3DT, TAN,
 # projected DMVR; on the classic path DMVR, BDOF and the random-access
 # tools of 8b: TMVP/HMVP, AMVR, GPM, CIIP, weighted prediction and affine;
 # under a multi-model configuration affine is carried and ignored, as in
-# the JAX package)
+# the JAX package; the I picture's quantization and transform tools and
+# scaling lists)
 REFUSED = {"wpp": (dict(wpp=True), "11"),
            "rate_control": (dict(target_bitrate_kbps=500), "11"),
-           "scaling_list": (dict(scaling_list=(16,) * 64), "9"),
+           "cclm": (dict(cclm=True), "9"),
+           "mip": (dict(mip=True), "9"),
+           "mrl": (dict(mrl=True), "9"),
+           "ibc": (dict(ibc=True), "9"),
+           "intra_split": (dict(intra_split=True), "9"),
            "classic_qtree": (dict(mm=MMConfig(), qt_depth=1), "11")}
 CLASSIC = dict(mm=MMConfig(), qt_depth=0)
 ACCEPTED = {
@@ -235,7 +240,15 @@ ACCEPTED = {
     "weighted_bipred": dict(CLASSIC, weighted_bipred=True),
     "amvr": dict(CLASSIC, amvr=True),
     "ciip": dict(CLASSIC, ciip=True),
-    "weighted_pred": dict(CLASSIC, weighted_pred=True)}
+    "weighted_pred": dict(CLASSIC, weighted_pred=True),
+    "rdoq": dict(rdoq=True),
+    "dep_quant": dict(dep_quant=True),
+    "lfnst": dict(lfnst=True),
+    "mts": dict(mts=True),
+    "transform_skip": dict(transform_skip=True),
+    "bdpcm": dict(transform_skip=True, bdpcm=True),
+    "lossless": dict(lossless=True),
+    "scaling_list": dict(CLASSIC, scaling_list=(16,) * 64)}
 CASES = (["no_card"] + [f"refused-{k}" for k in REFUSED]
          + [f"accepted-{k}" for k in ACCEPTED])
 
@@ -262,5 +275,11 @@ def test_unported_branches_raise(case):
     enc = EncLib(cfg, device="cpu")
     assert enc.mvp_conv is not None or not cfg.mm.mmmvp
     assert enc.sps.mm.active_models() == cfg.mm.active_models()
-    for tool in ("dmvr", "bdof", "affine", "tmvp", "amvr", "gpm", "ciip"):
+    for tool in ("dmvr", "bdof", "affine", "tmvp", "amvr", "gpm", "ciip",
+                 "dep_quant", "lfnst", "mts", "bdpcm", "lossless"):
         assert getattr(enc.sps, tool) == getattr(cfg, tool), tool
+    assert enc.sps.ts == (cfg.transform_skip or cfg.lossless)
+    assert enc.sps.scaling_list == tuple(cfg.scaling_list)
+    if cfg.lossless:       # QP 4 transform skip, filters off, as in JAX
+        assert cfg.qp == 4 and not (cfg.deblocking or cfg.sao or cfg.alf
+                                    or cfg.dep_quant)

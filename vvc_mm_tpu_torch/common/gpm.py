@@ -73,7 +73,7 @@ def gpm_search(orig_blocks: torch.Tensor, p0: torch.Tensor,
 
     Args: orig/p0/p1 (B, s, s) pixel domain.  Returns (modes (B,) int32,
     sad (B,) int32); a tie keeps the lower mode, as jnp.argmin does."""
-    from .inter_frame import first_argmin
+    from .rdcost import first_argmin
     wt = _weights(orig_blocks.shape[-1], orig_blocks.device)[None]
     blend = (wt * p0[:, None] + (8 - wt) * p1[:, None] + 4) >> 3
     sad = (blend - orig_blocks[:, None]).abs().sum(dim=(2, 3)).to(

@@ -22,14 +22,16 @@ Encoder and decoder share the prediction, so the reconstructions agree
 bit for bit; that includes the signalling-free refinements of bi blocks,
 DMVR (common/dmvr.py) and BDOF (common/bdof.py), the GPM and CIIP blends
 (common/gpm.py) and explicit weighted prediction (`apply_wp`, the weighted
-bi combine).  MCTS clamps (ROADMAP queue 1 item 11) and scaling lists
-(item 9) raise NotImplementedError.
+bi combine).  A scaling list weights the P passes' (and the B
+reconstruction's) quantization.  MCTS clamps (ROADMAP queue 1 item 11)
+raise NotImplementedError.
 """
 from __future__ import annotations
 
 import torch
 
 from . import interp, quant, transforms
+from .rdcost import first_argmin
 
 MC_MARGIN = 80     # ref padding: search range + filter taps + slack
 
@@ -117,7 +119,6 @@ def _mc_planes_internal(ref_y, ref_u, ref_v, mvs, s: int, bit_depth: int,
 # refuses through `refuse`.
 _UNPORTED_TOOLS = {
     "qtree": ("classic quadtree", "11"),
-    "scaling": ("scaling lists", "9"),
     "mcts": ("MCTS tiles", "11"),
 }
 
@@ -275,44 +276,39 @@ def _pred_planes_ext(i0, i1, dirs, gpm_modes, nby, nbx, bit_depth,
 
 
 def _residual_pass(orig: torch.Tensor, pred: torch.Tensor, s: int, qp: int,
-                   bit_depth: int):
+                   bit_depth: int, scaling: tuple | None = None):
     """Transform/quant the residual and reconstruct — returns (levels
-    (nby, nbx, s, s), recon_plane)."""
+    (nby, nbx, s, s), recon_plane).  `scaling`: an optional 8x8
+    scaling-list tuple (quant.scaling_weights)."""
     h, w = orig.shape
     nby, nbx = h // s, w // s
     log2s = s.bit_length() - 1
     ob = _to_blocks(orig, s)
     pb = _to_blocks(pred, s)
     coeff = transforms.forward_transform(ob - pb, bit_depth=bit_depth)
-    levels = quant.quantize(coeff, qp, log2s, log2s, bit_depth, intra=False)
-    dq = quant.dequantize(levels, qp, log2s, log2s, bit_depth)
+    levels = quant.quantize(coeff, qp, log2s, log2s, bit_depth, intra=False,
+                            scaling=scaling)
+    dq = quant.dequantize(levels, qp, log2s, log2s, bit_depth,
+                          scaling=scaling)
     r = transforms.inverse_transform(dq, bit_depth=bit_depth)
     rec = torch.clamp(pb + r, 0, (1 << bit_depth) - 1)
     return levels.reshape(nby, nbx, s, s), _from_blocks(rec, nby, nbx)
 
 
-def first_argmin(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
-    """Index of the FIRST minimum along `dim` (int64), as jnp.argmin gives
-    it.  The search relies on this tie rule (a tie keeps the centre, the
-    earlier model, the earlier candidate), so it is taken explicitly
-    rather than left to a device's reduction order."""
-    n = t.shape[dim]
-    shape = [1] * t.dim()
-    shape[dim] = n
-    idx = torch.arange(n, device=t.device).reshape(shape)
-    mn = t.min(dim=dim, keepdim=True).values
-    return torch.where(t == mn, idx, n).min(dim=dim).values
-
-
-def _residual_planes(orig, pred, s: int, qp: int, bit_depth: int):
+def _residual_planes(orig, pred, s: int, qp: int, bit_depth: int,
+                     scaling: tuple | None = None):
     """_residual_pass over Y, U, V -> (lev_y, lev_u, lev_v, recon dict)."""
-    lev_y, rec_y = _residual_pass(orig[0], pred[0], s, qp, bit_depth)
-    lev_u, rec_u = _residual_pass(orig[1], pred[1], s // 2, qp, bit_depth)
-    lev_v, rec_v = _residual_pass(orig[2], pred[2], s // 2, qp, bit_depth)
+    lev_y, rec_y = _residual_pass(orig[0], pred[0], s, qp, bit_depth,
+                                  scaling)
+    lev_u, rec_u = _residual_pass(orig[1], pred[1], s // 2, qp, bit_depth,
+                                  scaling)
+    lev_v, rec_v = _residual_pass(orig[2], pred[2], s // 2, qp, bit_depth,
+                                  scaling)
     return lev_y, lev_u, lev_v, dict(y=rec_y, u=rec_u, v=rec_v)
 
 
-def _recon_planes(pred, levels, s: int, qp: int, bit_depth: int):
+def _recon_planes(pred, levels, s: int, qp: int, bit_depth: int,
+                  scaling: tuple | None = None):
     """Decoder-side reconstruction of Y, U, V from the prediction planes
     and the coded levels (the inverse half of _residual_pass)."""
     out = {}
@@ -320,7 +316,7 @@ def _recon_planes(pred, levels, s: int, qp: int, bit_depth: int):
         h, w = p.shape
         log2s = size.bit_length() - 1
         dq = quant.dequantize(lev.reshape(-1, size, size), qp, log2s, log2s,
-                              bit_depth)
+                              bit_depth, scaling=scaling)
         r = transforms.inverse_transform(dq, bit_depth=bit_depth)
         rec = torch.clamp(_to_blocks(p, size) + r, 0, (1 << bit_depth) - 1)
         out[key] = _from_blocks(rec, h // size, w // size)
@@ -352,7 +348,7 @@ def encode_p_frame(orig_y, orig_u, orig_v, ref_y, ref_u, ref_v, qp: int,
     1/16-pel, lev_y, lev_u, lev_v, recon dict); with `amvr`, (mvs, imv,
     lev_y, lev_u, lev_v, recon), mvs already rounded to each block's
     signalled precision."""
-    refuse(scaling=scaling, mcts=mcts)
+    refuse(mcts=mcts)
     s = block_size
     lam_bits_x16 = _lambda_bits_x16(qp)
     ry_pad = pad_ref(ref_y, MC_MARGIN, wrap_around)
@@ -363,7 +359,8 @@ def encode_p_frame(orig_y, orig_u, orig_v, ref_y, ref_u, ref_v, qp: int,
                                lam_bits_x16)
     pred = _wp_planes(mc_predict(ref_y, ref_u, ref_v, mvs, s, bit_depth,
                                  wrap_around), wp, bit_depth)
-    out = _residual_planes((orig_y, orig_u, orig_v), pred, s, qp, bit_depth)
+    out = _residual_planes((orig_y, orig_u, orig_v), pred, s, qp, bit_depth,
+                           scaling)
     return ((mvs, imv) if amvr else (mvs,)) + out
 
 
@@ -492,11 +489,10 @@ def finish_p_frame(orig_y, orig_u, orig_v, ref_y, ref_u, ref_v, mvs,
                    wrap_around: bool, wp=None, scaling=None):
     """Residual/levels/recon from a FINAL MV field (encode_p_frame minus
     the ME).  Returns (lev_y, lev_u, lev_v, recon dict)."""
-    refuse(scaling=scaling)
     pred = _wp_planes(mc_predict(ref_y, ref_u, ref_v, mvs, block_size,
                                  bit_depth, wrap_around), wp, bit_depth)
     return _residual_planes((orig_y, orig_u, orig_v), pred, block_size, qp,
-                            bit_depth)
+                            bit_depth, scaling)
 
 
 def reconstruct_p_frame(mvs, lev_y, lev_u, lev_v, ref_y, ref_u, ref_v,
@@ -504,11 +500,10 @@ def reconstruct_p_frame(mvs, lev_y, lev_u, lev_v, ref_y, ref_u, ref_v,
                         wrap_around: bool = False, wp=None, scaling=None):
     """Decoder-side P reconstruction (shared math with finish_p_frame ->
     bit-exact)."""
-    refuse(scaling=scaling)
     pred = _wp_planes(mc_predict(ref_y, ref_u, ref_v, mvs, block_size,
                                  bit_depth, wrap_around), wp, bit_depth)
     return _recon_planes(pred, (lev_y, lev_u, lev_v), block_size, qp,
-                         bit_depth)
+                         bit_depth, scaling)
 
 
 def _mc_predict_2ref(ref0, ref1, ref_idx, mvs, s: int, bit_depth: int,
@@ -531,12 +526,11 @@ def finish_p_frame_2ref(orig_y, orig_u, orig_v, ref0, ref1, ref_idx, mvs,
                         qp: int, block_size: int, bit_depth: int,
                         wrap_around: bool, wp=None, scaling=None):
     """Residual/levels/recon from FINAL (ref_idx, mv) fields."""
-    refuse(scaling=scaling)
     pred = _wp_planes(_mc_predict_2ref(ref0, ref1, ref_idx, mvs, block_size,
                                        bit_depth, wrap_around), wp,
                       bit_depth)
     return _residual_planes((orig_y, orig_u, orig_v), pred, block_size, qp,
-                            bit_depth)
+                            bit_depth, scaling)
 
 
 def reconstruct_p_frame_2ref(ref_idx, mvs, lev_y, lev_u, lev_v, ref0, ref1,
@@ -545,12 +539,11 @@ def reconstruct_p_frame_2ref(ref_idx, mvs, lev_y, lev_u, lev_v, ref0, ref1,
                              wp=None, scaling=None):
     """Decoder-side two-reference P reconstruction (shared math with
     finish_p_frame_2ref -> bit-exact)."""
-    refuse(scaling=scaling)
     pred = _wp_planes(_mc_predict_2ref(ref0, ref1, ref_idx, mvs, block_size,
                                        bit_depth, wrap_around), wp,
                       bit_depth)
     return _recon_planes(pred, (lev_y, lev_u, lev_v), block_size, qp,
-                         bit_depth)
+                         bit_depth, scaling)
 
 
 def _dmvr(ref0, ref1, mv0, mv1, dirs, s: int, wrap_around: bool):
@@ -591,7 +584,6 @@ def reconstruct_b_frame(mv0, mv1, dirs, lev_y, lev_u, lev_v, ref0, ref1,
                         gpm: bool = False, ciip: bool = False,
                         scaling=None, wp0=None, wp1=None):
     """Decoder-side B reconstruction (shared with the encoder's recon)."""
-    refuse(scaling=scaling)
     s = block_size
     h, w = ref0[0].shape
     if dmvr:
@@ -600,7 +592,8 @@ def reconstruct_b_frame(mv0, mv1, dirs, lev_y, lev_u, lev_v, ref0, ref1,
     i1 = _mc_planes_internal(*ref1, mv1, s, bit_depth, wrap_around)
     pred = _pred_planes_ext(i0, i1, dirs, gpm_modes, h // s, w // s,
                             bit_depth, bdof, gpm, ciip, wp0, wp1)
-    return _recon_planes(pred, (lev_y, lev_u, lev_v), s, qp, bit_depth)
+    return _recon_planes(pred, (lev_y, lev_u, lev_v), s, qp, bit_depth,
+                         scaling)
 
 
 def search_b_frame(orig_y, ref0_y, ref1_y, qp: int, block_size: int,

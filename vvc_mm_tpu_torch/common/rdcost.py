@@ -61,3 +61,16 @@ def satd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     t = _hadamard_last(t.transpose(-1, -2))
     shift = (h.bit_length() - 1 + w.bit_length() - 1 + 2) // 2
     return t.abs().sum(dim=(-2, -1), dtype=torch.int32) >> shift
+
+
+def first_argmin(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Index of the FIRST minimum along `dim` (int64), as jnp.argmin gives
+    it.  The search relies on this tie rule (a tie keeps the centre, the
+    earlier model, the earlier candidate), so it is taken explicitly
+    rather than left to a device's reduction order."""
+    n = t.shape[dim]
+    shape = [1] * t.dim()
+    shape[dim] = n
+    idx = torch.arange(n, device=t.device).reshape(shape)
+    mn = t.min(dim=dim, keepdim=True).values
+    return torch.where(t == mn, idx, n).min(dim=dim).values

@@ -78,6 +78,49 @@ def inverse_transform(coeff: torch.Tensor, tr_h: int = rom.DCT2,
     return _clip16(_rshift_round(out, 20 - bit_depth)).to(torch.int32)
 
 
+def forward_transform_pairs(resid: torch.Tensor, pairs, bit_depth: int = 8
+                            ) -> torch.Tensor:
+    """forward_transform of the same (B, H, W) residuals under each
+    (tr_h, tr_v) pair at once: one product over the stacked matrices ->
+    (P, B, H, W), equal to stacking the P separate transforms."""
+    _, h, w = resid.shape
+    log2w, log2h = w.bit_length() - 1, h.bit_length() - 1
+    th = _stacked(tuple(p[0] for p in pairs), w, resid.device)   # (P, w, w)
+    tv = _stacked(tuple(p[1] for p in pairs), h, resid.device)
+    tmp = torch.matmul(resid.to(torch.float64)[None],
+                       th.transpose(1, 2)[:, None]).to(torch.int64)
+    tmp = _clip16(_rshift_round(tmp, log2w + bit_depth - 9))
+    out = torch.matmul(tv[:, None], tmp.to(torch.float64)).to(torch.int64)
+    return _clip16(_rshift_round(out, log2h + 6)).to(torch.int32)
+
+
+def inverse_transform_pairs(coeff: torch.Tensor, pairs, bit_depth: int = 8
+                            ) -> torch.Tensor:
+    """inverse_transform of (P, B, H, W) coefficients, slice p under
+    pairs[p], as one product over the stacked matrices."""
+    h, w = coeff.shape[-2:]
+    th = _stacked(tuple(p[0] for p in pairs), w, coeff.device)
+    tv = _stacked(tuple(p[1] for p in pairs), h, coeff.device)
+    tmp = torch.matmul(tv.transpose(1, 2)[:, None],
+                       coeff.to(torch.float64)).to(torch.int64)
+    tmp = _clip16(_rshift_round(tmp, 7))
+    out = torch.matmul(tmp.to(torch.float64), th[:, None]).to(torch.int64)
+    return _clip16(_rshift_round(out, 20 - bit_depth)).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _stacked(types: tuple, n: int, device: torch.device) -> torch.Tensor:
+    """The (P, n, n) float64 matrices of `types` on `device` (read-only)."""
+    return torch.as_tensor(np.stack([_matrix_np(t, n) for t in types]),
+                           device=device)
+
+
+def dst7_allowed(log2size: int) -> bool:
+    """DST-7/DCT-8 are defined for sizes 4..32 only (reference: TrQuant.cpp
+    MTS)."""
+    return 2 <= log2size <= 5
+
+
 def transform_shift(log2w: int, log2h: int, bit_depth: int
                     ) -> tuple[int, bool]:
     """VVC transformShift and the odd-size flag (reference: Quant.cpp)."""

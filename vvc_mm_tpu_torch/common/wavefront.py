@@ -15,8 +15,11 @@ write into the buffer's far margin, which no valid block reads: the decoder
 skips them, the encoder keeps them so that its per-step outputs have the
 scan's fixed shape.
 
-Only the base toolset is carried: CCLM, MIP, LFNST, MRL, transform skip,
-BDPCM, MTS, IBC, RDOQ, dependent quantization and lossless coding raise
+The residual tools are carried: dependent quantization (kernels D1/D2 on
+the card), RDOQ, explicit MTS, LFNST, transform skip with BDPCM and
+lossless coding.  Each step batches its candidates: the five MTS pairs and
+the LFNST candidates of all the step's luma blocks take one quantize and
+one dequantize call, U and V one more.  CCLM, MIP, MRL and IBC raise
 NotImplementedError (ROADMAP queue 1 item 9).
 """
 from __future__ import annotations
@@ -27,9 +30,8 @@ import math
 import numpy as np
 import torch
 
-from . import intra, quant, rom, transforms
-from .inter_frame import first_argmin
-from .rdcost import satd
+from . import depquant, intra, lfnst, quant, rom, transforms
+from .rdcost import first_argmin, satd
 from ..device import resolve_device
 
 MARGIN = 64            # intra buffer margin (>= 2*S + slack)
@@ -170,32 +172,278 @@ def _pad_to_buffer(plane: torch.Tensor, fill: int) -> torch.Tensor:
     return buf
 
 
+def _quant_pair(coeff, levels, qp: int, log2s: int, bit_depth: int,
+                intra_slice: bool, dep: bool, rdoq: bool = False):
+    """Quantize `coeff` (when `levels` is None) and dequantize, with
+    dependent quantization, RDOQ or neither (dep takes precedence, as in
+    the JAX package).  Returns (levels, dequantized coefficients)."""
+    if levels is None:
+        if dep:
+            levels = depquant.quantize_dep(coeff, qp, log2s, log2s,
+                                           bit_depth)
+        elif rdoq:
+            levels = quant.quantize_rdoq(coeff, qp, log2s, log2s,
+                                         bit_depth, intra=intra_slice)
+        else:
+            levels = quant.quantize(coeff, qp, log2s, log2s, bit_depth,
+                                    intra=intra_slice)
+    if dep:
+        dq = depquant.dequantize_dep(levels, qp, log2s, log2s, bit_depth)
+    else:
+        dq = quant.dequantize(levels, qp, log2s, log2s, bit_depth)
+    return levels, dq
+
+
 def _tq_reconstruct(pred: torch.Tensor, resid: torch.Tensor | None,
                     levels: torch.Tensor | None, qp: int, s: int,
-                    bit_depth: int, intra_slice: bool, luma: bool = True
+                    bit_depth: int, intra_slice: bool, luma: bool = True,
+                    dep: bool = False, rdoq: bool = False
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Shared transform/quant/reconstruct: the encoder passes resid (the
     levels are computed), the decoder passes levels.  Returns
     (levels, recon_block).
 
     Implicit MTS: small luma intra blocks (4..16) use DST-7 in both
-    directions (reference: TrQuant.cpp:619 getTrTypes)."""
+    directions (reference: TrQuant.cpp:619 getTrTypes).  `dep` switches
+    to dependent quantization, `rdoq` (without dep) to RDOQ."""
     log2s = s.bit_length() - 1
     tr = (rom.DST7 if (intra_slice and luma and 4 <= s <= 16)
           else rom.DCT2)
-    if levels is None:
-        coeff = transforms.forward_transform(resid, tr, tr,
-                                             bit_depth=bit_depth)
-        levels = quant.quantize(coeff, qp, log2s, log2s, bit_depth,
-                                intra=intra_slice)
-    dq = quant.dequantize(levels, qp, log2s, log2s, bit_depth)
+    coeff = (None if levels is not None else
+             transforms.forward_transform(resid, tr, tr,
+                                          bit_depth=bit_depth))
+    levels, dq = _quant_pair(coeff, levels, qp, log2s, bit_depth,
+                             intra_slice, dep, rdoq)
     r = transforms.inverse_transform(dq, tr, tr, bit_depth=bit_depth)
     return levels, torch.clamp(pred + r, 0, (1 << bit_depth) - 1)
 
 
-_UNPORTED = ("dep_quant", "use_cclm", "use_mip", "use_lfnst", "use_mrl",
-             "use_ts", "use_bdpcm", "lossless", "use_ibc", "use_mts",
-             "use_rdoq")
+def _rate_est(lev: torch.Tensor) -> torch.Tensor:
+    """Cheap bits estimate of (..., s, s) level blocks (encoder decision
+    only): 2 + 2*log2(|l|+1) a nonzero level, 0.3 a zero, summed in
+    float32 in XLA's CPU order for the JAX package's blocks (each row
+    left to right, then the row sums pairwise: (r0+r4)+(r2+r6) ... for 8
+    rows), so that equal levels give equal sums on every device."""
+    v = torch.where(lev != 0, quant.log2_rate(lev.abs(), 2.0), 0.3)
+    acc = v[..., 0]
+    for c in range(1, v.shape[-1]):
+        acc = acc + v[..., c]
+    while acc.shape[-1] > 1:
+        half = acc.shape[-1] // 2
+        acc = acc[..., :half] + acc[..., half:]
+    return acc[..., 0]
+
+
+def _rd_cost(rec: torch.Tensor, target: torch.Tensor, bits: torch.Tensor,
+             lam: float) -> torch.Tensor:
+    """float32 ssd + lam * bits over the last two axes, as the JAX package
+    computes it on the CPU, where XLA fuses the product and the add into
+    one multiply-add (exact in float64 here, then rounded once)."""
+    ssd = ((rec - target) ** 2).sum((-2, -1)).to(torch.float32)
+    return (ssd.to(torch.float64)
+            + float(np.float32(lam)) * bits.to(torch.float64)).to(
+                torch.float32)
+
+
+def _pick(cost: torch.Tensor, *stacks: torch.Tensor) -> tuple:
+    """First-argmin over the leading candidate axis of `cost` ((P, B)):
+    (pick, and each (P, B, ...) stack's chosen (B, ...) entries)."""
+    pick = first_argmin(cost, 0)
+    out = []
+    for st in stacks:
+        idx = pick.reshape((1, -1) + (1,) * (st.dim() - 2)).expand(
+            (1,) + st.shape[1:])
+        out.append(torch.gather(st, 0, idx)[0])
+    return (pick, *out)
+
+
+# Explicit MTS transform pairs (horizontal, vertical), indexed by
+# tu_mts_idx (reference: TrQuant.cpp:619 getTrTypes — MTS_DCT2_DCT2,
+# MTS_DST7_DST7, MTS_DCT8_DST7, MTS_DST7_DCT8, MTS_DCT8_DCT8)
+MTS_PAIRS = ((rom.DCT2, rom.DCT2), (rom.DST7, rom.DST7),
+             (rom.DCT8, rom.DST7), (rom.DST7, rom.DCT8),
+             (rom.DCT8, rom.DCT8))
+
+
+@functools.lru_cache(maxsize=None)
+def _lfnst_ids(device: torch.device) -> torch.Tensor:
+    """The candidate indices 1 .. N_LFNST_CAND on `device` (read-only)."""
+    return torch.arange(1, lfnst.N_LFNST_CAND + 1, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _extra_bits(bits: tuple, device: torch.device) -> torch.Tensor:
+    """(P, 1) float32 signalling bits of P candidates on `device`, copied
+    there once (read-only)."""
+    return torch.tensor(bits, dtype=torch.float32, device=device)[:, None]
+
+
+def _tq_candidates(pred, resid, coeff, pairs, n_lfnst: int, cls,
+                   extra_bits: tuple, qp: int, s: int, bit_depth: int,
+                   dep: bool):
+    """Quantize, reconstruct and cost (P, B, s, s) candidate coefficient
+    sets at once (one quantize and one dequantize call for all of them,
+    each block independent of its neighbours, so the batch is exact): the
+    last `n_lfnst` candidates invert LFNST indices 1 .. n_lfnst, then
+    candidate p inverts the transform pair pairs[p].  Returns (levels,
+    recons, costs)."""
+    n_p, b = coeff.shape[:2]
+    log2s = s.bit_length() - 1
+    lev, dq = _quant_pair(coeff.reshape(n_p * b, s, s), None, qp, log2s,
+                          bit_depth, True, dep)
+    lev = lev.reshape(n_p, b, s, s)
+    dq = dq.reshape(n_p, b, s, s)
+    if n_lfnst:
+        k = n_p - n_lfnst
+        dq = torch.cat([dq[:k], lfnst.inverse(dq[k:], cls,
+                                              _lfnst_ids(dq.device))])
+    r = transforms.inverse_transform_pairs(dq, pairs, bit_depth)
+    rec = torch.clamp(pred + r, 0, (1 << bit_depth) - 1)
+    bits = _rate_est(lev) + _extra_bits(extra_bits, lev.device)
+    cost = _rd_cost(rec, pred + resid, bits,
+                    quant.lambda_from_qp(qp, intra=True))
+    return lev, rec, cost
+
+
+def _tq_lfnst_encode(pred: torch.Tensor, resid: torch.Tensor,
+                     mode: torch.Tensor, qp: int, s: int, bit_depth: int,
+                     dep: bool):
+    """Luma TQ with a per-block LFNST index RD choice (reference:
+    IntraSearch LFNST loop; TrQuant.cpp:238/262) over the implicit
+    transform's coefficients.  Returns (levels, recon, lfnst_idx)."""
+    tr = rom.DST7 if 4 <= s <= 16 else rom.DCT2
+    coeff = transforms.forward_transform(resid, tr, tr, bit_depth=bit_depth)
+    cls = lfnst.mode_class(mode)
+    ids = _lfnst_ids(coeff.device)
+    cands = torch.cat([coeff[None], lfnst.forward(
+        coeff[None].expand(len(ids), -1, -1, -1), cls, ids)])
+    lev, rec, cost = _tq_candidates(
+        pred, resid, cands, ((tr, tr),) * (1 + len(ids)), len(ids), cls,
+        (1.0,) + (2.0,) * len(ids), qp, s, bit_depth, dep)
+    pick, lev, rec = _pick(cost, lev, rec)
+    pick = torch.where((lev != 0).any(-1).any(-1), pick, 0)
+    return lev, rec, pick.to(torch.int32)
+
+
+def _tq_mts_encode(pred: torch.Tensor, resid: torch.Tensor,
+                   mode: torch.Tensor, qp: int, s: int, bit_depth: int,
+                   dep: bool, use_lfnst: bool):
+    """Luma TQ with an explicit-MTS (and optional LFNST) per-block RD
+    choice: the five transform pairs, plus the LFNST candidates on the
+    DCT-2 coefficients (LFNST combines with mts_idx 0 only; reference:
+    IntraSearch MTS loop, TrQuant getTrTypes).  The five forward and
+    inverse transforms are one product each over the stacked matrices.
+    Returns (levels, recon, lfnst_idx, mts_idx)."""
+    coeff = transforms.forward_transform_pairs(resid, MTS_PAIRS, bit_depth)
+    n_m = len(MTS_PAIRS)
+    pairs, n_lf, extra = MTS_PAIRS, 0, (1.0, 2.0, 3.0, 4.0, 5.0)
+    cls = None
+    if use_lfnst:
+        cls = lfnst.mode_class(mode)
+        ids = _lfnst_ids(coeff.device)
+        coeff = torch.cat([coeff, lfnst.forward(
+            coeff[:1].expand(len(ids), -1, -1, -1), cls, ids)])
+        n_lf = len(ids)
+        pairs = pairs + ((rom.DCT2, rom.DCT2),) * n_lf
+        extra = extra + (3.0,) * n_lf
+    lev, rec, cost = _tq_candidates(pred, resid, coeff, pairs, n_lf, cls,
+                                    extra, qp, s, bit_depth, dep)
+    pick, lev, rec = _pick(cost, lev, rec)
+    cbf = (lev != 0).any(-1).any(-1)
+    lfnst_idx = torch.where(cbf & (pick >= n_m), pick - (n_m - 1), 0)
+    mts_idx = torch.where(cbf & (pick < n_m), pick, 0)
+    return lev, rec, lfnst_idx.to(torch.int32), mts_idx.to(torch.int32)
+
+
+def _lfnst_inverse_sel(dq: torch.Tensor, mode: torch.Tensor,
+                       idx: torch.Tensor) -> torch.Tensor:
+    """The decoder's inverse LFNST: each block's signalled index (0 off)."""
+    ids = _lfnst_ids(dq.device)
+    inv = lfnst.inverse(dq[None].expand(len(ids), -1, -1, -1),
+                        lfnst.mode_class(mode), ids)
+    out = dq
+    for i in range(len(ids)):
+        out = torch.where((idx == i + 1)[:, None, None], inv[i], out)
+    return out
+
+
+def _tq_lfnst_decode(pred, levels, mode, idx, qp: int, s: int,
+                     bit_depth: int, dep: bool) -> torch.Tensor:
+    """Decoder-side luma reconstruction with a per-block LFNST index."""
+    tr = rom.DST7 if 4 <= s <= 16 else rom.DCT2
+    _, dq = _quant_pair(None, levels, qp, s.bit_length() - 1, bit_depth,
+                        True, dep)
+    r = transforms.inverse_transform(_lfnst_inverse_sel(dq, mode, idx), tr,
+                                     tr, bit_depth=bit_depth)
+    return torch.clamp(pred + r, 0, (1 << bit_depth) - 1)
+
+
+def _tq_mts_decode(pred, levels, mode, mts_idx, lfnst_idx, qp: int, s: int,
+                   bit_depth: int, dep: bool, use_lfnst: bool
+                   ) -> torch.Tensor:
+    """Decoder-side luma reconstruction under explicit MTS (+LFNST): the
+    five inverse transforms as one stacked product, each block taking its
+    signalled pair."""
+    _, dq = _quant_pair(None, levels, qp, s.bit_length() - 1, bit_depth,
+                        True, dep)
+    if use_lfnst:
+        dq = _lfnst_inverse_sel(dq, mode, lfnst_idx)
+    r = transforms.inverse_transform_pairs(
+        dq[None].expand(len(MTS_PAIRS), -1, -1, -1), MTS_PAIRS, bit_depth)
+    idx = mts_idx.long().reshape(1, -1, 1, 1).expand(1, -1, s, s)
+    r = torch.gather(r, 0, idx)[0]
+    return torch.clamp(pred + r, 0, (1 << bit_depth) - 1)
+
+
+def _bdpcm_diff(q: torch.Tensor, horizontal: bool) -> torch.Tensor:
+    """Quantized-residual DPCM: coded value = q - the left (above) q
+    (reference: BDPCM, CABACReader residual_codingTS + Quant BDPCM path)."""
+    prev = torch.zeros_like(q)
+    if horizontal:
+        prev[..., :, 1:] = q[..., :, :-1]
+    else:
+        prev[..., 1:, :] = q[..., :-1, :]
+    return q - prev
+
+
+def _bdpcm_cumsum(d: torch.Tensor, horizontal: bool) -> torch.Tensor:
+    return torch.cumsum(d, dim=-1 if horizontal else -2).to(torch.int32)
+
+
+def _ts_recon(pred: torch.Tensor, q: torch.Tensor, qp: int, maxv: int
+              ) -> torch.Tensor:
+    return torch.clamp(pred + quant.dequantize_ts(q, qp), 0, maxv)
+
+
+def _ts_choice(ob, pred, pall, mode, lev_y, rec, lfnst_idx, mtsm, qp: int,
+               use_bdpcm: bool, maxv: int):
+    """Per-block RD over {regular, transform skip, BDPCM-H, BDPCM-V}
+    (reference: transform_skip_flag + intra_bdpcm_luma_flag; a BDPCM
+    block's signalled mode becomes HOR 18 / VER 50).  Returns (tsm, lev,
+    rec, lfnst_idx, mtsm, mode)."""
+    zero = torch.zeros_like(mode)
+    lev1 = quant.quantize_ts(ob - pred, qp, intra=True)
+    levs, recs = [lev_y, lev1], [rec, _ts_recon(pred, lev1, qp, maxv)]
+    lfs, mts, modes = [lfnst_idx, zero], [mtsm, zero], [mode, mode]
+    extra = (1.0, 2.0)
+    if use_bdpcm:
+        for hor, bmode in ((True, 18), (False, 50)):
+            predb = pall[:, bmode]
+            qb = quant.quantize_ts(ob - predb, qp, intra=True)
+            levs.append(_bdpcm_diff(qb, hor))
+            recs.append(_ts_recon(predb, qb, qp, maxv))
+            lfs.append(zero)
+            mts.append(zero)
+            modes.append(torch.full_like(mode, bmode))
+            extra += (3.0,)
+    levs, recs = torch.stack(levs), torch.stack(recs)
+    bits = _rate_est(levs) + _extra_bits(extra, levs.device)
+    cost = _rd_cost(recs, ob, bits, quant.lambda_from_qp(qp, intra=True))
+    return _pick(cost, levs, recs, torch.stack(lfs), torch.stack(mts),
+                 torch.stack(modes))
+
+
+_UNPORTED = ("use_cclm", "use_mip", "use_mrl", "use_ibc")
 
 
 def _refuse_tools(tools: dict) -> None:
@@ -210,14 +458,20 @@ def _refuse_tools(tools: dict) -> None:
 
 def encode_intra_frame(orig_y: torch.Tensor, orig_u: torch.Tensor,
                        orig_v: torch.Tensor, qp: int, block_size: int = 8,
-                       bit_depth: int = 8, **tools):
+                       bit_depth: int = 8, dep_quant: bool = False,
+                       use_lfnst: bool = False, use_ts: bool = False,
+                       use_bdpcm: bool = False, lossless: bool = False,
+                       use_mts: bool = False, use_rdoq: bool = False,
+                       **tools):
     """Closed-loop wavefront intra encode of one frame, on the device of
-    the planes it is given.
+    the planes it is given.  The residual tools: dependent quantization,
+    RDOQ (shadowed by dep_quant and unused under MTS/LFNST, as in the JAX
+    package), explicit MTS, LFNST, transform skip with BDPCM, lossless.
 
     Returns (outs, recon): outs the nine per-step outputs of the JAX scan
     in its order (mode, lm_flag, lfnst_idx, mrl, tsm, mtsm of shape
     (steps, bmax); lev_y, lev_u, lev_v of shape (steps, bmax, s, s) and
-    (steps, bmax, s/2, s/2)), the tool outputs zero; recon the dict(y, u,
+    (steps, bmax, s/2, s/2)), lm_flag and mrl zero; recon the dict(y, u,
     v) of reconstructed planes (exact decoder output)."""
     _refuse_tools(tools)
     dev = orig_y.device
@@ -226,6 +480,7 @@ def encode_intra_frame(orig_y: torch.Tensor, orig_u: torch.Tensor,
     h, w = orig_y.shape
     nby, nbx = h // s, w // s
     mid = 1 << (bit_depth - 1)
+    maxv = (1 << bit_depth) - 1
     # sqrt(lambda) as a float32, times the three mode-bit counts: the JAX
     # step multiplies in float32 (a weak-typed Python float) and then adds
     lam_satd = np.float32(math.sqrt(quant.lambda_from_qp(qp, intra=True)))
@@ -262,10 +517,11 @@ def encode_intra_frame(orig_y: torch.Tensor, orig_u: torch.Tensor,
     mx_all = t(np.where(valid, 1 + bx_np, 0))
     # the originals never change: one gather for all steps
     ob_all = _gather_blocks(oy, y0_all, x0_all, s)
-    obu_all = _gather_blocks(ou, y0c_all, x0c_all, sc)
-    obv_all = _gather_blocks(ov, y0c_all, x0c_all, sc)
+    obc_all = torch.stack([_gather_blocks(ou, y0c_all, x0c_all, sc),
+                           _gather_blocks(ov, y0c_all, x0c_all, sc)], 2)
 
-    modes_out, levy_out, levu_out, levv_out = [], [], [], []
+    outs = [[] for _ in range(9)]
+    zero = torch.zeros(coords.shape[1], dtype=torch.int32, device=dev)
     for step in range(coords.shape[0]):
         vld = vld_all[step]
         by, bx = by_all[step], bx_all[step]
@@ -286,42 +542,70 @@ def encode_intra_frame(orig_y: torch.Tensor, orig_u: torch.Tensor,
         pred = torch.gather(
             pall, 1, mode[:, None, None, None].expand(-1, 1, s, s))[:, 0]
         mode = mode.to(torch.int32)
-        lev_y, rec = _tq_reconstruct(pred, ob - pred, None, qp, s,
-                                     bit_depth, True)
+        lfnst_idx = mtsm = tsm = zero
+        if lossless:
+            # all transform skip at qStep 1: the residual passes exactly
+            lev_y = quant.quantize_ts(ob - pred, qp, intra=True)
+            rec = _ts_recon(pred, lev_y, qp, maxv)
+            tsm = torch.ones_like(zero)
+        else:
+            if use_mts:
+                lev_y, rec, lfnst_idx, mtsm = _tq_mts_encode(
+                    pred, ob - pred, mode, qp, s, bit_depth, dep_quant,
+                    use_lfnst)
+            elif use_lfnst:
+                lev_y, rec, lfnst_idx = _tq_lfnst_encode(
+                    pred, ob - pred, mode, qp, s, bit_depth, dep_quant)
+            else:
+                lev_y, rec = _tq_reconstruct(pred, ob - pred, None, qp, s,
+                                             bit_depth, True, dep=dep_quant,
+                                             rdoq=use_rdoq)
+            if use_ts:
+                tsm, lev_y, rec, lfnst_idx, mtsm, mode = _ts_choice(
+                    ob, pred, pall, mode, lev_y, rec, lfnst_idx, mtsm, qp,
+                    use_bdpcm, maxv)
+                tsm = tsm.to(torch.int32)
         ry[_block_index(y0, x0, s)] = rec
         my, mx = my_all[step], mx_all[step]
         mode_map[my, mx] = torch.where(vld, mode, mode_map[my, mx])
-        # ---- chroma: the derived luma mode
-        lev_c = []
-        for buf, obc in ((ru, obu_all[step]), (rv, obv_all[step])):
-            predc = intra.predict_mode(buf[ccy_all[step], ccx_all[step]],
-                                       mode, sc, sc)
-            lc, recc = _tq_reconstruct(predc, obc - predc, None, qp, sc,
-                                       bit_depth, True, luma=False)
-            buf[_block_index(y0c, x0c, sc)] = recc
-            lev_c.append(lc)
-        modes_out.append(mode)
-        levy_out.append(lev_y)
-        levu_out.append(lev_c[0])
-        levv_out.append(lev_c[1])
-    modes_steps = torch.stack(modes_out)
-    zero = torch.zeros_like(modes_steps)
-    outs = (modes_steps, zero, zero, zero, zero, zero,
-            torch.stack(levy_out), torch.stack(levu_out),
-            torch.stack(levv_out))
+        # ---- chroma: the derived luma mode, U and V as one batch
+        predc = torch.stack([
+            intra.predict_mode(buf[ccy_all[step], ccx_all[step]], mode, sc,
+                               sc) for buf in (ru, rv)], 1)   # (B, 2, ., .)
+        obc = obc_all[step]
+        b = predc.shape[0]
+        if lossless:
+            lc = quant.quantize_ts(obc - predc, qp, intra=True)
+            recc = _ts_recon(predc, lc, qp, maxv)
+        else:
+            lc, recc = _tq_reconstruct(
+                predc.reshape(2 * b, sc, sc), (obc - predc).reshape(
+                    2 * b, sc, sc), None, qp, sc, bit_depth, True,
+                luma=False, dep=dep_quant, rdoq=use_rdoq)
+            lc, recc = lc.reshape(b, 2, sc, sc), recc.reshape(b, 2, sc, sc)
+        ru[_block_index(y0c, x0c, sc)] = recc[:, 0]
+        rv[_block_index(y0c, x0c, sc)] = recc[:, 1]
+        for i, o in enumerate((mode, zero, lfnst_idx, zero, tsm, mtsm,
+                               lev_y, lc[:, 0], lc[:, 1])):
+            outs[i].append(o)
     recon = dict(y=ry[MARGIN:MARGIN + h, MARGIN:MARGIN + w],
                  u=ru[MARGIN:MARGIN + h // 2, MARGIN:MARGIN + w // 2],
                  v=rv[MARGIN:MARGIN + h // 2, MARGIN:MARGIN + w // 2])
-    return outs, recon
+    return tuple(torch.stack(o) for o in outs), recon
 
 
 def decode_intra_frame(modes_steps, lev_y, lev_u, lev_v, qp: int,
                        height: int, width: int, block_size: int = 8,
-                       bit_depth: int = 8, device=None, **tools):
+                       bit_depth: int = 8, device=None,
+                       dep_quant: bool = False, use_lfnst: bool = False,
+                       lfnst_steps=None, use_ts: bool = False,
+                       ts_steps=None, lossless: bool = False,
+                       use_mts: bool = False, mts_steps=None, **tools):
     """Wavefront intra decode from parsed modes/levels in scan order
-    ((steps, bmax) and (steps, bmax, s, s) arrays, see grid_to_steps).
-    Returns dict(y, u, v) of int32 planes on `device` (CUDA unless
-    another device is named)."""
+    ((steps, bmax) and (steps, bmax, s, s) arrays, see grid_to_steps), and
+    the LFNST / transform-skip / MTS grids of the tools that are on.
+    Returns dict(y, u, v) of int32 planes on `device` (CUDA unless another
+    device is named)."""
     _refuse_tools(tools)
     dev = resolve_device(device)
     s = block_size
@@ -329,6 +613,7 @@ def decode_intra_frame(modes_steps, lev_y, lev_u, lev_v, qp: int,
     h, w = height, width
     nby, nbx = h // s, w // s
     mid = 1 << (bit_depth - 1)
+    maxv = (1 << bit_depth) - 1
     coords, valid = wavefront_coords(nby, nbx)
 
     def t(a):
@@ -336,6 +621,10 @@ def decode_intra_frame(modes_steps, lev_y, lev_u, lev_v, qp: int,
 
     modes_steps, lev_y, lev_u, lev_v = (t(a) for a in (modes_steps, lev_y,
                                                       lev_u, lev_v))
+    zero_steps = torch.zeros_like(modes_steps)
+    lf_steps, ts_steps, mt_steps = (
+        zero_steps if a is None else t(a)
+        for a in (lfnst_steps, ts_steps, mts_steps))
     ry = torch.full((h + 2 * MARGIN, w + 2 * MARGIN), mid, dtype=torch.int32,
                     device=dev)
     ru = torch.full((h // 2 + 2 * MARGIN, w // 2 + 2 * MARGIN), mid,
@@ -346,19 +635,48 @@ def decode_intra_frame(modes_steps, lev_y, lev_u, lev_v, qp: int,
         n = int(valid[step].sum())        # valid slots lead each step
         by, bx = coords_t[step, :n, 0], coords_t[step, :n, 1]
         mode = modes_steps[step, :n]
+        ly = lev_y[step, :n]
         y0, x0 = MARGIN + by * s, MARGIN + bx * s
         y0c, x0c = MARGIN + by * sc, MARGIN + bx * sc
         nb_mode = torch.where(mode >= 67, 0, mode)
         pred = intra.predict_mode(_gather_cref(ry, y0, x0, s), nb_mode, s, s)
-        _, rec = _tq_reconstruct(pred, None, lev_y[step, :n], qp, s,
-                                 bit_depth, True)
+        if lossless:
+            rec = _ts_recon(pred, ly, qp, maxv)
+        else:
+            if use_mts:
+                rec = _tq_mts_decode(pred, ly, mode, mt_steps[step, :n],
+                                     lf_steps[step, :n], qp, s, bit_depth,
+                                     dep_quant, use_lfnst)
+            elif use_lfnst:
+                rec = _tq_lfnst_decode(pred, ly, mode, lf_steps[step, :n],
+                                       qp, s, bit_depth, dep_quant)
+            else:
+                _, rec = _tq_reconstruct(pred, None, ly, qp, s, bit_depth,
+                                         True, dep=dep_quant)
+            if use_ts:
+                # tsm 1: plain transform skip; 2/3: BDPCM H/V (the levels
+                # hold the DPCM differences: cumsum, then dequantize)
+                sel = ts_steps[step, :n][:, None, None]
+                rec = torch.where(sel == 1, _ts_recon(pred, ly, qp, maxv),
+                                  rec)
+                for k, hor in ((2, True), (3, False)):
+                    rec = torch.where(sel == k, _ts_recon(
+                        pred, _bdpcm_cumsum(ly, hor), qp, maxv), rec)
         ry[_block_index(y0, x0, s)] = rec.to(torch.int32)
-        for lev, buf in ((lev_u, ru), (lev_v, rv)):
-            predc = intra.predict_mode(_gather_cref(buf, y0c, x0c, sc),
-                                       nb_mode, sc, sc)
-            _, recc = _tq_reconstruct(predc, None, lev[step, :n], qp, sc,
-                                      bit_depth, True, luma=False)
-            buf[_block_index(y0c, x0c, sc)] = recc.to(torch.int32)
+        predc = torch.stack([
+            intra.predict_mode(_gather_cref(buf, y0c, x0c, sc), nb_mode, sc,
+                               sc) for buf in (ru, rv)], 1)
+        levc = torch.stack([lev_u[step, :n], lev_v[step, :n]], 1)
+        if lossless:
+            recc = _ts_recon(predc, levc, qp, maxv)
+        else:
+            _, recc = _tq_reconstruct(predc.reshape(2 * n, sc, sc), None,
+                                      levc.reshape(2 * n, sc, sc), qp, sc,
+                                      bit_depth, True, luma=False,
+                                      dep=dep_quant)
+            recc = recc.reshape(n, 2, sc, sc)
+        ru[_block_index(y0c, x0c, sc)] = recc[:, 0].to(torch.int32)
+        rv[_block_index(y0c, x0c, sc)] = recc[:, 1].to(torch.int32)
     return dict(y=ry[MARGIN:MARGIN + h, MARGIN:MARGIN + w],
                 u=ru[MARGIN:MARGIN + h // 2, MARGIN:MARGIN + w // 2],
                 v=rv[MARGIN:MARGIN + h // 2, MARGIN:MARGIN + w // 2])

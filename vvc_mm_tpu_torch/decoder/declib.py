@@ -226,21 +226,23 @@ class DecLib:
         sps = self.sps
         if sps.intra_split:
             _todo("intra_split", "9")
-        if sps.lossless:
-            _todo("lossless coding", "9")
         s = sps.intra_block_size
         nby, nbx = sps.height // s, sps.width // s
-        grids = decode_intra_slice(
+        modes, _, lf, _, tsg, mtsg, ly, lu, lv = decode_intra_slice(
             cabac_bytes, nby, nbx, s, cclm=sps.cclm, mip=sps.mip,
-            lfnst=sps.lfnst, mrl=sps.mrl, ts=sps.ts, bdpcm=sps.bdpcm,
-            ibc=sps.ibc, mts=sps.mts)
-        modes, ly, lu, lv = grids[0], grids[6], grids[7], grids[8]
+            lfnst=sps.lfnst, mrl=sps.mrl, ts=sps.ts and not sps.lossless,
+            bdpcm=sps.bdpcm, ibc=sps.ibc, mts=sps.mts)
+        if sps.lossless:
+            tsg = np.ones_like(tsg)
         coords, valid = wavefront.wavefront_coords(nby, nbx)
-        steps = [wavefront.grid_to_steps(g, coords, valid)
-                 for g in (modes, ly, lu, lv)]
+        lf, tsg, mtsg, *steps = (wavefront.grid_to_steps(g, coords, valid)
+                                 for g in (lf, tsg, mtsg, modes, ly, lu, lv))
         recon = wavefront.decode_intra_frame(
             *steps, sh.qp, sps.height, sps.width, s, sps.bit_depth,
-            device=self.device, dep_quant=sps.dep_quant)
+            device=self.device, dep_quant=sps.dep_quant,
+            use_lfnst=sps.lfnst, lfnst_steps=lf, use_ts=sps.ts,
+            ts_steps=tsg, lossless=sps.lossless, use_mts=sps.mts,
+            mts_steps=mtsg)
         bs = deblock.boundary_strengths_intra(nby, nbx, self.device)
         self._store(sh.poc, recon, sh, bs, s)
 
@@ -274,6 +276,7 @@ class DecLib:
         mer = mer_blocks_log2(sps.log2_parallel_merge_level, s)
         ref = self._ref_by_poc(sh.ref_pocs_l0[0])
         args = (sh.qp, s, sps.bit_depth, sps.wrap_around)
+        scaling = tuple(sps.scaling_list) or None     # P pictures only
         wp0, wp1 = (None if w is None else self._tensors(np.asarray(w))[0]
                     for w in (sh.wp_params, sh.wp_params_l1))
         col = (self._mv_fields.get(sh.ref_pocs_l0[0]) if sps.tmvp
@@ -306,7 +309,7 @@ class DecLib:
             ref2 = self._ref_by_poc(sh.ref_pocs_l0[1])
             recon = inter_frame.reconstruct_p_frame_2ref(
                 *self._tensors(ridx, mvs, ly, lu, lv), ref.planes,
-                ref2.planes, *args, wp=wp0)
+                ref2.planes, *args, wp=wp0, scaling=scaling)
         else:
             mvs, ly, lu, lv = decode_p_slice(
                 cabac_bytes, nby, nbx, s, use_merge=sps.merge,
@@ -314,7 +317,7 @@ class DecLib:
             self._mv_fields[sh.poc] = mvs
             recon = inter_frame.reconstruct_p_frame(
                 *self._tensors(mvs, ly, lu, lv), *ref.planes, *args,
-                wp=wp0)
+                wp=wp0, scaling=scaling)
         has_resid = ((ly != 0).any((2, 3)) | (lu != 0).any((2, 3))
                      | (lv != 0).any((2, 3)))
         bs = deblock.boundary_strengths_inter(

@@ -1,11 +1,12 @@
-"""Intra slice entropy decoding — the base intra toolset.
+"""Intra slice entropy decoding: CABAC -> block modes, tool indices and levels.
 
 PyTorch-port copy of `vvc_mm_tpu/decoder/intra_parser.py` (reference:
 source/Lib/DecoderLib/CABACReader.cpp — coding_tree_unit:138,
 intra_luma_pred_mode, residual_coding).  Host numpy code over the native
-CABAC decoder.  The intra tools (CCLM, MIP, LFNST, MRL, TS/BDPCM, IBC, MTS)
-and the WPP / intra-split parsers raise NotImplementedError (ROADMAP queue
-1 item 9).
+CABAC decoder.  It parses the residual tools' syntax (transform skip and
+BDPCM flags, lfnst_idx, tu_mts_idx); CCLM, MIP, MRL, IBC and the WPP /
+intra-split parsers raise NotImplementedError (ROADMAP queue 1 items 9 and
+11).
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from ..common.contexts import ctx_id
 from ..common.wavefront import mpm3_host
 from ..utils.native import NativeBinDecoder
 
-_TOOLS = ("cclm", "mip", "lfnst", "mrl", "ts", "bdpcm", "ibc", "mts")
+_UNPORTED = ("cclm", "mip", "mrl", "ibc")
 
 
 def decode_intra_mode(dec: BinDecoder, left: int, above: int) -> int:
@@ -29,16 +30,21 @@ def decode_intra_mode(dec: BinDecoder, left: int, above: int) -> int:
     return rem[dec.decode_bins_ep(6)]
 
 
-def decode_intra_slice(data: bytes, nby: int, nbx: int, s: int, **tools):
+def decode_intra_slice(data: bytes, nby: int, nbx: int, s: int,
+                       lfnst: bool = False, ts: bool = False,
+                       bdpcm: bool = False, mts: bool = False, **tools):
     """Returns the dense grids (modes, cclm_flags, lfnst_idx, mrl_idx,
-    ts_mode, mts_idx, lev_y, lev_u, lev_v); the tool grids stay zero."""
-    on = [k for k in _TOOLS if tools.get(k)]
-    if on:
+    ts_mode, mts_idx, lev_y, lev_u, lev_v); cclm_flags and mrl_idx stay
+    zero.  lfnst / ts / bdpcm / mts: the SPS flags whose syntax the slice
+    carries; CCLM, MIP, MRL and IBC must be off."""
+    on = [k for k in _UNPORTED if tools.pop(k, False)]
+    if on or tools:
         raise NotImplementedError(
-            f"intra tools {on}: ROADMAP queue 1 item 9 (intra tools)")
+            f"intra tools {on or sorted(tools)}: ROADMAP queue 1 item 9 "
+            "(intra tools)")
     dec = NativeBinDecoder(data)
     grids = _alloc_grids(nby, nbx, s)
-    _decode_intra_rows(dec, grids, s, 0, nby)
+    _decode_intra_rows(dec, grids, s, 0, nby, lfnst, ts, bdpcm, mts)
     return grids
 
 
@@ -55,8 +61,10 @@ def _alloc_grids(nby: int, nbx: int, s: int):
             np.zeros((nby, nbx, sc, sc), dtype=np.int32))
 
 
-def _decode_intra_rows(dec, grids, s: int, r0: int, r1: int) -> None:
-    modes, _, _, _, _, _, lev_y, lev_u, lev_v = grids
+def _decode_intra_rows(dec, grids, s: int, r0: int, r1: int,
+                       lfnst: bool = False, ts: bool = False,
+                       bdpcm: bool = False, mts: bool = False) -> None:
+    modes, _, lf, _, tsg, mtsg, lev_y, lev_u, lev_v = grids
     nby, nbx = modes.shape
     sc = s // 2
     for by in range(r0, r1):
@@ -67,9 +75,25 @@ def _decode_intra_rows(dec, grids, s: int, r0: int, r1: int) -> None:
             left = 0 if left >= 67 else left
             above = 0 if above >= 67 else above
             modes[by, bx] = decode_intra_mode(dec, left, above)
+            if ts and dec.decode_bin(ctx_id("TransformSkipFlag", 0)):
+                tsg[by, bx] = 1
+                if bdpcm and dec.decode_bin(ctx_id("BDPCMFlag", 0)):
+                    tsg[by, bx] = 2 + dec.decode_bin(ctx_id("BDPCMFlag", 1))
             for comp, lev, size in (("y", lev_y, s), ("u", lev_u, sc),
                                     ("v", lev_v, sc)):
                 cbf_ctx = ctx_id("QtCbf", {"y": 0, "u": 4, "v": 5}[comp])
-                if dec.decode_bin(cbf_ctx):
+                cbf = bool(dec.decode_bin(cbf_ctx))
+                if cbf:
                     lev[by, bx] = dec.decode_coeffs(size, size,
                                                     chroma=(comp != "y"))
+                if comp != "y" or not cbf or tsg[by, bx]:
+                    continue
+                if lfnst and dec.decode_bin(ctx_id("LFNSTIdx", 0)):
+                    lf[by, bx] = 1 + dec.decode_bin(ctx_id("LFNSTIdx", 1))
+                if mts and lf[by, bx] == 0:
+                    m = 0
+                    for k in range(4):
+                        if not dec.decode_bin(ctx_id("MtsIdx", k)):
+                            break
+                        m += 1
+                    mtsg[by, bx] = m

@@ -7,8 +7,10 @@ into Annex-B bytes: parameter sets, then per picture a slice NAL and its
 decoded-picture-hash SEI, in AI, LDP or RA (hierarchical B, CTC QP
 cascade) order.  The pictures it encodes:
 
-  I    wavefront intra encode on the device (common/wavefront.py) -> one
-       packed pull -> host CABAC (encoder/intra_coder.py);
+  I    wavefront intra encode on the device (common/wavefront.py, with
+       the residual tools: RDOQ, dependent quantization through kernels
+       D1/D2, MTS, LFNST, transform skip, BDPCM, lossless) -> one packed
+       pull -> host CABAC (encoder/intra_coder.py);
   P/B  classic (single-model) pictures on the fixed grid: P with one
        reference or two (a per-block ref_idx), merge on or off, and B
        pictures (whole-motion merge, or per-list AMVP): ME and the merge
@@ -308,20 +310,12 @@ _UNPORTED = (
     ("mctf", False, "MCTF pre-filter", "11"),
     ("lmcs", False, "LMCS", "11"),
     ("ibc", False, "IBC", "9"),
-    ("rdoq", False, "RDOQ", "9"),
-    ("dep_quant", False, "dependent quantization", "9"),
     ("cclm", False, "CCLM", "9"),
     ("mip", False, "MIP", "9"),
-    ("lfnst", False, "LFNST", "9"),
-    ("mts", False, "MTS", "9"),
     ("mrl", False, "MRL", "9"),
     ("intra_split", False, "intra partitioning", "9"),
     ("wpp", False, "WPP", "11"),
-    ("transform_skip", False, "transform skip", "9"),
-    ("bdpcm", False, "BDPCM", "9"),
     ("film_grain", False, "film grain SEI", "11"),
-    ("lossless", False, "lossless coding", "9"),
-    ("scaling_list", (), "scaling lists", "9"),
     ("mcts_tiles", (), "MCTS tiles", "11"),
 )
 
@@ -335,6 +329,15 @@ class EncLib:
         for name, carried, what, item in _UNPORTED:
             if getattr(cfg, name) != carried:
                 _todo(what, item)
+        if cfg.lossless:
+            # the lossless operating point: qStep 1 (QP 4 after the TS
+            # clamp), in-loop filters off so that recon == source exactly
+            # (reference: the lossless cfg turns deblock/SAO/ALF/LMCS/DQ
+            # off); the configuration is changed in place, as in the JAX
+            # package
+            cfg.qp = 4
+            cfg.deblocking = cfg.sao = cfg.alf = cfg.lmcs = False
+            cfg.dep_quant = cfg.lfnst = cfg.mts = False
         mm = cfg.mm
         if not mm.any_enabled() and cfg.qt_depth > 0:
             _todo("classic quadtree (qtree.py)", "11")
@@ -441,7 +444,11 @@ class EncLib:
         nby, nbx = cfg.height // s, cfg.width // s
         with profiling.stage("intra_search") as ps:
             outs, recon = wavefront.encode_intra_frame(
-                dev[0], dev[1], dev[2], qp, s, cfg.bit_depth)
+                dev[0], dev[1], dev[2], qp, s, cfg.bit_depth,
+                dep_quant=cfg.dep_quant, use_lfnst=cfg.lfnst,
+                use_ts=cfg.transform_skip and not cfg.lossless,
+                use_bdpcm=cfg.bdpcm, lossless=cfg.lossless,
+                use_mts=cfg.mts, use_rdoq=cfg.rdoq)
             if cfg.deblocking:
                 bs_v, bs_h = deblock.boundary_strengths_intra(nby, nbx,
                                                               self.device)
@@ -456,9 +463,13 @@ class EncLib:
             # uint8, levels int16)
             pulled = xfer.pull_levels(*outs)
             coords, valid = wavefront.wavefront_coords(nby, nbx)
-            modes, _, _, _, _, _, ly, lu, lv = (
+            modes, _, lf, _, tsg, mtsg, ly, lu, lv = (
                 wavefront.steps_to_grid(p, coords, valid) for p in pulled)
-            return encode_intra_slice(modes, ly, lu, lv)
+            use_ts = cfg.transform_skip and not cfg.lossless
+            return encode_intra_slice(
+                modes, ly, lu, lv, lfnst=lf if cfg.lfnst else None,
+                ts=tsg if use_ts else None, bdpcm=cfg.bdpcm,
+                mts=mtsg if cfg.mts else None)
 
         return self._finish_slice_overlap(
             poc, planes, recon, make_payload, qp, t0, SliceType.I, [], [],
@@ -550,11 +561,15 @@ class EncLib:
             return torch.from_numpy(a.astype(np.int32)).to(self.device)
 
         wp_d = None if wp is None else t(np.asarray(wp))
+        # the scaling list reaches the P passes only (the JAX package's B,
+        # affine and multi-model passes do not take it)
+        scaling = tuple(cfg.scaling_list) or None
         if not cfg.merge:
             with profiling.stage("finish") as ps:
                 out = inter_frame.encode_p_frame(
                     *dev, *rdev, qp, s, bd, cfg.search_range,
-                    cfg.wrap_around, wp=wp_d, amvr=cfg.amvr)
+                    cfg.wrap_around, wp=wp_d, scaling=scaling,
+                    amvr=cfg.amvr)
                 mvs, ly, lu, lv, recon = out[0], *out[-4:]
                 imv = out[1] if cfg.amvr else None
                 recon = self._deblock_inter(recon, mvs, (ly, lu, lv), qp)
@@ -593,11 +608,11 @@ class EncLib:
                 if r2dev is not None:
                     ly, lu, lv, recon = inter_frame.finish_p_frame_2ref(
                         *dev, tuple(rdev), tuple(r2dev), t(f_ref), mvs, qp,
-                        s, bd, cfg.wrap_around, wp=wp_d)
+                        s, bd, cfg.wrap_around, wp=wp_d, scaling=scaling)
                 else:
                     ly, lu, lv, recon = inter_frame.finish_p_frame(
                         *dev, *rdev, mvs, qp, s, bd, cfg.wrap_around,
-                        wp=wp_d)
+                        wp=wp_d, scaling=scaling)
                 recon = self._deblock_inter(recon, mvs, (ly, lu, lv), qp)
                 ps.set_sync(self.device)
 

@@ -4,9 +4,10 @@ PyTorch-port copy of `vvc_mm_tpu/encoder/intra_coder.py` (reference:
 source/Lib/EncoderLib/CABACWriter.cpp — coding_tree_unit:148,
 intra_luma_pred_mode, cbf + residual_coding).  Host code over the native
 CABAC encoder; it consumes the dense grids of the wavefront encode and is
-the mirror of decoder/intra_parser.py.  The intra tools (CCLM, MIP, LFNST,
-MRL, TS/BDPCM, IBC, MTS) and the WPP / intra-split writers raise
-NotImplementedError (ROADMAP queue 1 item 9).
+the mirror of decoder/intra_parser.py.  It codes the residual tools'
+syntax (transform skip and BDPCM flags, lfnst_idx, tu_mts_idx); CCLM,
+MIP, MRL, IBC and the WPP / intra-split writers raise NotImplementedError
+(ROADMAP queue 1 items 9 and 11).
 """
 from __future__ import annotations
 
@@ -43,20 +44,24 @@ def encode_intra_slice(modes: np.ndarray, lev_y: np.ndarray,
                        ts=None, bdpcm: bool = False, ibc: bool = False,
                        mts=None) -> bytes:
     """modes (nby, nbx); lev_* (nby, nbx, s, s).  Raster block order.  The
-    tool arguments are the JAX package's; each must be off."""
-    on = [k for k, v in (("cclm", cclm), ("mip", mip), ("lfnst", lfnst),
-                         ("mrl", mrl), ("ts", ts), ("bdpcm", bdpcm),
-                         ("ibc", ibc), ("mts", mts))
+    tool arguments are the JAX package's: `lfnst` / `mts` the (nby, nbx)
+    index grids, `ts` the transform-skip mode grid (0 regular, 1 TS, 2/3
+    BDPCM H/V; reference: transform_skip_flag + intra_bdpcm_luma_flag),
+    `bdpcm` the SPS flag; CCLM, MIP, MRL and IBC must be off."""
+    on = [k for k, v in (("cclm", cclm), ("mip", mip), ("mrl", mrl),
+                         ("ibc", ibc))
           if v is not None and v is not False]
     if on:
         raise NotImplementedError(
             f"intra tools {on}: ROADMAP queue 1 item 9 (intra tools)")
     enc = NativeBinEncoder()
-    _encode_intra_rows(enc, modes, lev_y, lev_u, lev_v, 0, modes.shape[0])
+    _encode_intra_rows(enc, modes, lev_y, lev_u, lev_v, 0, modes.shape[0],
+                       lfnst, ts, bdpcm, mts)
     return enc.finish()
 
 
-def _encode_intra_rows(enc, modes, lev_y, lev_u, lev_v, r0: int, r1: int
+def _encode_intra_rows(enc, modes, lev_y, lev_u, lev_v, r0: int, r1: int,
+                       lfnst=None, ts=None, bdpcm: bool = False, mts=None
                        ) -> None:
     """Code block rows [r0, r1) into `enc`."""
     nbx = modes.shape[1]
@@ -66,9 +71,34 @@ def _encode_intra_rows(enc, modes, lev_y, lev_u, lev_v, r0: int, r1: int
             left = _nb(int(modes[by, bx - 1])) if bx > 0 else -1
             above = _nb(int(modes[by - 1, bx])) if by > 0 else -1
             encode_intra_mode(enc, int(modes[by, bx]), left, above)
+            tsm = int(ts[by, bx]) if ts is not None else 0
+            if ts is not None:
+                enc.encode_bin(int(tsm > 0), ctx_id("TransformSkipFlag", 0))
+                if tsm > 0 and bdpcm:
+                    enc.encode_bin(int(tsm >= 2), ctx_id("BDPCMFlag", 0))
+                    if tsm >= 2:
+                        enc.encode_bin(int(tsm == 3), ctx_id("BDPCMFlag", 1))
             for cid, lev in enumerate((lev_y, lev_u, lev_v)):
                 blk = lev[by, bx]
                 cbf = bool(np.any(blk != 0))
                 enc.encode_bin(int(cbf), cbf_ctx[cid])
                 if cbf:
                     enc.encode_coeffs(blk, chroma=(cid != 0))
+                if cid or not cbf or tsm:
+                    continue
+                lf = int(lfnst[by, bx]) if lfnst is not None else 0
+                if lfnst is not None:
+                    # lfnst_idx: truncated unary, 2 contexts (reference:
+                    # CABACWriter residual_lfnst_mode)
+                    enc.encode_bin(int(lf > 0), ctx_id("LFNSTIdx", 0))
+                    if lf > 0:
+                        enc.encode_bin(int(lf > 1), ctx_id("LFNSTIdx", 1))
+                if mts is not None and lf == 0:
+                    # tu_mts_idx: truncated unary over 4 contexts, on the
+                    # DCT2 / no-LFNST, non-TS path (reference: CABACWriter
+                    # mts_idx)
+                    m = int(mts[by, bx])
+                    for k in range(4):
+                        enc.encode_bin(int(m > k), ctx_id("MtsIdx", k))
+                        if m <= k:
+                            break
