@@ -245,9 +245,10 @@ REPLACES = {"mc_luma_positions": "vvc_mm_tpu/ops/mc_kernel.py:191",
                             "no Pallas)",
             "dequantize_dep": "vvc_mm_tpu/common/depquant.py:165 (lax.scan, "
                               "no Pallas)"}
-# D1/D2: the (kernel, block batch shape) of the I picture's luma launch at
-# 2048x1024 with MTS and LFNST (128 blocks x 7 candidates), timed in phase 10
-DQ_PATH_SHAPE = (896, 8, 8)
+# D1/D2: the block batch shapes of the I picture's launches at 2048x1024
+# with MTS and LFNST, timed in phase 10: luma (128 blocks x 7 candidates),
+# then U and V (2 x 128 blocks)
+DQ_PATH_SHAPES = ((896, 8, 8), (256, 4, 4))
 
 
 _T0 = time.perf_counter()
@@ -590,12 +591,19 @@ def all_launches() -> dict:
 def depquant_cases(rng, dev) -> list:
     """D1/D2 against their plain versions: at the I picture's shapes at
     2048x1024 (128 luma blocks x 7 MTS/LFNST candidates, U and V of 128
-    blocks), at (4096, 16, 16) (the global-scratch path), on Laplacian,
-    all-zero and saturating blocks, at QP 0, 37 and 51.  D2 takes the
-    levels D1's plain version gives."""
+    blocks), at batches that leave D1's last CTA of 8 blocks short (1, 33,
+    897), at (4096, 16, 16) (decisions in shared memory, staged 64
+    positions at a time) and at 32x32 and 64x64 (decisions in the global
+    scratch), on Laplacian, all-zero and saturating blocks, at QP 0, 37
+    and 51 (the 32x32 and 64x64 blocks at QP 37).  D2 takes the levels
+    D1's plain version gives."""
     cases = []
-    for shape in (DQ_PATH_SHAPE, (256, 4, 4), (4096, 16, 16)):
+    for shape in (*DQ_PATH_SHAPES, (1, 8, 8), (33, 8, 8), (897, 8, 8),
+                  (4096, 16, 16), (64, 32, 32), (3, 64, 64)):
         b, s, _ = shape
+        # the plain version's chain takes about 1 s for 4096 positions on
+        # the card: the largest blocks take one QP
+        qps = (37,) if s >= 32 else (0, 37, 51)
         log2s = s.bit_length() - 1
         yy, xx = np.mgrid[0:s, 0:s]
         for kind in ("laplace", "zero", "saturating"):
@@ -607,7 +615,7 @@ def depquant_cases(rng, dev) -> list:
             else:
                 c = rng.choice([-32768, 32767, -30000, 31000], shape)
             c = torch.from_numpy(c.astype(np.int32))
-            for qp in (0, 37, 51):
+            for qp in qps:
                 cd = c.to(dev)
                 lev = depquant.quantize_dep_plain(cd, qp, log2s, log2s)
                 label = f"{shape} {kind} QP {qp}"
@@ -1645,14 +1653,17 @@ def preset_path(path_launches: dict) -> dict:
               f"{r['device_work'][0]} device operations, "
               f"{r['device_work'][1]:.4f} s of device time")
     n_ops, busy = i_traced["device_work"]
-    d1_s, d2_s = i_traced["dq_device_s"]
+    # a kernel that ran but that the profile caught no event of is "not
+    # measured", never 0 ms
+    d1, d2 = ("not measured" if t <= 0 else f"{1e3 * t:.2f} ms"
+              for t in i_traced["dq_device_s"])
     print(f"{hlabel}: {hrun['seconds']:.2f} s for {HEADLINE_FRAMES} "
           f"pictures; I picture {i_plain['seconds']:.2f} s (host clock), "
           f"{n_ops} device operations, {busy:.4f} s of device time, D1 "
           f"{i_plain['launches']['quantize_dep']} launches "
-          f"({1e3 * d1_s:.2f} ms of device time), D2 "
+          f"({d1} of device time), D2 "
           f"{i_plain['launches']['dequantize_dep']} launches "
-          f"({1e3 * d2_s:.2f} ms); the card idle "
+          f"({d2}); the card idle "
           f"{100 * (1 - busy / i_plain['seconds']):.1f}% of the I picture")
     return dq_captured
 
@@ -1989,15 +2000,15 @@ def dq_bound(name: str, b: int, n: int, max_level: int
     """D1/D2: every input and output word once (the blocks in, the levels
     or coefficients out, the coding order, and for D1 the rate entries up to
     the largest candidate level this input needs) against their operations:
-    D1 per coefficient and state 2 float32 operations for the lattice
-    levels, per candidate (12) 6 (the error, its fused square and add, the
-    rate's product and add) and a compare-select for each of the 4
-    destinations, over the float32 rate; D2 12 integer operations a
+    D1 per coefficient 66 float32 operations (the two lattices' levels 8,
+    the five distinct levels' errors and squares 10, four rate products,
+    and per destination three candidates of an add, a rounding and an add
+    and two minima, 44), over the float32 rate; D2 12 integer operations a
     coefficient over the int32 rate."""
     words = 2 * b * n + n
     if name == "quantize_dep":
         words += max_level + 2
-        t_ops = b * n * (4 * 2 + 12 * 6 + 4 * 12) / F32_OPS_PER_S * 1e3
+        t_ops = b * n * 66 / F32_OPS_PER_S * 1e3
     else:
         t_ops = b * n * 12 / I32_OPS_PER_S * 1e3
     t_bytes = 4 * words / HBM_BYTES_PER_S * 1e3
@@ -2005,24 +2016,25 @@ def dq_bound(name: str, b: int, n: int, max_level: int
 
 
 def depquant_timed_cases(dq_captured: dict) -> list:
-    """D1/D2 on the inputs of their last launch at the I picture's luma
-    shape in phase 8k."""
+    """D1/D2 on the inputs of their last launches at the I picture's luma
+    and chroma shapes in phase 8k."""
     cases = []
     for name in ("quantize_dep", "dequantize_dep"):
-        key = (name, DQ_PATH_SHAPE)
-        if key not in dq_captured:
-            fail(f"phase 8k never launched {key}; captured "
-                 f"{sorted(dq_captured, key=str)}")
-        t, *args = dq_captured[key]
-        fn = getattr(depquant, name)
-        plain = getattr(depquant, name + "_plain")
-        b, h, w_ = t.shape
-        top = (int(t.abs().max()) if name == "dequantize_dep" else
-               int(depquant.quantize_dep_plain(t, *args).abs().max()))
-        cases.append((name, f"{DQ_PATH_SHAPE} (I picture luma, 2048x1024)",
-                      lambda fn=fn, t=t, a=args: fn(t, *a),
-                      lambda fn=plain, t=t, a=args: fn(t, *a),
-                      dq_bound(name, b, h * w_, top)))
+        for shape, what in zip(DQ_PATH_SHAPES, ("luma", "U and V")):
+            key = (name, shape)
+            if key not in dq_captured:
+                fail(f"phase 8k never launched {key}; captured "
+                     f"{sorted(dq_captured, key=str)}")
+            t, *args = dq_captured[key]
+            fn = getattr(depquant, name)
+            plain = getattr(depquant, name + "_plain")
+            b, h, w_ = t.shape
+            top = (int(t.abs().max()) if name == "dequantize_dep" else
+                   int(depquant.quantize_dep_plain(t, *args).abs().max()))
+            cases.append((name, f"{shape} (I picture {what}, 2048x1024)",
+                          lambda fn=fn, t=t, a=args: fn(t, *a),
+                          lambda fn=plain, t=t, a=args: fn(t, *a),
+                          dq_bound(name, b, h * w_, top)))
     return cases
 
 

@@ -196,12 +196,15 @@ def test_stacked_mts_transforms_match_jax(rng, s):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(896, 8, 8), (256, 4, 4), (4096, 16, 16),
-                                   (64, 32, 32)])
+                                   (64, 32, 32), (1, 8, 8), (33, 8, 8),
+                                   (3, 64, 64)])
 def test_cuda_depquant_kernels_match_plain(rng, shape):
     """On the card: D1 and D2 bit-exact with their plain versions (on the
-    card and on the CPU) at the path's shapes, on 16x16 and 32x32 blocks
-    (the global-scratch path), at QP 0, 37 and 51, on Laplacian, zero and
-    saturating blocks, each launch counted."""
+    card and on the CPU) at the path's shapes, at batches that leave D1's
+    last CTA of 8 blocks short, on 16x16 blocks (staged 64 positions at a
+    time) and 32x32 and 64x64 blocks (decisions in the global scratch), at
+    QP 0, 37 and 51, on Laplacian, zero and saturating blocks, each launch
+    counted."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     b, s, _ = shape

@@ -14,22 +14,21 @@ along the reverse diagonal scan (the coding order, high frequency -> DC)
 over every position of the block.
 
 The JAX package runs both as `lax.scan`s over the coding positions.  Here
-each has a plain PyTorch twin (the scan written out as a loop over the
-positions, vectorised over the batch of blocks) and a hand-written CUDA
-kernel (D1 `quantize_dep`, D2 `dequantize_dep`, csrc/depquant.cu, launched
-by ops/depquant_kernel.py).  The public functions take the twin for a
-tensor on the CPU and launch the kernel for a CUDA tensor; they never fall
-back.
+each has a plain PyTorch twin, written in its kernel's decomposition and
+vectorised over the batch of blocks, and a hand-written CUDA kernel (D1
+`quantize_dep`, D2 `dequantize_dep`, csrc/depquant.cu, launched by
+ops/depquant_kernel.py).  The public functions take the twin for a tensor
+on the CPU and launch the kernel for a CUDA tensor; they never fall back.
 
 The trellis costs are float32 as the JAX package computes them on the CPU,
 where XLA contracts err*err and the add it feeds into one fused
 multiply-add, while lam_h*rate (a product of a select) is rounded on its
 own: fma(err, err, cost) + lam_h*rate.  Here the fused multiply-add is
 taken in float64 (the product of two float32 values is exact there) and
-rounded once to float32.  The tie rules are the JAX package's (the first of equal flat candidates src*3 + k, the first
-cheapest final state; dead states carry the constant 3e38, whose ties
-decide those argmins).  The rate reads quant.log2_rate_np's table, the same
-on every device.
+rounded once to float32.  The tie rules are the JAX package's (the first
+of equal flat candidates src*3 + k, the first cheapest final state; dead
+states carry the constant 3e38, whose ties decide those argmins).  The
+rate reads quant.log2_rate_np's table, the same on every device.
 """
 from __future__ import annotations
 
@@ -77,18 +76,57 @@ def _rate_table(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(rate_bits_np()).to(device)
 
 
+# Of the 12 flat candidates (source state*3 + k: level 0, l0, l0 + 1) only
+# three reach each destination state d, by TRANS: d's sources are the two
+# states of one quantizer, 2*(d & 1) and 2*(d & 1) + 1 (so all three lie on
+# the lattice of offset d & 1), and each offers the zero level and the even
+# one of {l0, l0 + 1} for one destination, the odd one for the other.
+# Candidate j of d, in flat order: its source state (DEST_SRC) and its
+# term (DEST_TERM: 0 the zero level, 1 the even level, 2 the odd one).
+# (When l0 = 0 the even level is the zero level, at the same cost: the tie
+# keeps the zero term, which comes first.)  A dead destination, all three
+# candidates at 3e38, keeps the first of them, where the JAX package's
+# 12-way masked argmin takes flat candidate 0; no backtrack reads either,
+# since it starts at the cheapest final state, which is live, and a live
+# state's cheapest candidate comes from a live source.
+DEST_SRC = np.array([[0, 0, 1], [2, 2, 3], [0, 1, 1], [2, 3, 3]], np.int64)
+DEST_TERM = np.array([[0, 1, 2], [0, 1, 2], [2, 0, 1], [2, 0, 1]], np.int64)
+
+
 @functools.lru_cache(maxsize=None)
-def _trellis_consts(device: torch.device):
-    """Per-candidate constants of one trellis step over the flat (4 source
-    states x 3 candidates) axis: the state offset, the source state, the
-    candidate's step over l0 and whether it is the zero candidate; then
-    the flat transition table and the 4 destination states as a column."""
-    src = torch.arange(4, device=device).repeat_interleave(3)      # (12,)
-    k = torch.arange(3, device=device).repeat(4)
-    soff = torch.as_tensor(STATE_OFF, device=device)[src]
-    trans = torch.as_tensor(TRANS.reshape(-1), device=device)
-    return (soff.to(torch.int32), src, (k == 2).to(torch.int32), k == 0,
-            trans, torch.arange(4, device=device)[:, None])
+def _dest_tables(device: torch.device):
+    """On `device`: DEST_SRC, DEST_TERM and the lattice (state offset) of
+    each destination as a column."""
+    return (torch.as_tensor(DEST_SRC, device=device),
+            torch.as_tensor(DEST_TERM, device=device),
+            (torch.arange(4, device=device) & 1)[:, None])
+
+
+def lattice_levels(x: torch.Tensor, soff: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The even and the odd one of the two levels {l0, l0 + 1} around x
+    (float32, half-step units) in the quantizer of offset `soff`, with
+    l0 = clamp(floor((x + soff) / 2), 0, MAX_LEVEL - 1)."""
+    l0 = torch.clamp(torch.floor((x + float(soff)) * 0.5), 0,
+                     MAX_LEVEL - 1).to(torch.int32)
+    return (l0 + 1) & ~1, l0 | 1
+
+
+def _terms(x: torch.Tensor, lam_h: float, rate: torch.Tensor):
+    """What a trellis step needs that the cost front does not touch, for
+    each lattice (state offset 0, 1) and term (zero, even, odd level): the
+    level, its squared error in float64 (exact: the square of a float32)
+    and its float32 lam_h * rate.  x (...) -> three (..., 2, 3) tensors."""
+    lv, e2, lr = [], [], []
+    for soff in (0, 1):
+        even, odd = lattice_levels(x, soff)
+        lvl = torch.stack([torch.zeros_like(even), even, odd], -1)
+        t = (2 * lvl - soff * (lvl > 0)).to(torch.float32)
+        err = (x[..., None] - t).to(torch.float64)
+        lv.append(lvl)
+        e2.append(err * err)
+        lr.append(lam_h * rate[lvl.long()])
+    return torch.stack(lv, -2), torch.stack(e2, -2), torch.stack(lr, -2)
 
 
 def dq_params(qp: int, log2w: int, log2h: int, bit_depth: int,
@@ -114,8 +152,12 @@ def dq_params(qp: int, log2w: int, log2h: int, bit_depth: int,
 def quantize_dep_plain(coeff: torch.Tensor, qp: int, log2w: int, log2h: int,
                        bit_depth: int = 8, lam: float | None = None
                        ) -> torch.Tensor:
-    """D1's plain version: the trellis over (B, H, W) int32 coefficients
-    -> signed int32 levels."""
+    """D1's plain version, in D1's decomposition: first every position's
+    terms (_terms), then the chain over the coding positions, in which each
+    destination state keeps the first cheapest of its three candidates,
+    then the backtrack of the states from the first cheapest final
+    one, then each position's level from its state and code.  (B, H, W)
+    int32 coefficients -> signed int32 levels."""
     b, h, w = coeff.shape
     n = h * w
     dev = coeff.device
@@ -127,33 +169,26 @@ def quantize_dep_plain(coeff: torch.Tensor, qp: int, log2w: int, log2h: int,
     if p["odd"]:
         mag = (mag * 181 + 128) >> 8
     xs = (mag.to(torch.float32) * p["xscale"])[:, order].t()   # (n, B)
-    rate = _rate_table(dev)
-    soff, src, plus1, zero, trans, dest_ids = _trellis_consts(dev)
-    soff_f = soff.to(torch.float32)
+    lv, e2, lr = _terms(xs, p["lam_h"], _rate_table(dev))  # (n, B, 2, 3)
+    src, term, lat = _dest_tables(dev)
+    e2, lr = e2[:, :, lat, term], lr[:, :, lat, term]     # (n, B, 4, 3)
     cost = torch.full((b, 4), _INF, dtype=torch.float32, device=dev)
     cost[:, 0] = 0.0                                   # start in state 0
-    lvls, srcs = [], []
+    codes = torch.empty((n, b, 4), dtype=torch.int64, device=dev)
     for i in range(n):
-        x = xs[i][:, None]                                        # (B, 1)
-        l0 = torch.clamp(torch.floor((x + soff_f) * 0.5), 0,
-                         MAX_LEVEL - 1).to(torch.int32)           # (B, 12)
-        cands = torch.where(zero, 0, l0 + plus1)
-        t = (2 * cands - soff * (cands > 0)).to(torch.float32)
-        err = x - t
-        e2 = err.to(torch.float64)
-        d = (cost[:, src].to(torch.float64) + e2 * e2).to(torch.float32)
-        c = d + p["lam_h"] * rate[cands.long()]
-        dest = trans[src * 2 + (cands & 1)]
-        cm = torch.where(dest[:, None, :] == dest_ids, c[:, None, :], _INF)
-        k = first_argmin(cm, 2)                               # (B, 4)
-        cost = torch.gather(cm, 2, k[..., None])[..., 0]
-        lvls.append(torch.gather(cands, 1, k))
-        srcs.append(src[k])
+        c = ((cost.to(torch.float64)[:, src] + e2[i]).to(torch.float32)
+             + lr[i])                                          # (B, 4, 3)
+        k = first_argmin(c, 2)                                    # (B, 4)
+        cost = torch.gather(c, 2, k[..., None])[..., 0]
+        codes[i] = k
     cur = first_argmin(cost, 1)                                # (B,)
-    lev = torch.empty((n, b), dtype=torch.int32, device=dev)
+    state = torch.empty((n, b), dtype=torch.int64, device=dev)
     for i in range(n - 1, -1, -1):
-        lev[i] = torch.gather(lvls[i], 1, cur[:, None])[:, 0]
-        cur = torch.gather(srcs[i], 1, cur[:, None])[:, 0]
+        state[i] = cur
+        cur = src[cur, codes[i].gather(1, cur[:, None])[:, 0]]
+    code = codes.gather(2, state[..., None])[..., 0]            # (n, B)
+    lev = lv.gather(2, (state & 1)[..., None, None].expand(n, b, 1, 3))
+    lev = lev[:, :, 0].gather(2, term[state, code][..., None])[..., 0]
     out = torch.empty((b, n), dtype=torch.int32, device=dev)
     out[:, order] = lev.t()
     return (out * sign).reshape(b, h, w)
@@ -167,28 +202,42 @@ def _dq_scales(qp: int, log2w: int, log2h: int, bit_depth: int
     return i_scale, dq_shift, bool(odd)
 
 
+def dq_states(parity: torch.Tensor) -> torch.Tensor:
+    """The state before each coding position of the machine that starts
+    in state 0 and steps next = TRANS[state][parity], for (B, n) parities
+    (0 or 1) in coding order.  The machine is affine over GF(2): with
+    state = 2*b1 + b0, next = (b0 ^ parity, b1).  So b1 before position p
+    is the XOR of the parities at p-1, p-3, ..., and b0 the XOR of those
+    at p-2, p-4, ...: one XOR prefix over each class of positions of one
+    index parity, taken here in log2(n) doubling steps (D2 takes it a
+    warp's 32 positions at a time, by ballot and popcount)."""
+    n = parity.shape[1]
+    cx = parity.to(torch.int64)     # parity[j] ^ parity[j-2] ^ parity[j-4]...
+    k = 2
+    while k < n:
+        cx = cx ^ torch.nn.functional.pad(cx, (k, 0))[:, :n]
+        k *= 2
+    b1 = torch.nn.functional.pad(cx, (1, 0))[:, :n]
+    b0 = torch.nn.functional.pad(cx, (2, 0))[:, :n]
+    return 2 * b1 + b0
+
+
 def dequantize_dep_plain(level: torch.Tensor, qp: int, log2w: int,
                          log2h: int, bit_depth: int = 8) -> torch.Tensor:
-    """D2's plain version: the decoder's state machine along the coding
-    order, then the scale (integer only)."""
+    """D2's plain version, in D2's decomposition: the states by
+    dq_states' XOR prefix of the level parities, then each position's
+    reconstruction and the scale (integer only)."""
     b, h, w = level.shape
     n = h * w
     dev = level.device
     i_scale, dq_shift, odd = _dq_scales(qp, log2w, log2h, bit_depth)
     order = _order(log2w, log2h, dev).long()
-    ls = level.reshape(b, n).to(torch.int32)[:, order].t()        # (n, B)
+    ls = level.reshape(b, n).to(torch.int32)[:, order]           # (B, n)
     a = ls.abs()
-    parity = a & 1
-    soff = torch.as_tensor(STATE_OFF, device=dev)
-    trans = torch.as_tensor(TRANS.reshape(-1), device=dev)
-    state = torch.zeros(b, dtype=torch.int64, device=dev)
-    offs = []
-    for i in range(n):
-        offs.append(soff[state])
-        state = trans[state * 2 + parity[i]]
-    t = (2 * a - torch.stack(offs) * (a > 0)) * torch.sign(ls)
+    soff = dq_states(a & 1) >> 1          # STATE_OFF[state] is its b1
+    t = (2 * a - soff * (a > 0)) * torch.sign(ls)
     tflat = torch.empty((b, n), dtype=torch.int32, device=dev)
-    tflat[:, order] = t.t().to(torch.int32)
+    tflat[:, order] = t.to(torch.int32)
     c = tflat.reshape(b, h, w) * i_scale
     if odd:
         c = _clip16(_rshift_round(c * 181, 8 + dq_shift - 1))

@@ -10,13 +10,15 @@ hand-written CUDA for Hopper (csrc/depquant.cu).
                      dequantize_dep: the parity state machine, then the
                      scale.
 
-One thread per block of coefficients: each position depends on the one
-before, so a block's floor is that serial chain (n dependent steps of some
-tens of cycles), not its bytes or operations; the card's parallelism comes
-from the batch (a wavefront step's blocks and candidates).  Their plain
-versions are common/depquant.py's quantize_dep_plain and
-dequantize_dep_plain; common/depquant.py's quantize_dep and dequantize_dep
-call this module for CUDA tensors.  `LAUNCHES` counts launches.
+D1 runs 4 lanes a block (one a destination state, the cost front passed
+by shuffles) over terms staged in shared memory; each position depends on
+the one before, so a block's floor is that chain of n dependent steps,
+not its bytes or operations.  D2 takes a warp's 32 coding positions at a
+time, the states by a ballot and a popcount.  Their plain versions are
+common/depquant.py's quantize_dep_plain and dequantize_dep_plain, written
+in the kernels' decompositions; common/depquant.py's quantize_dep and
+dequantize_dep call this module for CUDA tensors.  `LAUNCHES` counts
+launches.
 """
 from __future__ import annotations
 
@@ -88,9 +90,10 @@ def quantize_dep(coeff: torch.Tensor, order: torch.Tensor,
     out = torch.empty_like(coeff, dtype=torch.int32)
     if b == 0:
         return out
-    # decisions of the blocks whose trellis does not fit shared memory
-    scratch = (torch.empty(n * 4 * b, dtype=torch.int32,
-                           device=coeff.device) if n > 64 else None)
+    # the decision words and path bytes of blocks of more than 256
+    # coefficients, which do not fit shared memory
+    scratch = (torch.empty(5 * b * n, dtype=torch.uint8,
+                           device=coeff.device) if n > 256 else None)
     c = coeff.contiguous()
     _launch("quantize_dep", coeff.device, c.data_ptr(), b, n,
             order.data_ptr(), rate.data_ptr(), xscale, lam_h, int(odd),
