@@ -70,7 +70,31 @@ default, `bench.realistic_sequence` content:
                             BDPCM;
   ai416x240_lossless_2f     bench configuration 1, lossless;
   ldp832x480_scaling_qp37_9f    bench configuration 2's clip, LDP, 9
-                            frames, the steep scaling list.
+                            frames, the steep scaling list;
+  ai192x96_intra_pred_tools_qp37_2f  AI, 2 frames, the prediction tools
+                            CCLM, MIP, MRL and IBC;
+  ai192x96_intra_pred_resid_tools_qp37_2f  the same with dependent
+                            quantization, MTS, LFNST, transform skip and
+                            BDPCM, on the clip with its left quarter
+                            replaced by screen content (the TS/BDPCM pick
+                            overrides an IBC and three MRL choices; two of
+                            the MRL blocks go to plain transform skip,
+                            which the JAX encoder reconstructs from ring 1
+                            though it codes no MRL flag, so POC 0's MD5
+                            fails in the JAX decoder as in the port's);
+  ai64x64_ibc_screen_qp30_1f    AI, 1 frame at QP 30 of screen content
+                            (tests/test_ibc.py's tiled glyph, seed 0), the
+                            four prediction tools: IBC wins blocks;
+  ai416x240_intra_pred_dq_qp37_2f   bench configuration 1 with the four
+                            prediction tools and dependent quantization.
+
+Each intra-prediction sidecar counts the blocks that chose MIP, MRL, CCLM
+and IBC, and the blocks whose IBC or MRL choice the transform-skip pick
+overrode (counted by the port's encoder, whose stream is checked equal).
+One more sidecar has no stream: `erp2048x1024_ai_ctcpreset_predtools_qp37`
+(`... 2048x1024i`), one 2048x1024 I picture of the CTC-like preset with the
+four prediction tools: its bits and the SHA-256 of its IDR NAL, for the
+chip smoke run's encode on the card.
 
 Each gets a JSON sidecar with every POC's MD5, the encoder's Y/U/V PSNR
 and bits, and the tools it turns on.
@@ -78,7 +102,8 @@ and bits, and the tools it turns on.
     python tests/make_torch_port_streams.py                   # all streams
     python tests/make_torch_port_streams.py 256x128           # one size
     python tests/make_torch_port_streams.py erp256x128_ra_mpa_qp37_5f
-    python tests/make_torch_port_streams.py classic           # the 20
+    python tests/make_torch_port_streams.py classic           # the 24
+    python tests/make_torch_port_streams.py 2048x1024i        # sidecar
 
 This script imports the JAX package; pytest does not collect it (its name
 does not start with `test_`).
@@ -138,6 +163,8 @@ WP_TOOLS = dict(weighted_pred=True, weighted_bipred=True, bdof=True,
 # the intra residual tools of bench configuration 1's tool stream
 INTRA_TOOLS = dict(dep_quant=True, mts=True, lfnst=True, transform_skip=True,
                    bdpcm=True)
+# the I picture's prediction tools (ROADMAP queue 1 items 9d and 9e)
+PRED_TOOLS = dict(cclm=True, mip=True, mrl=True, ibc=True)
 # a non-flat scaling list: heavier quantization toward high frequencies
 # (tests/test_scaling_list.py's STEEP)
 STEEP = tuple(int(16 + 2 * (x + y)) for y in range(8) for x in range(8))
@@ -175,13 +202,90 @@ CLASSIC = {
                               dict(lossless=True)),
     "ldp832x480_scaling_qp37_9f": (832, 480, "LDP", 4, 9, True,
                                    dict(scaling_list=STEEP)),
+    "ai192x96_intra_pred_tools_qp37_2f": (192, 96, "AI", 8, 2, True,
+                                          PRED_TOOLS),
+    "ai192x96_intra_pred_resid_tools_qp37_2f": (
+        192, 96, "AI", 8, 2, True, dict(PRED_TOOLS, **INTRA_TOOLS)),
+    "ai64x64_ibc_screen_qp30_1f": (64, 64, "AI", 8, 1, True, PRED_TOOLS),
+    "ai416x240_intra_pred_dq_qp37_2f": (416, 240, "AI", 8, 2, True,
+                                        dict(PRED_TOOLS, dep_quant=True)),
 }
+# streams at another QP than QP
+STREAM_QP = {"ai64x64_ibc_screen_qp30_1f": 30}
+# streams of screen content: tests/test_ibc.py's tiled glyph (seed 0)
+SCREEN = ("ai64x64_ibc_screen_qp30_1f",)
+# streams whose clip has this left fraction of its width screen content
+MIXED = {"ai192x96_intra_pred_resid_tools_qp37_2f": 0.25}
+# the 2048x1024 I picture of the CTC-like preset (make_bd_r05.py:75-77)
+# with the prediction tools: a sidecar without a stream
+PRESET_I = "erp2048x1024_ai_ctcpreset_predtools_qp37"
 # streams whose clip is the fade of `bench.realistic_sequence` at this step
 FADE = {"ra192x96_fade_wp_qp37_9f": 0.04, "ra832x480_fade_wp_qp37_17f": 0.04}
 # the EncCfg tool fields a classic sidecar records
 SIDECAR_TOOLS = ("dmvr", "bdof", "tmvp", "amvr", "gpm", "ciip", "affine",
                  "weighted_pred", "weighted_bipred", "rdoq", "dep_quant",
-                 "mts", "lfnst", "transform_skip", "bdpcm", "lossless")
+                 "mts", "lfnst", "transform_skip", "bdpcm", "lossless",
+                 "cclm", "mip", "mrl", "ibc")
+
+
+def screen_frame(w: int, h: int, seed: int = 0) -> list[np.ndarray]:
+    """tests/test_ibc.py's screen content: a tiled 8x8 glyph, chroma the
+    luma subsampled and halved."""
+    tile = np.random.default_rng(seed).integers(0, 256, size=(8, 8)) \
+        .astype(np.int32)
+    y = np.tile(tile, (h // 8, w // 8))
+    u = (y[::2, ::2] // 2).astype(np.int32)
+    return [y, u, u.copy()]
+
+
+def mixed_sequence(frames, cut: float) -> list[list[np.ndarray]]:
+    """The clip with the left `cut` of each plane's width replaced by the
+    screen frame's."""
+    h, w = frames[0][0].shape
+    scr = screen_frame(w, h)
+    return [[np.concatenate([s[:, :int(s.shape[1] * cut)],
+                             np.asarray(p)[:, int(p.shape[1] * cut):]], 1)
+             .astype(np.int32) for s, p in zip(scr, f)] for f in frames]
+
+
+def _count_intra_tools(cfg, frames, data: bytes) -> dict:
+    """Blocks of the stream's I pictures that chose each prediction tool,
+    and the TS/BDPCM overrides, from the port's CPU encode of the same
+    frames (its stream must equal the JAX one)."""
+    from vvc_mm_tpu_torch.common import wavefront
+    from vvc_mm_tpu_torch.encoder import enclib
+    from vvc_mm_tpu_torch.encoder.enclib import EncCfg as TEncCfg
+
+    counts = dict(mip=0, mrl=0, cclm=0, ibc=0)
+    stats: dict = {}
+    encode = wavefront.encode_intra_frame
+
+    def counted(*a, **kw):
+        outs, recon = encode(*a, stats=stats, **kw)
+        mode, lm, _, mrl = (o.cpu().numpy() for o in outs[:4])
+        h, w = a[0].shape
+        s = a[4]
+        coords, valid = wavefront.wavefront_coords(h // s, w // s)
+        mode, lm, mrl = (wavefront.steps_to_grid(g, coords, valid)
+                         for g in (mode, lm, mrl))
+        counts["mip"] += int(((mode >= 67) & (mode < 128)).sum())
+        counts["ibc"] += int((mode >= wavefront.IBC_BASE).sum())
+        counts["mrl"] += int((mrl > 0).sum())
+        counts["cclm"] += int((lm > 0).sum())
+        return outs, recon
+
+    tcfg = TEncCfg(**{k: getattr(cfg, k) for k in
+                      TEncCfg.__dataclass_fields__ if hasattr(cfg, k)
+                      and k != "mm"})
+    enclib.wavefront.encode_intra_frame = counted
+    try:
+        tdata = enclib.EncLib(tcfg, device="cpu").encode_sequence(frames)
+    finally:
+        enclib.wavefront.encode_intra_frame = encode
+    assert tdata == data, "the port's stream differs from the JAX stream"
+    counts.update({k: stats.get(k, 0) for k in ("ts_over_ibc", "ts_over_mrl",
+                                                "ts1_over_mrl")})
+    return counts
 
 
 def models_label(mm: dict) -> str:
@@ -253,12 +357,16 @@ def make_classic(name: str) -> dict:
     from vvc_mm_tpu.encoder.enclib import EncCfg, EncLib
 
     w, h, gop, gop_size, n, merge, tools = CLASSIC[name]
+    qp = STREAM_QP.get(name, QP)
     if gop == "AI":     # bench configuration 1 sets no other field
-        cfg = EncCfg(width=w, height=h, qp=QP, gop=gop, **tools)
+        cfg = EncCfg(width=w, height=h, qp=qp, gop=gop, **tools)
     else:
-        cfg = EncCfg(width=w, height=h, qp=QP, gop=gop, gop_size=gop_size,
+        cfg = EncCfg(width=w, height=h, qp=qp, gop=gop, gop_size=gop_size,
                      search_range=24, merge=merge, **tools)
-    frames = realistic_sequence(w, h, n)
+    frames = (realistic_sequence(w, h, n) if name not in SCREEN
+              else [screen_frame(w, h)] * n)
+    if name in MIXED:
+        frames = mixed_sequence(frames, MIXED[name])
     fade = FADE.get(name)
     if fade:
         from vvc_mm_tpu_torch.utils.content import fade_sequence
@@ -269,11 +377,28 @@ def make_classic(name: str) -> dict:
     secs = time.perf_counter() - t0
     with open(os.path.join(OUT_DIR, name + ".bin"), "wb") as f:
         f.write(data)
-    side = dict(width=w, height=h, frames=n, qp=QP, gop=gop,
+    side = dict(width=w, height=h, frames=n, qp=qp, gop=gop,
                 gop_size=cfg.gop_size, qt_depth=0, models="CLASSIC",
                 search_range=cfg.search_range, wrap_around=False,
-                merge=merge, content="bench.realistic_sequence(seed=11)",
+                merge=merge, content=(
+                    "tests/test_ibc.py screen frame (seed 0)"
+                    if name in SCREEN else
+                    f"bench.realistic_sequence(seed=11), the left "
+                    f"{MIXED[name]} of the width screen content"
+                    if name in MIXED else
+                    "bench.realistic_sequence(seed=11)"),
                 bytes=len(data), pocs=_sidecar_pocs(enc.results))
+    if any(tools.get(k) for k in PRED_TOOLS):
+        side.update(intra_tool_blocks=_count_intra_tools(cfg, frames, data))
+        # the JAX decoder's verdicts: a block that plain transform skip
+        # takes from an MRL choice is coded without the MRL flag but
+        # reconstructed from ring 1 by the JAX encoder, so no decoder
+        # reproduces it (ts1_over_mrl)
+        from vvc_mm_tpu.decoder.declib import DecLib
+        dec = DecLib()
+        dec.decode_bytes(data)
+        side.update(jax_decoder_md5={str(k): v for k, v in
+                                     sorted(dec.hash_status.items())})
     if tools:
         side.update(t3d=False, tan=False)
         side.update({k: bool(tools.get(k)) for k in SIDECAR_TOOLS})
@@ -288,6 +413,49 @@ def make_classic(name: str) -> dict:
     return side
 
 
+def make_preset_i() -> dict:
+    """The sidecar of one 2048x1024 I picture of the CTC-like preset
+    (make_bd_r05.py:75-77: the headline tools with TMVP, RDOQ, dependent
+    quantization, MTS and LFNST) with CCLM, MIP, MRL and IBC: RA
+    configuration, one frame: a one-frame sequence codes its I picture at
+    the configuration's QP 37 (the cascade's 34 applies from two frames)."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from bench import realistic_sequence
+    from vvc_mm_tpu.common.bitstream import NAL_IDR, read_annexb
+    from vvc_mm_tpu.common.slice_ps import MMConfig
+    from vvc_mm_tpu.common.typedefs import ProjectionID
+    from vvc_mm_tpu.encoder.enclib import EncCfg, EncLib
+
+    w, h = SIZES["2048x1024"]
+    cfg = EncCfg(width=w, height=h, qp=QP, gop="RA", gop_size=4,
+                 qt_depth=1, search_range=24, wrap_around=True,
+                 mm=MMConfig(projection=ProjectionID.EQUIRECTANGULAR,
+                             mpa=True, rot=True), tmvp=True, rdoq=True,
+                 dep_quant=True, mts=True, lfnst=True, **PRED_TOOLS)
+    frames = realistic_sequence(w, h, 1)
+    enc = EncLib(cfg)
+    t0 = time.perf_counter()
+    data = enc.encode_sequence(frames)
+    secs = time.perf_counter() - t0
+    idr = [n for n in read_annexb(data) if n.nal_type == NAL_IDR]
+    assert len(idr) == 1
+    side = dict(width=w, height=h, frames=1, qp=QP, gop="RA", gop_size=4,
+                qt_depth=1, models="MPA+ROT", projection="ERP",
+                search_range=24, wrap_around=True,
+                content="bench.realistic_sequence(seed=11)",
+                preset="make_bd_r05.py:75-77 (CTC-like)",
+                tmvp=True, rdoq=True, dep_quant=True, mts=True, lfnst=True,
+                **PRED_TOOLS, bytes=len(data),
+                idr_sha256=hashlib.sha256(idr[0].payload).hexdigest(),
+                pocs=_sidecar_pocs(enc.results))
+    with open(os.path.join(OUT_DIR, PRESET_I + ".json"), "w") as f:
+        json.dump(side, f, indent=1)
+        f.write("\n")
+    print(f"{PRESET_I}: {len(data)} bytes, encode {secs:.1f} s on CPU")
+    return side
+
+
 def main(argv: list[str]) -> None:
     """Each argument names a stream, a size (every multi-model stream of
     it) or `classic` (every classic stream)."""
@@ -298,10 +466,14 @@ def main(argv: list[str]) -> None:
             names += [n for n, (_, size) in STREAMS.items() if size == key]
         elif key == "classic":
             names += list(CLASSIC)
+        elif key == "2048x1024i":
+            names.append(PRESET_I)
         else:
             names.append(key)
     for name in names:
-        if name in CLASSIC:
+        if name == PRESET_I:
+            make_preset_i()
+        elif name in CLASSIC:
             make_classic(name)
         else:
             make(*SIZES[STREAMS[name][1]], STREAMS[name][0])

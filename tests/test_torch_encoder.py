@@ -215,14 +215,10 @@ def test_summary_and_cascade(runs):
 # tools of 8b: TMVP/HMVP, AMVR, GPM, CIIP, weighted prediction and affine;
 # under a multi-model configuration affine is carried and ignored, as in
 # the JAX package; the I picture's quantization and transform tools and
-# scaling lists)
+# scaling lists; its prediction tools of 9d and 9e: CCLM, MIP, MRL, IBC)
 REFUSED = {"wpp": (dict(wpp=True), "11"),
            "rate_control": (dict(target_bitrate_kbps=500), "11"),
-           "cclm": (dict(cclm=True), "9"),
-           "mip": (dict(mip=True), "9"),
-           "mrl": (dict(mrl=True), "9"),
-           "ibc": (dict(ibc=True), "9"),
-           "intra_split": (dict(intra_split=True), "9"),
+           "intra_split": (dict(intra_split=True), "9f"),
            "classic_qtree": (dict(mm=MMConfig(), qt_depth=1), "11")}
 CLASSIC = dict(mm=MMConfig(), qt_depth=0)
 ACCEPTED = {
@@ -248,7 +244,11 @@ ACCEPTED = {
     "transform_skip": dict(transform_skip=True),
     "bdpcm": dict(transform_skip=True, bdpcm=True),
     "lossless": dict(lossless=True),
-    "scaling_list": dict(CLASSIC, scaling_list=(16,) * 64)}
+    "scaling_list": dict(CLASSIC, scaling_list=(16,) * 64),
+    "cclm": dict(cclm=True),
+    "mip": dict(mip=True),
+    "mrl": dict(mrl=True),
+    "ibc": dict(ibc=True)}
 CASES = (["no_card"] + [f"refused-{k}" for k in REFUSED]
          + [f"accepted-{k}" for k in ACCEPTED])
 
@@ -276,7 +276,8 @@ def test_unported_branches_raise(case):
     assert enc.mvp_conv is not None or not cfg.mm.mmmvp
     assert enc.sps.mm.active_models() == cfg.mm.active_models()
     for tool in ("dmvr", "bdof", "affine", "tmvp", "amvr", "gpm", "ciip",
-                 "dep_quant", "lfnst", "mts", "bdpcm", "lossless"):
+                 "dep_quant", "lfnst", "mts", "bdpcm", "lossless", "cclm",
+                 "mip", "mrl", "ibc"):
         assert getattr(enc.sps, tool) == getattr(cfg, tool), tool
     assert enc.sps.ts == (cfg.transform_skip or cfg.lossless)
     assert enc.sps.scaling_list == tuple(cfg.scaling_list)

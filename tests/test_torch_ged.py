@@ -7,13 +7,19 @@ on seeded inputs their outputs must be identical (floats compared bit for
 bit, NaN where the reference gives NaN).
 
 The GED and GEDA positions are float32 sphere math rounded to 1/16 pel, as
-for MPA and ROT (tests/test_torch_reprojection.py): torch's CPU math rounds
-some results one ulp apart from XLA's, and near the rotated frame's poles
-the arccos of the ERP back-projection turns one ulp into several 1/16-pel
-units more now and then.  The number of subblocks whose position differs
-from the JAX decoder's (jit-compiled merged_positions), and the largest
-difference, are asserted exactly as measured with PyTorch's CPU math
-(seed 3, MVs uniform in +-24 pel, block 16)."""
+for MPA and ROT (tests/test_torch_reprojection.py).  The port computes
+them op by op with glibc's float32 functions copied
+(common/libm_f32.py), so they equal the JAX package's outside a jit (the
+block centres and the row-subsampled grid below); inside the decoder's
+jit-compiled merged_positions XLA rewrites the float32 arithmetic (FMAs,
+its rsqrt, the grid's sphere points folded in double), which the port
+copies (models.ged_motion(form="merged"), the modulated flavour), so those
+equal JAX's too.  The original flavour keeps the op-by-op form.  Near the
+rotated frame's poles the arccos of the ERP back-projection turns one ulp
+into several 1/16-pel units, so any difference would show; the number of
+subblocks whose position differs from the jit's, and the largest
+difference, are asserted exactly as measured (seed 3, MVs uniform in
++-24 pel, block 16)."""
 import math
 
 import jax.numpy as jnp
@@ -42,11 +48,11 @@ EPIPOLES = {"pole": (0.0, 0.0, 1.0), "x": (1.0, 0.0, 0.0),
 # differ, largest difference in 1/16 pel)
 MEASURED = {
     (256, 128): {(GED, "pole"): (0, 0), (GED, "x"): (0, 0),
-                 (GED, "off"): (2, 1), (GEDA_X, None): (0, 0),
+                 (GED, "off"): (0, 0), (GEDA_X, None): (0, 0),
                  (GEDA_Y, None): (0, 0), (GEDA_Z, None): (0, 0)},
-    (2048, 1024): {(GED, "pole"): (98, 2), (GED, "x"): (171, 1),
-                   (GED, "off"): (174, 1), (GEDA_X, None): (171, 1),
-                   (GEDA_Y, None): (170, 1), (GEDA_Z, None): (98, 2)},
+    (2048, 1024): {(GED, "pole"): (0, 0), (GED, "x"): (0, 0),
+                   (GED, "off"): (0, 0), (GEDA_X, None): (0, 0),
+                   (GEDA_Y, None): (0, 0), (GEDA_Z, None): (0, 0)},
 }
 CASES = [(wh, m, e) for wh in MEASURED for (m, e) in MEASURED[wh]]
 
@@ -188,7 +194,7 @@ def test_ged_positions_match_jax(size, model, ep):
 # flavour -> epipole key -> (subblocks that differ, largest difference),
 # measured as MEASURED is, on the field of test_ged_flavours_and_zero_mvx
 FLAVOUR_MEASURED = {0: {"pole": (0, 0), "x": (1, 1), "off": (1, 1)},
-                    1: {"pole": (0, 0), "x": (1, 1), "off": (0, 0)}}
+                    1: {"pole": (0, 0), "x": (0, 0), "off": (0, 0)}}
 FLAVOUR_CASES = [(f, e) for f in FLAVOUR_MEASURED for e in EPIPOLES]
 
 

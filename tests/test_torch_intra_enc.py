@@ -147,16 +147,14 @@ def test_encode_intra_slice_payload_matches_jax(encoded):
 
 
 def test_intra_tools_are_refused():
-    """The prediction-side tools (CCLM, MIP, MRL, IBC) still name ROADMAP
-    item 9; the residual tools are carried (tests/test_torch_intra_tools.py
-    holds them to JAX)."""
+    """Only an unknown option is refused now: the prediction tools (CCLM,
+    MIP, MRL, IBC; tests/test_torch_intra_pred_tools.py) and the residual
+    tools (tests/test_torch_intra_tools.py) are carried and held to JAX."""
     y = torch.zeros((16, 16), dtype=torch.int32)
     c = torch.zeros((8, 8), dtype=torch.int32)
-    for tool in ("use_cclm", "use_mip", "use_mrl", "use_ibc"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            wavefront.encode_intra_frame(y, c, c, 30, **{tool: True})
-    for tool in ("use_lfnst", "use_ts", "use_bdpcm", "lossless", "use_mts",
-                 "use_rdoq", "dep_quant"):
+    for tool in ("use_cclm", "use_mip", "use_mrl", "use_ibc", "use_lfnst",
+                 "use_ts", "use_bdpcm", "lossless", "use_mts", "use_rdoq",
+                 "dep_quant"):
         outs, _ = wavefront.encode_intra_frame(y, c, c, 30, **{tool: True})
         assert len(outs) == 9
     with pytest.raises(TypeError):
@@ -165,7 +163,7 @@ def test_intra_tools_are_refused():
     lev = np.zeros((2, 2, 8, 8), np.int32)
     levc = np.zeros((2, 2, 4, 4), np.int32)
     for kw in (dict(mip=True), dict(cclm=g), dict(mrl=g), dict(ibc=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            intra_coder.encode_intra_slice(g, lev, levc, levc, **kw)
+        assert intra_coder.encode_intra_slice(g, lev, levc, levc, **kw) == \
+            jax_ic.encode_intra_slice(g, lev, levc, levc, **kw)
     assert isinstance(intra_coder.encode_intra_slice(
         g, lev, levc, levc, ts=g, bdpcm=True, lfnst=g, mts=g), bytes)

@@ -180,21 +180,29 @@ def test_intra_tools_slice_and_decode_roundtrip(encoded, planes):
 
 
 def test_remaining_intra_tools_are_refused():
+    """What remains refused on the I picture: two-level intra partitioning
+    (ROADMAP queue 1 item 9f), in the port's DecLib; an unknown option to
+    the wavefront or the parser is a TypeError.  The prediction tools
+    parse (tests/test_torch_intra_pred_tools.py holds them to JAX)."""
     y = torch.zeros((16, 16), dtype=torch.int32)
     c = torch.zeros((8, 8), dtype=torch.int32)
-    for tool in ("use_cclm", "use_mip", "use_mrl", "use_ibc"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            wavefront.encode_intra_frame(y, c, c, 30, **{tool: True})
+    with pytest.raises(TypeError):
+        wavefront.encode_intra_frame(y, c, c, 30, use_split=True)
+    with pytest.raises(TypeError):
+        decode_intra_slice(b"\x00" * 8, 2, 2, 8, split=True)
     g = np.zeros((2, 2), np.int32)
     lev = np.zeros((2, 2, 8, 8), np.int32)
     levc = np.zeros((2, 2, 4, 4), np.int32)
     for kw in (dict(mip=True), dict(cclm=g), dict(mrl=g), dict(ibc=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            intra_coder.encode_intra_slice(g, lev, levc, levc, **kw)
-    for kw in (dict(cclm=True), dict(mip=True), dict(mrl=True),
-               dict(ibc=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            decode_intra_slice(b"\x00" * 8, 2, 2, 8, **kw)
+        data = intra_coder.encode_intra_slice(g, lev, levc, levc, **kw)
+        back = decode_intra_slice(data, 2, 2, 8, **{k: True for k in kw})
+        np.testing.assert_array_equal(back[0], g)
+    from vvc_mm_tpu_torch.decoder.declib import DecLib
+    dec = DecLib(device="cpu")
+    dec.sps = slice_ps.SPS(width=16, height=16, intra_split=True)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue 1 item 9f$"):
+        dec._decode_i(None, b"")
 
 
 def test_sps_tool_fields_roundtrip_both_packages():

@@ -17,12 +17,12 @@
     epipole (4, 0, 0.3, -0.5, 0.8), at 256x128 against the committed JAX
     streams: configuration 4 and its variant byte for byte, and every
     committed stream decodes in the port, every port stream in the JAX
-    DecLib.  Configuration 3 meets ROADMAP queue 3 fault 1: one B-picture
-    subblock position (POC 2, list 1, MPA top/bottom near the pole) rounds
-    one 1/16 pel away from XLA's, so its SAO offsets and the MD5s of POC
-    2 and the two pictures that refer to it differ; these tests pin exactly
-    that, and hold the rest (every CABAC payload, and the decode fed JAX's
-    positions) to JAX.  The same configuration with merge off decodes in
+    DecLib.  Configuration 3 is byte for byte too: its one B-picture
+    subblock position (POC 2, list 1, MPA top/bottom near the pole) that
+    rounded one 1/16 pel away from XLA's while the port used torch's
+    math library (ROADMAP queue 3 fault 1) now rounds as XLA's, with
+    glibc's float32 sin/cos/tan/atan2 copied (common/libm_f32.py) and the
+    jit's compiled float32 form of the MPA motion.  The same configuration with merge off decodes in
     both decoders.  Configuration 4 plus 3DT, TAN and projected DMVR
     (`allmm_dmvr`, 8 active models) is byte for byte too; fed JAX's
     positions, projected DMVR's candidates among them, the port decodes
@@ -235,12 +235,10 @@ BENCH = {
 }
 # NAL indices (0 SPS, 1 PPS, 2 IDR, 3 its SEI, then slice and SEI of POC
 # 4, 2, 1, 3) where the port's CPU stream differs from the committed JAX
-# one (ROADMAP queue 3 fault 1: one position of POC 2 under config 3), and
-# the port decoder's MD5 verdicts on the committed stream there
-NAL_DIFFS = {"mpa": [6, 7, 9, 10, 11], "fullmm": [], "fullmm_ep": [],
-             "allmm_dmvr": []}
-OWN_POSITIONS_HASH = {
-    "mpa": {0: "OK", 4: "OK", 2: "MISMATCH", 1: "MISMATCH", 3: "MISMATCH"}}
+# one, and the port decoder's MD5 verdicts on the committed stream where
+# they are not all OK: none since ROADMAP queue 3 fault 1 closed for MPA
+NAL_DIFFS = {"mpa": [], "fullmm": [], "fullmm_ep": [], "allmm_dmvr": []}
+OWN_POSITIONS_HASH: dict = {}
 
 
 def _bench_cfg(cls, mm_cls, name, **kw):
@@ -332,7 +330,7 @@ def test_p_anchor_codes_the_epipole_delta(bench_runs):
 def test_port_decodes_the_committed_bench_stream(name):
     """DecLib(device="cpu") on the JAX encoder's stream: every MD5 OK when
     fed the JAX decoder's positions (the hook carries the epipoles), and
-    with its own positions every MD5 OK but where fault 1 is pinned."""
+    with its own positions every MD5 OK."""
     data = _bench_stream(name)
     dec = DecLib(device="cpu", positions_fn=_jax_positions())
     dec.decode_bytes(data)
@@ -346,7 +344,7 @@ def test_port_decodes_the_committed_bench_stream(name):
 @pytest.mark.parametrize("name", sorted(BENCH))
 def test_jax_decodes_the_port_bench_stream(bench_runs, name):
     """The JAX DecLib on the port's stream, and the port's own DecLib: its
-    MD5s are the port encoder's (fault 1 pinned as above)."""
+    MD5s are the port encoder's."""
     data = bench_runs[name]["data"]
     own = DecLib(device="cpu")
     frames = own.decode_bytes(data)

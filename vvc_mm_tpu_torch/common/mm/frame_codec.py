@@ -45,33 +45,37 @@ def _up(t: torch.Tensor, rep: int) -> torch.Tensor:
 
 def _model_positions(reproj: MVReprojection, model_id: int,
                      mvs: torch.Tensor, block_size: int, epipole,
-                     row_step: int) -> torch.Tensor:
+                     row_step: int, form: str | None = "merged"
+                     ) -> torch.Tensor:
     """One model's per-subblock positions for a (nby, nbx, 2) MV field:
     integer math for CLASSIC, the reprojection otherwise."""
     if model_id == M.CLASSIC:
         return mm_mc.classic_positions(reproj.width, reproj.height, mvs,
                                        block_size, row_step)
     return reproj.reproject_frame(model_id, mvs, block_size, epipole,
-                                  row_step)
+                                  row_step, form)
 
 
 def merged_positions(reproj: MVReprojection, active_models: list[int],
                      model_idx: torch.Tensor, mvs_stack: torch.Tensor,
                      block_size: int, epipoles: dict | None = None,
-                     row_step: int = 1) -> torch.Tensor:
+                     row_step: int = 1, form: str | None = "merged"
+                     ) -> torch.Tensor:
     """Merge per-subblock target positions across models.
 
     Args:
       model_idx: (nby, nbx) index into active_models per block.
       mvs_stack: (n_models, nby, nbx, 2) MV of each model for each block.
       row_step: optional subblock-row subsampling (search-time SADs).
+      form: the float32 form of the JAX codec's jit that computes these
+        positions (reproject_frame's `form`).
     Returns (nsy, nsx, 2) int32 positions on the reprojection's device."""
     dev = reproj.device
     model_idx = torch.as_tensor(model_idx, device=dev)
     mvs_stack = torch.as_tensor(mvs_stack, device=dev)
     pos_all = torch.stack([
         _model_positions(reproj, m, mvs_stack[i], block_size,
-                         (epipoles or {}).get(m), row_step)
+                         (epipoles or {}).get(m), row_step, form)
         for i, m in enumerate(active_models)])       # (n, nsy, nsx, 2)
     idx_sb = _up(model_idx.to(torch.int64), block_size // SUBBLK)
     if row_step > 1:
@@ -636,7 +640,8 @@ def _field_sads(reproj, active_models, refp, orig_y, s, epipoles, fields,
     row_step = SAD_ROW_STEP if s // 4 >= SAD_ROW_STEP else 1
     oy_sub = _subsample_rows(orig_y, row_step).contiguous()
     pos_fields = [merged_positions(reproj, active_models, i, st, s,
-                                   epipoles, row_step) for i, st in fields]
+                                   epipoles, row_step, "search")
+                  for i, st in fields]
     return _sad_fields_bilin(refp, oy_sub, torch.stack(pos_fields), s,
                              row_step, exact=True, bit_depth=bit_depth)
 

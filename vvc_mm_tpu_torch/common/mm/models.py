@@ -29,9 +29,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ...lib360.projection import (Perspective, cartesian_to_spherical,
+from ...lib360.projection import (Perspective, cartesian_to_spherical, div,
                                   spherical_to_cartesian, PI)
 from ..typedefs import MotionModelID as M
+from ...ops import libm_kernel as lm
 
 
 # ---------------------------------------------------------------------------
@@ -87,16 +88,38 @@ def mpa_from_perspective(proj, plane: int, px, py, vip):
     return proj.from_sphere(x, y, z)
 
 
+def mpa_from_perspective_fused(proj, plane: int, px, py, vip):
+    """mpa_from_perspective as XLA compiles it in the JAX codec's merged
+    positions.  With (X, Y, Z) = (-ct, st*cp, -(st*sp)) the sphere point
+    (ct = cos theta, st = sin theta, cp = cos phi, sp = sin phi), the
+    plane's axes swap it, and r^2 is two FMAs whose order the compiled
+    code fixes: fma(st*sp, st*sp, fma(ct, ct, (st*cp)^2)) on the front/back
+    and left/right planes, fma(ct, ct, fma(sp*st, sp*st, (cp*st)^2)) on
+    the top/bottom plane."""
+    ct, st, cp, sp = Perspective(proj.focal).to_sphere_fused(px, py, vip)
+    a, b = st * cp, st * sp
+    if plane == M.MPA_TOP_BOTTOM:
+        ss = lm.fma32(ct, ct, lm.fma32(b, b, a * a))
+    else:
+        ss = lm.fma32(b, b, lm.fma32(ct, ct, a * a))
+    x, y, z = _mpa_axes_from_plane(plane, -ct, a, -b)
+    return proj.from_sphere_fused(x, y, z, ss)
+
+
 def mpa_motion(proj, plane: int, grid_x, grid_y, mv_x, mv_y, cx=None, cy=None,
-               pers_cache=None):
-    """pers_cache: optional precomputed (px, py, vip) for the grid."""
+               pers_cache=None, form: str | None = None):
+    """pers_cache: optional precomputed (px, py, vip) for the grid (the
+    JAX package computes it op by op, outside its jit).  form: "merged"
+    or "search", the motion in the form of the JAX codec's jit-compiled
+    positions (the same for both); None, op by op."""
     if pers_cache is None:
         px, py, vip = mpa_to_perspective(proj, plane, grid_x, grid_y)
     else:
         px, py, vip = pers_cache
     sign = torch.where(vip, -1.0, 1.0).to(px.dtype)
-    return mpa_from_perspective(proj, plane, px + mv_x * sign,
-                                py + mv_y * sign, vip)
+    back = mpa_from_perspective if form is None else \
+        mpa_from_perspective_fused
+    return back(proj, plane, px + mv_x * sign, py + mv_y * sign, vip)
 
 
 def mpa_mv_for_shift(proj, plane: int, px_, py_, sx_, sy_, cx=None,
@@ -116,14 +139,37 @@ def mpa_mv_for_shift(proj, plane: int, px_, py_, sx_, sy_, cx=None,
 # ---------------------------------------------------------------------------
 # 3-D translational (3DT) — reference: ThreeDTranslationalMotionModel.cpp
 # ---------------------------------------------------------------------------
-def t3d_motion(proj, grid_x, grid_y, mv_x, mv_y, cx, cy):
+def t3d_motion(proj, grid_x, grid_y, mv_x, mv_y, cx, cy,
+               form: str | None = None, grid_sphere=None):
     """The block center's displacement on the sphere, (center + mv) minus
-    center in 3-D, added to every grid point and projected back."""
-    c3x, c3y, c3z = proj.to_sphere(cx, cy)
-    m3x, m3y, m3z = proj.to_sphere(cx + mv_x, cy + mv_y)
-    gx, gy, gz = proj.to_sphere(grid_x, grid_y)
-    out_x, out_y = proj.from_sphere(gx + (m3x - c3x), gy + (m3y - c3y),
-                                    gz + (m3z - c3z))
+    center in 3-D, added to every grid point and projected back; op by
+    op, or (form "merged") in the form XLA compiles for the JAX codec's
+    merged positions: the grid's sphere points folded in double
+    (grid_sphere, ERP.to_sphere_folded of the grid), the centers'
+    factors float32 values (their products at run time), each coordinate
+    of the displacement one FMA, fma(cp*st at the moved center, -(center's
+    product)), and r^2 = fma(z, z, fma(x, x, y*y)).  The merge search
+    ("search") computes it op by op."""
+    if form == "merged":
+        gx, gy, gz = grid_sphere
+        th_c = div(cy + proj.pixel_offset, proj.height) * PI
+        ph_c = -div(cx + proj.pixel_offset, proj.width) * 2.0 * PI
+        st_c, ct_c = lm.sin(th_c), lm.cos(th_c)
+        cp_c, sp_c = lm.cos(ph_c), lm.sin(ph_c)
+        th_m = div(cy + mv_y + proj.pixel_offset, proj.height) * PI
+        ph_m = -div(cx + mv_x + proj.pixel_offset, proj.width) * 2.0 * PI
+        st, ct = lm.sin(th_m), lm.cos(th_m)
+        x = gx + lm.fma32(lm.cos(ph_m), st, -(st_c * cp_c))
+        y = gy + lm.fma32(lm.sin(ph_m), st, -(sp_c * st_c))
+        z = (ct - ct_c) + gz
+        out_x, out_y = proj.from_sphere_fused(
+            x, y, z, lm.fma32(z, z, lm.fma32(x, x, y * y)))
+    else:
+        c3x, c3y, c3z = proj.to_sphere(cx, cy)
+        m3x, m3y, m3z = proj.to_sphere(cx + mv_x, cy + mv_y)
+        gx, gy, gz = proj.to_sphere(grid_x, grid_y)
+        out_x, out_y = proj.from_sphere(gx + (m3x - c3x), gy + (m3y - c3y),
+                                        gz + (m3z - c3z))
     zero = (mv_x == 0) & (mv_y == 0)
     return (torch.where(zero, grid_x, out_x), torch.where(zero, grid_y, out_y))
 
@@ -147,12 +193,12 @@ def _tan_to_plane(proj, x, y, eps_c, alpha_c):
     _, theta, phi = cartesian_to_spherical(gx, gy, gz)
     eps = PI / 2 - theta
     d_alpha = phi - alpha_c
-    cos_psi = (torch.sin(eps_c) * torch.sin(eps)
-               + torch.cos(eps_c) * torch.cos(eps) * torch.cos(d_alpha))
-    plane_y = (torch.sin(eps) * torch.cos(eps_c)
-               - torch.sin(eps_c) * torch.cos(eps) * torch.cos(d_alpha)) \
+    cos_psi = (lm.sin(eps_c) * lm.sin(eps)
+               + lm.cos(eps_c) * lm.cos(eps) * lm.cos(d_alpha))
+    plane_y = (lm.sin(eps) * lm.cos(eps_c)
+               - lm.sin(eps_c) * lm.cos(eps) * lm.cos(d_alpha)) \
         / cos_psi
-    plane_x = (torch.sin(d_alpha) * torch.cos(eps)) / cos_psi
+    plane_x = (lm.sin(d_alpha) * lm.cos(eps)) / cos_psi
     return plane_x, plane_y
 
 
@@ -162,26 +208,67 @@ def _center_angles(proj, cx, cy):
     return PI / 2 - theta_c, phi_c
 
 
-def tan_motion(proj, angle_res: float, grid_x, grid_y, mv_x, mv_y, cx, cy):
+def tan_motion(proj, angle_res: float, grid_x, grid_y, mv_x, mv_y, cx, cy,
+               form: str | None = None, grid_sphere=None):
     """Move on the block center's tangent plane by -mv * angle_res, then
     the inverse gnomonic projection (reference:
     TangentialMotionModel.cpp:35-44).  A grid point at the tangent point
     with a zero plane move gives rho = 0 and 0/0 = NaN, and an arcsin
     argument that rounds past 1 gives NaN: both are "no motion" for the
-    caller, as in the JAX package."""
+    caller, as in the JAX package.  form "merged": the form of the JAX
+    codec's merged positions (_tan_motion_fused, with grid_sphere as
+    t3d_motion's); "search" and None: op by op."""
+    if form == "merged":
+        return _tan_motion_fused(proj, angle_res, grid_sphere, grid_x,
+                                 grid_y, mv_x, mv_y, cx, cy)
     eps_c, alpha_c = _center_angles(proj, cx, cy)
     plane_x, plane_y = _tan_to_plane(proj, grid_x, grid_y, eps_c, alpha_c)
     pxm = plane_x - mv_x * angle_res
     pym = plane_y - mv_y * angle_res
-    rho = torch.sqrt(pxm * pxm + pym * pym)
-    eta = torch.arctan(rho)
-    gamma = (rho * torch.cos(eps_c) * torch.cos(eta)
-             - pym * torch.sin(eps_c) * torch.sin(eta))
-    alpha_m = alpha_c + torch.arctan((pxm * torch.sin(eta)) / gamma)
-    eps_m = torch.arcsin(torch.cos(eta) * torch.sin(eps_c)
-                         + (pym * torch.sin(eta) * torch.cos(eps_c)) / rho)
+    rho = lm.sqrt(pxm * pxm + pym * pym)
+    eta = lm.atan(rho)
+    gamma = (rho * lm.cos(eps_c) * lm.cos(eta)
+             - pym * lm.sin(eps_c) * lm.sin(eta))
+    alpha_m = alpha_c + lm.atan((pxm * lm.sin(eta)) / gamma)
+    eps_m = lm.asin(lm.cos(eta) * lm.sin(eps_c)
+                         + (pym * lm.sin(eta) * lm.cos(eps_c)) / rho)
     c = spherical_to_cartesian(1.0, PI / 2 - eps_m, alpha_m)
     out_x, out_y = proj.from_sphere(*c)
+    zero = (mv_x == 0) & (mv_y == 0)
+    return (torch.where(zero, grid_x, out_x), torch.where(zero, grid_y, out_y))
+
+
+def _tan_motion_fused(proj, angle_res: float, grid_sphere, grid_x, grid_y,
+                      mv_x, mv_y, cx, cy):
+    """tan_motion in the form XLA compiles for the JAX codec's merged
+    positions: the grid's sphere points folded in double, its angles and
+    their sines op by op (true divisions), the block centers' angles as
+    ROT's; then each a*b +- c*d one FMA, the sums of squares FMAs."""
+    fma = lm.fma32
+    _, theta, phi = cartesian_to_spherical(*grid_sphere)
+    eps = PI / 2 - theta
+    sin_e, cos_e = lm.sin(eps), lm.cos(eps)
+    theta_c, alpha_c = _center_spherical_fused(proj, cx, cy, False)
+    eps_c = PI / 2 - theta_c
+    sin_c, cos_c = lm.sin(eps_c), lm.cos(eps_c)
+    d_alpha = phi - alpha_c
+    cos_da, sin_da = lm.cos(d_alpha), lm.sin(d_alpha)
+    cos_psi = fma(sin_c, sin_e, (cos_c * cos_e) * cos_da)
+    plane_y = fma(cos_c, sin_e, -((sin_c * cos_e) * cos_da)) / cos_psi
+    plane_x = (sin_da * cos_e) / cos_psi
+    pxm = plane_x - mv_x * angle_res
+    pym = plane_y - mv_y * angle_res
+    rho = lm.sqrt(fma(pxm, pxm, pym * pym))
+    eta = lm.atan(rho)
+    sin_eta, cos_eta = lm.sin(eta), lm.cos(eta)
+    gamma = fma(rho * cos_c, cos_eta, -((pym * sin_c) * sin_eta))
+    alpha_m = alpha_c + lm.atan((pxm * sin_eta) / gamma)
+    eps_m = lm.asin(fma(sin_c, cos_eta, (cos_c * (pym * sin_eta)) / rho))
+    theta_m = PI / 2 - eps_m
+    st, ct = lm.sin(theta_m), lm.cos(theta_m)
+    x, y = lm.cos(alpha_m) * st, lm.sin(alpha_m) * st
+    out_x, out_y = proj.from_sphere_fused(
+        x, y, ct, fma(ct, ct, fma(x, x, y * y)))
     zero = (mv_x == 0) & (mv_y == 0)
     return (torch.where(zero, grid_x, out_x), torch.where(zero, grid_y, out_y))
 
@@ -190,26 +277,91 @@ def tan_mv_for_shift(proj, angle_res: float, px, py, sx, sy, cx, cy):
     eps_c, alpha_c = _center_angles(proj, cx, cy)
     ox, oy = _tan_to_plane(proj, px, py, eps_c, alpha_c)
     mx, my = _tan_to_plane(proj, sx, sy, eps_c, alpha_c)
-    return (ox - mx) / angle_res, (oy - my) / angle_res
+    return div(ox - mx, angle_res), div(oy - my, angle_res)
 
 
 # ---------------------------------------------------------------------------
 # Rotational (ROT) — reference: RotationalMotionModel.cpp
 # ---------------------------------------------------------------------------
 def _rot_z(a, x, y, z):
-    ca, sa = torch.cos(a), torch.sin(a)
+    ca, sa = lm.cos(a), lm.sin(a)
     return x * ca - y * sa, x * sa + y * ca, z
 
 
 def _rot_y(a, x, y, z):
-    ca, sa = torch.cos(a), torch.sin(a)
+    ca, sa = lm.cos(a), lm.sin(a)
     return x * ca + z * sa, y, -x * sa + z * ca
 
 
-def rot_motion(proj, angle_res: float, grid_x, grid_y, mv_x, mv_y, cx, cy):
+def _center_spherical_fused(proj, cx, cy, search: bool):
+    """(theta_c, phi_c) of block centers as the JAX codec's jits compute
+    them, from float32 sphere points.  Merged positions:
+    r^2 = (ct*ct) + fma(st*cp, st*cp, (st*sp)^2), the first square hoisted
+    out of the vectorized loop and so rounded on its own; the merge
+    search: r^2 = fma(ct, ct, fma(st*cp, st*cp, (st*sp)^2))."""
+    x, y, ct = proj.to_sphere(cx, cy)
+    if search:
+        ss = lm.fma32(ct, ct, lm.fma32(x, x, y * y))
+    else:
+        ss = ct * ct + lm.fma32(x, x, y * y)
+    theta_c = lm.acos(torch.clamp(ct * lm.rsqrt_xla(ss), -1.0, 1.0))
+    return theta_c, lm.atan2(y, x)
+
+
+def _rot_motion_fused(proj, angle_res: float, grid_sphere, grid_x, grid_y,
+                      mv_x, mv_y, cx, cy, search: bool):
+    """rot_motion in the forms XLA compiles for the JAX codec: each rotated
+    coordinate a*b +- c*d is one FMA, fma(a, b, +-(c*d)), with the operands
+    in the compiled code's order.  In the merged positions (one fusion a
+    coordinate) the grid's sphere points are constants folded in double
+    (grid_sphere);
+    in the merge search (search=True) they are float32 values, the chain
+    is split over several fusions, and three FMAs take the other product:
+    x2, z5, and the y4 that feeds phi."""
+    fma = lm.fma32
+    theta_c, phi_c = _center_spherical_fused(proj, cx, cy, search)
+    px, py, pz = proj.to_sphere(grid_x, grid_y) if search else grid_sphere
+    cf, sf = lm.cos(phi_c), lm.sin(phi_c)
+    beta = PI / 2 - theta_c
+    cb, sb = lm.cos(beta), lm.sin(beta)
+    x1 = fma(cf, px, sf * py)                           # U p
+    y1 = fma(cf, py, -(sf * px))
+    x2 = fma(pz, sb, cb * x1) if search else fma(x1, cb, pz * sb)
+    z2 = fma(pz, cb, -(x1 * sb))
+    a = mv_y * angle_res                                # R q
+    ca, sa = lm.cos(a), lm.sin(a)
+    x3 = fma(x2, ca, z2 * sa)
+    z3 = fma(z2, ca, -(x2 * sa))
+    b = -mv_x * angle_res
+    cm, sm = lm.cos(b), lm.sin(b)
+    x4 = fma(cm, x3, -(y1 * sm))
+    y4 = fma(y1, cm, sm * x3)
+    y4_phi = fma(x3, sm, y1 * cm) if search else y4
+    x5 = fma(cb, x4, -(sb * z3))                        # U^T r
+    z5 = fma(x4, sb, z3 * cb) if search else fma(cb, z3, sb * x4)
+    x6 = fma(cf, x5, -(sf * y4))
+    y6 = fma(cf, y4, sf * x5)
+    ss = fma(z5, z5, fma(x6, x6, y6 * y6))
+    if search:
+        x6 = fma(cf, x5, -(sf * y4_phi))
+        y6 = fma(cf, y4_phi, sf * x5)
+    out_x, out_y = proj.from_sphere_fused(x6, y6, z5, ss)
+    zero = (mv_x == 0) & (mv_y == 0)
+    return (torch.where(zero, grid_x, out_x), torch.where(zero, grid_y, out_y))
+
+
+def rot_motion(proj, angle_res: float, grid_x, grid_y, mv_x, mv_y, cx, cy,
+               form: str | None = None, grid_sphere=None):
     """Sphere rotation Rz(-mvx*res)*Ry(mvy*res) conjugated by the block-
     center alignment rotation U = Ry(pi/2 - theta_c) * Rz(-phi_c)
-    (reference: RotationalMotionModel.cpp:44-57), applied elementwise."""
+    (reference: RotationalMotionModel.cpp:44-57), applied elementwise; op
+    by op, or in the form the JAX codec's jit compiles (form "merged",
+    with grid_sphere as t3d_motion's, or "search", as
+    reprojection.reproject_frame's `form`)."""
+    if form is not None:
+        return _rot_motion_fused(proj, angle_res, grid_sphere, grid_x,
+                                 grid_y, mv_x, mv_y, cx, cy,
+                                 form == "search")
     c3 = proj.to_sphere(cx, cy)
     _, theta_c, phi_c = cartesian_to_spherical(*c3)
     beta = PI / 2 - theta_c
@@ -232,7 +384,8 @@ def rot_mv_for_shift(proj, angle_res: float, px, py, sx, sy, cx, cy):
     s_al = _rot_y(beta, *_rot_z(-phi_c, *proj.to_sphere(sx, sy)))
     _, th_p, ph_p = cartesian_to_spherical(*p_al)
     _, th_s, ph_s = cartesian_to_spherical(*s_al)
-    return _wrap_angle(ph_p - ph_s) / angle_res, (th_s - th_p) / angle_res
+    return (div(_wrap_angle(ph_p - ph_s), angle_res),
+            div(th_s - th_p, angle_res))
 
 
 # ---------------------------------------------------------------------------
@@ -270,14 +423,68 @@ def _mat_apply(m, x, y, z):
             m[2, 0] * x + m[2, 1] * y + m[2, 2] * z)
 
 
+def _row_fused(a: float, b: float, x, y):
+    """a*x + b*y as XLA compiles it: one FMA with the first product fused,
+    but a negative first coefficient turns the add into a subtraction of
+    that product, and the other product is fused."""
+    if a >= 0:
+        return lm.fma32(x, a, y * b)
+    return lm.fma32(y, b, x * a)
+
+
+def _ged_motion_fused(proj, angle_res: float, rot_mat, grid_sphere, grid_x,
+                      grid_y, mv_x, mv_y, cx, cy):
+    """ged_motion's modulated flavour in the form XLA compiles for the JAX
+    codec's merged positions: the grid's sphere points folded in double,
+    its rotation, angles and their sines op by op; the block centers'
+    rotation a folded column term plus one FMA (_row_fused), r^2 FMAs;
+    the rotation back one FMA a term; phi's fusion adds a*mvy to phi on
+    its own, the other fuses it (an FMA).  rot_mat is a host array: its
+    entries enter as float32 scalars."""
+    m = [[float(v) for v in row] for row in np.asarray(rot_mat, np.float32)]
+    gx, gy, gz = grid_sphere
+    r, theta, phi = cartesian_to_spherical(
+        *(m[i][0] * gx + m[i][1] * gy + m[i][2] * gz for i in range(3)))
+    sin_t, cos_t = lm.sin(theta), lm.cos(theta)
+    th_c = div(cy + proj.pixel_offset, proj.height) * PI
+    ph_c = -div(cx + proj.pixel_offset, proj.width) * 2.0 * PI
+    st_c, ct_c = lm.sin(th_c), lm.cos(th_c)
+    x, y = st_c * lm.cos(ph_c), st_c * lm.sin(ph_c)
+    crx, cry, crz = (ct_c * m[i][2] + _row_fused(m[i][0], m[i][1], x, y)
+                     for i in range(3))
+    ss_c = lm.fma32(crz, crz, lm.fma32(crx, crx, cry * cry))
+    theta_c = lm.acos(torch.clamp(crz * lm.rsqrt_xla(ss_c), -1.0, 1.0))
+    a = mv_x * angle_res
+    k = lm.sin(theta_c + a) / lm.sin(a)
+    theta_m = theta + lm.atan(sin_t / (k + (-cos_t)))
+    rst, cz = r * lm.sin(theta_m), r * lm.cos(theta_m)
+
+    def back(phi_m):
+        cx3, cy3 = rst * lm.cos(phi_m), rst * lm.sin(phi_m)
+        return [lm.fma32(cz, m[2][i], _row_fused(m[0][i], m[1][i], cx3, cy3))
+                for i in range(3)]
+    ox, oy, oz = back(lm.fma32(mv_y, angle_res, phi))
+    phi_xy = back(phi + mv_y * angle_res)[:2]
+    out_x, out_y = proj.from_sphere_fused(
+        ox, oy, oz, lm.fma32(oz, oz, lm.fma32(ox, ox, oy * oy)), phi_xy)
+    zero = (mv_x == 0) & (mv_y == 0)
+    return (torch.where(zero, grid_x, out_x), torch.where(zero, grid_y, out_y))
+
+
 def ged_motion(proj, angle_res: float, rot_mat, flavor: int,
-               grid_x, grid_y, mv_x, mv_y, cx, cy):
+               grid_x, grid_y, mv_x, mv_y, cx, cy, form: str | None = None,
+               grid_sphere=None):
     """rot_mat: (3,3) float32 epipole-alignment matrix from
     ged_rotation_matrix.  The modulated flavour keeps the JAX package's
     order, k = sin(theta_c + a*mvx) / sin(a*mvx) and then
     atan(sin(theta) / (k - cos(theta))): a zero mvx with a non-zero mvy
     gives an infinite k or a NaN there as here, and the caller's NaN -> no
-    motion rule is the reference's."""
+    motion rule is the reference's.  form "merged": the modulated flavour
+    in the form of the JAX codec's merged positions (a host rot_mat,
+    grid_sphere as t3d_motion's); "search" and None: op by op."""
+    if form == "merged" and flavor != VISHWANATH_ORIGINAL:
+        return _ged_motion_fused(proj, angle_res, rot_mat, grid_sphere,
+                                 grid_x, grid_y, mv_x, mv_y, cx, cy)
     m = torch.as_tensor(rot_mat, dtype=torch.float32, device=grid_x.device)
     g3 = proj.to_sphere(grid_x, grid_y)
     rx, ry, rz = _mat_apply(m, *g3)
@@ -288,9 +495,9 @@ def ged_motion(proj, angle_res: float, rot_mat, flavor: int,
         c3 = proj.to_sphere(cx, cy)
         crx, cry, crz = _mat_apply(m, *c3)
         _, theta_c, _ = cartesian_to_spherical(crx, cry, crz)
-        k = (torch.sin(theta_c + angle_res * mv_x)
-             / torch.sin(angle_res * mv_x))
-        d_theta = torch.arctan(torch.sin(theta) / (k - torch.cos(theta)))
+        k = (lm.sin(theta_c + angle_res * mv_x)
+             / lm.sin(angle_res * mv_x))
+        d_theta = lm.atan(lm.sin(theta) / (k - lm.cos(theta)))
         theta_moved = theta + d_theta
     phi_moved = phi + angle_res * mv_y
     c = spherical_to_cartesian(r, theta_moved, phi_moved)
@@ -313,15 +520,15 @@ def ged_mv_for_shift(proj, angle_res: float, rot_mat, flavor: int,
         *_mat_apply(m, *proj.to_sphere(px, py)))
     _, th_s, ph_s = cartesian_to_spherical(
         *_mat_apply(m, *proj.to_sphere(sx, sy)))
-    mv_y = _wrap_angle(ph_s - ph_p) / angle_res
+    mv_y = div(_wrap_angle(ph_s - ph_p), angle_res)
     if flavor == VISHWANATH_ORIGINAL:
-        return (th_s - th_p) / angle_res, mv_y
+        return div(th_s - th_p, angle_res), mv_y
     _, th_c, _ = cartesian_to_spherical(
         *_mat_apply(m, *proj.to_sphere(cx, cy)))
     d_theta = th_s - th_p
-    k = torch.sin(d_theta + th_p) / torch.sin(d_theta)
-    d_theta_c = torch.arctan(torch.sin(th_c) / (k - torch.cos(th_c)))
-    return d_theta_c / angle_res, mv_y
+    k = lm.sin(d_theta + th_p) / lm.sin(d_theta)
+    d_theta_c = lm.atan(lm.sin(th_c) / (k - lm.cos(th_c)))
+    return div(d_theta_c, angle_res), mv_y
 
 
 GEDA_EPIPOLES = {

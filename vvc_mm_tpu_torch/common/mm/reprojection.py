@@ -42,7 +42,8 @@ def offset4x4_value(code: int) -> float:
 class MVReprojection:
     """Per-frame-geometry reprojection state on one device, CUDA unless
     another is named (caches the subblock grid, the MPA perspective-plane
-    caches and the GED epipole-alignment matrices)."""
+    caches, the grid's folded sphere points and the GED epipole-alignment
+    matrices)."""
 
     def __init__(self, proj, width: int, height: int,
                  offset4x4_code: int = 1, ged_flavor: int = 1,
@@ -61,6 +62,7 @@ class MVReprojection:
         self.grid_x = gx[None, :].expand(nsy, nsx).contiguous()
         self.grid_y = gy[:, None].expand(nsy, nsx).contiguous()
         self._mpa_cache: dict[int, tuple] = {}
+        self._grid_sphere: tuple | None = None
         self._ged_rot: dict[tuple, torch.Tensor] = {}
 
     # -- caches ------------------------------------------------------------
@@ -72,6 +74,16 @@ class MVReprojection:
                 self.proj, plane, self.grid_x, self.grid_y)
         return self._mpa_cache[plane]
 
+    def grid_sphere(self) -> tuple:
+        """The subblock grid's sphere points as XLA folds them into the
+        JAX codec's merged positions (ERP.to_sphere_folded): computed on
+        the host once, then kept on this device."""
+        if self._grid_sphere is None:
+            self._grid_sphere = tuple(
+                c.to(self.device) for c in self.proj.to_sphere_folded(
+                    self.grid_x.cpu(), self.grid_y.cpu()))
+        return self._grid_sphere
+
     def ged_rot(self, epipole) -> torch.Tensor:
         """The float32 epipole-alignment matrix on this device, cached by
         the epipole rounded to 9 decimals (as the JAX package keys it)."""
@@ -81,14 +93,17 @@ class MVReprojection:
                 models.ged_rotation_matrix(epipole)).to(self.device)
         return self._ged_rot[key]
 
-    def _ged(self, model_id, epipole, gx, gy, mv_x, mv_y, c_x, c_y):
+    def _ged(self, model_id, epipole, gx, gy, mv_x, mv_y, c_x, c_y,
+             form: str | None = None, grid_sphere=None):
         if model_id != M.GEODESIC_CAMPOSE:
             epipole = models.GEDA_EPIPOLES[M(model_id)]
         if epipole is None:
             raise ValueError("GEODESIC_CAMPOSE needs an epipole")
-        return models.ged_motion(self.proj, self.angle_res,
-                                 self.ged_rot(epipole), self.ged_flavor, gx,
-                                 gy, mv_x, mv_y, c_x, c_y)
+        rot = (models.ged_rotation_matrix(epipole) if form == "merged"
+               else self.ged_rot(epipole))
+        return models.ged_motion(self.proj, self.angle_res, rot,
+                                 self.ged_flavor, gx, gy, mv_x, mv_y, c_x,
+                                 c_y, form, grid_sphere)
 
     # -- the engine --------------------------------------------------------
     def _subblock_mv_center(self, mvs: torch.Tensor, block_size: int,
@@ -116,7 +131,8 @@ class MVReprojection:
 
     def reproject_frame(self, model_id: int, mvs: torch.Tensor,
                         block_size: int, epipole=None,
-                        row_step: int = 1) -> torch.Tensor:
+                        row_step: int = 1, form: str | None = None
+                        ) -> torch.Tensor:
         """Model every subblock of the frame under `model_id`.
 
         Args:
@@ -124,6 +140,11 @@ class MVReprojection:
           epipole: (3,) for GEODESIC_CAMPOSE.
           row_step: keep every row_step-th subblock row only (search-time
             subsampled SAD; normative paths use 1).
+          form: the float32 form XLA compiles for the JAX codec: "merged"
+            (its jit of merged_positions: every sphere model), "search"
+            (the merge search's candidate positions: MPA and ROT; the
+            others op by op); None, op by op as the JAX package computes
+            them outside a jit.
         Returns:
           (nsy, nsx, 2) int32 absolute subblock target positions, 1/16-pel
           luma fixed point.
@@ -132,16 +153,16 @@ class MVReprojection:
         mv_x, mv_y, c_x, c_y = self._subblock_mv_center(mvs, block_size,
                                                         row_step)
         gx, gy = self.grid_x[::row_step], self.grid_y[::row_step]
-        p = self.proj
-        if model_id == M.CLASSIC:
-            ox, oy = models.translational_motion(gx, gy, mv_x, mv_y)
-        elif model_id in _MPA:
+        if model_id in _MPA:
             cache = tuple(c[::row_step] for c in self.mpa_cache(model_id))
-            ox, oy = models.mpa_motion(p, model_id, gx, gy, mv_x, mv_y,
-                                       pers_cache=cache)
+            ox, oy = models.mpa_motion(self.proj, model_id, gx, gy, mv_x,
+                                       mv_y, pers_cache=cache, form=form)
         else:
+            gs = (tuple(c[::row_step] for c in self.grid_sphere())
+                  if form == "merged" and model_id != M.CLASSIC else None)
             ox, oy = self._model_motion_pointwise(model_id, gx, gy, mv_x,
-                                                  mv_y, c_x, c_y, epipole)
+                                                  mv_y, c_x, c_y, epipole,
+                                                  form, gs)
         # NaN -> no motion (reference: MVReprojection.cpp:158-161)
         bad = torch.isnan(ox) | torch.isnan(oy)
         ox = torch.where(bad, gx, ox) - self.offset
@@ -215,22 +236,27 @@ class MVReprojection:
         return torch.clamp(out, -2.0 ** 31, 2.0 ** 31 - 1).to(torch.int32)
 
     def _model_motion_pointwise(self, model_id, px, py, mvx, mvy, cx, cy,
-                                epipole):
+                                epipole, form: str | None = None,
+                                grid_sphere=None):
+        """One model's motion of points (px, py); form and grid_sphere as
+        reproject_frame passes them (the grid's points only)."""
         p = self.proj
         if model_id == M.CLASSIC:
             return models.translational_motion(px, py, mvx, mvy)
         if model_id in _MPA:
             return models.mpa_motion(p, model_id, px, py, mvx, mvy)
         if model_id == M.THREE_D_TRANSLATIONAL:
-            return models.t3d_motion(p, px, py, mvx, mvy, cx, cy)
+            return models.t3d_motion(p, px, py, mvx, mvy, cx, cy, form,
+                                     grid_sphere)
         if model_id == M.TANGENTIAL:
             return models.tan_motion(p, self.angle_res, px, py, mvx, mvy,
-                                     cx, cy)
+                                     cx, cy, form, grid_sphere)
         if model_id == M.ROTATIONAL:
             return models.rot_motion(p, self.angle_res, px, py, mvx, mvy,
-                                     cx, cy)
+                                     cx, cy, form, grid_sphere)
         if model_id in _GED:
-            return self._ged(model_id, epipole, px, py, mvx, mvy, cx, cy)
+            return self._ged(model_id, epipole, px, py, mvx, mvy, cx, cy,
+                             form, grid_sphere)
         raise ValueError(f"unknown model {model_id}")
 
     def _mv_for_shift(self, model_id, px, py, sx, sy, cx, cy, epipole):

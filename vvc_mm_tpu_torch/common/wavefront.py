@@ -15,12 +15,16 @@ write into the buffer's far margin, which no valid block reads: the decoder
 skips them, the encoder keeps them so that its per-step outputs have the
 scan's fixed shape.
 
-The residual tools are carried: dependent quantization (kernels D1/D2 on
-the card), RDOQ, explicit MTS, LFNST, transform skip with BDPCM and
-lossless coding.  Each step batches its candidates: the five MTS pairs and
-the LFNST candidates of all the step's luma blocks take one quantize and
-one dequantize call, U and V one more.  CCLM, MIP, MRL and IBC raise
-NotImplementedError (ROADMAP queue 1 item 9).
+The prediction tools are carried: MIP (modes 67-74 join the candidate
+tensor), MRL (the chosen angular mode again on reference ring 1), IBC (12
+block-aligned causal block vectors, modes IBC_BASE + k) and CCLM (chroma
+from the reconstructed luma, one flag).  So are the residual tools:
+dependent quantization (kernels D1/D2 on the card), RDOQ, explicit MTS,
+LFNST, transform skip with BDPCM and lossless coding.  Each step batches
+its candidates: the 12 IBC blocks take one gather and one SATD call, the
+five MTS pairs and the LFNST candidates of all the step's luma blocks one
+quantize and one dequantize call, U and V one more.  The float32 costs
+keep the JAX step's operation order (see encode_intra_frame).
 """
 from __future__ import annotations
 
@@ -30,11 +34,19 @@ import math
 import numpy as np
 import torch
 
-from . import depquant, intra, lfnst, quant, rom, transforms
+from . import cclm, depquant, intra, lfnst, mip, quant, rom, transforms
 from .rdcost import first_argmin, satd
 from ..device import resolve_device
 
 MARGIN = 64            # intra buffer margin (>= 2*S + slack)
+# Intra block copy: block-aligned BV candidates (in block units), all causal
+# under the wavefront order d = 2*by + bx (reference: IBC / IbcHashMap
+# hash-ME over the reconstructed area; here a fixed candidate set)
+IBC_BVS: tuple[tuple[int, int], ...] = (
+    (0, -1), (0, -2), (0, -3), (0, -4),
+    (-1, 0), (-1, -1), (-1, 1), (-1, -2),
+    (-2, 0), (-2, 1), (-2, -1), (-2, 2))
+IBC_BASE = 128         # block modes >= IBC_BASE are IBC (mode - base = BV idx)
 
 
 @functools.lru_cache(maxsize=None)
@@ -159,9 +171,59 @@ def _gather_blocks(buf: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
                    s: int) -> torch.Tensor:
     """The (s, s) blocks at padded-buffer coords (y0, x0), any leading
     shape: (..., s, s)."""
-    ar = torch.arange(s, device=buf.device)
-    return buf[y0[..., None, None] + ar[:, None],
-               x0[..., None, None] + ar[None, :]]
+    return _gather_rect(buf, y0, x0, s, s)
+
+
+def _gather_rect(buf: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
+                 h: int, w: int) -> torch.Tensor:
+    """The (h, w) rectangles at (y0, x0), any leading shape, each start
+    clamped into the buffer as a dynamic slice's is (only masked lanes at
+    the far margin corner reach the clamp, and their values are unused)."""
+    y0 = torch.clamp(y0, 0, buf.shape[0] - h)
+    x0 = torch.clamp(x0, 0, buf.shape[1] - w)
+    ay = torch.arange(h, device=buf.device)
+    ax = torch.arange(w, device=buf.device)
+    return buf[y0[..., None, None] + ay[:, None],
+               x0[..., None, None] + ax[None, :]]
+
+
+def _ibc_stack(buf: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
+               s: int) -> torch.Tensor:
+    """The blocks at the 12 IBC_BVS offsets of each (y0, x0): (B, 12, s, s)
+    as one gather."""
+    bv = torch.tensor(IBC_BVS, dtype=y0.dtype, device=y0.device) * s
+    return _gather_blocks(buf, y0[:, None] + bv[:, 0],
+                          x0[:, None] + bv[:, 1], s)
+
+
+def _take(stack: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """stack[b, k[b]] of a (B, K, ...) stack."""
+    idx = k.long().reshape((-1, 1) + (1,) * (stack.dim() - 2))
+    return torch.gather(stack, 1, idx.expand(
+        (-1, 1) + stack.shape[2:]))[:, 0]
+
+
+def _cclm_luma_ctx(ry: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
+                   s: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Downsampled luma block and downsampled luma border (top | left) for
+    the CCLM model (reference: IntraPrediction.cpp xGetLumaRecPixels)."""
+    dsl = cclm.downsample_luma(_gather_blocks(ry, y0, x0, s))
+    top2 = _gather_rect(ry, y0 - 2, x0, 2, s)          # (B, 2, s)
+    left2 = _gather_rect(ry, y0, x0 - 2, s, 2)         # (B, s, 2)
+    dsl_top = (top2[:, 0, 0::2] + top2[:, 0, 1::2]
+               + top2[:, 1, 0::2] + top2[:, 1, 1::2] + 2) >> 2
+    dsl_left = (left2[:, 0::2, 0] + left2[:, 1::2, 0]
+                + left2[:, 0::2, 1] + left2[:, 1::2, 1] + 2) >> 2
+    return dsl, torch.cat([dsl_top, dsl_left], 1)
+
+
+def _cclm_pred(plane_r: torch.Tensor, y0c: torch.Tensor,
+               x0c: torch.Tensor, sc: int, dsl: torch.Tensor,
+               border_l: torch.Tensor, bit_depth: int) -> torch.Tensor:
+    ctop = _gather_rect(plane_r, y0c - 1, x0c, 1, sc)[:, 0, :]
+    cleft = _gather_rect(plane_r, y0c, x0c - 1, sc, 1)[:, :, 0]
+    a, b = cclm.cclm_params(border_l, torch.cat([ctop, cleft], 1))
+    return cclm.cclm_predict(dsl, a, b, bit_depth)
 
 
 def _pad_to_buffer(plane: torch.Tensor, fill: int) -> torch.Tensor:
@@ -443,37 +505,38 @@ def _ts_choice(ob, pred, pall, mode, lev_y, rec, lfnst_idx, mtsm, qp: int,
                  torch.stack(modes))
 
 
-_UNPORTED = ("use_cclm", "use_mip", "use_mrl", "use_ibc")
-
-
-def _refuse_tools(tools: dict) -> None:
-    unknown = sorted(set(tools) - set(_UNPORTED))
-    if unknown:
-        raise TypeError(f"unknown intra options {unknown}")
-    on = [k for k in _UNPORTED if tools.get(k)]
-    if on:
-        raise NotImplementedError(
-            f"intra tools {on}: ROADMAP queue 1 item 9 (intra tools)")
-
-
 def encode_intra_frame(orig_y: torch.Tensor, orig_u: torch.Tensor,
                        orig_v: torch.Tensor, qp: int, block_size: int = 8,
                        bit_depth: int = 8, dep_quant: bool = False,
                        use_lfnst: bool = False, use_ts: bool = False,
                        use_bdpcm: bool = False, lossless: bool = False,
                        use_mts: bool = False, use_rdoq: bool = False,
-                       **tools):
+                       use_cclm: bool = False, use_mip: bool = False,
+                       use_mrl: bool = False, use_ibc: bool = False,
+                       stats: dict | None = None):
     """Closed-loop wavefront intra encode of one frame, on the device of
-    the planes it is given.  The residual tools: dependent quantization,
-    RDOQ (shadowed by dep_quant and unused under MTS/LFNST, as in the JAX
-    package), explicit MTS, LFNST, transform skip with BDPCM, lossless.
+    the planes it is given.  The prediction tools: MIP, MRL, IBC, CCLM.
+    The residual tools: dependent quantization, RDOQ (shadowed by
+    dep_quant and unused under MTS/LFNST, as in the JAX package), explicit
+    MTS, LFNST, transform skip with BDPCM, lossless.
+
+    The float32 decision costs are the JAX step's: the mode costs
+    dist + lam*bits take the products lam*bits rounded (constants c2, c3,
+    c5, c7), MRL's cost is (d1 + lam) + best*0, IBC's min(d) + lam*5 with
+    lam*5 rounded once from double, as XLA folds the Python scalars.
+
+    With `stats` (a dict), the counts of blocks whose IBC or MRL choice the
+    transform-skip / BDPCM pick overrode are added to its "ts_over_ibc"
+    and "ts_over_mrl" (one host sync a step); "ts1_over_mrl" counts the
+    MRL blocks that plain transform skip took: the JAX package codes them
+    without the MRL flag but reconstructs them from ring 1, so its decoder
+    (and the port's) does not reproduce them.
 
     Returns (outs, recon): outs the nine per-step outputs of the JAX scan
     in its order (mode, lm_flag, lfnst_idx, mrl, tsm, mtsm of shape
     (steps, bmax); lev_y, lev_u, lev_v of shape (steps, bmax, s, s) and
-    (steps, bmax, s/2, s/2)), lm_flag and mrl zero; recon the dict(y, u,
-    v) of reconstructed planes (exact decoder output)."""
-    _refuse_tools(tools)
+    (steps, bmax, s/2, s/2)); recon the dict(y, u, v) of reconstructed
+    planes (exact decoder output)."""
     dev = orig_y.device
     s = block_size
     sc = s // 2
@@ -481,17 +544,22 @@ def encode_intra_frame(orig_y: torch.Tensor, orig_u: torch.Tensor,
     nby, nbx = h // s, w // s
     mid = 1 << (bit_depth - 1)
     maxv = (1 << bit_depth) - 1
-    # sqrt(lambda) as a float32, times the three mode-bit counts: the JAX
-    # step multiplies in float32 (a weak-typed Python float) and then adds
-    lam_satd = np.float32(math.sqrt(quant.lambda_from_qp(qp, intra=True)))
-    c2, c3, c7 = (float(lam_satd * np.float32(b)) for b in (2.0, 3.0, 7.0))
+    # sqrt(lambda) is a Python float in the JAX step: times a float32 bit
+    # count it is rounded to float32 first; times a Python 5.0 (IBC) the
+    # double product is rounded
+    lam_d = math.sqrt(quant.lambda_from_qp(qp, intra=True))
+    lam_satd = np.float32(lam_d)
+    c2, c3, c5, c7 = (float(lam_satd * np.float32(b))
+                      for b in (2.0, 3.0, 5.0, 7.0))
+    c1, c_ibc = float(lam_satd), float(np.float32(lam_d * 5.0))
 
     coords, valid = wavefront_coords(nby, nbx)
     oy, ou, ov = (_pad_to_buffer(p, mid) for p in (orig_y, orig_u, orig_v))
     ry, ru, rv = (torch.full_like(p, mid) for p in (oy, ou, ov))
     mode_map = torch.full((nby + 1, nbx + 1), -1, dtype=torch.int32,
                           device=dev)
-    modes_grid = torch.arange(67, dtype=torch.int32, device=dev)[None, :]
+    n_modes = 67 + (mip.N_MIP_MODES if use_mip else 0)
+    modes_grid = torch.arange(n_modes, dtype=torch.int32, device=dev)[None]
 
     # every step's coordinates at once; masked lanes go to the dead zone
     # in the far margin corner, and to pad cell (0, 0) of the mode map, so
@@ -511,10 +579,16 @@ def encode_intra_frame(orig_y: torch.Tensor, orig_u: torch.Tensor,
     y0_all, x0_all, y0c_all, x0c_all = (
         t(a) for a in (y0_np, x0_np, y0c_np, x0c_np))
     cy_all, cx_all = (t(a) for a in _cref_index(y0_np, x0_np, s, ry.shape))
+    cy1_all, cx1_all = (t(a) for a in _cref_index(y0_np - 1, x0_np - 1, s,
+                                                  ry.shape))
     ccy_all, ccx_all = (
         t(a) for a in _cref_index(y0c_np, x0c_np, sc, ru.shape))
     my_all = t(np.where(valid, 1 + by_np, 0))
     mx_all = t(np.where(valid, 1 + bx_np, 0))
+    bv_np = np.array(IBC_BVS, np.int64)
+    ibc_ok_all = t((by_np[..., None] + bv_np[:, 0] >= 0)
+                   & (bx_np[..., None] + bv_np[:, 1] >= 0)
+                   & (bx_np[..., None] + bv_np[:, 1] < nbx))
     # the originals never change: one gather for all steps
     ob_all = _gather_blocks(oy, y0_all, x0_all, s)
     obc_all = torch.stack([_gather_blocks(ou, y0c_all, x0c_all, sc),
@@ -528,9 +602,14 @@ def encode_intra_frame(orig_y: torch.Tensor, orig_u: torch.Tensor,
         y0, x0 = y0_all[step], x0_all[step]
         y0c, x0c = y0c_all[step], x0c_all[step]
         # ---- luma decision
-        pall = intra.predict_all_modes(ry[cy_all[step], cx_all[step]], s, s)
+        cref = ry[cy_all[step], cx_all[step]]
+        pall = intra.predict_all_modes(cref, s, s)           # (B, 67, s, s)
+        if use_mip:
+            # the matrix modes join the candidate tensor (indices 67..)
+            pall = torch.cat([pall, mip.predict_mip_all(cref, s, bit_depth)],
+                             1)
         ob = ob_all[step]
-        dist = satd(pall, ob[:, None]).to(torch.float32)     # (B, 67)
+        dist = satd(pall, ob[:, None]).to(torch.float32)     # (B, modes)
         lm = mode_map[1 + by, bx]       # left neighbour (by, bx-1)
         am = mode_map[by, 1 + bx]       # above neighbour
         mpm = _mpm3(lm, am)
@@ -538,10 +617,39 @@ def encode_intra_frame(orig_y: torch.Tensor, orig_u: torch.Tensor,
             modes_grid == mpm[:, 0:1], c2,
             torch.where((modes_grid == mpm[:, 1:2])
                         | (modes_grid == mpm[:, 2:3]), c3, c7))
-        mode = first_argmin(dist + bits_cost, dim=1)
-        pred = torch.gather(
-            pall, 1, mode[:, None, None, None].expand(-1, 1, s, s))[:, 0]
+        if use_mip:
+            # mip_flag + a fixed 3-bit mode index
+            bits_cost = torch.where(modes_grid >= 67, c5, bits_cost)
+        cost = dist + bits_cost
+        mode = first_argmin(cost, dim=1)
+        pred = _take(pall, mode)
         mode = mode.to(torch.int32)
+        mrl = zero
+        if use_mrl:
+            # the chosen angular mode again on reference ring 1; MIP stays
+            # on ring 0
+            pred1 = intra.predict_mode(ry[cy1_all[step], cx1_all[step]],
+                                       torch.where(mode >= 67, 0, mode), s,
+                                       s)
+            best = _take(cost, mode)
+            d1 = satd(pred1[:, None], ob[:, None])[:, 0].to(torch.float32)
+            cost1 = (d1 + c1) + best * 0.0        # +1 bit for the flag
+            mrl = ((cost1 < best) & (mode < 67)).to(torch.int32)
+            pred = torch.where(mrl[:, None, None] > 0, pred1, pred)
+        if use_ibc:
+            # the 12 block vectors over the causal region, one batch
+            pstack = _ibc_stack(ry, y0, x0, s)                # (B, 12, s, s)
+            d_ibc = satd(pstack, ob[:, None]).to(torch.float32)
+            d_ibc = torch.where(ibc_ok_all[step], d_ibc,
+                                torch.full_like(d_ibc, 1e18))
+            kbv = first_argmin(d_ibc, dim=1)
+            cost_ibc = d_ibc.min(1).values + c_ibc
+            d_cur = satd(pred[:, None], ob[:, None])[:, 0].to(torch.float32)
+            is_ibc = cost_ibc < d_cur
+            pred = torch.where(is_ibc[:, None, None], _take(pstack, kbv),
+                               pred)
+            mode = torch.where(is_ibc, IBC_BASE + kbv.to(torch.int32), mode)
+            mrl = torch.where(is_ibc, 0, mrl)
         lfnst_idx = mtsm = tsm = zero
         if lossless:
             # all transform skip at qStep 1: the residual passes exactly
@@ -561,18 +669,60 @@ def encode_intra_frame(orig_y: torch.Tensor, orig_u: torch.Tensor,
                                              bit_depth, True, dep=dep_quant,
                                              rdoq=use_rdoq)
             if use_ts:
+                pre_mode, pre_mrl = mode, mrl
                 tsm, lev_y, rec, lfnst_idx, mtsm, mode = _ts_choice(
                     ob, pred, pall, mode, lev_y, rec, lfnst_idx, mtsm, qp,
                     use_bdpcm, maxv)
                 tsm = tsm.to(torch.int32)
+                mrl = torch.where(tsm > 0, 0, mrl)
+                if stats is not None:
+                    for key, hit in (
+                            ("ts_over_ibc", (pre_mode >= IBC_BASE)
+                             & (mode < IBC_BASE)),
+                            ("ts_over_mrl", (pre_mrl > 0) & (mrl == 0)),
+                            ("ts1_over_mrl", (pre_mrl > 0) & (tsm == 1))):
+                        stats[key] = stats.get(key, 0) + int((hit & vld)
+                                                             .sum())
+        if use_ibc:
+            # from the final mode: a BDPCM pick may have replaced an IBC
+            # choice, and the decoder sees only the signalled mode
+            is_ibc = mode >= IBC_BASE
+            kbv = torch.clamp(mode - IBC_BASE, 0, len(IBC_BVS) - 1)
         ry[_block_index(y0, x0, s)] = rec
         my, mx = my_all[step], mx_all[step]
-        mode_map[my, mx] = torch.where(vld, mode, mode_map[my, mx])
-        # ---- chroma: the derived luma mode, U and V as one batch
+        # MIP and IBC blocks act as planar for the neighbours' MPM lists
+        # and for the derived chroma mode (reference: UnitTools
+        # getIntraDirLuma MIP -> PLANAR)
+        nb_mode = torch.where(mode >= 67, 0, mode)
+        mode_map[my, mx] = torch.where(vld, nb_mode, mode_map[my, mx])
+        # ---- chroma: the derived mode (or the luma BV) against CCLM, U and
+        # V as one batch
         predc = torch.stack([
-            intra.predict_mode(buf[ccy_all[step], ccx_all[step]], mode, sc,
-                               sc) for buf in (ru, rv)], 1)   # (B, 2, ., .)
+            intra.predict_mode(buf[ccy_all[step], ccx_all[step]], nb_mode,
+                               sc, sc) for buf in (ru, rv)], 1)
+        if use_ibc:
+            # chroma rides the luma BV: block aligned, so bv * sc exactly
+            cpatch = torch.stack([_take(_ibc_stack(buf, y0c, x0c, sc), kbv)
+                                  for buf in (ru, rv)], 1)
+            predc = torch.where(is_ibc[:, None, None, None], cpatch, predc)
         obc = obc_all[step]
+        lm_flag = zero
+        if use_cclm:
+            # the luma context after this step's luma scatter
+            dsl, border_l = _cclm_luma_ctx(ry, y0, x0, s)
+            predlm = torch.stack([
+                _cclm_pred(buf, y0c, x0c, sc, dsl, border_l, bit_depth)
+                for buf in (ru, rv)], 1)
+            if use_ibc:
+                predlm = torch.where(is_ibc[:, None, None, None], predc,
+                                     predlm)
+            ssd_d = ((obc - predc) ** 2).sum((1, 2, 3))
+            ssd_l = ((obc - predlm) ** 2).sum((1, 2, 3))
+            lm_flag = (ssd_l < ssd_d).to(torch.int32)
+            if use_ibc:
+                lm_flag = torch.where(is_ibc, 0, lm_flag)
+            predc = torch.where(lm_flag[:, None, None, None] > 0, predlm,
+                                predc)
         b = predc.shape[0]
         if lossless:
             lc = quant.quantize_ts(obc - predc, qp, intra=True)
@@ -585,7 +735,7 @@ def encode_intra_frame(orig_y: torch.Tensor, orig_u: torch.Tensor,
             lc, recc = lc.reshape(b, 2, sc, sc), recc.reshape(b, 2, sc, sc)
         ru[_block_index(y0c, x0c, sc)] = recc[:, 0]
         rv[_block_index(y0c, x0c, sc)] = recc[:, 1]
-        for i, o in enumerate((mode, zero, lfnst_idx, zero, tsm, mtsm,
+        for i, o in enumerate((mode, lm_flag, lfnst_idx, mrl, tsm, mtsm,
                                lev_y, lc[:, 0], lc[:, 1])):
             outs[i].append(o)
     recon = dict(y=ry[MARGIN:MARGIN + h, MARGIN:MARGIN + w],
@@ -600,13 +750,15 @@ def decode_intra_frame(modes_steps, lev_y, lev_u, lev_v, qp: int,
                        dep_quant: bool = False, use_lfnst: bool = False,
                        lfnst_steps=None, use_ts: bool = False,
                        ts_steps=None, lossless: bool = False,
-                       use_mts: bool = False, mts_steps=None, **tools):
+                       use_mts: bool = False, mts_steps=None,
+                       use_cclm: bool = False, cclm_steps=None,
+                       use_mip: bool = False, use_mrl: bool = False,
+                       mrl_steps=None, use_ibc: bool = False):
     """Wavefront intra decode from parsed modes/levels in scan order
     ((steps, bmax) and (steps, bmax, s, s) arrays, see grid_to_steps), and
-    the LFNST / transform-skip / MTS grids of the tools that are on.
-    Returns dict(y, u, v) of int32 planes on `device` (CUDA unless another
-    device is named)."""
-    _refuse_tools(tools)
+    the CCLM / MRL / LFNST / transform-skip / MTS grids of the tools that
+    are on.  Returns dict(y, u, v) of int32 planes on `device` (CUDA
+    unless another device is named)."""
     dev = resolve_device(device)
     s = block_size
     sc = s // 2
@@ -622,9 +774,9 @@ def decode_intra_frame(modes_steps, lev_y, lev_u, lev_v, qp: int,
     modes_steps, lev_y, lev_u, lev_v = (t(a) for a in (modes_steps, lev_y,
                                                       lev_u, lev_v))
     zero_steps = torch.zeros_like(modes_steps)
-    lf_steps, ts_steps, mt_steps = (
+    lf_steps, ts_steps, mt_steps, lm_steps, mr_steps = (
         zero_steps if a is None else t(a)
-        for a in (lfnst_steps, ts_steps, mts_steps))
+        for a in (lfnst_steps, ts_steps, mts_steps, cclm_steps, mrl_steps))
     ry = torch.full((h + 2 * MARGIN, w + 2 * MARGIN), mid, dtype=torch.int32,
                     device=dev)
     ru = torch.full((h // 2 + 2 * MARGIN, w // 2 + 2 * MARGIN), mid,
@@ -639,7 +791,24 @@ def decode_intra_frame(modes_steps, lev_y, lev_u, lev_v, qp: int,
         y0, x0 = MARGIN + by * s, MARGIN + bx * s
         y0c, x0c = MARGIN + by * sc, MARGIN + bx * sc
         nb_mode = torch.where(mode >= 67, 0, mode)
-        pred = intra.predict_mode(_gather_cref(ry, y0, x0, s), nb_mode, s, s)
+        cref = _gather_cref(ry, y0, x0, s)
+        pred = intra.predict_mode(cref, nb_mode, s, s)
+        if use_mrl:
+            pred1 = intra.predict_mode(_gather_cref(ry, y0 - 1, x0 - 1, s),
+                                       nb_mode, s, s)
+            pred = torch.where(mr_steps[step, :n][:, None, None] > 0, pred1,
+                               pred)
+        if use_mip:
+            pmip = mip.predict_mip_mode(
+                cref, torch.clamp(mode - 67, 0, mip.N_MIP_MODES - 1), s,
+                bit_depth)
+            pred = torch.where(((mode >= 67) & (mode < IBC_BASE))
+                               [:, None, None], pmip, pred)
+        if use_ibc:
+            is_ibc = mode >= IBC_BASE
+            kbv = torch.clamp(mode - IBC_BASE, 0, len(IBC_BVS) - 1)
+            pred = torch.where(is_ibc[:, None, None],
+                               _take(_ibc_stack(ry, y0, x0, s), kbv), pred)
         if lossless:
             rec = _ts_recon(pred, ly, qp, maxv)
         else:
@@ -666,6 +835,17 @@ def decode_intra_frame(modes_steps, lev_y, lev_u, lev_v, qp: int,
         predc = torch.stack([
             intra.predict_mode(_gather_cref(buf, y0c, x0c, sc), nb_mode, sc,
                                sc) for buf in (ru, rv)], 1)
+        if use_cclm:
+            dsl, border_l = _cclm_luma_ctx(ry, y0, x0, s)
+            predlm = torch.stack([
+                _cclm_pred(buf, y0c, x0c, sc, dsl, border_l, bit_depth)
+                for buf in (ru, rv)], 1)
+            predc = torch.where(lm_steps[step, :n][:, None, None, None] > 0,
+                                predlm, predc)
+        if use_ibc:
+            cpatch = torch.stack([_take(_ibc_stack(buf, y0c, x0c, sc), kbv)
+                                  for buf in (ru, rv)], 1)
+            predc = torch.where(is_ibc[:, None, None, None], cpatch, predc)
         levc = torch.stack([lev_u[step, :n], lev_v[step, :n]], 1)
         if lossless:
             recc = _ts_recon(predc, levc, qp, maxv)

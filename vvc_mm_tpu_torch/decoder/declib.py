@@ -225,24 +225,27 @@ class DecLib:
     def _decode_i(self, sh, cabac_bytes: bytes) -> None:
         sps = self.sps
         if sps.intra_split:
-            _todo("intra_split", "9")
+            _todo("intra_split (two-level intra partitioning)", "9f")
         s = sps.intra_block_size
         nby, nbx = sps.height // s, sps.width // s
-        modes, _, lf, _, tsg, mtsg, ly, lu, lv = decode_intra_slice(
+        modes, lm, lf, mr, tsg, mtsg, ly, lu, lv = decode_intra_slice(
             cabac_bytes, nby, nbx, s, cclm=sps.cclm, mip=sps.mip,
             lfnst=sps.lfnst, mrl=sps.mrl, ts=sps.ts and not sps.lossless,
             bdpcm=sps.bdpcm, ibc=sps.ibc, mts=sps.mts)
         if sps.lossless:
             tsg = np.ones_like(tsg)
         coords, valid = wavefront.wavefront_coords(nby, nbx)
-        lf, tsg, mtsg, *steps = (wavefront.grid_to_steps(g, coords, valid)
-                                 for g in (lf, tsg, mtsg, modes, ly, lu, lv))
+        lm, mr, lf, tsg, mtsg, *steps = (
+            wavefront.grid_to_steps(g, coords, valid)
+            for g in (lm, mr, lf, tsg, mtsg, modes, ly, lu, lv))
         recon = wavefront.decode_intra_frame(
             *steps, sh.qp, sps.height, sps.width, s, sps.bit_depth,
             device=self.device, dep_quant=sps.dep_quant,
             use_lfnst=sps.lfnst, lfnst_steps=lf, use_ts=sps.ts,
             ts_steps=tsg, lossless=sps.lossless, use_mts=sps.mts,
-            mts_steps=mtsg)
+            mts_steps=mtsg, use_cclm=sps.cclm, cclm_steps=lm,
+            use_mip=sps.mip, use_mrl=sps.mrl, mrl_steps=mr,
+            use_ibc=sps.ibc)
         bs = deblock.boundary_strengths_intra(nby, nbx, self.device)
         self._store(sh.poc, recon, sh, bs, s)
 

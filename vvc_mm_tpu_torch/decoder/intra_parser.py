@@ -3,10 +3,11 @@
 PyTorch-port copy of `vvc_mm_tpu/decoder/intra_parser.py` (reference:
 source/Lib/DecoderLib/CABACReader.cpp — coding_tree_unit:138,
 intra_luma_pred_mode, residual_coding).  Host numpy code over the native
-CABAC decoder.  It parses the residual tools' syntax (transform skip and
-BDPCM flags, lfnst_idx, tu_mts_idx); CCLM, MIP, MRL, IBC and the WPP /
-intra-split parsers raise NotImplementedError (ROADMAP queue 1 items 9 and
-11).
+CABAC decoder.  It parses the prediction tools' syntax (IBC flag and
+block-vector index, MIP flag and mode, MultiRefLineIdx, the chroma LM
+flag) and the residual tools' (transform skip and BDPCM flags, lfnst_idx,
+tu_mts_idx); the WPP and intra-split parsers are not ported (ROADMAP
+queue 1 items 9f and 11).
 """
 from __future__ import annotations
 
@@ -14,10 +15,8 @@ import numpy as np
 
 from ..common.cabac import BinDecoder
 from ..common.contexts import ctx_id
-from ..common.wavefront import mpm3_host
+from ..common.wavefront import IBC_BASE, mpm3_host
 from ..utils.native import NativeBinDecoder
-
-_UNPORTED = ("cclm", "mip", "mrl", "ibc")
 
 
 def decode_intra_mode(dec: BinDecoder, left: int, above: int) -> int:
@@ -32,19 +31,16 @@ def decode_intra_mode(dec: BinDecoder, left: int, above: int) -> int:
 
 def decode_intra_slice(data: bytes, nby: int, nbx: int, s: int,
                        lfnst: bool = False, ts: bool = False,
-                       bdpcm: bool = False, mts: bool = False, **tools):
+                       bdpcm: bool = False, mts: bool = False,
+                       cclm: bool = False, mip: bool = False,
+                       mrl: bool = False, ibc: bool = False):
     """Returns the dense grids (modes, cclm_flags, lfnst_idx, mrl_idx,
-    ts_mode, mts_idx, lev_y, lev_u, lev_v); cclm_flags and mrl_idx stay
-    zero.  lfnst / ts / bdpcm / mts: the SPS flags whose syntax the slice
-    carries; CCLM, MIP, MRL and IBC must be off."""
-    on = [k for k in _UNPORTED if tools.pop(k, False)]
-    if on or tools:
-        raise NotImplementedError(
-            f"intra tools {on or sorted(tools)}: ROADMAP queue 1 item 9 "
-            "(intra tools)")
+    ts_mode, mts_idx, lev_y, lev_u, lev_v).  The flags: the SPS tools
+    whose syntax the slice carries."""
     dec = NativeBinDecoder(data)
     grids = _alloc_grids(nby, nbx, s)
-    _decode_intra_rows(dec, grids, s, 0, nby, lfnst, ts, bdpcm, mts)
+    _decode_intra_rows(dec, grids, s, 0, nby, lfnst, ts, bdpcm, mts, cclm,
+                       mip, mrl, ibc)
     return grids
 
 
@@ -63,18 +59,31 @@ def _alloc_grids(nby: int, nbx: int, s: int):
 
 def _decode_intra_rows(dec, grids, s: int, r0: int, r1: int,
                        lfnst: bool = False, ts: bool = False,
-                       bdpcm: bool = False, mts: bool = False) -> None:
-    modes, _, lf, _, tsg, mtsg, lev_y, lev_u, lev_v = grids
+                       bdpcm: bool = False, mts: bool = False,
+                       cclm: bool = False, mip: bool = False,
+                       mrl: bool = False, ibc: bool = False) -> None:
+    modes, lm, lf, mr, tsg, mtsg, lev_y, lev_u, lev_v = grids
     nby, nbx = modes.shape
     sc = s // 2
     for by in range(r0, r1):
         for bx in range(nbx):
-            # MIP neighbours (modes >= 67) act as planar for the MPM list
+            # MIP and IBC neighbours (modes >= 67) act as planar for the
+            # MPM list
             left = int(modes[by, bx - 1]) if bx > 0 else -1
             above = int(modes[by - 1, bx]) if by > 0 else -1
             left = 0 if left >= 67 else left
             above = 0 if above >= 67 else above
-            modes[by, bx] = decode_intra_mode(dec, left, above)
+            is_ibc = ibc and bool(dec.decode_bin(ctx_id("IbcFlag", 0)))
+            if is_ibc:
+                modes[by, bx] = IBC_BASE + dec.decode_bins_ep(4)
+            elif mip and dec.decode_bin(ctx_id("MipFlag")):
+                modes[by, bx] = 67 + dec.decode_bins_ep(3)
+            else:
+                modes[by, bx] = decode_intra_mode(dec, left, above)
+                if mrl:
+                    mr[by, bx] = dec.decode_bin(ctx_id("MultiRefLineIdx"))
+            if cclm and not is_ibc:
+                lm[by, bx] = dec.decode_bin(ctx_id("IntraChromaPredMode"))
             if ts and dec.decode_bin(ctx_id("TransformSkipFlag", 0)):
                 tsg[by, bx] = 1
                 if bdpcm and dec.decode_bin(ctx_id("BDPCMFlag", 0)):

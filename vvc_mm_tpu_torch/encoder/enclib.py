@@ -309,11 +309,7 @@ _UNPORTED = (
     ("target_bitrate_kbps", 0, "rate control", "11"),
     ("mctf", False, "MCTF pre-filter", "11"),
     ("lmcs", False, "LMCS", "11"),
-    ("ibc", False, "IBC", "9"),
-    ("cclm", False, "CCLM", "9"),
-    ("mip", False, "MIP", "9"),
-    ("mrl", False, "MRL", "9"),
-    ("intra_split", False, "intra partitioning", "9"),
+    ("intra_split", False, "two-level intra partitioning", "9f"),
     ("wpp", False, "WPP", "11"),
     ("film_grain", False, "film grain SEI", "11"),
     ("mcts_tiles", (), "MCTS tiles", "11"),
@@ -448,7 +444,8 @@ class EncLib:
                 dep_quant=cfg.dep_quant, use_lfnst=cfg.lfnst,
                 use_ts=cfg.transform_skip and not cfg.lossless,
                 use_bdpcm=cfg.bdpcm, lossless=cfg.lossless,
-                use_mts=cfg.mts, use_rdoq=cfg.rdoq)
+                use_mts=cfg.mts, use_rdoq=cfg.rdoq, use_cclm=cfg.cclm,
+                use_mip=cfg.mip, use_mrl=cfg.mrl, use_ibc=cfg.ibc)
             if cfg.deblocking:
                 bs_v, bs_h = deblock.boundary_strengths_intra(nby, nbx,
                                                               self.device)
@@ -463,12 +460,14 @@ class EncLib:
             # uint8, levels int16)
             pulled = xfer.pull_levels(*outs)
             coords, valid = wavefront.wavefront_coords(nby, nbx)
-            modes, _, lf, _, tsg, mtsg, ly, lu, lv = (
+            modes, lm, lf, mrl, tsg, mtsg, ly, lu, lv = (
                 wavefront.steps_to_grid(p, coords, valid) for p in pulled)
             use_ts = cfg.transform_skip and not cfg.lossless
             return encode_intra_slice(
-                modes, ly, lu, lv, lfnst=lf if cfg.lfnst else None,
-                ts=tsg if use_ts else None, bdpcm=cfg.bdpcm,
+                modes, ly, lu, lv, cclm=lm if cfg.cclm else None,
+                mip=cfg.mip, lfnst=lf if cfg.lfnst else None,
+                mrl=mrl if cfg.mrl else None, ts=tsg if use_ts else None,
+                bdpcm=cfg.bdpcm, ibc=cfg.ibc,
                 mts=mtsg if cfg.mts else None)
 
         return self._finish_slice_overlap(

@@ -4,17 +4,18 @@ PyTorch-port copy of `vvc_mm_tpu/encoder/intra_coder.py` (reference:
 source/Lib/EncoderLib/CABACWriter.cpp — coding_tree_unit:148,
 intra_luma_pred_mode, cbf + residual_coding).  Host code over the native
 CABAC encoder; it consumes the dense grids of the wavefront encode and is
-the mirror of decoder/intra_parser.py.  It codes the residual tools'
-syntax (transform skip and BDPCM flags, lfnst_idx, tu_mts_idx); CCLM,
-MIP, MRL, IBC and the WPP / intra-split writers raise NotImplementedError
-(ROADMAP queue 1 items 9 and 11).
+the mirror of decoder/intra_parser.py.  It codes the prediction tools'
+syntax (IBC flag and block-vector index, MIP flag and mode,
+MultiRefLineIdx, the chroma LM flag) and the residual tools' (transform
+skip and BDPCM flags, lfnst_idx, tu_mts_idx); the WPP and intra-split
+writers are not ported (ROADMAP queue 1 items 9f and 11).
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..common.contexts import ctx_id
-from ..common.wavefront import mpm3_host
+from ..common.wavefront import IBC_BASE, mpm3_host
 from ..utils.native import NativeBinEncoder
 
 
@@ -44,25 +45,22 @@ def encode_intra_slice(modes: np.ndarray, lev_y: np.ndarray,
                        ts=None, bdpcm: bool = False, ibc: bool = False,
                        mts=None) -> bytes:
     """modes (nby, nbx); lev_* (nby, nbx, s, s).  Raster block order.  The
-    tool arguments are the JAX package's: `lfnst` / `mts` the (nby, nbx)
-    index grids, `ts` the transform-skip mode grid (0 regular, 1 TS, 2/3
-    BDPCM H/V; reference: transform_skip_flag + intra_bdpcm_luma_flag),
-    `bdpcm` the SPS flag; CCLM, MIP, MRL and IBC must be off."""
-    on = [k for k, v in (("cclm", cclm), ("mip", mip), ("mrl", mrl),
-                         ("ibc", ibc))
-          if v is not None and v is not False]
-    if on:
-        raise NotImplementedError(
-            f"intra tools {on}: ROADMAP queue 1 item 9 (intra tools)")
+    tool arguments are the JAX package's: `cclm` / `mrl` / `lfnst` / `mts`
+    the (nby, nbx) flag and index grids of the tools that are on, `ts` the
+    transform-skip mode grid (0 regular, 1 TS, 2/3 BDPCM H/V; reference:
+    transform_skip_flag + intra_bdpcm_luma_flag), `mip`, `bdpcm` and `ibc`
+    the SPS flags.  Modes 67-74 are MIP modes, IBC_BASE + k the IBC block
+    vector k."""
     enc = NativeBinEncoder()
     _encode_intra_rows(enc, modes, lev_y, lev_u, lev_v, 0, modes.shape[0],
-                       lfnst, ts, bdpcm, mts)
+                       lfnst, ts, bdpcm, mts, cclm, mip, mrl, ibc)
     return enc.finish()
 
 
 def _encode_intra_rows(enc, modes, lev_y, lev_u, lev_v, r0: int, r1: int,
-                       lfnst=None, ts=None, bdpcm: bool = False, mts=None
-                       ) -> None:
+                       lfnst=None, ts=None, bdpcm: bool = False, mts=None,
+                       cclm=None, mip: bool = False, mrl=None,
+                       ibc: bool = False) -> None:
     """Code block rows [r0, r1) into `enc`."""
     nbx = modes.shape[1]
     cbf_ctx = (ctx_id("QtCbf", 0), ctx_id("QtCbf", 4), ctx_id("QtCbf", 5))
@@ -70,7 +68,27 @@ def _encode_intra_rows(enc, modes, lev_y, lev_u, lev_v, r0: int, r1: int,
         for bx in range(nbx):
             left = _nb(int(modes[by, bx - 1])) if bx > 0 else -1
             above = _nb(int(modes[by - 1, bx])) if by > 0 else -1
-            encode_intra_mode(enc, int(modes[by, bx]), left, above)
+            mode = int(modes[by, bx])
+            is_ibc = mode >= IBC_BASE
+            if ibc:
+                # pred_mode_ibc_flag + 4-bit BV index (reference:
+                # CABACReader pred_mode + IBC merge/BV syntax)
+                enc.encode_bin(int(is_ibc), ctx_id("IbcFlag", 0))
+                if is_ibc:
+                    enc.encode_bins_ep(mode - IBC_BASE, 4)
+            if not is_ibc:
+                if mip:
+                    enc.encode_bin(int(mode >= 67), ctx_id("MipFlag"))
+                if mode >= 67:
+                    enc.encode_bins_ep(mode - 67, 3)
+                else:
+                    encode_intra_mode(enc, mode, left, above)
+                    if mrl is not None:
+                        enc.encode_bin(int(mrl[by, bx] != 0),
+                                       ctx_id("MultiRefLineIdx"))
+                if cclm is not None:
+                    enc.encode_bin(int(cclm[by, bx] != 0),
+                                   ctx_id("IntraChromaPredMode"))
             tsm = int(ts[by, bx]) if ts is not None else 0
             if ts is not None:
                 enc.encode_bin(int(tsm > 0), ctx_id("TransformSkipFlag", 0))

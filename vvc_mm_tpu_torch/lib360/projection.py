@@ -7,39 +7,67 @@ projection) and Perspective (the MPA motion plane).
 
 Every function takes float32 tensors of any shape (Python scalars
 broadcast) and keeps the JAX package's operation order, because the
-positions they feed are rounded to 1/16 pel and are normative.
+positions they feed are rounded to 1/16 pel and are normative.  The math
+functions are ops/libm_kernel.py's, which round as the JAX package's CPU
+code does.  Where the JAX codec runs a function inside a jit, XLA rewrites
+its float32 arithmetic (a division by a constant becomes a product with
+the rounded reciprocal, z / r becomes z * rsqrt(r^2), products feed adds
+as FMAs): the `*_fused` forms copy that compiled form.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
+from ..ops import libm_kernel as lm
+
 PI = math.pi
+
+
+def recip32(v) -> float:
+    """XLA's folded reciprocal of a float32 constant."""
+    return float(np.float32(1.0) / np.float32(v))
+
+
+def div(a: torch.Tensor, c: float) -> torch.Tensor:
+    """a / c as one rounded float32 division on every device: PyTorch's
+    CUDA kernel divides by a Python scalar through its reciprocal, so the
+    divisor goes in as a tensor."""
+    return a / torch.full((), c, dtype=a.dtype, device=a.device)
+
+
+def _folded(fn, x: torch.Tensor) -> torch.Tensor:
+    """fn, a double function of the host, on each distinct value of the
+    float32 host tensor x, rounded to float32 once."""
+    vals, inv = torch.unique(x, return_inverse=True)
+    out = torch.tensor([fn(v) for v in vals.tolist()], dtype=torch.float64)
+    return out.to(torch.float32)[inv]
 
 
 # ---------------------------------------------------------------------------
 # Coordinate conversions (reference: Coordinate.cpp)
 # ---------------------------------------------------------------------------
 def cartesian_to_polar(x, y):
-    return torch.sqrt(x * x + y * y), torch.atan2(y, x)
+    return lm.sqrt(x * x + y * y), lm.atan2(y, x)
 
 
 def polar_to_cartesian(r, phi):
-    return r * torch.cos(phi), r * torch.sin(phi)
+    return r * lm.cos(phi), r * lm.sin(phi)
 
 
 def cartesian_to_spherical(x, y, z):
-    r = torch.sqrt(x * x + y * y + z * z)
-    theta = torch.arccos(torch.clamp(z / r, -1.0, 1.0))
-    phi = torch.atan2(y, x)
+    r = lm.sqrt(x * x + y * y + z * z)
+    theta = lm.acos(torch.clamp(z / r, -1.0, 1.0))
+    phi = lm.atan2(y, x)
     return r, theta, phi
 
 
 def spherical_to_cartesian(r, theta, phi):
-    st = torch.sin(theta)
-    return r * st * torch.cos(phi), r * st * torch.sin(phi), r * torch.cos(theta)
+    st = lm.sin(theta)
+    return r * st * lm.cos(phi), r * st * lm.sin(phi), r * lm.cos(theta)
 
 
 # ---------------------------------------------------------------------------
@@ -57,15 +85,46 @@ class ERP:
         return 1.0 / math.tan(PI / self.height)
 
     def to_sphere(self, x, y):
-        phi = -((x + self.pixel_offset) / self.width) * 2.0 * PI
-        theta = ((y + self.pixel_offset) / self.height) * PI
+        phi = -div(x + self.pixel_offset, self.width) * 2.0 * PI
+        theta = div(y + self.pixel_offset, self.height) * PI
         return spherical_to_cartesian(1.0, theta, phi)
 
     def from_sphere(self, cx, cy, cz):
         _, theta, phi = cartesian_to_spherical(cx, cy, cz)
         phi = torch.where(phi > 0, phi - 2.0 * PI, phi)
-        x = -(phi / (2.0 * PI)) * self.width - self.pixel_offset
-        y = (theta / PI) * self.height - self.pixel_offset
+        x = -div(phi, 2.0 * PI) * self.width - self.pixel_offset
+        y = div(theta, PI) * self.height - self.pixel_offset
+        return x, y
+
+    def to_sphere_folded(self, x, y):
+        """to_sphere of constant coordinates, as XLA's constant folder
+        computes it inside a jit: sin and cos in double, rounded once.
+        Host tensors only: the host's double sin and cos (glibc's, as the
+        folder's) run on each distinct angle, so a caller computes this
+        once per grid (MVReprojection.grid_sphere) and keeps the result
+        on its device."""
+        if x.device.type != "cpu" or y.device.type != "cpu":
+            raise ValueError("to_sphere_folded takes host tensors")
+        phi = -div(x + self.pixel_offset, self.width) * 2.0 * PI
+        theta = div(y + self.pixel_offset, self.height) * PI
+        st = _folded(math.sin, theta)
+        return (st * _folded(math.cos, phi), st * _folded(math.sin, phi),
+                _folded(math.cos, theta))
+
+    def from_sphere_fused(self, cx, cy, cz, ss, phi_xy=None):
+        """from_sphere inside a jit; ss is x^2 + y^2 + z^2 in the caller's
+        compiled form, phi_xy the (x, y) that phi's fusion computes where
+        they differ from the others.  z / r is z * rsqrt(ss), phi / (2 pi)
+        a product with the float32 reciprocal, and (theta / pi) * height
+        one product with the folded constant."""
+        zr = lm.rsqrt_xla(ss) * cz
+        theta = lm.acos(torch.clamp(zr, -1.0, 1.0))
+        px, py = (cx, cy) if phi_xy is None else phi_xy
+        phi = lm.atan2(py, px)
+        phi = torch.where(phi > 0, phi - 2.0 * PI, phi)
+        x = (phi * -recip32(2.0 * PI)) * float(self.width) - self.pixel_offset
+        y_scale = float(np.float32(recip32(PI)) * np.float32(self.height))
+        y = theta * y_scale - self.pixel_offset
         return x, y
 
 
@@ -83,7 +142,7 @@ class Perspective:
         """vip: bool tensor — point lies on the virtual (behind-camera)
         image plane."""
         r, phi = cartesian_to_polar(x - self.cx, y - self.cy)
-        theta = torch.arctan(r / self.focal)
+        theta = lm.atan(div(r, self.focal))
         vipf = vip.to(theta.dtype)
         theta = theta - vipf * (2.0 * theta - PI)
         phi = phi - vipf * PI
@@ -91,11 +150,24 @@ class Perspective:
         # axis permutation (reference: RadialProjection/Perspective toSphere)
         return -zsr, xsr, -ysr
 
+    def to_sphere_fused(self, x, y, vip):
+        """to_sphere inside a jit (cx = cy = 0): r = sqrt(fma(x, x, y*y))
+        and r / focal a product with the float32 reciprocal.  Returns the
+        sphere point's factors (cos theta, sin theta, cos phi, sin phi):
+        the callers' fused sums multiply them in their own order."""
+        r = lm.sqrt(lm.fma32(x, x, y * y))
+        phi = lm.atan2(y, x)
+        theta = lm.atan(r * recip32(self.focal))
+        vipf = vip.to(theta.dtype)
+        theta = theta - vipf * (2.0 * theta - PI)
+        phi = phi - vipf * PI
+        return lm.cos(theta), lm.sin(theta), lm.cos(phi), lm.sin(phi)
+
     def from_sphere(self, cx3, cy3, cz3):
         """Returns (x, y, vip)."""
         # inverse axis permutation: spherical of (y, -z, -x)
         _, theta, phi = cartesian_to_spherical(cy3, -cz3, -cx3)
-        r = self.focal * torch.tan(theta)
+        r = self.focal * lm.tan(theta)
         x, y = polar_to_cartesian(r, phi)
         return x + self.cx, y + self.cy, r < 0
 

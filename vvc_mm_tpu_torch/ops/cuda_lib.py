@@ -20,6 +20,10 @@ BUILD = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
+# flags of one source only: libm_f32.cu must round every multiply and add
+# on its own unless it asks for an fma()
+SOURCE_FLAGS = {"libm_f32": ["-fmad=false"]}
+
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -52,7 +56,8 @@ def _start_build(name: str):
         return None
     os.makedirs(BUILD, exist_ok=True)
     tmp = f"{so}.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, src]
+    cmd = [_nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-Xptxas",
+           "-v", "-o", tmp, src]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, so
