@@ -18,10 +18,16 @@ Phases (any failure exits non-zero and prints no result line):
      D1 (dependent quantization's trellis) and D2 (its dequantizer) at the
      I picture's shapes (896, 8, 8) and (256, 4, 4) and at (4096, 16, 16),
      on Laplacian, all-zero and saturating blocks, at QP 0, 37 and 51:
-     levels and reconstructions equal; and L1 (glibc's float32 sinf, cosf,
-     tanf, atan2f) on 2^22 inputs a function (any float32 bit pattern,
-     angles, arguments past the large-argument reduction, edge cases):
-     bit for bit with its plain version (NaN as NaN);
+     levels and reconstructions equal; and L1's elementwise entry points
+     (glibc's float32 sinf, cosf, tanf, atan2f) on 2^22 inputs a function
+     (any float32 bit pattern, angles, arguments past the large-argument
+     reduction, edge cases): bit for bit with its plain version (NaN as
+     NaN); and L1's sphere positions (sphere_positions, sphere_centers)
+     at 2048x1024 on random, extreme and zero MV fields, every form
+     (merged, merge search, op by op) of MPA's three planes and ROT beside
+     CLASSIC (and a GED layer the chain fills), block sizes 8-32, K = 1
+     and 5, row and column subsampling: 0 positions apart from the plain
+     version, one launch a call;
   4. decode the committed 2048x1024 ERP multi-model RA stream with
      DecLib() on CUDA, counting kernel launches: every MD5 must match, and
      every picture's Y-PSNR against the regenerated source must lie within
@@ -56,12 +62,18 @@ Phases (any failure exits non-zero and prints no result line):
   8. sequence, full width: the headline configuration (2048x1024, RA,
      GOP 16, 17 frames, MPA+ROT, quadtree depth 1, QP 37 with the cascade)
      through encode_sequence on the card, then DecLib() on the card: 17 of
-     17 MD5s must match and K1-K4 must be launched; per-picture bits,
-     Y-PSNR and seconds, the frames per second and the stream's SHA-256
-     are printed (one timed encode, no repeat); one more under
-     torch.profiler (the same bytes) gives every
-     picture's device operations, device time and idle share, and the I
-     picture's decode is traced the same way;
+     17 MD5s must match, K1-K4 and the sphere kernel must be launched, one
+     launch a codec call of the positions (frame_codec.POSITION_CALLS,
+     printed beside the launches), K > 1 fields in the steps' launches,
+     and the stream's SHA-256 must equal the parent commit's
+     (HEADLINE_SHA256);
+     per-picture bits, Y-PSNR, seconds and L1 launches and the frames per
+     second are printed (one timed encode, no repeat); one more under
+     torch.profiler (the same bytes) gives the device operations, device
+     time and idle share of the first picture of each kind (the pictures
+     of a kind have the same device operations within 1%; the
+     other traced encodes below sample their P and B pictures so, and the
+     I picture only where it is the subject: 7, 8k, 8n);
   8b. bench configurations 3 (MPA, flat grid) and 4 (MPA+GED+ROT+MMMVP
      with the signalled epipole (1, 0, 0, 0, 1), flat grid) of bench.py,
      5 frames at GOP 4: at 2048x1024 through encode_sequence on the card,
@@ -71,9 +83,9 @@ Phases (any failure exits non-zero and prints no result line):
      seconds and frames per second printed, configuration 4's device
      operations per picture (a traced encode); the committed stream
      decoded on the card (every MD5 OK, every Y-PSNR within 0.1 dB of the
-     sidecar), its positions against the CPU's (epipoles through the
-     positions hook), and on the CPU fed the card's positions: bit-exact
-     with the card.  At 256x128 (configurations 3, 4 and 4 with the
+     sidecar) and its positions against the CPU's (epipoles through the
+     positions hook; the CPU decode from the card's positions runs in 5
+     and 8e, whose models cover these).  At 256x128 (configurations 3, 4 and 4 with the
      off-pole epipole (4, 0, 0.3, -0.5, 0.8)) the card's stream must equal
      the port's CPU encode and the committed JAX stream byte for byte;
   8c. bench configuration 2 (`ra832x480_qp37_encode_fps`: 832x480, RA,
@@ -83,7 +95,8 @@ Phases (any failure exits non-zero and prints no result line):
      committed one decoded on the card with 17 of 17 MD5 OK; seconds and
      frames per second of that encode,
      one with the stage timers on the stage shares, one under
-     torch.profiler every picture's device operations and idle share.
+     torch.profiler the device operations and idle share of its P and B
+     pictures.
      The classic path launches none of K1-K6;
   8d. bench configuration 5 (`erp6144x3072_ldp_qp37_encode_fps`:
      6144x3072 ERP, LDP, wrap-around, classic tools), 3 frames: POC 2 is
@@ -113,8 +126,8 @@ Phases (any failure exits non-zero and prints no result line):
      AMVR, GPM, CIIP, BDOF, DMVR; `ra832x480_ctc_tools_qp37_17f`): the
      card's stream equals the committed JAX stream byte for byte, both
      decode on the card with 17 of 17 MD5 OK, no kernel launched; an
-     encode under torch.profiler gives every picture's device operations
-     and idle share;
+     encode under torch.profiler gives the P and B pictures' device
+     operations and idle share;
   8i. path D, affine (configuration 2's clip, LDP, 9 frames;
      `ldp832x480_affine_qp37_9f`): the encode byte for byte with the JAX
      stream, or within 0.1 dB and 2% of its sidecar with the IDR NAL
@@ -159,9 +172,12 @@ Phases (any failure exits non-zero and prints no result line):
      filters are counted;
  10. time each kernel and its plain version on inputs captured from those
      runs (K1 also on projected DMVR's row, K1/K2 also on path D's affine
-     grid, D1/D2 on phase 8k's I-picture luma batch, L1 on a 2048x1024
-     picture's merged-position batch of 131,072 subblocks, beside
-     torch.sin / torch.atan2, which round otherwise), after a launch floor
+     grid, D1/D2 on phase 8k's I-picture luma batch, L1's elementwise
+     entry points on a 2048x1024 picture's merged-position batch of
+     131,072 subblocks, beside torch.sin / torch.atan2, which round
+     otherwise, and L1's sphere positions and centres on the headline's own
+     calls, each held to its plain version there first, bit for bit),
+     after a launch floor
      (the
      device time of a one-element fill), print the `kernels` line (K1-K5
      launches also by shape), then the
@@ -187,7 +203,7 @@ sys.path.insert(0, ROOT)
 from vvc_mm_tpu_torch.common import bitstream as bs
 from vvc_mm_tpu_torch.common.inter_frame import (MC_MARGIN, first_argmin,
                                                  pad_ref)
-from vvc_mm_tpu_torch.common.mm import frame_codec
+from vvc_mm_tpu_torch.common.mm import frame_codec, reprojection
 from vvc_mm_tpu_torch.common.mm.reprojection import MVReprojection
 from vvc_mm_tpu_torch.common.slice_ps import SPS, MMConfig, SliceHeader
 from vvc_mm_tpu_torch.decoder.declib import DecLib
@@ -195,11 +211,11 @@ from vvc_mm_tpu_torch.encoder.enclib import EncCfg, EncLib
 from vvc_mm_tpu_torch.lib360.projection import ERP
 from vvc_mm_tpu_torch.common import depquant, libm_f32
 from vvc_mm_tpu_torch.ops import (cuda_lib, depquant_kernel, libm_kernel,
-                                  mc_kernel)
+                                  mc_kernel, sphere_kernel)
 from vvc_mm_tpu_torch.utils import profiling
 from vvc_mm_tpu_torch.decoder.inter_parser import decode_p_slice_affine
-from vvc_mm_tpu_torch.utils.content import (fade_sequence, psnr,
-                                            realistic_sequence)
+from vvc_mm_tpu_torch.utils import content
+from vvc_mm_tpu_torch.utils.content import fade_sequence, psnr
 
 DATA = os.path.join(ROOT, "tests", "data", "torch_port")
 BIG = "erp2048x1024_ra_mm_qp37_5f"
@@ -252,6 +268,32 @@ F64_OPS_PER_S = 34e12
 # is its reduction's product, difference and two conversions; atan2f is
 # float32 throughout
 LIBM_F64_OPS = {"sinf": 13, "cosf": 13, "tanf": 4, "atan2f": 0}
+# The sphere kernel's operations a position, counted in
+# csrc/sphere_positions.cu on the common path: (its own float32 operations,
+# glibc atan2f calls, tanf calls, sinf / cosf calls), positions by (model,
+# form), block centres by model; CLASSIC none.  Each __fmul_rn / __fadd_rn
+# / __fsub_rn / __fdiv_rn / __fsqrt_rn is one float32 operation, each
+# __fmaf_rn two; glibc's atan2f takes at least ATAN2F_F32 (its shortest
+# path past the special cases: atanf's two products, two 6-term
+# polynomials and their sum), tanf TANF_F32 float32 operations (its
+# polynomial for |x| <= pi/4) and LIBM_F64_OPS["tanf"] float64 ones, a sinf
+# or cosf LIBM_F64_OPS["sinf"] float64 ones.  MPA's merged form, for
+# example: 54 of its own (the MV step 14, the radius 4, the angles' turn
+# behind the camera 6, the sphere point 7, the rsqrt 12, the rest 11).
+ATAN2F_F32, TANF_F32 = 25, 32
+SPHERE_OPS = {("sphere_positions", "mpa"): {None: (46, 4, 0, 4),
+                                             "merged": (54, 4, 0, 4),
+                                             "search": (54, 4, 0, 4)},
+              ("sphere_positions", "rot"): {None: (99, 4, 0, 20),
+                                             "merged": (111, 4, 0, 12),
+                                             "search": (129, 4, 0, 16)},
+              ("sphere_centers", "mpa"): {None: (71, 6, 1, 10)},
+              ("sphere_centers", "rot"): {None: (95, 4, 0, 20)}}
+# the headline stream's SHA-256 on the card at the parent commit 6eb3dc6
+# (compare_checkouts.py, parent and change in one call): the sphere kernel
+# computes the same positions, so the stream stays the same
+HEADLINE_SHA256 = ("eee9bbb41f89a504f28090fe4236c1366c671db584254077c13469bb7"
+                   "7dd2dad")
 STEEP = tuple(int(16 + 2 * (x + y)) for y in range(8) for x in range(8))
 PSNR_TOL_DB = 0.1
 BITS_TOL = 1.02
@@ -274,7 +316,9 @@ SOURCES = {"mc_luma_positions": "mc_positions.cu",
            "sad_bilinear_positions": "sad_positions.cu",
            "quantize_dep": "depquant.cu",
            "dequantize_dep": "depquant.cu",
-           "libm_f32": "libm_f32.cu"}
+           "libm_f32": "libm_f32.cu",
+           "sphere_positions": "sphere_positions.cu",
+           "sphere_centers": "sphere_positions.cu"}
 REPLACES = {"mc_luma_positions": "vvc_mm_tpu/ops/mc_kernel.py:191",
             "mc_chroma_positions": "vvc_mm_tpu/ops/mc_kernel.py:817",
             "sad_block_positions": "vvc_mm_tpu/ops/mc_kernel.py:565",
@@ -288,7 +332,17 @@ REPLACES = {"mc_luma_positions": "vvc_mm_tpu/ops/mc_kernel.py:191",
             "libm_f32": "the glibc sinf/cosf/sincosf/tanf/atan2f calls of "
                         "XLA's CPU code for vvc_mm_tpu/lib360/projection.py"
                         ":25-42 and vvc_mm_tpu/common/mm/models.py (no "
-                        "Pallas)"}
+                        "Pallas)",
+            "sphere_positions": "the float32 sphere math of MPA and ROT "
+                                "that XLA's CPU code runs for vvc_mm_tpu/"
+                                "common/mm/frame_codec.py:344-360 "
+                                "(merged_positions' jit), the merge "
+                                "search's jit and reprojection.py:"
+                                "reproject_frame (no Pallas)",
+            "sphere_centers": "the float32 sphere math of "
+                              "vvc_mm_tpu/common/mm/reprojection.py "
+                              "reproject_block_centers for CLASSIC, MPA "
+                              "and ROT (no Pallas)"}
 # D1/D2: the block batch shapes of the I picture's launches at 2048x1024
 # with MTS and LFNST, timed in phase 10: luma (128 blocks x 7 candidates),
 # then U and V (2 x 128 blocks)
@@ -296,6 +350,19 @@ DQ_PATH_SHAPES = ((896, 8, 8), (256, 4, 4))
 
 
 _T0 = time.perf_counter()
+
+
+_CLIPS: dict = {}
+
+
+def realistic_sequence(width: int, height: int, n: int) -> list:
+    """content.realistic_sequence, made once a picture size (its frame t
+    does not depend on the clip's length) and copied out."""
+    have = _CLIPS.get((width, height))
+    if have is None or len(have) < n:
+        have = _CLIPS[(width, height)] = content.realistic_sequence(
+            width, height, n)
+    return [[p.copy() for p in f] for f in have[:n]]
 
 
 def phase(title: str) -> None:
@@ -604,7 +671,8 @@ def check_kernels(margin: int, dev) -> dict:
                                                                  margin)))
     cases += plane_6k_cases(rng, margin, dev)
     cases += depquant_cases(rng, dev)
-    max_err = {name: 0 for name in SOURCES if name != "libm_f32"}
+    max_err = {name: 0 for name in SOURCES if name not in
+               ("libm_f32", "sphere_positions", "sphere_centers")}
     for name, label, fn, plain in cases:
         got, want = fn(), plain()
         torch.cuda.synchronize()
@@ -626,12 +694,16 @@ def reset_launches() -> None:
     mc_kernel.reset_launches()
     depquant_kernel.reset_launches()
     libm_kernel.reset_launches()
+    sphere_kernel.reset_launches()
+    for k in frame_codec.POSITION_CALLS:
+        frame_codec.POSITION_CALLS[k] = 0
 
 
 def all_launches() -> dict:
-    """Every kernel's launch count: K1-K6, D1/D2 and L1."""
+    """Every kernel's launch count: K1-K6, D1/D2 and L1 (its elementwise
+    entry points, libm_f32, and its sphere positions and centres)."""
     return dict(mc_kernel.LAUNCHES, **depquant_kernel.LAUNCHES,
-                **libm_kernel.LAUNCHES)
+                **libm_kernel.LAUNCHES, **sphere_kernel.LAUNCHES)
 
 
 def libm_inputs(rng, n: int) -> np.ndarray:
@@ -675,6 +747,118 @@ def check_libm(dev) -> int:
         print(f"libm_f32 {name}: {bad} of {x.numel()} results differ from "
               "the plain version (tolerance 0)")
     return bad_total
+
+
+def sphere_fields(rng, k: int, n: int, nby: int, nbx: int, kind: str
+                  ) -> torch.Tensor:
+    """(k, n, nby, nbx, 2) int32 1/16-pel MVs on the CPU: "random" mixes
+    +-24 pel with an eighth of the blocks each zero, zero along x, 40-200
+    pel and +-2048 pel; "extreme" is +-2048 pel throughout; "zero" is
+    zero."""
+    shape = (k, n, nby, nbx, 2)
+    if kind == "zero":
+        return torch.zeros(shape, dtype=torch.int32)
+    if kind == "extreme":
+        return torch.as_tensor(rng.integers(-32768, 32769, shape),
+                               dtype=torch.int32)
+    mv = rng.integers(-384, 385, shape)
+    pick = rng.integers(0, 8, shape[:4])
+    mv[pick == 0] = 0
+    mv[..., 0][pick == 1] = 0
+    big = rng.integers(640, 3201, shape) * rng.choice([-1, 1], shape)
+    mv[pick == 2] = big[pick == 2]
+    mv[pick == 3] = rng.integers(-32768, 32769, shape)[pick == 3]
+    return torch.as_tensor(mv, dtype=torch.int32)
+
+
+def sphere_cases(dev) -> list:
+    """Phase 3's sphere-kernel cases at 2048x1024: (kernel, label, kernel
+    call, plain call).  Every form of sphere_positions with MPA's three
+    planes and ROT beside CLASSIC (merged also with a GED layer, which the
+    chain fills first), the op-by-op diamond fields of each model at the
+    search's subsampling, and sphere_centers merged and per model; random,
+    extreme and zero fields."""
+    w, h = 2048, 1024
+    reproj = MVReprojection(ERP(w, h), w, h, 1, device=dev)
+    rng = np.random.default_rng(14)
+    models = [0, 1, 2, 3, 6]
+    eps = {7: (0.3, -0.5, 0.8)}
+    cases = []
+    for kind in ("random", "extreme", "zero"):
+        for s, k, row_step, col_step, form, ms in (
+                (16, 1, 1, 1, "merged", models),
+                (16, 1, 1, 1, "merged", models + [7]),
+                (32, 1, 1, 1, "merged", models),
+                (16, 5, 4, 1, "search", models),
+                (8, 5, 1, 1, "search", models)):
+            nby, nbx = h // s, w // s
+            idx = torch.as_tensor(rng.integers(0, len(ms), (k, nby, nbx)),
+                                  dtype=torch.int32, device=dev)
+            mv = sphere_fields(rng, k, len(ms), nby, nbx, kind).to(dev)
+            args = (ms, idx, mv, s, row_step, col_step, form, eps)
+            cases.append((
+                "sphere_positions", f"{form} s={s} K={k} row step "
+                f"{row_step}, {len(ms)} models, {kind}",
+                lambda a=args: reproj.positions(*a),
+                lambda a=args: reproj.positions_plain(*a)))
+        for model in (1, 2, 3, 6, 0):
+            for s, row_step, col_step, k in ((16, 4, 2, 5), (8, 1, 1, 1)):
+                nby, nbx = h // s, w // s
+                mv = sphere_fields(rng, k, 1, nby, nbx, kind).to(dev)
+                args = ([model], None, mv, s, row_step, col_step, None)
+                cases.append((
+                    "sphere_positions", f"op by op, model {model} s={s} "
+                    f"K={k} row step {row_step} column step {col_step}, "
+                    f"{kind}",
+                    lambda a=args: reproj.positions(*a),
+                    lambda a=args: reproj.positions_plain(*a)))
+        for s, k, ms in ((16, 5, models), (8, 1, models + [7]),
+                         (16, 5, [1]), (16, 5, [2]), (16, 5, [3]),
+                         (16, 5, [6]), (8, 5, [0])):
+            nby, nbx = h // s, w // s
+            idx = None if len(ms) == 1 else torch.as_tensor(
+                rng.integers(0, len(ms), (k, nby, nbx)), dtype=torch.int32,
+                device=dev)
+            mv = sphere_fields(rng, k, len(ms), nby, nbx, kind).to(dev)
+            args = (ms, idx, mv, s, eps)
+            cases.append((
+                "sphere_centers", f"s={s} K={k}, models {ms}, {kind}",
+                lambda a=args: reproj.centers(*a),
+                lambda a=args: reproj.centers_plain(*a)))
+    return cases
+
+
+def check_sphere(dev) -> dict:
+    """Phase 3, the sphere kernel: each case's positions against the plain
+    version on the card, bit for bit, one launch a call.  Returns each
+    entry point's largest |kernel - plain| (1/16 pel)."""
+    err = {"sphere_positions": 0, "sphere_centers": 0}
+    off = {"sphere_positions": [0, 0], "sphere_centers": [0, 0]}
+    cases = sphere_cases(dev)
+    for name, label, fn, plain in cases:
+        before = sphere_kernel.LAUNCHES[name]
+        got = fn()
+        if sphere_kernel.LAUNCHES[name] != before + 1:
+            fail(f"{name} {label}: {sphere_kernel.LAUNCHES[name] - before} "
+                 "launches for one call")
+        want = plain()
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            fail(f"{name} {label}: {tuple(got.shape)} {got.dtype} vs "
+                 f"plain {tuple(want.shape)} {want.dtype}")
+        d = (got - want).abs()
+        err[name] = max(err[name], int(d.max()))
+        off[name][0] += int((d != 0).any(-1).sum())
+        off[name][1] += d[..., 0].numel()
+    for name in err:
+        n = sum(1 for c in cases if c[0] == name)
+        print(f"{name}: {off[name][0]} of {off[name][1]} positions differ "
+              f"from the plain version over {n} cases at 2048x1024 "
+              f"(tolerance 0; max |kernel - plain| {err[name]})")
+        if off[name][0]:
+            fail(f"{name} differs from its plain version")
+    sphere_kernel.reset_launches()
+    return err
 
 
 def depquant_cases(rng, dev) -> list:
@@ -724,10 +908,13 @@ def depquant_cases(rng, dev) -> list:
 
 
 def launch_counts() -> dict:
-    """Kernel launches since the last reset_launches(), with K3-K5's by
-    shape under "by_shape"."""
+    """Kernel launches since the last reset_launches(), with K3-K5's and
+    the sphere kernel's by shape under "by_shape", and the codec's calls of
+    the sphere positions under "sphere_calls"."""
     return dict(all_launches(), by_shape={
-        n: dict(d) for n, d in mc_kernel.LAUNCHES_BY_SHAPE.items()})
+        n: dict(d) for n, d in (*mc_kernel.LAUNCHES_BY_SHAPE.items(),
+                                *sphere_kernel.LAUNCHES_BY_SHAPE.items())},
+        sphere_calls=dict(frame_codec.POSITION_CALLS))
 
 
 def device_events(prof) -> list[tuple[str, float]]:
@@ -771,18 +958,25 @@ class MeasuredEncLib(EncLib):
     """EncLib that notes, for each picture encode_sequence codes, its
     launches, stage times and (mode "trace") its device operations.
     `mode`: "plain", "stages" (stage timers on, each stage synchronised) or
-    "trace" (each picture under torch.profiler)."""
+    "trace" (pictures under torch.profiler: every one, or with `sample`,
+    a tuple of kind initials such as ("P", "B"), the first picture of
+    each kind it names; the pictures of a kind had the same device
+    operations within 1% in every traced run so far)."""
 
-    def __init__(self, cfg: EncCfg, mode: str) -> None:
+    def __init__(self, cfg: EncCfg, mode: str,
+                 sample: tuple | None = None) -> None:
         super().__init__(cfg)
         self.mode = mode
+        self.sample = sample
         self.rows: list[dict] = []
 
     def _measured(self, kind: str, method, poc: int, *args, **kw):
         before = all_launches()
         stages_before = profiling.totals()
         prof = None
-        if self.mode == "trace":
+        if self.mode == "trace" and (self.sample is None or (
+                kind[0] in self.sample
+                and all(r["kind"] != kind for r in self.rows))):
             prof = _profiler()
             prof.start()
         nal, res = method(poc, *args, **kw)
@@ -851,7 +1045,8 @@ def headline_cfg(w: int, h: int, qp: int, gop_size: int,
                   mm=MMConfig(mpa=True, rot=True))
 
 
-def encode_run(label: str, cfg: EncCfg, src: list, mode: str) -> dict:
+def encode_run(label: str, cfg: EncCfg, src: list, mode: str,
+               sample: tuple | None = None) -> dict:
     """One EncLib(cfg).encode_sequence(src) on the card: the Annex-B
     bytes, the per-picture notes, the sequence's seconds (host clock,
     synchronised) and the launch counts of this run alone."""
@@ -860,7 +1055,7 @@ def encode_run(label: str, cfg: EncCfg, src: list, mode: str) -> dict:
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    enc = MeasuredEncLib(cfg, mode)
+    enc = MeasuredEncLib(cfg, mode, sample)
     data = enc.encode_sequence(src)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -907,6 +1102,9 @@ def check_run(run: dict, need: tuple, record: dict | None = None,
     for name in need:
         if run["launches"][name] == 0:
             fail(f"{label}: the encode did not launch {name}")
+    for name, calls in run["launches"]["sphere_calls"].items():
+        print(f"{label}: {name}: {calls} codec calls, "
+              f"{run['launches'][name]} launches")
     dec = DecLib()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -983,7 +1181,7 @@ def print_device_work(traced: dict, plain: dict) -> None:
     then the sums by picture kind."""
     kinds: dict[str, list] = {}
     for r, p in zip(traced["rows"], plain["rows"]):
-        if r["device_work"][0]:
+        if r["device_work"] and r["device_work"][0]:
             k = kinds.setdefault(r["kind"], [0, 0, 0.0, 0.0])
             k[0] += 1
             k[1] += r["device_work"][0]
@@ -997,6 +1195,8 @@ def print_device_work(traced: dict, plain: dict) -> None:
     for r, p in zip(traced["rows"], plain["rows"]):
         if r["poc"] != p["poc"]:
             fail(f"{traced['label']}: picture order changed between runs")
+        if r["device_work"] is None:        # not sampled
+            continue
         n, busy = r["device_work"]
         if n == 0:
             print(f"{traced['label']} POC {r['poc']} ({r['kind']}): device "
@@ -1019,7 +1219,7 @@ def compare_positions(data: bytes, w: int, h: int):
     epipoles): returns the card's tensors (projected DMVR's candidate
     positions among them, in call order), the (differing, total) subblock
     counts per merged-positions call (projected DMVR's candidates counted
-    apart), and the decoded frames."""
+    apart), the decoded frames and the decode's MD5 verdicts."""
     card_positions, mismatches, dmvr_mismatches = [], [], []
     dec = DecLib(positions_fn=lambda *a: compare(*a))
     cpu_reproj = None
@@ -1058,7 +1258,7 @@ def compare_positions(data: bytes, w: int, h: int):
               f"{len(dmvr_mismatches)} tensors, row step > 1), mismatches "
               f"card vs CPU: {sum(n for n, _ in dmvr_mismatches)} of "
               f"{sum(t for _, t in dmvr_mismatches)} subblocks")
-    return card_positions, mismatches, frames
+    return card_positions, mismatches, frames, dec.hash_status
 
 
 def captured_case(key: tuple) -> dict:
@@ -1116,6 +1316,7 @@ def main() -> None:
     max_err["libm_f32"] = check_libm(dev)
     if max_err["libm_f32"]:
         fail("libm_f32 differs from its plain version")
+    max_err.update(check_sphere(dev))
 
     # ---- 4. decode the 2048x1024 stream on the card
     phase("4. decode the committed streams on the card")
@@ -1134,11 +1335,6 @@ def main() -> None:
     path_launches["decode 2048x1024"] = launches
     print(f"decode {BIG}: {len(frames)} pictures in {decode_s:.2f} s "
           f"(host clock, first call), launches {launches}")
-    t0 = time.perf_counter()
-    DecLib().decode_bytes(data)
-    torch.cuda.synchronize()
-    print(f"decode {BIG} again (warm): "
-          f"{time.perf_counter() - t0:.2f} s (host clock)")
     src = realistic_sequence(side["width"], side["height"],
                              side["frames"])
     hold_to_record(f"decode {BIG}", frames, dec.hash_status, side, src)
@@ -1163,13 +1359,13 @@ def main() -> None:
 
     # ---- 5. positions: card vs the same code on the CPU
     phase("5. positions, card against CPU")
-    card_positions, mismatches, frames2 = compare_positions(data, w, h)
+    card_positions, mismatches, frames2, _ = compare_positions(data, w, h)
     same = [a.md5() == b.md5() for a, b in zip(frames, frames2)]
     print(f"second decode identical to the first: {same}")
     if not all(same):
         fail("the positions hook changed the decode")
     small_data = open(os.path.join(DATA, SMALL + ".bin"), "rb").read()
-    _, small_mismatches, _ = compare_positions(small_data, 256, 128)
+    _, small_mismatches, _, _ = compare_positions(small_data, 256, 128)
     if sum(n for n, _ in mismatches + small_mismatches):
         fail("positions differ between the card and the CPU")
     cpu_decode_from(f"decode {BIG}", data, frames2, card_positions)
@@ -1183,11 +1379,14 @@ def main() -> None:
     # ---- 8. the headline sequence: 17 frames, GOP 16, 2048x1024
     phase("8. the headline sequence")
     clip = realistic_sequence(w, h, HEADLINE_FRAMES)
+    reprojection.CAPTURED = {}
     headline_sequence("sequence 2048x1024 GOP 16",
                       headline_cfg(w, h, 37, HEADLINE_GOP), clip,
                       ("mc_luma_positions", "mc_chroma_positions",
-                       "sad_block_positions", "mc_block_positions"),
-                      path_launches)
+                       "sad_block_positions", "mc_block_positions",
+                       "sphere_positions", "sphere_centers"),
+                      path_launches, sha256=HEADLINE_SHA256)
+    sphere_captured, reprojection.CAPTURED = reprojection.CAPTURED, None
 
     # ---- 8b. bench configurations 3 and 4 (the flat MM P path, GED)
     phase("8b. bench configurations 3 and 4")
@@ -1250,7 +1449,7 @@ def main() -> None:
     phase("10. kernel times")
     out = time_kernels(captured, full_grid, ref_pic, positions, dmvr_case,
                        affine_cases, max_err, path_launches, card, w, h,
-                       dq_captured)
+                       dq_captured, sphere_captured)
     phase("done")
     print(json.dumps({"kernels": list(out.values())}))
     print(card)
@@ -1303,14 +1502,34 @@ def sequences_against_record(path_launches: dict, small_positions_off: int
 
 
 def headline_sequence(label: str, cfg: EncCfg, clip: list, need: tuple,
-                      path_launches: dict, record: dict | None = None
-                      ) -> dict:
-    """Phase 8 (and 8c, held to `record`): returns the first run."""
+                      path_launches: dict, record: dict | None = None,
+                      sha256: str | None = None,
+                      sample: tuple = ("I", "P", "B")) -> dict:
+    """Phase 8 (and 8c, held to `record`): returns the first run.  With
+    `sha256`, the stream must have it; `sample`: the picture kinds whose
+    first picture the traced encode measures."""
     n = len(clip)
     # one timed encode, no repeat: the smoke's time limit is shared
     first = encode_run(label, cfg, clip, "plain")
     path_launches[label] = first["launches"]
     check_run(first, need, record)
+    one_launch_a_call(label, first["launches"])
+    if sha256 is not None:
+        got = hashlib.sha256(first["data"]).hexdigest()
+        print(f"{label}: SHA-256 {got}, the parent's {sha256}: "
+              f"{'equal' if got == sha256 else 'DIFFERENT'}")
+        if got != sha256:
+            fail(f"{label}: the stream differs from the parent's")
+    l1 = ("libm_f32", "sphere_positions", "sphere_centers")
+    for kind in sorted({r["kind"] for r in first["rows"]}):
+        rows = [r for r in first["rows"] if r["kind"] == kind]
+        per = {k: sum(r["launches"][k] for r in rows) / len(rows) for k in l1}
+        each = ", ".join(f"{k} {v:.1f}" for k, v in per.items())
+        print(f"{label}: {kind} pictures, L1 launches a picture: "
+              f"{sum(per.values()):.1f} ({each})")
+    counts = {k: first["launches"][k] for k in l1}
+    print(f"{label}: L1 launches in the sequence: {sum(counts.values())} "
+          f"({', '.join(f'{k} {v}' for k, v in counts.items())})")
     print(f"{label}: {first['seconds']:.2f} s (host clock) = "
           f"{n / first['seconds']:.3f} frames per second")
     for kind in sorted({r["kind"] for r in first["rows"]}):
@@ -1318,42 +1537,29 @@ def headline_sequence(label: str, cfg: EncCfg, clip: list, need: tuple,
         print(f"{label}: {kind} pictures {min(per):.2f}-{max(per):.2f} s, "
               f"median {statistics.median(per):.2f} s over {len(per)} "
               "pictures (host clock)")
-    traced = encode_run(label + " (traced)", cfg, clip, "trace")
+    traced = encode_run(label + " (traced)", cfg, clip, "trace", sample)
     if traced["data"] != first["data"]:
         fail(f"{label}: the traced encode gave other bytes")
     print_device_work(traced, first)
-    # the I picture's decode alone, untraced then traced
-    head = bs.write_annexb(bs.read_annexb(first["data"])[:4])
-    for trace in (False, True):
-        prof = _profiler() if trace else None
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if prof is not None:
-            prof.start()
-        idec = DecLib()
-        idec.decode_bytes(head)
-        torch.cuda.synchronize()
-        if prof is not None:
-            prof.stop()
-        took = time.perf_counter() - t0
-        if idec.hash_status != {0: "OK"}:
-            fail(f"{label}: I picture decode, hash {idec.hash_status}")
-        if not trace:
-            i_decode_s = took
-            print(f"{label}: I picture decoded alone in {took:.2f} s (host "
-                  "clock)")
-            continue
-        n_ops, busy = device_work(prof)
-        if n_ops == 0:
-            print(f"{label}: I picture decode: device operations not "
-                  "measured (the profiler traced none)")
-        else:
-            print(f"{label}: I picture decode: {n_ops} device operations, "
-                  f"{busy:.4f} s of device time; untraced it took "
-                  f"{i_decode_s:.2f} s: the card is idle "
-                  f"{100 * (1 - busy / i_decode_s):.1f}% of it "
-                  f"({took:.2f} s under the profiler)")
     return first
+
+
+def one_launch_a_call(label: str, launches: dict) -> None:
+    """On a run whose models are all the sphere kernel's (MPA, ROT,
+    CLASSIC): each codec call of the positions (frame_codec.POSITION_CALLS:
+    a merged-positions call, a K-field search or decision step, a diamond
+    step) is one launch, and the steps take their K fields in that one
+    launch (launches by shape with K > 1)."""
+    for name, calls in launches["sphere_calls"].items():
+        if calls != launches[name]:
+            fail(f"{label}: {calls} codec calls of {name}, "
+                 f"{launches[name]} launches")
+        multi = {k: n for k, n in launches["by_shape"][name].items()
+                 if int(k.split(" K=")[1].split()[0]) > 1}
+        print(f"{label}: {name}: one launch a codec call ({calls}); "
+              f"{sum(multi.values())} of them take K > 1 fields: {multi}")
+        if name == "sphere_centers" and calls and not multi:
+            fail(f"{label}: no {name} launch took more than one field")
 
 
 def bench_configurations(path_launches: dict) -> None:
@@ -1368,13 +1574,17 @@ def bench_configurations(path_launches: dict) -> None:
         path_launches[label] = run["launches"]
         check_run(run, need, {p["poc"]: p for p in sd["pocs"]}, hold=True)
         if name == "fullmm":    # configuration 3's path is a subset
-            traced = encode_run(label + " (traced)", cfg, clip, "trace")
+            traced = encode_run(label + " (traced)", cfg, clip, "trace",
+                                sample=("P", "B"))
             if traced["data"] != run["data"]:
                 fail(f"{label}: another encode gave other bytes")
             print_device_work(traced, run)
         if not compare_nals(label, run["data"], committed, only=bs.NAL_IDR):
             fail(f"{label}: the IDR NAL differs from the JAX encoder's")
-        decode_committed(label, stream, sd, committed, clip)
+        # the CPU decode from the card's positions runs on phase 5's
+        # stream (MPA and ROT) and phase 8e's (every model), a superset
+        decode_committed(label, stream, sd, committed, clip,
+                         cpu_decode=False)
     for name in ("mpa", "fullmm", "fullmm_ep"):
         stream = f"erp256x128_ra_{name}_qp37_5f"
         sd, committed, cfg, clip = bench_stream(name, stream)
@@ -1409,7 +1619,8 @@ def bench_configuration_2(path_launches: dict) -> None:
     clip = realistic_sequence(cfg.width, cfg.height, sd["frames"])
     label = "config 2 832x480 GOP 16"
     first = headline_sequence(label, cfg, clip, (), path_launches,
-                              {p["poc"]: p for p in sd["pocs"]})
+                              {p["poc"]: p for p in sd["pocs"]},
+                              sample=("P", "B"))
     if any(first["launches"][k] for k in SOURCES):
         fail(f"{label}: the classic path launched a kernel: "
              f"{first['launches']}")
@@ -1489,7 +1700,8 @@ def allmm_dmvr_path(path_launches: dict, max_err: dict) -> dict:
     if err:
         fail("mc_luma_positions differs from its plain version on the "
              "projected-DMVR positions")
-    traced = encode_run(label + " (traced)", cfg, clip, "trace")
+    traced = encode_run(label + " (traced)", cfg, clip, "trace",
+                        sample=("P", "B"))
     if traced["data"] != run["data"]:
         fail(f"{label}: another encode gave other bytes")
     print_device_work(traced, run)
@@ -1516,7 +1728,8 @@ def bench_configuration_2_tools(path_launches: dict) -> None:
     if any(run["launches"][k] for k in SOURCES):
         fail(f"{label}: the classic path launched a kernel: "
              f"{run['launches']}")
-    traced = encode_run(label + " (traced)", cfg, clip, "trace")
+    traced = encode_run(label + " (traced)", cfg, clip, "trace",
+                        sample=("P", "B"))
     if traced["data"] != run["data"]:
         fail(f"{label}: the traced encode gave other bytes")
     print_device_work(traced, run)
@@ -1561,7 +1774,8 @@ def tools_runs(label: str, cfg: EncCfg, clip: list, path_launches: dict,
     run = encode_run(label, cfg, clip, "plain")
     path_launches[label] = run["launches"]
     check_run(run, (), record, hold=hold)
-    traced = encode_run(label + " (traced)", cfg, clip, "trace")
+    traced = encode_run(label + " (traced)", cfg, clip, "trace",
+                        sample=("P", "B"))
     if traced["data"] != run["data"]:
         fail(f"{label}: another encode gave other bytes")
     print_device_work(traced, run)
@@ -1998,24 +2212,17 @@ def cfg_tools(cfg: EncCfg, fade: float | None = None) -> tuple:
 
 
 def decode_committed(label: str, stream: str, sd: dict, data: bytes,
-                     clip: list) -> None:
+                     clip: list, cpu_decode: bool = True) -> None:
     """The JAX encoder's stream on the card, its positions against the
     CPU's (compare_positions), every MD5 OK and every Y-PSNR within 0.1
-    dB of the sidecar; then on the CPU fed the card's positions:
-    bit-exact with the card."""
-    card_positions, _, frames = compare_positions(data, sd["width"],
-                                                  sd["height"])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    dec = DecLib()
-    again = dec.decode_bytes(data)
-    torch.cuda.synchronize()
-    print(f"{label}: committed {stream} decoded on the card in "
-          f"{time.perf_counter() - t0:.2f} s (host clock)")
-    if [a.md5() for a in frames] != [b.md5() for b in again]:
-        fail(f"{label}: the positions hook changed the decode")
-    hold_to_record(f"{label} committed", frames, dec.hash_status, sd, clip)
-    cpu_decode_from(label, data, frames, card_positions)
+    dB of the sidecar; then, with `cpu_decode`, on the CPU fed the card's
+    positions: bit-exact with the card."""
+    card_positions, _, frames, verdicts = compare_positions(
+        data, sd["width"], sd["height"])
+    hold_to_record(f"{label} committed {stream}", frames, verdicts, sd,
+                   clip)
+    if cpu_decode:
+        cpu_decode_from(label, data, frames, card_positions)
 
 
 def hold_to_record(label: str, frames: list, hash_status: dict, sd: dict,
@@ -2130,7 +2337,8 @@ def by_shape(name: str, path_launches: dict) -> dict:
     """K3-K5: {"launches_by_shape": {"s=8 K=5": n, ...}} summed over the
     paths (K5's keys are field count and subblock grid, "K=5 8x32"); {}
     for the other kernels."""
-    if name not in mc_kernel.LAUNCHES_BY_SHAPE:
+    if name not in mc_kernel.LAUNCHES_BY_SHAPE and \
+            name not in sphere_kernel.LAUNCHES_BY_SHAPE:
         return {}
     total: dict[str, int] = {}
     for p in path_launches.values():
@@ -2268,10 +2476,96 @@ def depquant_timed_cases(dq_captured: dict) -> list:
     return cases
 
 
+def sphere_bound(name: str, c: dict) -> tuple[float, str]:
+    """The sphere kernel's least time for one captured call: the largest
+    of the bytes of each block's MV (and model index), each kept
+    position's grid constant (MPA's perspective cache 9 bytes, ROT's
+    folded point 12 in the merged form), the rsqrt table where a fused
+    form reads it and 8 bytes of output a position, over the memory rate;
+    the float32 operations of this call's positions (SPHERE_OPS) over the
+    FP32 rate; and the float64 operations of their glibc sinf / cosf /
+    tanf calls over the FP64 rate.  The two kinds of
+    operation run on separate units, so the larger of them bounds."""
+    mvs, idx, models = c["mvs"], c["model_idx"], c["models"]
+    k, _, nby, nbx = mvs.shape[:4]
+    slots = torch.zeros((k, nby, nbx), dtype=torch.int64) if idx is None \
+        else idx.cpu().to(torch.int64)
+    if name == "sphere_positions":
+        rep = c["block_size"] // 4
+        slots = slots.repeat_interleave(rep, 1).repeat_interleave(rep, 2)[
+            :, ::c["row_step"], ::c["col_step"]]
+    counts = torch.bincount(slots.reshape(-1), minlength=len(models))
+    n_bytes = k * nby * nbx * (8 + (4 if idx is not None else 0)) \
+        + 8 * slots.numel()
+    f64 = f32 = 0
+    for m, n in zip(models, counts.tolist()):
+        fam = "mpa" if m in (1, 2, 3) else "rot" if m == 6 else None
+        if fam is None:
+            continue
+        form = c["form"] if name == "sphere_positions" else None
+        own, atan2s, tans, sincos = SPHERE_OPS[(name, fam)][form]
+        f64 += n * (sincos * LIBM_F64_OPS["sinf"]
+                    + tans * LIBM_F64_OPS["tanf"])
+        f32 += n * (own + atan2s * ATAN2F_F32 + tans * TANF_F32)
+        if name == "sphere_positions":
+            n_bytes += n * (9 if fam == "mpa" else
+                            12 if c["form"] == "merged" else 0)
+    if c["form"] is not None:
+        n_bytes += 2048 * 8
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(f64 / F64_OPS_PER_S, f32 / F32_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sphere_timed_cases(sphere_captured: dict, by_shape: dict) -> list:
+    """The sphere kernel on the headline's own calls (phase 8's last call
+    of each kernel, form, model count and shape; by kernel, the most
+    launched first, from `by_shape`, the headline's launches by shape),
+    each held to its plain version on the same inputs first: bit for
+    bit."""
+    def launched(key):
+        name, form, n, shape = key
+        label = (f"{'op' if form is None else form} " if name ==
+                 "sphere_positions" else "") + \
+            f"m={n} K={shape[0]} {shape[1]}x{shape[2]}"
+        return -by_shape[name].get(label, 0)
+    cases = []
+    keys = sorted(sphere_captured, key=lambda key: (
+        key[0] != "sphere_positions", launched(key), str(key)))
+    for key in keys:
+        name = key[0]
+        c = sphere_captured[key]
+        entry = "positions" if name == "sphere_positions" else "centers"
+        fn = getattr(c["reproj"], entry)
+        plain = getattr(c["reproj"], entry + "_plain")
+        args = (c["models"], c["model_idx"], c["mvs"], c["block_size"])
+        if name == "sphere_positions":
+            args += (c["row_step"], c["col_step"], c["form"])
+        before = dict(sphere_kernel.LAUNCHES)
+        got, want = fn(*args), plain(*args)
+        sphere_kernel.LAUNCHES.update(before)
+        bad = int((got != want).any(-1).sum())
+        form = "" if name == "sphere_centers" else \
+            f"{'op by op' if c['form'] is None else c['form']}, "
+        n = len(c["models"])
+        label = (f"{form}{n} model{'s' if n > 1 else ''}, block size "
+                 f"{c['block_size']}, out {tuple(got.shape)} (headline)")
+        print(f"{name} [{label}]: {bad} of {got[..., 0].numel()} positions "
+              "differ from the plain version (tolerance 0)")
+        if bad:
+            fail(f"{name} differs from its plain version on the headline's "
+                 "inputs")
+        cases.append((name, label, lambda f=fn, a=args: f(*a),
+                      lambda f=plain, a=args: f(*a), sphere_bound(name, c)))
+    if {c[0] for c in cases} != {"sphere_positions", "sphere_centers"}:
+        fail(f"the headline captured {sorted(sphere_captured, key=str)}")
+    return cases
+
+
 def time_kernels(captured: dict, full_grid: dict, ref_pic, positions,
                  dmvr_case: dict, affine_cases: dict, max_err: dict,
                  path_launches: dict, card: str, w: int, h: int,
-                 dq_captured: dict) -> dict:
+                 dq_captured: dict, sphere_captured: dict) -> dict:
     """Phase 10: the `kernels` records, by kernel name."""
     timed_cases = []       # (kernel, label, kernel call, plain, bound)
     for name, plane, s, taps, m in (
@@ -2351,18 +2645,24 @@ def time_kernels(captured: dict, full_grid: dict, ref_pic, positions,
     timed_cases += depquant_timed_cases(dq_captured)
     libm_cases, library = libm_timed_cases(ref_pic[0].device)
     timed_cases += libm_cases
+    timed_cases += sphere_timed_cases(
+        sphere_captured, path_launches["sequence 2048x1024 GOP 16"][
+            "by_shape"])
     out = {}
     for name, label, fn, plain, (b_ms, b_by) in timed_cases:
         tag = "dep_kernel" if name in depquant_kernel.LAUNCHES \
-            else "libm_kernel" if name == "libm_f32" else "positions_kernel"
+            else "libm_kernel" if name == "libm_f32" \
+            else name + "_kernel" if name in sphere_kernel.LAUNCHES \
+            else "positions_kernel"
         before = (dict(mc_kernel.LAUNCHES), dict(depquant_kernel.LAUNCHES),
-                  dict(libm_kernel.LAUNCHES))
+                  dict(libm_kernel.LAUNCHES), dict(sphere_kernel.LAUNCHES))
         ms = cuda_ms(fn)
         plain_ms = cuda_ms(plain, iters=5)
         dev_ms = device_ms(fn, tag=tag)
         mc_kernel.LAUNCHES.update(before[0])    # timing is not a main path
         depquant_kernel.LAUNCHES.update(before[1])
         libm_kernel.LAUNCHES.update(before[2])
+        sphere_kernel.LAUNCHES.update(before[3])
         alone = "not measured by the profiler" if dev_ms is None \
             else f"{dev_ms:.4f} ms"
         print(f"{name} [{label}]: {ms:.4f} ms kernel (device time alone "
@@ -2382,6 +2682,9 @@ def time_kernels(captured: dict, full_grid: dict, ref_pic, positions,
                 max_abs_err=max_err[name], ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 device_ms=dev_ms, cases=[])
+            if name in sphere_kernel.LAUNCHES:
+                out[name]["codec_calls"] = sum(
+                    p["sphere_calls"][name] for p in path_launches.values())
         if name == "libm_f32":
             lib_fn, lib_name = library[label]
             case.update(library_ms=cuda_ms(lib_fn), library_fn=lib_name)

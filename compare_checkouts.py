@@ -23,7 +23,8 @@ search grid of the 256x128 configuration, (5, 32, 64, 2) on one picture of
 its clip, and the full (5, 256, 512, 2) grid on the 2048x1024 picture,
 with the next picture as the original.  One JSON line per checkout gives
 the stream's SHA-256 and length, the sequence's seconds (host clock,
-synchronised), the launches of each kernel, the wrapper's microseconds and
+synchronised), the launches of each kernel (those the checkout's
+`chip_smoke.all_launches` counts), the wrapper's microseconds and
 K1's, K2's, K5's and K6's device milliseconds.  The last line is
 `{"same": true|false, ...}`: whether every encode gave the same bytes.
 Give the parent first and last to interleave (parent, change, change,
@@ -59,13 +60,13 @@ def encode_one(checkout: str) -> dict:
     w, h = 2048, 1024
     cfg = smoke.headline_cfg(w, h, 37, smoke.HEADLINE_GOP)
     clip = smoke.realistic_sequence(w, h, smoke.HEADLINE_FRAMES)
-    smoke.mc_kernel.reset_launches()
+    smoke.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     data = smoke.EncLib(cfg).encode_sequence(clip)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(smoke.mc_kernel.LAUNCHES)
+    launches = dict(smoke.all_launches())
     return dict(checkout=checkout, sha256=hashlib.sha256(data).hexdigest(),
                 bytes=len(data), seconds=seconds, launches=launches,
                 wrapper_us=wrapper_us(smoke.mc_kernel, torch),

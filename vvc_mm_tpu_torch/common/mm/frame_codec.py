@@ -36,11 +36,33 @@ from ..inter_frame import (MC_MARGIN, _from_blocks, _residual_pass,
                            _to_blocks, first_argmin, pad_ref)
 from ..typedefs import MotionModelID as M
 from . import mc as mm_mc
-from .reprojection import MVReprojection, SUBBLK
+from .reprojection import MVReprojection
+
+# The codec's calls of the K-field positions (MVReprojection.positions and
+# .centers): each a merged-positions call, a merge-search or decision step
+# of K fields, or a diamond step of K candidates.  On the card each that
+# reaches a sphere model is one kernel launch.
+POSITION_CALLS = {"sphere_positions": 0, "sphere_centers": 0}
 
 
 def _up(t: torch.Tensor, rep: int) -> torch.Tensor:
     return t.repeat_interleave(rep, 0).repeat_interleave(rep, 1)
+
+
+def _positions(reproj: MVReprojection, model_ids: list[int], model_idx,
+               mvs, block_size: int, row_step: int, col_step: int,
+               form: str | None, epipoles: dict | None) -> torch.Tensor:
+    """reproj.positions of K fields, counted in POSITION_CALLS."""
+    POSITION_CALLS["sphere_positions"] += 1
+    return reproj.positions(model_ids, model_idx, mvs, block_size, row_step,
+                            col_step, form, epipoles)
+
+
+def _centers(reproj: MVReprojection, model_ids: list[int], model_idx, mvs,
+             block_size: int, epipoles: dict | None) -> torch.Tensor:
+    """reproj.centers of K fields, counted in POSITION_CALLS."""
+    POSITION_CALLS["sphere_centers"] += 1
+    return reproj.centers(model_ids, model_idx, mvs, block_size, epipoles)
 
 
 def _model_positions(reproj: MVReprojection, model_id: int,
@@ -49,11 +71,20 @@ def _model_positions(reproj: MVReprojection, model_id: int,
                      ) -> torch.Tensor:
     """One model's per-subblock positions for a (nby, nbx, 2) MV field:
     integer math for CLASSIC, the reprojection otherwise."""
-    if model_id == M.CLASSIC:
-        return mm_mc.classic_positions(reproj.width, reproj.height, mvs,
-                                       block_size, row_step)
-    return reproj.reproject_frame(model_id, mvs, block_size, epipole,
-                                  row_step, form)
+    mvs = torch.as_tensor(mvs, device=reproj.device)
+    return _positions(reproj, [model_id], None, mvs[None, None], block_size,
+                      row_step, 1, form, {model_id: epipole})[0]
+
+
+def _fields_positions(reproj: MVReprojection, active_models: list[int],
+                      fields, block_size: int, epipoles: dict | None,
+                      row_step: int, form: str | None) -> torch.Tensor:
+    """merged_positions of K (model_idx, mvs_stack) fields in one call:
+    (K, nsy_sub, nsx, 2)."""
+    return _positions(reproj, active_models,
+                      torch.stack([i for i, _ in fields]),
+                      torch.stack([st for _, st in fields]), block_size,
+                      row_step, 1, form, epipoles)
 
 
 def merged_positions(reproj: MVReprojection, active_models: list[int],
@@ -73,15 +104,9 @@ def merged_positions(reproj: MVReprojection, active_models: list[int],
     dev = reproj.device
     model_idx = torch.as_tensor(model_idx, device=dev)
     mvs_stack = torch.as_tensor(mvs_stack, device=dev)
-    pos_all = torch.stack([
-        _model_positions(reproj, m, mvs_stack[i], block_size,
-                         (epipoles or {}).get(m), row_step, form)
-        for i, m in enumerate(active_models)])       # (n, nsy, nsx, 2)
-    idx_sb = _up(model_idx.to(torch.int64), block_size // SUBBLK)
-    if row_step > 1:
-        idx_sb = idx_sb[::row_step]
-    idx = idx_sb[None, :, :, None].expand(1, -1, -1, 2)
-    return torch.gather(pos_all, 0, idx)[0]
+    return _positions(reproj, active_models, model_idx[None],
+                      mvs_stack[None], block_size, row_step, 1, form,
+                      epipoles)[0]
 
 
 def predict_from_positions(positions: torch.Tensor, ref_y, ref_u, ref_v,
@@ -440,10 +465,8 @@ def _make_eval_multi_uncached(reproj: MVReprojection, model_id: int,
         # row band, sampled at the block-center's reprojected displacement
         # with the exact 8-tap filter — one patch per (candidate, BLOCK)
         bands = _block_bands(orig, s)
-        pos_k = torch.stack([
-            reproj.reproject_block_centers(model_id, mv_cands[k], s,
-                                           epipole)
-            for k in range(mv_cands.shape[0])])
+        pos_k = _centers(reproj, [model_id], None, mv_cands[:, None], s,
+                         {model_id: epipole})
         sads = mm_mc.sad_block_positions(ref_padded, bands, pos_k,
                                          MC_MARGIN, s, bit_depth)
         return sads * (s // 4)            # scale to full-block SAD range
@@ -460,11 +483,17 @@ def _merged_center_positions(reproj: MVReprojection,
                              ) -> torch.Tensor:
     """Block-translational analog of merged_positions: per-block center
     reprojection of each model, selected by idx_f -> (nby, nbx, 2)."""
-    pos_all = torch.stack([
-        reproj.reproject_block_centers(m, stack_f[i], s,
-                                       (epipoles or {}).get(m))
-        for i, m in enumerate(active_models)])
-    return _take0(pos_all, idx_f)
+    return _fields_centers(reproj, active_models, s, epipoles,
+                           [(idx_f, stack_f)])[0]
+
+
+def _fields_centers(reproj: MVReprojection, active_models: list[int],
+                    s: int, epipoles: dict | None, fields) -> torch.Tensor:
+    """_merged_center_positions of K (idx_f, stack_f) fields in one call:
+    (K, nby, nbx, 2)."""
+    return _centers(reproj, active_models,
+                    torch.stack([i for i, _ in fields]),
+                    torch.stack([st for _, st in fields]), s, epipoles)
 
 
 def _sad_fields_block(reproj: MVReprojection, active_models: list[int],
@@ -473,9 +502,7 @@ def _sad_fields_block(reproj: MVReprojection, active_models: list[int],
                       ) -> torch.Tensor:
     """Block-translational field SADs: ONE kernel launch for all
     (idx_f, stack_f) fields; scaled to full-block SAD range."""
-    pos_k = torch.stack([
-        _merged_center_positions(reproj, active_models, s, epipoles, i, st)
-        for i, st in fields])
+    pos_k = _fields_centers(reproj, active_models, s, epipoles, fields)
     return mm_mc.sad_block_positions(ref_padded, orig_bands, pos_k,
                                      MC_MARGIN, s, bit_depth) * (s // 4)
 
@@ -499,19 +526,11 @@ def _make_eval_subblock(reproj: MVReprojection, model_id: int,
 
     def eval_cands(orig, ref_padded, mv_cands):
         orig_sub = _subsample_rows(orig, row_step, col_step).contiguous()
-
-        def one_pos(mvs):
-            if model_id == M.CLASSIC:
-                pos = mm_mc.classic_positions(reproj.width, reproj.height,
-                                              mvs, block_size, row_step)
-            else:
-                pos = reproj.reproject_frame(model_id, mvs, block_size,
-                                             epipole, row_step)
-            if col_step > 1:
-                pos = pos[:, ::col_step]
-            return pos
-        pos_k = torch.stack([one_pos(mv_cands[k])
-                             for k in range(mv_cands.shape[0])])
+        # every candidate's positions op by op (the JAX package's form
+        # outside the merged jit), CLASSIC by its integer formula
+        pos_k = _positions(reproj, [model_id], None, mv_cands[:, None],
+                           block_size, row_step, col_step, None,
+                           {model_id: epipole})
         return _sad_fields_bilin(ref_padded, orig_sub, pos_k, block_size,
                                  row_step, col_step, exact=True,
                                  bit_depth=bit_depth)
@@ -639,11 +658,10 @@ def _field_sads(reproj, active_models, refp, orig_y, s, epipoles, fields,
                                  fields, bit_depth)
     row_step = SAD_ROW_STEP if s // 4 >= SAD_ROW_STEP else 1
     oy_sub = _subsample_rows(orig_y, row_step).contiguous()
-    pos_fields = [merged_positions(reproj, active_models, i, st, s,
+    pos_fields = _fields_positions(reproj, active_models, fields, s,
                                    epipoles, row_step, "search")
-                  for i, st in fields]
-    return _sad_fields_bilin(refp, oy_sub, torch.stack(pos_fields), s,
-                             row_step, exact=True, bit_depth=bit_depth)
+    return _sad_fields_bilin(refp, oy_sub, pos_fields, s, row_step,
+                             exact=True, bit_depth=bit_depth)
 
 
 def search_p_mm_merge(reproj: MVReprojection, active_models: list[int],
@@ -836,9 +854,7 @@ def search_b_mm_merge(reproj: MVReprojection, active_models: list[int],
 
         def list_bands(rp, eps, idx_f, stack_f):
             fields = [(idx_f, stack_f)] + shifted_fields(idx_f, stack_f)
-            pos = torch.stack([
-                _merged_center_positions(reproj, active_models, s, eps, i,
-                                         st) for i, st in fields])
+            pos = _fields_centers(reproj, active_models, s, eps, fields)
             return mm_mc.mc_block_positions(rp, pos, MC_MARGIN, s,
                                             bit_depth)
 
@@ -855,10 +871,10 @@ def search_b_mm_merge(reproj: MVReprojection, active_models: list[int],
 
         def list_preds(rp, eps, idx_f, stack_f):
             fields = [(idx_f, stack_f)] + shifted_fields(idx_f, stack_f)
-            return [mm_mc.mc_luma_positions(
-                rp, merged_positions(reproj, active_models, i, st, s, eps,
-                                     row_step), MC_MARGIN, bit_depth)
-                for i, st in fields]
+            pos = _fields_positions(reproj, active_models, fields, s, eps,
+                                    row_step, "merged")
+            return [mm_mc.mc_luma_positions(rp, p, MC_MARGIN, bit_depth)
+                    for p in pos]
 
         preds0 = list_preds(r0p, epipoles0, idx0, stack0)
         preds1 = list_preds(r1p, epipoles1, idx1, stack1)

@@ -6,12 +6,14 @@ grid with offset MMOffset4x4; reprojectMotionVectorSubblocks:81 absolute
 target positions; NaN -> identity :158-161; round to 1/16 pel :170-173).
 
 Every subblock of a frame is reprojected in one elementwise pass per
-(model, MV field).  The math is float32 with the JAX package's operation
-order; `torch.round` rounds half to even like `jnp.round`.  The positions
-are normative, but torch's (and CUDA's) sin/atan2/asin round differently
-from XLA's in the last ulp, so a position that lies within a few ulp of a
-1/16-pel boundary may come out one unit apart (tests/test_torch_
-reprojection.py bounds how many).
+(model, MV field).  The math is float32 in the JAX package's operation
+order and compiled form, with glibc's float32 functions copied
+(common/libm_f32.py); `torch.round` rounds half to even like `jnp.round`,
+so the normative positions equal the JAX package's.  `positions` and
+`centers` take K fields at once and are the one way in: MPA and ROT (with
+CLASSIC) go through the sphere kernel (ops/sphere_kernel.py), one launch
+on the card, and the float32 chain here (_frame_chain, _centers_chain)
+on the CPU.
 
 Chroma (4:2:0) reuses the same integers at 1/32 chroma pel
 (round(x/2*32) == round(x*16)).
@@ -24,7 +26,11 @@ import numpy as np
 import torch
 
 from . import models
+from .mc import classic_positions
+from .. import libm_f32
 from ...device import resolve_device
+from ...lib360.projection import PI, Perspective, recip32
+from ...ops import sphere_kernel as sk
 from ..typedefs import MotionModelID as M
 
 SUBBLK = 4       # luma subblock size (reference: MVReprojection 4x4)
@@ -34,9 +40,22 @@ _GED = (M.GEODESIC_CAMPOSE, M.GEODESIC_AXIS_X, M.GEODESIC_AXIS_Y,
         M.GEODESIC_AXIS_Z)
 
 
+# When a dict, each launch of the sphere kernel keeps its call's arguments
+# in it, keyed by (kernel, form, model count, output shape): a timing run
+# replays the encoder's own calls.
+CAPTURED: dict | None = None
+
+
 def offset4x4_value(code: int) -> float:
     """reference: MVReprojection.cpp:10 — code 4 means 1.5."""
     return 1.5 if code == 4 else float(code)
+
+
+def _up_rows(idx: torch.Tensor, rep: int, row_step: int, col_step: int
+             ) -> torch.Tensor:
+    """A per-block grid at the kept subblocks."""
+    up = idx.repeat_interleave(rep, 0).repeat_interleave(rep, 1)
+    return up[::row_step, ::col_step]
 
 
 class MVReprojection:
@@ -64,6 +83,7 @@ class MVReprojection:
         self._mpa_cache: dict[int, tuple] = {}
         self._grid_sphere: tuple | None = None
         self._ged_rot: dict[tuple, torch.Tensor] = {}
+        self._templates: dict[tuple, tuple] = {}
 
     # -- caches ------------------------------------------------------------
     def mpa_cache(self, plane: int):
@@ -133,7 +153,8 @@ class MVReprojection:
                         block_size: int, epipole=None,
                         row_step: int = 1, form: str | None = None
                         ) -> torch.Tensor:
-        """Model every subblock of the frame under `model_id`.
+        """Model every subblock of the frame under `model_id`: `positions`
+        of one field.
 
         Args:
           mvs: (nby, nbx, 2) int 1/16-pel motion vectors.
@@ -149,6 +170,15 @@ class MVReprojection:
           (nsy, nsx, 2) int32 absolute subblock target positions, 1/16-pel
           luma fixed point.
         """
+        mvs = torch.as_tensor(mvs, device=self.device)
+        return self.positions([model_id], None, mvs[None, None], block_size,
+                              row_step, 1, form, {model_id: epipole})[0]
+
+    def _frame_chain(self, model_id: int, mvs: torch.Tensor,
+                     block_size: int, epipole=None, row_step: int = 1,
+                     form: str | None = None) -> torch.Tensor:
+        """reproject_frame by the float32 chain, with its arguments and
+        result (for MPA and ROT the sphere kernel's plain version)."""
         mvs = mvs.to(self.device)
         mv_x, mv_y, c_x, c_y = self._subblock_mv_center(mvs, block_size,
                                                         row_step)
@@ -181,7 +211,16 @@ class MVReprojection:
         Decision-only (ranks search candidates); normative paths use the
         full per-subblock reprojection (reproject_frame).
 
-        mvs (nby, nbx, 2) int 1/16-pel -> (nby, nbx, 2) int32 positions."""
+        mvs (nby, nbx, 2) int 1/16-pel -> (nby, nbx, 2) int32 positions:
+        `centers` of one field."""
+        mvs = torch.as_tensor(mvs, device=self.device)
+        return self.centers([model_id], None, mvs[None, None], block_size,
+                            {model_id: epipole})[0]
+
+    def _centers_chain(self, model_id: int, mvs: torch.Tensor,
+                       block_size: int, epipole=None) -> torch.Tensor:
+        """reproject_block_centers by the float32 chain (for CLASSIC, MPA
+        and ROT the sphere kernel's plain version)."""
         mvs = mvs.to(self.device)
         nby, nbx = mvs.shape[:2]
         s = block_size
@@ -201,6 +240,229 @@ class MVReprojection:
         fx = torch.round((ox - half) * 16.0).to(torch.int32)
         fy = torch.round((oy - half) * 16.0).to(torch.int32)
         return torch.stack([fx, fy], dim=-1)
+
+    # -- K fields at once: the sphere kernel on the card -------------------
+    def positions(self, model_ids: list[int], model_idx, mvs,
+                  block_size: int, row_step: int = 1, col_step: int = 1,
+                  form: str | None = "merged", epipoles: dict | None = None
+                  ) -> torch.Tensor:
+        """Per-subblock positions of K fields, merged by model: model_idx
+        (K, nby, nbx) indexes `model_ids` per block, or None (slot 0
+        throughout); mvs (K, n_models, nby, nbx, 2) 1/16-pel MVs; every
+        row_step-th subblock row and col_step-th column is kept; form as
+        reproject_frame's; epipoles {model: epipole} for GED.  Returns
+        (K, ny, nx, 2) int32 1/16-pel positions.
+
+        On the card CLASSIC, MPA and ROT take one launch of the sphere
+        kernel, after the chain has filled the other models' positions;
+        on the CPU `positions_plain`."""
+        model_idx, mvs = self._fields(model_idx, mvs)
+        nsy, nsx, rep = self._grid_dims(mvs, block_size)
+        used = model_ids[:1] if model_idx is None else model_ids
+        if mvs.device.type != "cuda" or not any(m in sk.KERNEL_MODELS
+                                                for m in used):
+            return self.positions_plain(model_ids, model_idx, mvs,
+                                        block_size, row_step, col_step, form,
+                                        epipoles)
+        k = mvs.shape[0]
+        out = torch.empty((k, len(range(0, nsy, row_step)),
+                           len(range(0, nsx, col_step)), 2),
+                          dtype=torch.int32, device=mvs.device)
+        for i, m in enumerate(used):
+            if m in sk.KERNEL_MODELS:
+                continue
+            for f in range(k):          # a chain model first, the kernel after
+                pos = self._model_positions(m, mvs[f, i], block_size,
+                                            epipoles, row_step,
+                                            form)[:, ::col_step]
+                if model_idx is None:
+                    out[f] = pos
+                else:
+                    mine = _up_rows(model_idx[f], rep, row_step,
+                                    col_step) == i
+                    out[f] = torch.where(mine[..., None], pos, out[f])
+        sk.launch("sphere_positions",
+                  self._template("sphere_positions", model_ids, form,
+                                 block_size),
+                  model_idx, mvs, out, row_step, col_step)
+        if CAPTURED is not None:
+            CAPTURED[("sphere_positions", form, len(model_ids),
+                      tuple(out.shape))] = dict(
+                reproj=self, models=list(model_ids), model_idx=model_idx,
+                mvs=mvs, block_size=block_size, row_step=row_step,
+                col_step=col_step, form=form)
+        return out
+
+    def centers(self, model_ids: list[int], model_idx, mvs,
+                block_size: int, epipoles: dict | None = None
+                ) -> torch.Tensor:
+        """Block-centre positions of K fields, merged by model (arguments
+        as `positions`'): (K, nby, nbx, 2) int32; on the card one launch of
+        the sphere kernel for CLASSIC, MPA and ROT, on the CPU
+        `centers_plain`."""
+        model_idx, mvs = self._fields(model_idx, mvs)
+        used = model_ids[:1] if model_idx is None else model_ids
+        if mvs.device.type != "cuda" or not any(m in sk.KERNEL_MODELS
+                                                for m in used):
+            return self.centers_plain(model_ids, model_idx, mvs, block_size,
+                                      epipoles)
+        k, _, nby, nbx = mvs.shape[:4]
+        out = torch.empty((k, nby, nbx, 2), dtype=torch.int32,
+                          device=mvs.device)
+        for i, m in enumerate(used):
+            if m in sk.KERNEL_MODELS:
+                continue
+            for f in range(k):
+                pos = self._centers_chain(m, mvs[f, i], block_size,
+                                          (epipoles or {}).get(m))
+                out[f] = pos if model_idx is None else torch.where(
+                    (model_idx[f] == i)[..., None], pos, out[f])
+        sk.launch("sphere_centers",
+                  self._template("sphere_centers", model_ids, None,
+                                 block_size),
+                  model_idx, mvs, out)
+        if CAPTURED is not None:
+            CAPTURED[("sphere_centers", None, len(model_ids),
+                      tuple(out.shape))] = dict(
+                reproj=self, models=list(model_ids), model_idx=model_idx,
+                mvs=mvs, block_size=block_size, row_step=1, col_step=1,
+                form=None)
+        return out
+
+    def positions_plain(self, model_ids: list[int], model_idx, mvs,
+                        block_size: int, row_step: int = 1,
+                        col_step: int = 1, form: str | None = "merged",
+                        epipoles: dict | None = None) -> torch.Tensor:
+        """`positions` by the float32 chain (the sphere kernel's plain
+        version): for each field every model's positions, merged by the
+        model index."""
+        model_idx, mvs = self._fields(model_idx, mvs)
+        _, _, rep = self._grid_dims(mvs, block_size)
+        out = []
+        for k in range(mvs.shape[0]):
+            if model_idx is None:
+                pos = self._model_positions(model_ids[0], mvs[k, 0],
+                                            block_size, epipoles, row_step,
+                                            form)
+            else:
+                pos_all = torch.stack([
+                    self._model_positions(m, mvs[k, i], block_size,
+                                          epipoles, row_step, form)
+                    for i, m in enumerate(model_ids)])
+                idx = _up_rows(model_idx[k].to(torch.int64), rep, row_step,
+                               1)
+                pos = torch.gather(pos_all, 0, idx[None, :, :, None].expand(
+                    1, -1, -1, 2))[0]
+            out.append(pos[:, ::col_step])
+        return torch.stack(out)
+
+    def centers_plain(self, model_ids: list[int], model_idx, mvs,
+                      block_size: int, epipoles: dict | None = None
+                      ) -> torch.Tensor:
+        """`centers` by the float32 chain (the sphere kernel's plain
+        version)."""
+        model_idx, mvs = self._fields(model_idx, mvs)
+        eps = epipoles or {}
+        out = []
+        for k in range(mvs.shape[0]):
+            if model_idx is None:
+                out.append(self._centers_chain(model_ids[0], mvs[k, 0],
+                                               block_size,
+                                               eps.get(model_ids[0])))
+                continue
+            pos_all = torch.stack([
+                self._centers_chain(m, mvs[k, i], block_size, eps.get(m))
+                for i, m in enumerate(model_ids)])
+            idx = model_idx[k].to(torch.int64)[None, :, :, None]
+            out.append(torch.gather(pos_all, 0, idx.expand(1, -1, -1, 2))[0])
+        return torch.stack(out)
+
+    def launch_constants(self, block_size: int) -> dict[str, float]:
+        """The sphere kernel's constants for `block_size`: each the float32
+        that the plain chain's Python scalar rounds to."""
+        proj = self.proj
+        f32 = np.float32
+        vals = dict(
+            offset=self.offset, po=proj.pixel_offset, width=proj.width,
+            height=proj.height, pi=PI, two_pi=2.0 * PI, half_pi=PI / 2,
+            angle_res=self.angle_res, focal=proj.focal,
+            focal_recip=recip32(proj.focal), neg_recip_2pi=-recip32(2.0 * PI),
+            y_scale=f32(recip32(PI)) * f32(proj.height),
+            persp_c=Perspective(proj.focal).cx, half=(block_size - 1) / 2.0)
+        return {n: float(f32(vals[n])) for n in sk.CONST_NAMES}
+
+    def launch_args(self, model_ids: list[int], form: str | None,
+                    block_size: int, centers: bool = False) -> dict:
+        """What a launch of the sphere kernel reads besides the fields,
+        built without a card: the model codes (sk.SKIP for a model the
+        kernel leaves to the chain), each slot's grid constants (the MPA
+        perspective cache; for ROT's merged form the folded grid points;
+        none for the block centres), the rsqrt table and the constants."""
+        codes, grids = [], []
+        for m in model_ids:
+            codes.append(int(m) if m in sk.KERNEL_MODELS else sk.SKIP)
+            if centers:
+                grids.append(None)
+            elif m in _MPA:
+                grids.append(tuple(t.contiguous()
+                                   for t in self.mpa_cache(m)))
+            elif m == M.ROTATIONAL and form == "merged":
+                grids.append(tuple(t.contiguous()
+                                   for t in self.grid_sphere()))
+            else:
+                grids.append(None)
+        return dict(codes=codes, grids=grids, form=form,
+                    rsqrt_tab=libm_f32._rsqrt_table(self.device),
+                    consts=self.launch_constants(block_size))
+
+    def _template(self, name: str, model_ids, form, block_size: int):
+        """A launch's template (sk.template), built once a (kernel, models,
+        form, block size) and kept with the tensors it points into."""
+        key = (name, tuple(int(m) for m in model_ids), form, block_size)
+        hit = self._templates.get(key)
+        if hit is None:
+            a = self.launch_args(model_ids, form, block_size,
+                                 centers=name == "sphere_centers")
+            hit = self._templates[key] = (sk.template(
+                a["codes"], a["grids"], a["rsqrt_tab"], a["consts"],
+                block_size, self.width // SUBBLK, form), a)
+        return hit[0]
+
+    def _fields(self, model_idx, mvs):
+        mvs = torch.as_tensor(mvs, device=self.device)
+        if mvs.dim() != 5 or mvs.shape[-1] != 2:
+            raise ValueError(f"mvs of shape {tuple(mvs.shape)}: expected (K, "
+                             "n_models, nby, nbx, 2)")
+        if model_idx is not None:
+            model_idx = torch.as_tensor(model_idx, device=self.device)
+            if tuple(model_idx.shape) != tuple(mvs.shape[:1]
+                                               + mvs.shape[2:4]):
+                raise ValueError(f"model_idx of shape "
+                                 f"{tuple(model_idx.shape)} for mvs of shape "
+                                 f"{tuple(mvs.shape)}")
+        return model_idx, mvs
+
+    def _grid_dims(self, mvs: torch.Tensor, block_size: int) -> tuple:
+        nsy, nsx = self.height // SUBBLK, self.width // SUBBLK
+        rep = block_size // SUBBLK
+        nby, nbx = mvs.shape[-3:-1]
+        if (nby * rep, nbx * rep) != (nsy, nsx):
+            raise ValueError(f"a ({nby}, {nbx}) field of {block_size}-blocks "
+                             f"does not cover the ({nsy}, {nsx}) subblocks")
+        return nsy, nsx, rep
+
+    def _model_positions(self, model_id: int, mvs: torch.Tensor,
+                         block_size: int, epipoles: dict | None,
+                         row_step: int, form: str | None) -> torch.Tensor:
+        """One model's positions of one (nby, nbx, 2) field on every
+        subblock column, by the float32 chain (CLASSIC by its integer
+        formula)."""
+        if model_id == M.CLASSIC:
+            return classic_positions(self.width, self.height, mvs,
+                                     block_size, row_step)
+        return self._frame_chain(model_id, mvs, block_size,
+                                 (epipoles or {}).get(model_id), row_step,
+                                 form)
 
     def mv_in_desired_model(self, pos_xy, mv_orig_16th, model_orig: int,
                             model_desired: int, center_cand_xy,

@@ -20,9 +20,10 @@ BUILD = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-# flags of one source only: libm_f32.cu must round every multiply and add
-# on its own unless it asks for an fma()
-SOURCE_FLAGS = {"libm_f32": ["-fmad=false"]}
+# flags of one source only: the sources that include libm_f32.cuh must
+# round every multiply and add on its own unless they ask for an fma()
+SOURCE_FLAGS = {"libm_f32": ["-fmad=false"],
+                "sphere_positions": ["-fmad=false"]}
 
 _libs: dict[str, ctypes.CDLL] = {}
 
