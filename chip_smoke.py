@@ -48,10 +48,12 @@ Phases (any failure exits non-zero and prints no result line):
      the configuration of the committed stream (parameter sets, I picture,
      POC 4 (P), 2, 1, 3 (B), hash SEIs), counting launches (K1-K4 must be
      launched); DecLib() on the card decodes the port's stream: every MD5
-     must match; per picture the Y-PSNR may lie at most 0.1 dB below and
-     the bits at most 2% above the recorded JAX encoder's; the IDR NAL is
-     compared with the committed stream's; a second encode with the stage
-     timers on (the same bytes) prints the stage shares per picture;
+     must match; per picture the bits and Y/U/V-PSNR are printed beside
+     the recorded JAX encoder's, and the whole stream must be the
+     committed one byte for byte (hold_bytes: both SHA-256s, or the first
+     differing NAL and byte; ROADMAP queue 3 fault 4); a second encode
+     with the stage timers on (the same bytes) prints the stage shares
+     per picture;
   7. the same at 256x128 on the card: the path that launches K5 (and K1 in
      the B decision); every MD5 must match; a second encode with the
      stage timers on prints the stage shares per picture, a third under
@@ -77,17 +79,18 @@ Phases (any failure exits non-zero and prints no result line):
   8b. bench configurations 3 (MPA, flat grid) and 4 (MPA+GED+ROT+MMMVP
      with the signalled epipole (1, 0, 0, 0, 1), flat grid) of bench.py,
      5 frames at GOP 4: at 2048x1024 through encode_sequence on the card,
-     held to the committed JAX stream's sidecar (per picture Y-PSNR at most
-     0.1 dB below, bits at most 2% above) and its IDR NAL byte for byte,
-     K1-K4 launched; the port's stream decoded on the card (every MD5 OK);
+     per picture beside the committed JAX stream's sidecar and held to
+     the committed stream byte for byte (hold_bytes), K1-K4 launched;
+     the port's stream decoded on the card (every MD5 OK);
      seconds and frames per second printed, configuration 4's device
      operations per picture (a traced encode); the committed stream
      decoded on the card (every MD5 OK, every Y-PSNR within 0.1 dB of the
      sidecar) and its positions against the CPU's (epipoles through the
      positions hook; the CPU decode from the card's positions runs in 5
-     and 8e, whose models cover these).  At 256x128 (configurations 3, 4 and 4 with the
-     off-pole epipole (4, 0, 0.3, -0.5, 0.8)) the card's stream must equal
-     the port's CPU encode and the committed JAX stream byte for byte;
+     and 8e, whose models cover these).  At 256x128 (configurations 3, 4
+     and 4 with the off-pole epipole (4, 0, 0.3, -0.5, 0.8)) the card's
+     stream must equal the committed JAX stream byte for byte (which the
+     CPU tests hold the port's CPU encode to);
   8c. bench configuration 2 (`ra832x480_qp37_encode_fps`: 832x480, RA,
      GOP 16, 17 frames, the classic single-model inter path, no 360 tool):
      encode_sequence on the card, held to the committed JAX stream
@@ -106,8 +109,8 @@ Phases (any failure exits non-zero and prints no result line):
   8e. bench configuration 4 plus the last two motion models and projected
      DMVR (`erp2048x1024_ra_qp37_allmm_dmvr`: MPA+3DT+TAN+ROT+GED+MMMVP,
      8 active models, epipole (1, 0, 0, 0, 1), dmvr on), 5 frames at GOP
-     4, 2048x1024: held to the committed JAX stream's sidecar and IDR NAL
-     as in 8b, the port's stream decoded on the card (every MD5 OK), K1
+     4, 2048x1024: held to the committed JAX stream byte for byte as in
+     8b, the port's stream decoded on the card (every MD5 OK), K1
      launched by projected DMVR's bilateral costs (one row of the
      subblocks of a model pair's bi blocks) and held to its plain version
      on the largest of them (tolerance 0);
@@ -164,6 +167,22 @@ Phases (any failure exits non-zero and prints no result line):
      CTC-like preset with them, its IDR NAL's SHA-256 against the JAX
      encoder's sidecar; for both sizes the I picture's seconds, device
      operations and idle share (a traced encode);
+  8o. the classic quadtree (`inter_block_size=32, qt_depth=2`) on
+     configuration 2's clip at 832x480, RA, GOP 4, 5 frames: byte for
+     byte against `ra832x480_qt2_qp37_5f`, the port's and the committed
+     stream decoded on the card with every MD5 OK; per picture kind the
+     seconds, and (a traced encode, the first picture of each kind) the
+     device operations and idle share; the phase's wall seconds; no
+     kernel launched;
+  8p. the same with the multi-type tree (`mtt=True`) against
+     `ra832x480_mtt_qp37_5f`;
+  8q. the two-level intra partitioning (`intra_split=True`): bench
+     configuration 1 against `ai416x240_intra_split_qp37_2f` as in 8o,
+     then one 2048x1024 I picture of the headline configuration with it,
+     its IDR NAL's SHA-256 against the JAX sidecar's and its seconds.
+     Where a committed stream is the port's byte for byte (every phase
+     from 8c on but 8i's possible difference), its decode is the port's
+     stream's (check_run) and is not repeated;
   9. decision SADs (K6's path): frame_codec._sad_fields_bilin with
      exact=False and exact=True on the tensors captured from the 256x128
      encodes' diamond steps and on one full 2048x1024 grid: the bilinear
@@ -252,6 +271,14 @@ SCALING = "ldp832x480_scaling_qp37_9f"
 PRED_TOOLS = dict(cclm=True, mip=True, mrl=True, ibc=True)
 CONFIG1_PRED = "ai416x240_intra_pred_dq_qp37_2f"
 PRESET_I_PRED = "erp2048x1024_ai_ctcpreset_predtools_qp37"
+# the partitioning phases 8o-8q: the classic quadtree and its multi-type
+# tree on configuration 2's clip, the two-level intra partitioning on
+# configuration 1, and the sidecar of one 2048x1024 headline I picture
+# with it
+PART_QT = "ra832x480_qt2_qp37_5f"
+PART_MTT = "ra832x480_mtt_qp37_5f"
+PART_INTRA = "ai416x240_intra_split_qp37_2f"
+PART_INTRA_BIG = "erp2048x1024_ai_intra_split_qp37"
 # 256x128 committed multi-model streams decoded in phase 4
 SMALL_MM = ("erp256x128_ra_mpa_qp37_5f", "erp256x128_ra_ctcpreset_qp37_5f",
             "erp256x128_ra_fullmm_qp37_5f", "erp256x128_ra_fullmm_ep_qp37_5f",
@@ -1135,6 +1162,19 @@ def first_difference(a: bytes, b: bytes) -> int | None:
     return min(len(a), len(b))
 
 
+def hold_bytes(label: str, got: bytes, want: bytes, stream: str) -> None:
+    """The card's stream must be the committed JAX stream byte for byte:
+    both SHA-256s, and on a difference the first differing NAL and byte
+    (compare_nals), then fail."""
+    g, w = (hashlib.sha256(x).hexdigest() for x in (got, want))
+    print(f"{label}: SHA-256 {g}, the committed {stream}'s {w}: "
+          f"{'equal' if g == w else 'DIFFERENT'}")
+    if g != w:
+        compare_nals(label, got, want)
+        fail(f"{label}: the card's stream differs from the JAX encoder's "
+             f"{stream}")
+
+
 def compare_nals(label: str, got: bytes, want: bytes, only=None) -> bool:
     """Print, NAL by NAL, whether the port's stream equals the committed
     (JAX-encoded) one; `only` limits the comparison to one NAL type."""
@@ -1437,6 +1477,15 @@ def main() -> None:
         fail(f"positions differ between the card and the CPU: "
              f"{POSITION_FAULTS}")
 
+    # ---- 8o-8q. block partitioning: quadtree, MTT, two-level intra
+    phase("8o. the classic quadtree (832x480, RA, GOP 4)")
+    partition_path("quadtree 832x480 GOP 4", PART_QT, path_launches)
+    phase("8p. the multi-type tree (832x480, RA, GOP 4)")
+    partition_path("MTT 832x480 GOP 4", PART_MTT, path_launches)
+    phase("8q. two-level intra partitioning (416x240, 2048x1024)")
+    partition_path("intra split 416x240 AI", PART_INTRA, path_launches)
+    intra_split_picture(path_launches)
+
     # ---- 9. decision SADs through K6 (and K5 beside it)
     phase("9. decision SADs")
     positions = card_positions[-1].to(torch.int32).contiguous()
@@ -1492,7 +1541,7 @@ def sequences_against_record(path_launches: dict, small_positions_off: int
                 fail(f"{label}: another encode gave other bytes")
         print_stages(again[0])
         if big:
-            compare_nals(label, run["data"], committed, only=bs.NAL_IDR)
+            hold_bytes(label, run["data"], committed, stream)
         else:
             print_device_work(again[1], run)
             if not compare_nals(label, run["data"], committed) \
@@ -1579,8 +1628,7 @@ def bench_configurations(path_launches: dict) -> None:
             if traced["data"] != run["data"]:
                 fail(f"{label}: another encode gave other bytes")
             print_device_work(traced, run)
-        if not compare_nals(label, run["data"], committed, only=bs.NAL_IDR):
-            fail(f"{label}: the IDR NAL differs from the JAX encoder's")
+        hold_bytes(label, run["data"], committed, stream)
         # the CPU decode from the card's positions runs on phase 5's
         # stream (MPA and ROT) and phase 8e's (every model), a superset
         decode_committed(label, stream, sd, committed, clip,
@@ -1595,13 +1643,9 @@ def bench_configurations(path_launches: dict) -> None:
                         "sad_luma_positions"),
                   {p["poc"]: p for p in sd["pocs"]})
         compare_positions(committed, sd["width"], sd["height"])
-        cpu = EncLib(cfg, device="cpu").encode_sequence(clip)
-        same = run["data"] == cpu
-        print(f"{label}: the card's stream equals the port's CPU encode "
-              f"byte for byte: {same}")
-        if not same:
-            fail(f"{label}: the card's stream differs from the port's CPU "
-                 "encode")
+        # the port's CPU encode is held to the same committed stream by
+        # tests/test_torch_sequence.py, so card == committed implies
+        # card == CPU: no CPU encode here (the smoke's time limit)
         if not compare_nals(label, run["data"], committed):
             fail(f"{label}: the card's stream differs from the JAX "
                  "encoder's")
@@ -1630,7 +1674,8 @@ def bench_configuration_2(path_launches: dict) -> None:
     print_stages(staged)
     if not compare_nals(label, first["data"], committed):
         fail(f"{label}: the card's stream differs from the JAX encoder's")
-    decode_all_ok(label, CONFIG2, committed, sd["frames"])
+    decode_all_ok(label, CONFIG2, committed, sd["frames"],
+                  first["data"])
 
 
 def check_classic_sidecar(stream: str, sd: dict, cfg: EncCfg,
@@ -1645,8 +1690,15 @@ def check_classic_sidecar(stream: str, sd: dict, cfg: EncCfg,
         fail(f"{stream}: the sidecar names another configuration")
 
 
-def decode_all_ok(label: str, stream: str, data: bytes, n: int) -> None:
-    """A committed stream decoded on the card: every MD5 OK."""
+def decode_all_ok(label: str, stream: str, data: bytes, n: int,
+                  own: bytes) -> None:
+    """A committed stream decoded on the card: every MD5 OK.  Where it is
+    the port's stream `own` byte for byte, check_run has decoded these
+    very bytes already, and the second decode is not repeated."""
+    if data == own:
+        print(f"{label}: committed {stream} is the port's stream byte for "
+              "byte: decoded on the card above with every MD5 OK")
+        return
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dec = DecLib()
@@ -1705,8 +1757,7 @@ def allmm_dmvr_path(path_launches: dict, max_err: dict) -> dict:
     if traced["data"] != run["data"]:
         fail(f"{label}: another encode gave other bytes")
     print_device_work(traced, run)
-    if not compare_nals(label, run["data"], committed, only=bs.NAL_IDR):
-        fail(f"{label}: the IDR NAL differs from the JAX encoder's")
+    hold_bytes(label, run["data"], committed, ALLMM)
     decode_committed(label, ALLMM, sd, committed, clip)
     return case
 
@@ -1735,7 +1786,8 @@ def bench_configuration_2_tools(path_launches: dict) -> None:
     print_device_work(traced, run)
     if not compare_nals(label, run["data"], committed):
         fail(f"{label}: the card's stream differs from the JAX encoder's")
-    decode_all_ok(label, CONFIG2_TOOLS, committed, sd["frames"])
+    decode_all_ok(label, CONFIG2_TOOLS, committed, sd["frames"],
+                  run["data"])
 
 
 # path -> (EncCfg fields beside configuration 2's, fade step of the clip)
@@ -1812,7 +1864,8 @@ def tools_path(label: str, stream: str, path_launches: dict) -> None:
               f"GPM and CIIP off on those B slices): {tables}")
     if not compare_nals(label, run["data"], committed):
         fail(f"{label}: the card's stream differs from the JAX encoder's")
-    decode_all_ok(label, stream, committed, sd["frames"])
+    decode_all_ok(label, stream, committed, sd["frames"],
+                  run["data"])
 
 
 def affine_parameters(data: bytes) -> list[tuple]:
@@ -1888,7 +1941,8 @@ def affine_path(path_launches: dict, max_err: dict) -> dict:
     if not same and not compare_nals(label, run["data"], committed,
                                      only=bs.NAL_IDR):
         fail(f"{label}: the IDR NAL differs from the JAX encoder's")
-    decode_all_ok(label, PATH_D, committed, sd["frames"])
+    decode_all_ok(label, PATH_D, committed, sd["frames"],
+                  run["data"])
     return cases
 
 
@@ -2022,7 +2076,8 @@ def intra_tools_path(path_launches: dict) -> None:
         if not compare_nals(label, run["data"], committed):
             fail(f"{label}: the card's stream differs from the JAX "
                  "encoder's")
-        decode_all_ok(label, stream, committed, sd["frames"])
+        decode_all_ok(label, stream, committed, sd["frames"],
+                      run["data"])
 
 
 def lossless_run(run: dict, clip: list) -> None:
@@ -2073,7 +2128,8 @@ def scaling_path(path_launches: dict) -> None:
              f"{run['launches']}")
     if not compare_nals(label, run["data"], committed):
         fail(f"{label}: the card's stream differs from the JAX encoder's")
-    decode_all_ok(label, SCALING, committed, sd["frames"])
+    decode_all_ok(label, SCALING, committed, sd["frames"],
+                  run["data"])
 
 
 def intra_pred_path(path_launches: dict) -> None:
@@ -2097,7 +2153,8 @@ def intra_pred_path(path_launches: dict) -> None:
               {p["poc"]: p for p in sd["pocs"]})
     if not compare_nals(label, run["data"], committed):
         fail(f"{label}: the card's stream differs from the JAX encoder's")
-    decode_all_ok(label, CONFIG1_PRED, committed, sd["frames"])
+    decode_all_ok(label, CONFIG1_PRED, committed, sd["frames"],
+                  run["data"])
     print(f"{label}: blocks that chose each tool (the JAX stream's "
           f"sidecar) {sd['intra_tool_blocks']}")
     traced = encode_run(label + " (traced)", cfg, clip[:1], "trace")
@@ -2128,6 +2185,97 @@ def intra_pred_path(path_launches: dict) -> None:
     if traced["data"] != prun["data"]:
         fail(f"{plabel}: the traced encode gave other bytes")
     intra_picture_work(plabel, prun, traced)
+
+
+def partition_cfg(stream: str, sd: dict) -> EncCfg:
+    """The EncCfg of a committed partitioning stream, from its sidecar
+    (tests/make_torch_port_streams.py: every other field at its
+    default)."""
+    if sd["models"] != "CLASSIC" or sd["wrap_around"]:
+        fail(f"{stream}: the sidecar names another configuration")
+    if sd["gop"] == "AI":
+        return EncCfg(width=sd["width"], height=sd["height"], qp=sd["qp"],
+                      gop="AI", intra_split=sd["intra_split"])
+    return EncCfg(width=sd["width"], height=sd["height"], qp=sd["qp"],
+                  gop=sd["gop"], gop_size=sd["gop_size"],
+                  search_range=sd["search_range"], merge=sd["merge"],
+                  inter_block_size=sd["inter_block_size"],
+                  qt_depth=sd["qt_depth"], mtt=sd["mtt"])
+
+
+def no_kernel(label: str, launches: dict) -> None:
+    """The partitioning paths run plain torch operations: no kernel."""
+    n = {k: v for k, v in launches.items()
+         if isinstance(v, int) and v}
+    print(f"{label}: kernel launches {n or 0}")
+    if n:
+        fail(f"{label}: the partitioning path launched {n}")
+
+
+def partition_path(label: str, stream: str, path_launches: dict) -> None:
+    """Phases 8o-8q: a committed partitioning stream encoded on the card
+    byte for byte, both streams decoded on the card with every MD5 OK,
+    seconds per picture kind, a traced encode's device operations and
+    idle share (the first picture of each kind) and the phase's wall
+    seconds."""
+    t0 = time.perf_counter()
+    sd = json.load(open(os.path.join(DATA, stream + ".json")))
+    committed = open(os.path.join(DATA, stream + ".bin"), "rb").read()
+    cfg = partition_cfg(stream, sd)
+    clip = realistic_sequence(cfg.width, cfg.height, sd["frames"])
+    run = encode_run(label, cfg, clip, "plain")
+    path_launches[label] = run["launches"]
+    check_run(run, (), {p["poc"]: p for p in sd["pocs"]})
+    no_kernel(label, run["launches"])
+    hold_bytes(label, run["data"], committed, stream)
+    decode_all_ok(label, stream, committed, sd["frames"],
+                  run["data"])
+    for kind in sorted({r["kind"] for r in run["rows"]}):
+        per = [r["seconds"] for r in run["rows"] if r["kind"] == kind]
+        print(f"{label}: {kind} pictures {min(per):.3f}-{max(per):.3f} s, "
+              f"median {statistics.median(per):.3f} s over {len(per)} "
+              "(host clock)")
+    # an AI sequence's first picture is its only sampled kind
+    tclip = clip[:1] if cfg.gop == "AI" else clip
+    traced = encode_run(label + " (traced)", cfg, tclip, "trace",
+                        sample=("I", "P", "B"))
+    expect = run["data"]
+    if tclip is not clip:        # one picture: the stream's first pictures
+        expect = expect[:len(traced["data"])]
+    if traced["data"] != expect:
+        fail(f"{label}: the traced encode gave other bytes")
+    print_device_work(traced, run)
+    print(f"{label}: phase {time.perf_counter() - t0:.1f} s (host clock)")
+
+
+def intra_split_picture(path_launches: dict) -> None:
+    """Phase 8q's second half: one 2048x1024 I picture of the headline
+    configuration with the two-level intra partitioning, its IDR NAL
+    against the JAX sidecar's SHA-256, its seconds."""
+    t0 = time.perf_counter()
+    side = json.load(open(os.path.join(DATA, PART_INTRA_BIG + ".json")))
+    cfg = headline_cfg(2048, 1024, 37, 4)
+    cfg.intra_split = True
+    if (side["width"], side["height"], side["frames"], side["models"],
+            side["qt_depth"], side.get("intra_split")) != (
+                cfg.width, cfg.height, 1, "MPA+ROT", cfg.qt_depth, True):
+        fail(f"{PART_INTRA_BIG}: the sidecar names another configuration")
+    label = "intra split 2048x1024 I"
+    clip = realistic_sequence(2048, 1024, 1)
+    run = encode_run(label, cfg, clip, "plain")
+    path_launches[label] = run["launches"]
+    check_run(run, (), {p["poc"]: p for p in side["pocs"]}, hold=True)
+    idr = [n for n in bs.read_annexb(run["data"]) if n.nal_type == bs.NAL_IDR]
+    sha = hashlib.sha256(idr[0].payload).hexdigest()
+    same = sha == side["idr_sha256"]
+    print(f"{label}: IDR NAL SHA-256 {sha}, the JAX encoder's "
+          f"{side['idr_sha256']}: {'equal' if same else 'DIFFERENT'}")
+    if not same:
+        fail(f"{label}: the IDR NAL differs from the JAX encoder's")
+    # no traced encode here: 8q's 416x240 one traces the same path (the
+    # smoke's time limit)
+    print(f"{label}: I picture {run['rows'][0]['seconds']:.3f} s (host "
+          f"clock); phase {time.perf_counter() - t0:.1f} s (host clock)")
 
 
 def intra_picture_work(label: str, plain: dict, traced: dict) -> None:

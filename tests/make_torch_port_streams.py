@@ -86,15 +86,31 @@ default, `bench.realistic_sequence` content:
                             (tests/test_ibc.py's tiled glyph, seed 0), the
                             four prediction tools: IBC wins blocks;
   ai416x240_intra_pred_dq_qp37_2f   bench configuration 1 with the four
-                            prediction tools and dependent quantization.
+                            prediction tools and dependent quantization;
+  ldp96x64_qt_qp37_4f       the classic quadtree (top 32, depth 2), LDP,
+                            4 frames, merge off;
+  ra96x64_qt_qp37_5f        the same, RA, GOP 4, 5 frames, merge on;
+  ldp64x64_mtt_qp37_4f      the multi-type tree (BT/TT) on that quadtree,
+                            LDP, 4 frames, merge off;
+  ra64x64_mtt_qp37_5f       the same, RA, GOP 4, 5 frames, merge on;
+  ai64x32_intra_split_qp37_2f   AI, 2 frames, the two-level intra
+                            partitioning (16x16 or four 8x8);
+  ra832x480_qt2_qp37_5f     bench configuration 2's clip with the
+                            quadtree (`inter_block_size=32, qt_depth=2`),
+                            RA, GOP 4, 5 frames;
+  ra832x480_mtt_qp37_5f     the same with `mtt=True`;
+  ai416x240_intra_split_qp37_2f bench configuration 1 with
+                            `intra_split=True`.
 
 Each intra-prediction sidecar counts the blocks that chose MIP, MRL, CCLM
 and IBC, and the blocks whose IBC or MRL choice the transform-skip pick
 overrode (counted by the port's encoder, whose stream is checked equal).
-One more sidecar has no stream: `erp2048x1024_ai_ctcpreset_predtools_qp37`
+Two more sidecars have no stream: `erp2048x1024_ai_ctcpreset_predtools_qp37`
 (`... 2048x1024i`), one 2048x1024 I picture of the CTC-like preset with the
-four prediction tools: its bits and the SHA-256 of its IDR NAL, for the
-chip smoke run's encode on the card.
+four prediction tools, and `erp2048x1024_ai_intra_split_qp37`
+(`... 2048x1024s`), one 2048x1024 I picture of the headline configuration
+with the two-level intra partitioning: their bits and the SHA-256 of their
+IDR NAL, for the chip smoke run's encodes on the card.
 
 Each gets a JSON sidecar with every POC's MD5, the encoder's Y/U/V PSNR
 and bits, and the tools it turns on.
@@ -102,8 +118,10 @@ and bits, and the tools it turns on.
     python tests/make_torch_port_streams.py                   # all streams
     python tests/make_torch_port_streams.py 256x128           # one size
     python tests/make_torch_port_streams.py erp256x128_ra_mpa_qp37_5f
-    python tests/make_torch_port_streams.py classic           # the 24
+    python tests/make_torch_port_streams.py classic           # the 32
     python tests/make_torch_port_streams.py 2048x1024i        # sidecar
+    python tests/make_torch_port_streams.py 2048x1024s        # sidecar
+    python tests/make_torch_port_streams.py partitioning      # the 8
 
 This script imports the JAX package; pytest does not collect it (its name
 does not start with `test_`).
@@ -168,6 +186,9 @@ PRED_TOOLS = dict(cclm=True, mip=True, mrl=True, ibc=True)
 # a non-flat scaling list: heavier quantization toward high frequencies
 # (tests/test_scaling_list.py's STEEP)
 STEEP = tuple(int(16 + 2 * (x + y)) for y in range(8) for x in range(8))
+# the classic quadtree (top 32, depth 2) and its multi-type tree
+QT_TOOLS = dict(inter_block_size=32, qt_depth=2)
+MTT_TOOLS = dict(QT_TOOLS, mtt=True)
 # classic stream -> (width, height, gop, gop_size, frames, merge, tools)
 CLASSIC = {
     "ra192x96_qp37_9f": (192, 96, "RA", 4, 9, True, {}),
@@ -209,7 +230,20 @@ CLASSIC = {
     "ai64x64_ibc_screen_qp30_1f": (64, 64, "AI", 8, 1, True, PRED_TOOLS),
     "ai416x240_intra_pred_dq_qp37_2f": (416, 240, "AI", 8, 2, True,
                                         dict(PRED_TOOLS, dep_quant=True)),
+    "ldp96x64_qt_qp37_4f": (96, 64, "LDP", 4, 4, False, QT_TOOLS),
+    "ra96x64_qt_qp37_5f": (96, 64, "RA", 4, 5, True, QT_TOOLS),
+    "ldp64x64_mtt_qp37_4f": (64, 64, "LDP", 4, 4, False, MTT_TOOLS),
+    "ra64x64_mtt_qp37_5f": (64, 64, "RA", 4, 5, True, MTT_TOOLS),
+    "ai64x32_intra_split_qp37_2f": (64, 32, "AI", 8, 2, True,
+                                    dict(intra_split=True)),
+    "ra832x480_qt2_qp37_5f": (832, 480, "RA", 4, 5, True, QT_TOOLS),
+    "ra832x480_mtt_qp37_5f": (832, 480, "RA", 4, 5, True, MTT_TOOLS),
+    "ai416x240_intra_split_qp37_2f": (416, 240, "AI", 8, 2, True,
+                                      dict(intra_split=True)),
 }
+# the partitioning streams (ROADMAP queue 1 items 9f and 11)
+PARTITIONING = tuple(n for n in CLASSIC if "_qt" in n or "mtt" in n
+                     or "intra_split" in n)
 # streams at another QP than QP
 STREAM_QP = {"ai64x64_ibc_screen_qp30_1f": 30}
 # streams of screen content: tests/test_ibc.py's tiled glyph (seed 0)
@@ -219,13 +253,16 @@ MIXED = {"ai192x96_intra_pred_resid_tools_qp37_2f": 0.25}
 # the 2048x1024 I picture of the CTC-like preset (make_bd_r05.py:75-77)
 # with the prediction tools: a sidecar without a stream
 PRESET_I = "erp2048x1024_ai_ctcpreset_predtools_qp37"
+# the 2048x1024 I picture of the headline configuration with the two-level
+# intra partitioning: a sidecar without a stream
+SPLIT_I = "erp2048x1024_ai_intra_split_qp37"
 # streams whose clip is the fade of `bench.realistic_sequence` at this step
 FADE = {"ra192x96_fade_wp_qp37_9f": 0.04, "ra832x480_fade_wp_qp37_17f": 0.04}
 # the EncCfg tool fields a classic sidecar records
 SIDECAR_TOOLS = ("dmvr", "bdof", "tmvp", "amvr", "gpm", "ciip", "affine",
                  "weighted_pred", "weighted_bipred", "rdoq", "dep_quant",
                  "mts", "lfnst", "transform_skip", "bdpcm", "lossless",
-                 "cclm", "mip", "mrl", "ibc")
+                 "cclm", "mip", "mrl", "ibc", "mtt", "intra_split")
 
 
 def screen_frame(w: int, h: int, seed: int = 0) -> list[np.ndarray]:
@@ -378,7 +415,8 @@ def make_classic(name: str) -> dict:
     with open(os.path.join(OUT_DIR, name + ".bin"), "wb") as f:
         f.write(data)
     side = dict(width=w, height=h, frames=n, qp=qp, gop=gop,
-                gop_size=cfg.gop_size, qt_depth=0, models="CLASSIC",
+                gop_size=cfg.gop_size, qt_depth=cfg.qt_depth,
+                inter_block_size=cfg.inter_block_size, models="CLASSIC",
                 search_range=cfg.search_range, wrap_around=False,
                 merge=merge, content=(
                     "tests/test_ibc.py screen frame (seed 0)"
@@ -413,12 +451,27 @@ def make_classic(name: str) -> dict:
     return side
 
 
-def make_preset_i() -> dict:
-    """The sidecar of one 2048x1024 I picture of the CTC-like preset
-    (make_bd_r05.py:75-77: the headline tools with TMVP, RDOQ, dependent
-    quantization, MTS and LFNST) with CCLM, MIP, MRL and IBC: RA
-    configuration, one frame: a one-frame sequence codes its I picture at
-    the configuration's QP 37 (the cascade's 34 applies from two frames)."""
+def port_cfg(name: str):
+    """The PyTorch port's EncCfg of a CLASSIC stream (the fields
+    make_classic sets)."""
+    from vvc_mm_tpu_torch.encoder.enclib import EncCfg
+
+    w, h, gop, gop_size, _, merge, tools = CLASSIC[name]
+    qp = STREAM_QP.get(name, QP)
+    if gop == "AI":
+        return EncCfg(width=w, height=h, qp=qp, gop=gop, **tools)
+    return EncCfg(width=w, height=h, qp=qp, gop=gop, gop_size=gop_size,
+                  search_range=24, merge=merge, **tools)
+
+
+def make_preset_i(name: str = PRESET_I) -> dict:
+    """The sidecar of one 2048x1024 I picture of the headline
+    configuration, RA, one frame (a one-frame sequence codes its I picture
+    at the configuration's QP 37; the cascade's 34 applies from two
+    frames): PRESET_I takes the CTC-like preset (make_bd_r05.py:75-77: the
+    headline tools with TMVP, RDOQ, dependent quantization, MTS and LFNST)
+    with CCLM, MIP, MRL and IBC, SPLIT_I the two-level intra partitioning
+    alone."""
     import jax
     jax.config.update("jax_platforms", "cpu")
     from bench import realistic_sequence
@@ -428,11 +481,13 @@ def make_preset_i() -> dict:
     from vvc_mm_tpu.encoder.enclib import EncCfg, EncLib
 
     w, h = SIZES["2048x1024"]
+    tools = (dict(tmvp=True, rdoq=True, dep_quant=True, mts=True,
+                  lfnst=True, **PRED_TOOLS) if name == PRESET_I
+             else dict(intra_split=True))
     cfg = EncCfg(width=w, height=h, qp=QP, gop="RA", gop_size=4,
                  qt_depth=1, search_range=24, wrap_around=True,
                  mm=MMConfig(projection=ProjectionID.EQUIRECTANGULAR,
-                             mpa=True, rot=True), tmvp=True, rdoq=True,
-                 dep_quant=True, mts=True, lfnst=True, **PRED_TOOLS)
+                             mpa=True, rot=True), **tools)
     frames = realistic_sequence(w, h, 1)
     enc = EncLib(cfg)
     t0 = time.perf_counter()
@@ -444,21 +499,22 @@ def make_preset_i() -> dict:
                 qt_depth=1, models="MPA+ROT", projection="ERP",
                 search_range=24, wrap_around=True,
                 content="bench.realistic_sequence(seed=11)",
-                preset="make_bd_r05.py:75-77 (CTC-like)",
-                tmvp=True, rdoq=True, dep_quant=True, mts=True, lfnst=True,
-                **PRED_TOOLS, bytes=len(data),
+                **({"preset": "make_bd_r05.py:75-77 (CTC-like)"}
+                   if name == PRESET_I else {}),
+                **tools, bytes=len(data),
                 idr_sha256=hashlib.sha256(idr[0].payload).hexdigest(),
                 pocs=_sidecar_pocs(enc.results))
-    with open(os.path.join(OUT_DIR, PRESET_I + ".json"), "w") as f:
+    with open(os.path.join(OUT_DIR, name + ".json"), "w") as f:
         json.dump(side, f, indent=1)
         f.write("\n")
-    print(f"{PRESET_I}: {len(data)} bytes, encode {secs:.1f} s on CPU")
+    print(f"{name}: {len(data)} bytes, encode {secs:.1f} s on CPU")
     return side
 
 
 def main(argv: list[str]) -> None:
     """Each argument names a stream, a size (every multi-model stream of
-    it) or `classic` (every classic stream)."""
+    it), `classic` (every classic stream) or `partitioning` (the quadtree,
+    MTT and intra-split ones)."""
     os.makedirs(OUT_DIR, exist_ok=True)
     names = []
     for key in (argv or list(STREAMS) + list(CLASSIC)):
@@ -468,11 +524,15 @@ def main(argv: list[str]) -> None:
             names += list(CLASSIC)
         elif key == "2048x1024i":
             names.append(PRESET_I)
+        elif key == "2048x1024s":
+            names.append(SPLIT_I)
+        elif key == "partitioning":
+            names += list(PARTITIONING)
         else:
             names.append(key)
     for name in names:
-        if name == PRESET_I:
-            make_preset_i()
+        if name in (PRESET_I, SPLIT_I):
+            make_preset_i(name)
         elif name in CLASSIC:
             make_classic(name)
         else:

@@ -215,11 +215,13 @@ def test_summary_and_cascade(runs):
 # tools of 8b: TMVP/HMVP, AMVR, GPM, CIIP, weighted prediction and affine;
 # under a multi-model configuration affine is carried and ignored, as in
 # the JAX package; the I picture's quantization and transform tools and
-# scaling lists; its prediction tools of 9d and 9e: CCLM, MIP, MRL, IBC)
+# scaling lists; its prediction tools of 9d and 9e: CCLM, MIP, MRL, IBC;
+# the block partitioning of 9f and 11: the classic quadtree, its
+# multi-type tree and the two-level intra partitioning)
 REFUSED = {"wpp": (dict(wpp=True), "11"),
            "rate_control": (dict(target_bitrate_kbps=500), "11"),
-           "intra_split": (dict(intra_split=True), "9f"),
-           "classic_qtree": (dict(mm=MMConfig(), qt_depth=1), "11")}
+           "lmcs": (dict(lmcs=True), "11"),
+           "mctf": (dict(mctf=True), "11")}
 CLASSIC = dict(mm=MMConfig(), qt_depth=0)
 ACCEPTED = {
     "fullmm": dict(mm=MMConfig(mpa=True, ged=True, rot=True, mmmvp=True),
@@ -248,7 +250,10 @@ ACCEPTED = {
     "cclm": dict(cclm=True),
     "mip": dict(mip=True),
     "mrl": dict(mrl=True),
-    "ibc": dict(ibc=True)}
+    "ibc": dict(ibc=True),
+    "intra_split": dict(intra_split=True),
+    "classic_qtree": dict(CLASSIC, qt_depth=1),
+    "classic_mtt": dict(CLASSIC, qt_depth=2, mtt=True)}
 CASES = (["no_card"] + [f"refused-{k}" for k in REFUSED]
          + [f"accepted-{k}" for k in ACCEPTED])
 

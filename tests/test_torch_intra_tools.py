@@ -180,10 +180,11 @@ def test_intra_tools_slice_and_decode_roundtrip(encoded, planes):
 
 
 def test_remaining_intra_tools_are_refused():
-    """What remains refused on the I picture: two-level intra partitioning
-    (ROADMAP queue 1 item 9f), in the port's DecLib; an unknown option to
-    the wavefront or the parser is a TypeError.  The prediction tools
-    parse (tests/test_torch_intra_pred_tools.py holds them to JAX)."""
+    """What remains refused on the I picture: WPP's substreams (ROADMAP
+    queue 1 item 11), in the port's DecLib; an unknown option to the
+    wavefront or the parser is a TypeError.  The prediction tools parse
+    (tests/test_torch_intra_pred_tools.py holds them to JAX), and so does
+    the two-level intra partitioning (tests/test_torch_intra_part.py)."""
     y = torch.zeros((16, 16), dtype=torch.int32)
     c = torch.zeros((8, 8), dtype=torch.int32)
     with pytest.raises(TypeError):
@@ -199,10 +200,9 @@ def test_remaining_intra_tools_are_refused():
         np.testing.assert_array_equal(back[0], g)
     from vvc_mm_tpu_torch.decoder.declib import DecLib
     dec = DecLib(device="cpu")
-    dec.sps = slice_ps.SPS(width=16, height=16, intra_split=True)
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1 item 9f$"):
-        dec._decode_i(None, b"")
+                       match="ROADMAP queue 1 item 11$"):
+        dec._activate_sps(slice_ps.SPS(width=16, height=16, wpp=True))
 
 
 def test_sps_tool_fields_roundtrip_both_packages():

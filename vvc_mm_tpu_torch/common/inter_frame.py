@@ -118,7 +118,6 @@ def _mc_planes_internal(ref_y, ref_u, ref_v, mvs, s: int, bit_depth: int,
 # item).  Every classic frame function and the decoder's classic branch
 # refuses through `refuse`.
 _UNPORTED_TOOLS = {
-    "qtree": ("classic quadtree", "11"),
     "mcts": ("MCTS tiles", "11"),
 }
 

@@ -13,9 +13,8 @@ from __future__ import annotations
 
 import torch
 
-from .. import quant, transforms
-from ..inter_frame import _from_blocks, _residual_pass
-from ..qtree import _coeff_bits_est, _up2, node_sizes
+from ..qtree import (_coeff_bits, _mask_and_locate, _recon, _residuals,
+                     _ssd_planes, node_sizes)
 from . import frame_codec as fc
 from .reprojection import MVReprojection, SUBBLK
 
@@ -46,26 +45,9 @@ def reconstruct_qt_mm(reproj: MVReprojection, active_models: list[int],
         pred_y, pred_u, pred_v = fc.predict_from_positions(
             positions, ref_y, ref_u, ref_v, bit_depth, wrap_around)
 
-    def resid_plane(idx, size_list, hh, ww):
-        total = torch.zeros((hh, ww), dtype=torch.int32, device=dev)
-        for trio, s in zip(levels, size_list):
-            lev = torch.as_tensor(trio[idx], device=dev)
-            log2s = s.bit_length() - 1
-            dq = quant.dequantize(lev.reshape(-1, s, s), qp, log2s, log2s,
-                                  bit_depth)
-            r = transforms.inverse_transform(dq, bit_depth=bit_depth)
-            total = total + _from_blocks(r, hh // s, ww // s)
-        return total
-
-    sizes = node_sizes(top, depth)
-    h, w = ref_y.shape
-    mx = (1 << bit_depth) - 1
-    return dict(
-        y=torch.clamp(pred_y + resid_plane(0, sizes, h, w), 0, mx),
-        u=torch.clamp(pred_u + resid_plane(1, [s // 2 for s in sizes],
-                                           h // 2, w // 2), 0, mx),
-        v=torch.clamp(pred_v + resid_plane(2, [s // 2 for s in sizes],
-                                           h // 2, w // 2), 0, mx))
+    levels = [tuple(torch.as_tensor(lev, device=dev) for lev in trio)
+              for trio in levels]
+    return _recon((pred_y, pred_u, pred_v), levels, qp, bit_depth)
 
 
 def search_qt_mm(reproj: MVReprojection, active_models: list[int],
@@ -109,11 +91,6 @@ def search_qt_mm(reproj: MVReprojection, active_models: list[int],
     return [per[s] for s in sizes], stack
 
 
-def _bsum(x: torch.Tensor, size: int) -> torch.Tensor:
-    hh, ww = x.shape
-    return x.reshape(hh // size, size, ww // size, size).sum(dim=(1, 3))
-
-
 def qt_rd_stats(reproj: MVReprojection, active_models: list[int],
                 midx, mv_sel, orig_y, orig_u, orig_v, ref_y, ref_u,
                 ref_v, qp: int, block_size: int, bit_depth: int,
@@ -130,15 +107,10 @@ def qt_rd_stats(reproj: MVReprojection, active_models: list[int],
                               epipoles)
     pred_y, pred_u, pred_v = fc.predict_from_positions(
         pos, ref_y, ref_u, ref_v, bit_depth, wrap_around)
-    ly, rec_y = _residual_pass(orig_y, pred_y, s, qp, bit_depth)
-    lu, rec_u = _residual_pass(orig_u, pred_u, s // 2, qp, bit_depth)
-    lv, rec_v = _residual_pass(orig_v, pred_v, s // 2, qp, bit_depth)
-    ssd = (_bsum((orig_y - rec_y) ** 2, s)
-           + _bsum((orig_u - rec_u) ** 2, s // 2)
-           + _bsum((orig_v - rec_v) ** 2, s // 2)).to(torch.int32)
-    cbits = (_coeff_bits_est(ly) + _coeff_bits_est(lu)
-             + _coeff_bits_est(lv)).to(torch.int32)
-    return ssd, cbits
+    lev, rec = _residuals((orig_y, orig_u, orig_v), (pred_y, pred_u, pred_v),
+                          s, qp, bit_depth)
+    ssd = _ssd_planes((orig_y, orig_u, orig_v), rec, s).to(torch.int32)
+    return ssd, _coeff_bits(lev, 0.0).to(torch.int32)
 
 
 def enc_finish_qt_mm(reproj: MVReprojection, active_models: list[int],
@@ -156,39 +128,18 @@ def enc_finish_qt_mm(reproj: MVReprojection, active_models: list[int],
     Returns (levels [per size (ly, lu, lv)], recon dict,
     has_resid_unit, leaf_id_unit)."""
     sizes = node_sizes(top, depth)
-    u = sizes[-1]
-    dev = orig_y.device
     stack = fc._to_stack(midx_unit, mv_unit, len(active_models))
     positions = fc.merged_positions(reproj, active_models, midx_unit,
-                                    stack, u, epipoles)
+                                    stack, sizes[-1], epipoles)
     preds = fc.predict_from_positions(positions, ref_y, ref_u, ref_v,
                                       bit_depth, wrap_around)
-    levels = []
-    for d, s in enumerate(sizes):
-        ly, _ = _residual_pass(orig_y, preds[0], s, qp, bit_depth)
-        lu, _ = _residual_pass(orig_u, preds[1], s // 2, qp, bit_depth)
-        lv, _ = _residual_pass(orig_v, preds[2], s // 2, qp, bit_depth)
-        lm = leaf_masks[d][:, :, None, None]
-        levels.append((ly * lm, lu * lm, lv * lm))
+    per_lev = [_residuals((orig_y, orig_u, orig_v), preds, s, qp,
+                          bit_depth)[0] for s in sizes]
+    # levels masked to the leaves, and the unit-granularity deblock inputs
+    levels, has_resid_unit, leaf_id_unit = _mask_and_locate(
+        per_lev, leaf_masks, sizes, sizes[-1])
     recon = reconstruct_qt_mm(
         reproj, active_models, midx_unit, mv_unit, levels, ref_y, ref_u,
         ref_v, qp, top, depth, bit_depth, epipoles, wrap_around,
         _preds=preds)
-    # unit-granularity deblock inputs
-    nuy, nux = midx_unit.shape
-    has_resid_unit = torch.zeros((nuy, nux), dtype=torch.bool, device=dev)
-    leaf_id_unit = torch.zeros((nuy, nux), dtype=torch.int32, device=dev)
-    for d, s in enumerate(sizes):
-        f = s // u
-        hr = torch.zeros(leaf_masks[d].shape, dtype=torch.bool, device=dev)
-        for lev in levels[d]:
-            hr = hr | (lev != 0).any(dim=3).any(dim=2)
-        lm_u = _up2(leaf_masks[d], f)
-        has_resid_unit = has_resid_unit | (lm_u & _up2(hr, f))
-        by = torch.arange(leaf_masks[d].shape[0], dtype=torch.int32,
-                          device=dev)[:, None] * f
-        bx = torch.arange(leaf_masks[d].shape[1], dtype=torch.int32,
-                          device=dev)[None, :] * f
-        leaf_id_unit = torch.where(lm_u, _up2(by * nux + bx, f),
-                                   leaf_id_unit)
     return levels, recon, has_resid_unit, leaf_id_unit

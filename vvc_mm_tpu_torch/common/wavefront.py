@@ -226,6 +226,15 @@ def _cclm_pred(plane_r: torch.Tensor, y0c: torch.Tensor,
     return cclm.cclm_predict(dsl, a, b, bit_depth)
 
 
+def _predict_uv(cref: torch.Tensor, mode: torch.Tensor, s: int
+                ) -> torch.Tensor:
+    """U and V of B blocks predicted in one batch: cref (2B, L), U's
+    reference vectors then V's, each block's mode -> (B, 2, s, s)."""
+    b = mode.shape[0]
+    return intra.predict_mode(cref, mode.repeat(2), s, s).reshape(
+        2, b, s, s).transpose(0, 1)
+
+
 def _pad_to_buffer(plane: torch.Tensor, fill: int) -> torch.Tensor:
     h, w = plane.shape
     buf = torch.full((h + 2 * MARGIN, w + 2 * MARGIN), fill,
@@ -697,9 +706,8 @@ def encode_intra_frame(orig_y: torch.Tensor, orig_u: torch.Tensor,
         mode_map[my, mx] = torch.where(vld, nb_mode, mode_map[my, mx])
         # ---- chroma: the derived mode (or the luma BV) against CCLM, U and
         # V as one batch
-        predc = torch.stack([
-            intra.predict_mode(buf[ccy_all[step], ccx_all[step]], nb_mode,
-                               sc, sc) for buf in (ru, rv)], 1)
+        predc = _predict_uv(torch.cat([buf[ccy_all[step], ccx_all[step]]
+                                       for buf in (ru, rv)]), nb_mode, sc)
         if use_ibc:
             # chroma rides the luma BV: block aligned, so bv * sc exactly
             cpatch = torch.stack([_take(_ibc_stack(buf, y0c, x0c, sc), kbv)
@@ -832,9 +840,8 @@ def decode_intra_frame(modes_steps, lev_y, lev_u, lev_v, qp: int,
                     rec = torch.where(sel == k, _ts_recon(
                         pred, _bdpcm_cumsum(ly, hor), qp, maxv), rec)
         ry[_block_index(y0, x0, s)] = rec.to(torch.int32)
-        predc = torch.stack([
-            intra.predict_mode(_gather_cref(buf, y0c, x0c, sc), nb_mode, sc,
-                               sc) for buf in (ru, rv)], 1)
+        predc = _predict_uv(torch.cat([_gather_cref(buf, y0c, x0c, sc)
+                                       for buf in (ru, rv)]), nb_mode, sc)
         if use_cclm:
             dsl, border_l = _cclm_luma_ctx(ry, y0, x0, s)
             predlm = torch.stack([

@@ -5,7 +5,9 @@ source/Lib/DecoderLib/DecLib.cpp — decode:3615 NAL dispatch,
 xDecodeSlice:2699, finishPicture:785 incl. the MD5 hash check at :868).
 
 It decodes SPS/PPS activation, the decoded-picture-hash SEI check, I
-slices, classic (single-model) P slices with one reference or two (a
+slices (the fixed grid, or the two-level intra partitioning of
+`intra_split`), classic quadtree and multi-type-tree P and B slices,
+classic (single-model) P slices with one reference or two (a
 per-block ref_idx) and classic B slices, merge on or off, with the
 random-access tools (TMVP/HMVP, AMVR, GPM, CIIP, explicit weights from the
 slice header, and affine P slices predicted through K1/K2), and MM P slices
@@ -26,7 +28,9 @@ import numpy as np
 import torch
 
 from ..common import affine as affine_mod
-from ..common import alf, deblock, inter_frame, sao, wavefront
+from ..common import alf, deblock, inter_frame, intra_part, qtree, sao
+from ..common import mtt as mtt_mod
+from ..common import wavefront
 from ..common.bitstream import (BitReader, read_annexb, NAL_SPS, NAL_PPS,
                                 NAL_IDR, NAL_SEI, NAL_TRAIL)
 from ..common.mm import epipole as epipole_mod
@@ -34,17 +38,18 @@ from ..common.mm import frame_codec as mm_codec
 from ..common.mm import qt_codec
 from ..common.mm.mvp_convert import MMVPConverter
 from ..common.mm.reprojection import MVReprojection
-from ..common.qtree import qt_boundary_strengths
 from ..common.slice_ps import PPS, SPS, SliceHeader
 from ..common.typedefs import MotionModelID, SliceType
 from ..device import check_device, resolve_device
 from ..lib360.projection import make_projection
 from ..encoder.inter_coder import mer_blocks_log2
 from .inter_parser import (decode_b_slice, decode_b_slice_mm,
+                           decode_b_slice_mtt, decode_b_slice_qt,
                            decode_p_slice, decode_p_slice_2ref,
-                           decode_p_slice_affine,
-                           decode_p_slice_mm, decode_p_slice_qt_mm)
-from .intra_parser import decode_intra_slice
+                           decode_p_slice_affine, decode_p_slice_mm,
+                           decode_p_slice_mtt, decode_p_slice_qt,
+                           decode_p_slice_qt_mm)
+from .intra_parser import decode_intra_slice, decode_intra_slice_part
 
 
 @dataclass
@@ -225,7 +230,8 @@ class DecLib:
     def _decode_i(self, sh, cabac_bytes: bytes) -> None:
         sps = self.sps
         if sps.intra_split:
-            _todo("intra_split (two-level intra partitioning)", "9f")
+            self._decode_i_part(sh, cabac_bytes)
+            return
         s = sps.intra_block_size
         nby, nbx = sps.height // s, sps.width // s
         modes, lm, lf, mr, tsg, mtsg, ly, lu, lv = decode_intra_slice(
@@ -248,6 +254,69 @@ class DecLib:
             use_ibc=sps.ibc)
         bs = deblock.boundary_strengths_intra(nby, nbx, self.device)
         self._store(sh.poc, recon, sh, bs, s)
+
+    def _decode_i_part(self, sh, cabac_bytes: bytes) -> None:
+        """Two-level intra slice (common/intra_part.py), deblocked on the
+        8x8 grid as the encoder does."""
+        sps = self.sps
+        nsy, nsx = sps.height // intra_part.SB, sps.width // intra_part.SB
+        coords, valid = wavefront.wavefront_coords(nsy, nsx)
+        steps = [wavefront.grid_to_steps(g, coords, valid)
+                 for g in decode_intra_slice_part(cabac_bytes, nsy, nsx)]
+        recon = intra_part.decode_intra_frame_part(
+            *steps, sh.qp, sps.height, sps.width, sps.bit_depth,
+            device=self.device)
+        bs = deblock.boundary_strengths_intra(sps.height // 8,
+                                              sps.width // 8, self.device)
+        self._store(sh.poc, recon, sh, bs, 8)
+
+    def _decode_tree(self, sh, cabac_bytes: bytes) -> None:
+        """Classic quadtree P and B slices, with `mtt` the multi-type tree
+        (common/qtree.py, common/mtt.py): the tree and the leaves parsed on
+        the host, the unit-grid reconstruction on the device, deblocked at
+        the leaves' boundaries."""
+        sps = self.sps
+        s, nd = sps.inter_block_size, sps.inter_qt_depth
+        ref0 = self._ref_by_poc(sh.ref_pocs_l0[0])
+        args = (sh.qp, s, nd, sps.bit_depth, sps.wrap_around)
+        parse_args = (cabac_bytes, sps.height, sps.width, s, nd)
+        if sh.slice_type == SliceType.P:
+            if sps.mtt:
+                mv_u, sq, rect, hr, lid = decode_p_slice_mtt(
+                    *parse_args, use_merge=sps.merge)
+                recon = mtt_mod.reconstruct_mtt(
+                    *self._tensors(mv_u), self._level_tensors(sq),
+                    self._level_tensors(rect), *ref0.planes, *args)
+            else:
+                mv_u, sq, hr, lid = decode_p_slice_qt(*parse_args,
+                                                      use_merge=sps.merge)
+                recon = qtree.reconstruct_qt(
+                    *self._tensors(mv_u), self._level_tensors(sq),
+                    *ref0.planes, *args)
+        else:
+            ref1 = self._ref_by_poc(sh.ref_pocs_l1[0])
+            if sps.mtt:
+                mv0, mv1, dirs, sq, rect, hr, lid = decode_b_slice_mtt(
+                    *parse_args, use_merge=sps.merge)
+                recon = mtt_mod.reconstruct_mtt_b(
+                    *self._tensors(mv0, mv1, dirs), self._level_tensors(sq),
+                    self._level_tensors(rect), ref0.planes, ref1.planes,
+                    *args)
+            else:
+                mv0, mv1, dirs, sq, hr, lid = decode_b_slice_qt(
+                    *parse_args, use_merge=sps.merge)
+                recon = qtree.reconstruct_qt_b(
+                    *self._tensors(mv0, mv1, dirs), self._level_tensors(sq),
+                    ref0.planes, ref1.planes, *args, sps.bdof, sps.dmvr)
+            mv_u = np.where(dirs[..., None] == 1, mv1, mv0)
+        bs = qtree.qt_boundary_strengths(*self._tensors(mv_u, hr, lid))
+        self._store(sh.poc, recon, sh, bs, s >> nd)
+
+    def _level_tensors(self, levels):
+        """Level trios (a list, or a dict of rect grids) on the device."""
+        if isinstance(levels, dict):
+            return {k: self._tensors(*t) for k, t in levels.items()}
+        return [self._tensors(*t) for t in levels]
 
     def _p_epipoles(self, sh):
         """Epipole reconstruction of a GED P picture (reference:
@@ -273,7 +342,9 @@ class DecLib:
         biocheck0 / DMVR's no-WP condition, InterPrediction.cpp:566,252;
         the encoder's mirror is EncLib._b_classic)."""
         sps = self.sps
-        inter_frame.refuse(qtree=sps.inter_qt_depth > 0)
+        if sps.inter_qt_depth > 0:
+            self._decode_tree(sh, cabac_bytes)
+            return
         s = sps.inter_block_size
         nby, nbx = sps.height // s, sps.width // s
         mer = mer_blocks_log2(sps.log2_parallel_merge_level, s)
@@ -357,7 +428,7 @@ class DecLib:
             self.reproj, active, midx_u, mv_u, levels, *ref.planes, sh.qp,
             s, depth, sps.bit_depth, epipoles, sps.wrap_around,
             positions=positions)
-        bs = qt_boundary_strengths(mv_u, has_resid_u, leaf_id_u)
+        bs = qtree.qt_boundary_strengths(mv_u, has_resid_u, leaf_id_u)
         self._store(sh.poc, recon, sh, bs, u)
 
     def _decode_p_flat(self, sh, cabac_bytes: bytes, ref, active,

@@ -7,24 +7,31 @@ ref_idx, inter_pred_idc, motion_model, mvd_coding, residual_coding): the
 classic P slice (one or two references, merge on or off) and B slice,
 and the multi-model ones (the flat and the quadtree MM P slice and the MM
 B slice, with MM-MVP where the SPS turns it on), with the classic
-random-access tools: TMVP/HMVP, AMVR, GPM/CIIP and the affine P slice.
-Host numpy code over the native CABAC decoder.  The classic quadtree, MTT
-and WPP parsers (ROADMAP queue 1 item 11) are not ported.
+random-access tools: TMVP/HMVP, AMVR, GPM/CIIP and the affine P slice,
+and the classic quadtree and multi-type-tree P and B slices (one tree
+walker and one leaf parser, `_decode_tree`).  Host numpy code over the
+native CABAC decoder.  The WPP parsers (ROADMAP queue 1 item 11) are not
+ported.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from ..common import mtt as mtt_mod
 from ..common.cabac import BinDecoder
 from ..common.contexts import ctx_id
 from ..common.inter_frame import AMVR_SHIFTS, round_mv_amvr
-from ..encoder.inter_coder import (MERGE_MAX, HmvpList, _mm_mvp, amvp_list,
-                                   inherited_model, merge_candidates,
+from ..encoder.inter_coder import (MERGE_MAX, HmvpList, _b_dir_pred,
+                                   _mm_mvp, amvp_list, inherited_model,
+                                   merge_candidates,
                                    merge_candidates_b, merge_candidates_b_mm,
                                    merge_candidates_mm,
                                    merge_candidates_qt_mm,
-                                   merge_candidates_ref, mvp_median,
-                                   mvp_unit_grid_mm)
+                                   merge_candidates_ref,
+                                   merge_candidates_unit,
+                                   merge_candidates_unit_b, mvp_median,
+                                   mvp_unit_grid, mvp_unit_grid_mm,
+                                   walk_tree)
 from ..utils.native import NativeBinDecoder
 
 
@@ -547,3 +554,165 @@ def decode_b_slice_mm(data: bytes, nby: int, nbx: int, s: int,
                                       conv, epipole1)
     return midx0, midx1, mv0, mv1, dirs, lev_y, lev_u, lev_v
 
+
+
+# ------------------------------------------------ classic quadtree / MTT
+
+def _parse_split_syntax(dec: BinDecoder, d: int, s: int, u: int,
+                        mtt: bool) -> int:
+    """Inverse of inter_coder._code_split_syntax: the split code."""
+    if not dec.decode_bin(ctx_id("SplitFlag", min(d, 8))):
+        return mtt_mod.LEAF
+    if not mtt or dec.decode_bin(ctx_id("QtSplitFlag", min(d, 2))):
+        return mtt_mod.QUAD
+    bt_ok = mtt_mod.bt_allowed(s, u)
+    if bt_ok and mtt_mod.tt_allowed(s, u):
+        bt = bool(dec.decode_bin(ctx_id("BtFlag", min(d, 2))))
+    else:
+        bt = bt_ok
+    vert = bool(dec.decode_bin(ctx_id("MttVert", min(d, 2))))
+    if bt:
+        return mtt_mod.BTV if vert else mtt_mod.BTH
+    return mtt_mod.TTV if vert else mtt_mod.TTH
+
+
+def _alloc_tree_levels(h: int, w: int, top: int, depth: int, mtt: bool):
+    """Zero level grids of every shape of the lattice, filled while
+    parsing: {d: trio} for the squares, {(kind, d): trio} for the rect
+    grids (none without MTT)."""
+    def trio(gy, gx, sy, sx):
+        return (np.zeros((gy, gx, sy, sx), dtype=np.int32),
+                np.zeros((gy, gx, sy // 2, sx // 2), dtype=np.int32),
+                np.zeros((gy, gx, sy // 2, sx // 2), dtype=np.int32))
+    sq = {d: trio(h // s, w // s, s, s)
+          for d, s in enumerate(top >> i for i in range(depth + 1))}
+    rect = {}
+    if mtt:
+        for info in mtt_mod.rect_shapes(top, depth):
+            rect[info[:2]] = trio(*mtt_mod.rect_grid(h, w, info),
+                                  info[2], info[3])
+    return sq, rect
+
+
+def _decode_tree(data: bytes, h: int, w: int, top: int, depth: int,
+                 mtt: bool, use_merge: bool, bi: bool):
+    """Exact inverse of inter_coder._encode_tree.  Returns (coded grids —
+    (mv_unit,) for P, (mv0_unit, mv1_unit, dirs_unit) for B —, square
+    levels [per size (ly, lu, lv)], rect levels {(kind, d): trio},
+    has_resid_unit, leaf_id_unit)."""
+    dec = NativeBinDecoder(data)
+    u = top >> depth
+    nuy, nux = h // u, w // u
+    sq, rect = _alloc_tree_levels(h, w, top, depth, mtt)
+    levels = {**sq, **rect}
+    coded0 = np.zeros((nuy, nux, 2), dtype=np.int64)
+    coded1 = np.zeros((nuy, nux, 2), dtype=np.int64)
+    dirs_u = np.zeros((nuy, nux), dtype=np.int32)
+    avail = np.zeros((nuy, nux), dtype=bool)
+    has_resid = np.zeros((nuy, nux), dtype=bool)
+    leaf_id = np.zeros((nuy, nux), dtype=np.int32)
+
+    def parse_resid(levs):
+        hr = False
+        for ci, lev in enumerate(levs):
+            if dec.decode_bin(ctx_id("QtCbf", (0, 4, 5)[ci])):
+                lev[...] = dec.decode_coeffs(*lev.shape, chroma=(ci != 0))
+                hr = True
+        return hr
+
+    def dir_and_mvds(pred0, pred1):
+        dv = (2 if dec.decode_bin(ctx_id("InterDir", 0))
+              else dec.decode_bin(ctx_id("InterDir", 1)))
+        mv0 = pred0 + _decode_mvd(dec) if dv != 1 else pred0
+        mv1 = pred1 + _decode_mvd(dec) if dv != 0 else pred1
+        return dv, mv0, mv1
+
+    def leaf(key, gy, gx, uy, ux, ky, kx):
+        levs = tuple(levels[key][c][gy, gx] for c in range(3))
+        pred0 = mvp_unit_grid(coded0, avail, uy, ux, kx)
+        if bi:
+            pred1 = mvp_unit_grid(coded1, avail, uy, ux, kx)
+            cands = (merge_candidates_unit_b(coded0, coded1, dirs_u, avail,
+                                             uy, ux, kx) if use_merge
+                     else None)
+        else:
+            cands = (merge_candidates_unit(coded0, avail, uy, ux, kx)
+                     if use_merge else None)
+        skip = bool(dec.decode_bin(ctx_id("SkipFlag")))
+        if use_merge:
+            mrg = skip or bool(dec.decode_bin(ctx_id("MergeFlag")))
+            if mrg:
+                c = cands[decode_merge_idx(dec)]
+                if bi:
+                    dv, mv0, mv1 = (c[0], np.asarray(c[1], np.int64),
+                                    np.asarray(c[2], np.int64))
+                else:
+                    mv0 = np.asarray(c, np.int64)
+        else:
+            mrg = skip
+            if skip:
+                if bi:
+                    dv, mv0, mv1 = (_b_dir_pred(dirs_u, avail, uy, ux),
+                                    pred0, pred1)
+                else:
+                    mv0 = pred0
+        if not mrg:
+            if bi:
+                dv, mv0, mv1 = dir_and_mvds(pred0, pred1)
+            else:
+                mv0 = pred0 + _decode_mvd(dec)
+        hr = False if skip else parse_resid(levs)
+        span = (slice(uy, uy + ky), slice(ux, ux + kx))
+        coded0[span] = mv0
+        if bi:
+            coded1[span] = mv1
+            dirs_u[span] = dv
+        avail[span] = True
+        has_resid[span] = hr
+        leaf_id[span] = uy * nux + ux
+
+    walk_tree(h // top, w // top, top, depth,
+              lambda d, by, bx, s: _parse_split_syntax(dec, d, s, u, mtt),
+              leaf)
+    coded = (coded0, coded1, dirs_u) if bi else (coded0,)
+    return (coded, [sq[d] for d in range(depth + 1)], rect, has_resid,
+            leaf_id)
+
+
+def decode_p_slice_qt(data: bytes, h: int, w: int, top: int, depth: int,
+                      use_merge: bool = False):
+    """Exact inverse of encoder.inter_coder.encode_p_slice_qt.  Returns
+    (mv_unit (nuy,nux,2), levels [per size (ly,lu,lv)], has_resid_unit,
+    leaf_id_unit), the resolved outputs of qtree.encode_p_frame_qt."""
+    (mv_u,), sq, _, hr, lid = _decode_tree(data, h, w, top, depth, False,
+                                           use_merge, False)
+    return mv_u, sq, hr, lid
+
+
+def decode_b_slice_qt(data: bytes, h: int, w: int, top: int, depth: int,
+                      use_merge: bool = False):
+    """Exact inverse of encoder.inter_coder.encode_b_slice_qt.  Returns
+    (mv0_unit, mv1_unit, dirs_unit, levels, has_resid_unit,
+    leaf_id_unit)."""
+    coded, sq, _, hr, lid = _decode_tree(data, h, w, top, depth, False,
+                                         use_merge, True)
+    return (*coded, sq, hr, lid)
+
+
+def decode_p_slice_mtt(data: bytes, h: int, w: int, top: int, depth: int,
+                       use_merge: bool = False):
+    """Exact inverse of encoder.inter_coder.encode_p_slice_mtt.  Returns
+    (mv_unit, sq_levels, rect_levels, has_resid_unit, leaf_id_unit)."""
+    (mv_u,), sq, rect, hr, lid = _decode_tree(data, h, w, top, depth, True,
+                                              use_merge, False)
+    return mv_u, sq, rect, hr, lid
+
+
+def decode_b_slice_mtt(data: bytes, h: int, w: int, top: int, depth: int,
+                       use_merge: bool = False):
+    """Exact inverse of encoder.inter_coder.encode_b_slice_mtt.  Returns
+    (mv0_unit, mv1_unit, dirs_unit, sq_levels, rect_levels,
+    has_resid_unit, leaf_id_unit)."""
+    coded, sq, rect, hr, lid = _decode_tree(data, h, w, top, depth, True,
+                                            use_merge, True)
+    return (*coded, sq, rect, hr, lid)

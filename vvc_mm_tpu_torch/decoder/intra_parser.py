@@ -6,8 +6,9 @@ intra_luma_pred_mode, residual_coding).  Host numpy code over the native
 CABAC decoder.  It parses the prediction tools' syntax (IBC flag and
 block-vector index, MIP flag and mode, MultiRefLineIdx, the chroma LM
 flag) and the residual tools' (transform skip and BDPCM flags, lfnst_idx,
-tu_mts_idx); the WPP and intra-split parsers are not ported (ROADMAP
-queue 1 items 9f and 11).
+tu_mts_idx), and the two-level intra-split slice
+(`decode_intra_slice_part`); the WPP parser is not ported (ROADMAP queue 1
+item 11).
 """
 from __future__ import annotations
 
@@ -106,3 +107,45 @@ def _decode_intra_rows(dec, grids, s: int, r0: int, r1: int,
                             break
                         m += 1
                     mtsg[by, bx] = m
+
+
+def decode_intra_slice_part(data: bytes, nsy: int, nsx: int):
+    """Exact inverse of encoder.intra_coder.encode_intra_slice_part.
+    Returns the grids (split, mode16, modes8, l16y, l16u, l16v, l8y, l8u,
+    l8v)."""
+    from ..common.intra_part import _QUADS, SB, SUB
+    dec = NativeBinDecoder(data)
+    sc16, sc8 = SB // 2, SUB // 2
+    split = np.zeros((nsy, nsx), dtype=np.int32)
+    mode16 = np.zeros((nsy, nsx), dtype=np.int32)
+    modes8 = np.zeros((nsy, nsx, 4), dtype=np.int32)
+    l16 = tuple(np.zeros((nsy, nsx, s, s), dtype=np.int32)
+                for s in (SB, sc16, sc16))
+    l8 = tuple(np.zeros((nsy, nsx, 4, s, s), dtype=np.int32)
+               for s in (SUB, sc8, sc8))
+    cell = np.full((2 * nsy, 2 * nsx), -1, dtype=np.int32)
+
+    def parse_one(cy, cx, levs):
+        left = int(cell[cy, cx - 1]) if cx > 0 else -1
+        above = int(cell[cy - 1, cx]) if cy > 0 else -1
+        mode = decode_intra_mode(dec, left, above)
+        for lev, cid in zip(levs, (0, 4, 5)):
+            if dec.decode_bin(ctx_id("QtCbf", cid)):
+                lev[...] = dec.decode_coeffs(*lev.shape, chroma=(cid != 0))
+        return mode
+
+    for sy in range(nsy):
+        for sx in range(nsx):
+            sp = dec.decode_bin(ctx_id("SplitFlag", 0))
+            split[sy, sx] = sp
+            if sp:
+                for k, (qy, qx) in enumerate(_QUADS):
+                    cy, cx = 2 * sy + qy, 2 * sx + qx
+                    m = parse_one(cy, cx, tuple(g[sy, sx, k] for g in l8))
+                    modes8[sy, sx, k] = m
+                    cell[cy, cx] = m
+            else:
+                m = parse_one(2 * sy, 2 * sx, tuple(g[sy, sx] for g in l16))
+                mode16[sy, sx] = m
+                cell[2 * sy:2 * sy + 2, 2 * sx:2 * sx + 2] = m
+    return (split, mode16, modes8) + l16 + l8

@@ -9,8 +9,13 @@ cascade) order.  The pictures it encodes:
 
   I    wavefront intra encode on the device (common/wavefront.py, with
        the residual tools: RDOQ, dependent quantization through kernels
-       D1/D2, MTS, LFNST, transform skip, BDPCM, lossless) -> one packed
+       D1/D2, MTS, LFNST, transform skip, BDPCM, lossless; or the two-level
+       16x16/8x8 partitioning of common/intra_part.py) -> one packed
        pull -> host CABAC (encoder/intra_coder.py);
+  P/B  classic quadtree pictures (common/qtree.py; with `mtt` the
+       multi-type tree, common/mtt.py): every node size's and shape's
+       pass, the tree resolve and the reconstruction on the device
+       (plain torch operations) -> one packed pull -> host CABAC;
   P/B  classic (single-model) pictures on the fixed grid: P with one
        reference or two (a per-block ref_idx), merge on or off, and B
        pictures (whole-motion merge, or per-list AMVP): ME and the merge
@@ -44,7 +49,8 @@ import numpy as np
 import torch
 
 from ..common import affine as affine_mod
-from ..common import deblock, inter_frame, qtree, quant, wavefront
+from ..common import deblock, inter_frame, intra_part, qtree, quant, wavefront
+from ..common import mtt as mtt_mod
 from ..common.bitstream import (BitWriter, NalUnit, NAL_IDR, NAL_PPS,
                                 NAL_SEI, NAL_SPS, NAL_TRAIL, write_annexb)
 from ..common.mm import epipole as epipole_mod
@@ -60,12 +66,14 @@ from ..utils import profiling, xfer
 from . import filter_stage
 from .inter_coder import (encode_b_slice, encode_b_slice_mm,
                           encode_p_slice, encode_p_slice_2ref,
-                          encode_p_slice_affine,
-                          encode_p_slice_mm, encode_p_slice_qt_mm,
+                          encode_b_slice_mtt, encode_b_slice_qt,
+                          encode_p_slice_affine, encode_p_slice_mm,
+                          encode_p_slice_mtt, encode_p_slice_qt,
+                          encode_p_slice_qt_mm,
                           mer_blocks_log2, resolve_tree_qt_mm, select_merge_b,
                           select_merge_b_mm, select_merge_mm,
                           select_merge_p, select_merge_p_2ref, select_qt_mm)
-from .intra_coder import encode_intra_slice
+from .intra_coder import encode_intra_slice, encode_intra_slice_part
 
 
 def _wp_table(wp) -> tuple | None:
@@ -304,12 +312,10 @@ def ra_coding_order(n: int, gop_size: int) -> list[tuple[int, int, int,
 # EncCfg fields whose tool is not ported: (field, value that is carried,
 # what, ROADMAP queue 1 item)
 _UNPORTED = (
-    ("mtt", False, "BT/TT splits", "11"),
     ("metrics_360", False, "WS-PSNR/S-PSNR/CPP-PSNR", "11"),
     ("target_bitrate_kbps", 0, "rate control", "11"),
     ("mctf", False, "MCTF pre-filter", "11"),
     ("lmcs", False, "LMCS", "11"),
-    ("intra_split", False, "two-level intra partitioning", "9f"),
     ("wpp", False, "WPP", "11"),
     ("film_grain", False, "film grain SEI", "11"),
     ("mcts_tiles", (), "MCTS tiles", "11"),
@@ -335,8 +341,6 @@ class EncLib:
             cfg.deblocking = cfg.sao = cfg.alf = cfg.lmcs = False
             cfg.dep_quant = cfg.lfnst = cfg.mts = False
         mm = cfg.mm
-        if not mm.any_enabled() and cfg.qt_depth > 0:
-            _todo("classic quadtree (qtree.py)", "11")
         self.cfg = cfg
         self.sps = cfg.make_sps()
         self.pps = PPS(base_qp=cfg.qp)
@@ -437,6 +441,8 @@ class EncLib:
         self._mm_seed = None        # closed GOP: no temporal seed across IDR
         self._mm_seed_qt = None
         dev = xfer.upload_planes(planes, cfg.bit_depth, self.device)
+        if cfg.intra_split:
+            return self._encode_intra_frame_part(poc, planes, dev, qp, t0)
         nby, nbx = cfg.height // s, cfg.width // s
         with profiling.stage("intra_search") as ps:
             outs, recon = wavefront.encode_intra_frame(
@@ -469,6 +475,33 @@ class EncLib:
                 mrl=mrl if cfg.mrl else None, ts=tsg if use_ts else None,
                 bdpcm=cfg.bdpcm, ibc=cfg.ibc,
                 mts=mtsg if cfg.mts else None)
+
+        return self._finish_slice_overlap(
+            poc, planes, recon, make_payload, qp, t0, SliceType.I, [], [],
+            None, 0, dev, NAL_IDR)
+
+    def _encode_intra_frame_part(self, poc, planes, dev, qp, t0):
+        """Two-level (16x16 against four 8x8) intra picture
+        (common/intra_part.py), deblocked on the 8x8 grid (every possible
+        transform edge) on both sides."""
+        cfg = self.cfg
+        with profiling.stage("intra_search") as ps:
+            outs, recon = intra_part.encode_intra_frame_part(
+                *dev, qp, cfg.bit_depth)
+            if cfg.deblocking:
+                bs_v, bs_h = deblock.boundary_strengths_intra(
+                    cfg.height // 8, cfg.width // 8, self.device)
+                recon = dict(zip("yuv", deblock.deblock_frame(
+                    recon["y"], recon["u"], recon["v"], bs_v, bs_h, 8, qp,
+                    cfg.bit_depth)))
+            ps.set_sync(self.device)
+
+        def make_payload():
+            coords, valid = wavefront.wavefront_coords(
+                cfg.height // intra_part.SB, cfg.width // intra_part.SB)
+            return encode_intra_slice_part(*(
+                wavefront.steps_to_grid(p, coords, valid)
+                for p in xfer.pull_levels(*outs)))
 
         return self._finish_slice_overlap(
             poc, planes, recon, make_payload, qp, t0, SliceType.I, [], [],
@@ -507,13 +540,18 @@ class EncLib:
         dev = xfer.upload_planes(planes, cfg.bit_depth, self.device)
         rdev = self._refs(ref_poc, ref)
         if not cfg.mm.any_enabled():
+            if cfg.qt_depth > 0:
+                recon, make_payload = self._tree_picture(dev, rdev, None, qp)
+                return self._finish_slice_overlap(
+                    poc, planes, recon, make_payload, qp, t0, SliceType.P,
+                    [ref_poc], [], None, 0, dev)
             if cfg.affine:
                 recon, make_payload = self._p_affine(dev, rdev, qp)
                 return self._finish_slice_overlap(
                     poc, planes, recon, make_payload, qp, t0, SliceType.P,
                     [ref_poc], [], None, 0, dev)
-            # the JAX package's other conditions (no quadtree, MCTS or
-            # WPP) hold: EncLib refuses those configurations
+            # the JAX package's other conditions (no MCTS or WPP) hold:
+            # EncLib refuses those configurations
             use_2ref = ref2 is not None and cfg.max_num_ref >= 2 and \
                 cfg.merge
             r2dev = self._refs(ref2_poc, ref2) if use_2ref else None
@@ -690,6 +728,67 @@ class EncLib:
             cfg.inter_block_size, qp, cfg.bit_depth)
         return dict(y=ry, u=ru, v=rv)
 
+    def _deblock_tree(self, recon, mv_unit, has_resid_unit, leaf_id_unit,
+                      qp):
+        """Deblock a quadtree / MTT picture on its unit grid, at the
+        leaves' boundaries only."""
+        cfg = self.cfg
+        if not cfg.deblocking:
+            return recon
+        bs_v, bs_h = qtree.qt_boundary_strengths(mv_unit, has_resid_unit,
+                                                 leaf_id_unit)
+        return dict(zip("yuv", deblock.deblock_frame(
+            recon["y"], recon["u"], recon["v"], bs_v, bs_h,
+            cfg.inter_block_size >> cfg.qt_depth, qp, cfg.bit_depth)))
+
+    def _tree_picture(self, dev, r0, r1, qp):
+        """Classic quadtree P (r1 None) or B picture, with `mtt` the
+        multi-type tree: every node size's and shape's pass, the tree
+        resolve, the reconstruction and the deblocking on the device, then
+        one pull of the coded grids and the host CABAC.  B pictures of the
+        quadtree take BDOF and DMVR in their reconstruction, as in the JAX
+        package (its MTT path takes neither).  Returns (recon,
+        make_payload)."""
+        cfg = self.cfg
+        s, nd = cfg.inter_block_size, cfg.qt_depth
+        args = (qp, s, nd, cfg.bit_depth, cfg.search_range, cfg.wrap_around)
+        with profiling.stage("tree") as ps:
+            if r1 is None:
+                enc = (mtt_mod.encode_p_frame_mtt if cfg.mtt
+                       else qtree.encode_p_frame_qt)
+                out = enc(*dev, *r0, *args)
+                mv_unit = out["mv_unit"]
+            else:
+                if cfg.mtt:
+                    out = mtt_mod.encode_b_frame_mtt(*dev, tuple(r0),
+                                                     tuple(r1), *args)
+                else:
+                    out = qtree.encode_b_frame_qt(*dev, tuple(r0), tuple(r1),
+                                                  *args, cfg.bdof, cfg.dmvr)
+                mv_unit = torch.where(out["dirs_unit"][..., None] == 1,
+                                      out["mv1_unit"], out["mv0_unit"])
+            recon = self._deblock_tree(out["recon"], mv_unit,
+                                       out["has_resid_unit"],
+                                       out["leaf_id_unit"], qp)
+            ps.set_sync(self.device)
+
+        if cfg.mtt:
+            keys = (("codes", "sq_mv", "sq_levels", "rect_mv", "rect_levels")
+                    if r1 is None else
+                    ("codes", "sq_mv0", "sq_mv1", "sq_dirs", "sq_levels",
+                     "rect_mv0", "rect_mv1", "rect_dirs", "rect_levels"))
+            writer = encode_p_slice_mtt if r1 is None else encode_b_slice_mtt
+        else:
+            keys = (("splits", "mvs", "levels") if r1 is None else
+                    ("splits", "mv0", "mv1", "dirs", "levels"))
+            writer = encode_p_slice_qt if r1 is None else encode_b_slice_qt
+
+        def make_payload():
+            grids = xfer.pull_nested([out[k] for k in keys])
+            return writer(*grids, s, nd, use_merge=cfg.merge)
+
+        return recon, make_payload
+
     def _p_quadtree(self, active, dev, rdev, qp, epipoles):
         """MM x partitioning, merge-aware: the unit level runs the
         flat-path search (identical decisions), parents are evaluated from
@@ -734,13 +833,8 @@ class EncLib:
                     [torch.from_numpy(m).to(self.device) for m in leaf],
                     dev[0], dev[1], dev[2], rdev[0], rdev[1], rdev[2], qp,
                     s, nd, cfg.bit_depth, epipoles, cfg.wrap_around)
-            if cfg.deblocking:
-                bs_v, bs_h = qtree.qt_boundary_strengths(
-                    mv_u_dev, has_resid_u, leaf_id_u)
-                ry, ru, rv = deblock.deblock_frame(
-                    recon["y"], recon["u"], recon["v"], bs_v, bs_h,
-                    s >> nd, qp, cfg.bit_depth)
-                recon = dict(y=ry, u=ru, v=rv)
+            recon = self._deblock_tree(recon, mv_u_dev, has_resid_u,
+                                       leaf_id_u, qp)
             ps.set_sync(self.device)
 
         def make_payload():
@@ -823,6 +917,11 @@ class EncLib:
         dev = xfer.upload_planes(planes, cfg.bit_depth, self.device)
         r0 = self._refs(ref0_poc, ref0)
         r1 = self._refs(ref1_poc, ref1)
+        if not cfg.mm.any_enabled() and cfg.qt_depth > 0:
+            recon, make_payload = self._tree_picture(dev, r0, r1, qp)
+            return self._finish_slice_overlap(
+                poc, planes, recon, make_payload, qp, t0, SliceType.B,
+                [ref0_poc], [ref1_poc], None, tid, dev)
         if not cfg.mm.any_enabled():
             wp0 = wp1 = None
             if cfg.weighted_bipred:

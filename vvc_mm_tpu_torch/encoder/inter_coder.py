@@ -13,13 +13,16 @@ on or off, the quadtree P slice, and MM-MVP: cross-model candidates
 converted by common/mm/mvp_convert.py).  The classic paths carry the
 random-access tools: TMVP/HMVP (the co-located field and the history FIFO
 in the merge and AMVP lists), AMVR (the per-block MVD precision), GPM and
-CIIP (B block modes) and the affine P slice.  The classic quadtree, MTT
-and WPP writers (ROADMAP queue 1 item 11) are not ported.
+CIIP (B block modes) and the affine P slice.  The classic quadtree and
+its multi-type tree (BT/TT) code P and B slices through one tree walker
+(`walk_tree`) and one leaf syntax per slice type, over the causal unit
+grid.  The WPP writers (ROADMAP queue 1 item 11) are not ported.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from ..common import mtt as mtt_mod
 from ..common.cabac import BinEncoder
 from ..common.inter_frame import AMVR_SHIFTS, round_mv_amvr
 from ..common.contexts import ctx_id
@@ -1532,3 +1535,336 @@ def encode_b_slice(mv0: np.ndarray, mv1: np.ndarray, dirs: np.ndarray,
                 encode_mvd_comp(enc, mvd1y)
             _code_residual(enc, cbfs, levs)
     return enc.finish(), coded0, coded1
+
+
+# ------------------------------------------------ classic quadtree / MTT
+
+def mvp_unit_grid(coded: np.ndarray, avail: np.ndarray, uy: int, ux: int,
+                  k: int) -> np.ndarray:
+    """Median MVP for a leaf k units wide over the causally-coded unit grid
+    (shared enc/dec; reference analog: PU::fillMvpCand spatial candidates,
+    UnitTools.cpp:2172)."""
+    nuy, nux = avail.shape
+    cand = []
+    for (y, x) in ((uy, ux - 1), (uy - 1, ux), (uy - 1, ux + k),
+                   (uy - 1, ux - 1)):
+        if 0 <= y < nuy and 0 <= x < nux and avail[y, x]:
+            cand.append(coded[y, x])
+        if len(cand) == 3:
+            break
+    if not cand:
+        return np.zeros(2, dtype=np.int64)
+    if len(cand) == 1:
+        return cand[0]
+    c = np.stack(cand[:3])
+    if len(c) == 2:
+        return (c[0] + c[1] + 1) >> 1
+    return np.median(c, axis=0).astype(np.int64)
+
+
+def _unit_neighbours(avail: np.ndarray, uy: int, ux: int, k: int):
+    """The available spatial positions A1, B1, B0, B2 of a leaf k units
+    wide at (uy, ux), in that order."""
+    nuy, nux = avail.shape
+    return [(y, x) for (y, x) in ((uy, ux - 1), (uy - 1, ux),
+                                  (uy - 1, ux + k), (uy - 1, ux - 1))
+            if 0 <= y < nuy and 0 <= x < nux and avail[y, x]]
+
+
+def merge_candidates_unit(coded: np.ndarray, avail: np.ndarray, uy: int,
+                          ux: int, k: int, n: int = MERGE_MAX
+                          ) -> list[tuple[int, int]]:
+    """Merge candidate list over the causal unit grid (QT/MTT leaves;
+    reference: getInterMergeCandidates at the CU the partitioner visits).
+    Spatial A1/B1/B0/B2 positions relative to a k-unit-wide leaf, then
+    pairwise + zero."""
+    out = []
+    for y, x in _unit_neighbours(avail, uy, ux, k):
+        c = (int(coded[y, x, 0]), int(coded[y, x, 1]))
+        if c not in out:
+            out.append(c)
+        if len(out) == n:
+            break
+    if 2 <= len(out) < n:
+        pw = ((out[0][0] + out[1][0] + 1) >> 1,
+              (out[0][1] + out[1][1] + 1) >> 1)
+        if pw not in out:
+            out.append(pw)
+    while len(out) < n:
+        out.append((0, 0))
+    return out
+
+
+def merge_candidates_unit_b(coded0: np.ndarray, coded1: np.ndarray,
+                            dirs_u: np.ndarray, avail: np.ndarray,
+                            uy: int, ux: int, k: int, n: int = MERGE_MAX):
+    """Whole-motion (dir, mv0, mv1) merge candidates over the causal unit
+    grid (QT/MTT B leaves)."""
+    out = []
+    for y, x in _unit_neighbours(avail, uy, ux, k):
+        c = (int(dirs_u[y, x]),
+             (int(coded0[y, x, 0]), int(coded0[y, x, 1])),
+             (int(coded1[y, x, 0]), int(coded1[y, x, 1])))
+        if c not in out:
+            out.append(c)
+        if len(out) == n:
+            break
+    while len(out) < n:
+        out.append((2, (0, 0), (0, 0)))
+    return out
+
+
+def mtt_child_entries(kind_code: int, by: int, bx: int):
+    """Rect-grid child entries of a split node, in coding order.
+    Returns [(kind, gy, gx)] into the canonical rect grids
+    (common/mtt.py rect_shapes layout)."""
+    if kind_code == mtt_mod.BTH:
+        return [("bth", 2 * by, bx), ("bth", 2 * by + 1, bx)]
+    if kind_code == mtt_mod.BTV:
+        return [("btv", by, 2 * bx), ("btv", by, 2 * bx + 1)]
+    if kind_code == mtt_mod.TTH:
+        return [("tth_o", 4 * by, bx), ("tth_m", 2 * by, bx),
+                ("tth_o", 4 * by + 3, bx)]
+    if kind_code == mtt_mod.TTV:
+        return [("ttv_o", by, 4 * bx), ("ttv_m", by, 2 * bx),
+                ("ttv_o", by, 4 * bx + 3)]
+    raise ValueError(kind_code)
+
+
+def walk_tree(nty: int, ntx: int, top: int, depth: int, split_code,
+              leaf) -> None:
+    """Visit a picture's coding tree in coding order: raster over the top
+    blocks, z-order inside.  split_code(d, by, bx, s) gives (the writer
+    codes, the parser reads) the split of an internal node; leaf(key, gy,
+    gx, uy, ux, ky, kx) is called for every leaf, key d for the square
+    grids and (kind, d) for the rectangular ones, (uy, ux) its top-left
+    unit and (ky, kx) its span in units."""
+    u = top >> depth
+    shapes = {(i[0], i[1]): i for i in mtt_mod.rect_shapes(top, depth)}
+
+    def node(d, by, bx):
+        s = top >> d
+        code = split_code(d, by, bx, s) if d < depth else mtt_mod.LEAF
+        if code == mtt_mod.QUAD:
+            for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
+                node(d + 1, 2 * by + dy, 2 * bx + dx)
+        elif code != mtt_mod.LEAF:
+            for kind, gy, gx in mtt_child_entries(code, by, bx):
+                _, _, sy, sx, y_off, x_off = shapes[(kind, d)]
+                leaf((kind, d), gy, gx, (gy * sy + y_off) // u,
+                     (gx * sx + x_off) // u, sy // u, sx // u)
+        else:
+            k = s // u
+            leaf(d, by, bx, by * k, bx * k, k, k)
+
+    for by in range(nty):
+        for bx in range(ntx):
+            node(0, by, bx)
+
+
+def _code_split_syntax(enc, code: int, d: int, s: int, u: int,
+                       mtt: bool) -> None:
+    """Split bins of one internal node (reference: split_cu_flag,
+    split_qt_flag, mtt_split_cu_binary_flag, mtt_split_cu_vertical_flag,
+    CABACWriter::split_cu_mode).  The quadtree codes split_cu_flag only."""
+    enc.encode_bin(int(code != mtt_mod.LEAF), ctx_id("SplitFlag", min(d, 8)))
+    if code == mtt_mod.LEAF or not mtt:
+        return
+    enc.encode_bin(int(code == mtt_mod.QUAD), ctx_id("QtSplitFlag",
+                                                     min(d, 2)))
+    if code == mtt_mod.QUAD:
+        return
+    if mtt_mod.bt_allowed(s, u) and mtt_mod.tt_allowed(s, u):
+        enc.encode_bin(int(code in (mtt_mod.BTH, mtt_mod.BTV)),
+                       ctx_id("BtFlag", min(d, 2)))
+    enc.encode_bin(int(code in (mtt_mod.BTV, mtt_mod.TTV)),
+                   ctx_id("MttVert", min(d, 2)))
+
+
+def _code_leaf_levels(enc, levs) -> None:
+    _code_residual(enc, tuple(bool(np.any(l != 0)) for l in levs), levs)
+
+
+def _code_leaf_p(enc, mv, levs, coded, avail, uy, ux, ky, kx,
+                 use_merge: bool) -> None:
+    """One P leaf of any shape: skip / [merge] / mvd / cbf / coeffs over a
+    (ky, kx) unit span; updates the coded unit grid and availability.
+    With use_merge, a leaf whose MV equals a candidate is coded as its
+    merge_idx (the tree search decided the MV; merge is the cheaper coding
+    of it)."""
+    pred = mvp_unit_grid(coded, avail, uy, ux, kx)
+    mv = np.asarray(mv, dtype=np.int64)
+    mvd = mv - pred
+    no_resid = all(not np.any(l != 0) for l in levs)
+    if use_merge:
+        cands = merge_candidates_unit(coded, avail, uy, ux, kx)
+        t = (int(mv[0]), int(mv[1]))
+        mrg = t in cands
+        skip = mrg and no_resid
+        enc.encode_bin(int(skip), ctx_id("SkipFlag"))
+        if not skip:
+            enc.encode_bin(int(mrg), ctx_id("MergeFlag"))
+        if mrg:
+            encode_merge_idx(enc, cands.index(t))
+        else:
+            encode_mvd_comp(enc, int(mvd[0]))
+            encode_mvd_comp(enc, int(mvd[1]))
+    else:
+        skip = no_resid and mvd[0] == 0 and mvd[1] == 0
+        enc.encode_bin(int(skip), ctx_id("SkipFlag"))
+        if not skip:
+            encode_mvd_comp(enc, int(mvd[0]))
+            encode_mvd_comp(enc, int(mvd[1]))
+    if not skip:
+        _code_leaf_levels(enc, levs)
+    coded[uy:uy + ky, ux:ux + kx] = mv
+    avail[uy:uy + ky, ux:ux + kx] = True
+
+
+def _b_dir_pred(dirs_u, avail, uy: int, ux: int) -> int:
+    """The inter direction a non-merge skip inherits: left, else above,
+    else L0."""
+    if ux > 0 and avail[uy, ux - 1]:
+        return int(dirs_u[uy, ux - 1])
+    if uy > 0 and avail[uy - 1, ux]:
+        return int(dirs_u[uy - 1, ux])
+    return 0
+
+
+def _code_leaf_b(enc, mv0, mv1, dv, levs, grids, uy, ux, ky, kx,
+                 use_merge: bool) -> None:
+    """One B leaf of any shape: skip / [merge] / inter_dir / mvd per used
+    list / residual.  The unused list's unit cells take its MVP so that
+    both sides evolve the same grids (coded0, coded1, dirs_u, avail)."""
+    coded0, coded1, dirs_u, avail = grids
+    pred0 = mvp_unit_grid(coded0, avail, uy, ux, kx)
+    pred1 = mvp_unit_grid(coded1, avail, uy, ux, kx)
+    mv0 = pred0 if dv == 1 else np.asarray(mv0, dtype=np.int64)
+    mv1 = pred1 if dv == 0 else np.asarray(mv1, dtype=np.int64)
+    mvd0, mvd1 = mv0 - pred0, mv1 - pred1
+    no_resid = all(not np.any(l != 0) for l in levs)
+    if use_merge:
+        cands = merge_candidates_unit_b(coded0, coded1, dirs_u, avail, uy,
+                                        ux, kx)
+        t = (dv, (int(mv0[0]), int(mv0[1])), (int(mv1[0]), int(mv1[1])))
+        mrg = t in cands
+        skip = mrg and no_resid
+        enc.encode_bin(int(skip), ctx_id("SkipFlag"))
+        if not skip:
+            enc.encode_bin(int(mrg), ctx_id("MergeFlag"))
+        if mrg:
+            encode_merge_idx(enc, cands.index(t))
+    else:
+        d_pred = _b_dir_pred(dirs_u, avail, uy, ux)
+        used_zero = (((dv != 1) <= bool((mvd0 == 0).all()))
+                     and ((dv != 0) <= bool((mvd1 == 0).all())))
+        skip = no_resid and dv == d_pred and used_zero
+        enc.encode_bin(int(skip), ctx_id("SkipFlag"))
+        mrg = skip
+        if skip:
+            dv, mv0, mv1 = d_pred, pred0, pred1
+    if not mrg:
+        enc.encode_bin(int(dv == 2), ctx_id("InterDir", 0))
+        if dv != 2:
+            enc.encode_bin(dv, ctx_id("InterDir", 1))
+        if dv != 1:
+            encode_mvd_comp(enc, int(mvd0[0]))
+            encode_mvd_comp(enc, int(mvd0[1]))
+        if dv != 0:
+            encode_mvd_comp(enc, int(mvd1[0]))
+            encode_mvd_comp(enc, int(mvd1[1]))
+    if not skip:
+        _code_leaf_levels(enc, levs)
+    coded0[uy:uy + ky, ux:ux + kx] = mv0
+    coded1[uy:uy + ky, ux:ux + kx] = mv1
+    dirs_u[uy:uy + ky, ux:ux + kx] = dv
+    avail[uy:uy + ky, ux:ux + kx] = True
+
+
+def _encode_tree(codes, fields, levels, top: int, depth: int, mtt: bool,
+                 use_merge: bool) -> bytes:
+    """The tree's split syntax and every leaf's.  codes: per level the
+    split code of each node (mtt.LEAF/QUAD/...); fields[key] = (mv,) for P
+    or (mv0, mv1, dirs) for B and levels[key] = (lev_y, lev_u, lev_v), key
+    d for the square grid of level d and (kind, d) for a rect grid."""
+    enc = NativeBinEncoder()
+    u = top >> depth
+    nty, ntx = levels[0][0].shape[:2]
+    nuy, nux = levels[depth][0].shape[:2]
+    bi = len(fields[0]) == 3
+    grids = (np.zeros((nuy, nux, 2), dtype=np.int64),
+             np.zeros((nuy, nux, 2), dtype=np.int64),
+             np.zeros((nuy, nux), dtype=np.int32),
+             np.zeros((nuy, nux), dtype=bool))
+
+    def split_code(d, by, bx, s):
+        code = int(codes[d][by, bx])
+        _code_split_syntax(enc, code, d, s, u, mtt)
+        return code
+
+    def leaf(key, gy, gx, uy, ux, ky, kx):
+        levs = tuple(levels[key][c][gy, gx] for c in range(3))
+        f = fields[key]
+        if bi:
+            _code_leaf_b(enc, f[0][gy, gx], f[1][gy, gx], int(f[2][gy, gx]),
+                         levs, grids, uy, ux, ky, kx, use_merge)
+        else:
+            _code_leaf_p(enc, f[0][gy, gx], levs, grids[0], grids[3], uy,
+                         ux, ky, kx, use_merge)
+
+    walk_tree(nty, ntx, top, depth, split_code, leaf)
+    return enc.finish()
+
+
+def _qt_codes(splits):
+    return [np.where(np.asarray(sp), mtt_mod.QUAD, mtt_mod.LEAF)
+            for sp in splits]
+
+
+def encode_p_slice_qt(splits, mvs, levels, top: int, depth: int,
+                      use_merge: bool = False) -> bytes:
+    """Quadtree P-slice entropy coding (reference: CABACWriter
+    coding_tree + inter CU syntax): split_cu_flag per internal node, the
+    leaves in z-order within each top block, raster over the top blocks;
+    the coded unit-grid MV field evolves exactly as the decoder rebuilds
+    it.  Args: outputs of qtree.encode_p_frame_qt (host numpy)."""
+    return _encode_tree(_qt_codes(splits), {d: (m,) for d, m in
+                                            enumerate(mvs)},
+                        dict(enumerate(levels)), top, depth, False,
+                        use_merge)
+
+
+def encode_b_slice_qt(splits, mv0s, mv1s, dirss, levels, top: int,
+                      depth: int, use_merge: bool = False) -> bytes:
+    """Quadtree B-slice entropy coding: the tree + per leaf inter_dir, the
+    mvd of each used list and the residual."""
+    return _encode_tree(_qt_codes(splits),
+                        {d: f for d, f in enumerate(zip(mv0s, mv1s, dirss))},
+                        dict(enumerate(levels)), top, depth, False,
+                        use_merge)
+
+
+def encode_p_slice_mtt(codes, sq_mv, sq_levels, rect_mv, rect_levels,
+                       top: int, depth: int,
+                       use_merge: bool = False) -> bytes:
+    """MTT P-slice entropy coding: QT/BT/TT split syntax + the quadtree's
+    leaf syntax over rectangular spans."""
+    fields = {d: (m,) for d, m in enumerate(sq_mv)}
+    fields.update({k: (m,) for k, m in rect_mv.items()})
+    return _encode_tree(codes, fields,
+                        {**dict(enumerate(sq_levels)), **rect_levels}, top,
+                        depth, True, use_merge)
+
+
+def encode_b_slice_mtt(codes, sq_mv0, sq_mv1, sq_dirs, sq_levels,
+                       rect_mv0, rect_mv1, rect_dirs, rect_levels,
+                       top: int, depth: int,
+                       use_merge: bool = False) -> bytes:
+    """MTT B-slice entropy coding (split syntax + the B leaf syntax over
+    rectangular spans)."""
+    fields = {d: f for d, f in enumerate(zip(sq_mv0, sq_mv1, sq_dirs))}
+    fields.update({k: (rect_mv0[k], rect_mv1[k], rect_dirs[k])
+                   for k in rect_mv0})
+    return _encode_tree(codes, fields,
+                        {**dict(enumerate(sq_levels)), **rect_levels}, top,
+                        depth, True, use_merge)

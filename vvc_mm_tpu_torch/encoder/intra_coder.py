@@ -7,8 +7,9 @@ CABAC encoder; it consumes the dense grids of the wavefront encode and is
 the mirror of decoder/intra_parser.py.  It codes the prediction tools'
 syntax (IBC flag and block-vector index, MIP flag and mode,
 MultiRefLineIdx, the chroma LM flag) and the residual tools' (transform
-skip and BDPCM flags, lfnst_idx, tu_mts_idx); the WPP and intra-split
-writers are not ported (ROADMAP queue 1 items 9f and 11).
+skip and BDPCM flags, lfnst_idx, tu_mts_idx), and the two-level
+intra-split slice (`encode_intra_slice_part`); the WPP writer is not
+ported (ROADMAP queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -120,3 +121,48 @@ def _encode_intra_rows(enc, modes, lev_y, lev_u, lev_v, r0: int, r1: int,
                         enc.encode_bin(int(m > k), ctx_id("MtsIdx", k))
                         if m <= k:
                             break
+
+
+def encode_intra_slice_part(split: np.ndarray, mode16: np.ndarray,
+                            modes8: np.ndarray, l16y: np.ndarray,
+                            l16u: np.ndarray, l16v: np.ndarray,
+                            l8y: np.ndarray, l8u: np.ndarray,
+                            l8v: np.ndarray) -> bytes:
+    """Two-level intra slice: per 16x16 superblock a split_cu_flag, then
+    one mode + residual set (whole) or four in z-order (split) (reference:
+    CABACWriter split_cu_flag + intra_luma_pred_mode; common/intra_part.py
+    is the reconstruction mirror).  The (nsy, nsx, ...) grids are
+    encode_intra_frame_part's outputs."""
+    from ..common.intra_part import _QUADS
+    enc = NativeBinEncoder()
+    nsy, nsx = split.shape
+    # final mode per 8x8 cell (the MPM source, as the encoder's mode map)
+    cell = np.full((2 * nsy, 2 * nsx), -1, dtype=np.int32)
+
+    def code_one(mode, cy, cx, levs):
+        left = int(cell[cy, cx - 1]) if cx > 0 else -1
+        above = int(cell[cy - 1, cx]) if cy > 0 else -1
+        encode_intra_mode(enc, int(mode), left, above)
+        for lev, cid in zip(levs, (0, 4, 5)):
+            cbf = bool(np.any(lev != 0))
+            enc.encode_bin(int(cbf), ctx_id("QtCbf", cid))
+            if cbf:
+                enc.encode_coeffs(lev, chroma=(cid != 0))
+
+    for sy in range(nsy):
+        for sx in range(nsx):
+            sp = int(split[sy, sx])
+            enc.encode_bin(sp, ctx_id("SplitFlag", 0))
+            if sp:
+                for k, (qy, qx) in enumerate(_QUADS):
+                    cy, cx = 2 * sy + qy, 2 * sx + qx
+                    code_one(modes8[sy, sx, k], cy, cx,
+                             (l8y[sy, sx, k], l8u[sy, sx, k],
+                              l8v[sy, sx, k]))
+                    cell[cy, cx] = int(modes8[sy, sx, k])
+            else:
+                code_one(mode16[sy, sx], 2 * sy, 2 * sx,
+                         (l16y[sy, sx], l16u[sy, sx], l16v[sy, sx]))
+                cell[2 * sy:2 * sy + 2, 2 * sx:2 * sx + 2] = \
+                    int(mode16[sy, sx])
+    return enc.finish()

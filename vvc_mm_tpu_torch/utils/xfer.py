@@ -63,3 +63,32 @@ def upload_planes(planes, bit_depth: int, device=None):
     dt = np.uint8 if bit_depth <= 8 else np.int16
     return tuple(torch.from_numpy(np.ascontiguousarray(p, dtype=dt))
                  .to(device).to(torch.int32) for p in planes)
+
+
+def pull_nested(obj):
+    """pull_levels over every tensor of a nest of lists, tuples and dicts,
+    in ONE int16 copy: returns the same nest with numpy int32 arrays in
+    place of the tensors."""
+    leaves = []
+
+    def collect(o):
+        if torch.is_tensor(o):
+            leaves.append(o)
+        elif isinstance(o, dict):
+            for v in o.values():
+                collect(v)
+        elif isinstance(o, (list, tuple)):
+            for v in o:
+                collect(v)
+    collect(obj)
+    pulled = iter(pull_levels(*leaves))
+
+    def rebuild(o):
+        if torch.is_tensor(o):
+            return next(pulled)
+        if isinstance(o, dict):
+            return {k: rebuild(v) for k, v in o.items()}
+        if isinstance(o, (list, tuple)):
+            return type(o)(rebuild(v) for v in o)
+        return o
+    return rebuild(obj)
