@@ -35,7 +35,9 @@ Phases (any failure exits non-zero and prints no result line):
      stream is decoded on the card too: all its MD5s must match; so must
      every picture's of each committed 256x128 multi-model stream (MPA,
      ROT, GED, 3DT, TAN, projected DMVR), and, in phases 8b, 8e and 8k,
-     of each committed 2048x1024 one;
+     of each committed 2048x1024 one; and the two committed 10-bit streams
+     (64x32, AI and LDP): every MD5 OK (the hash over 16-bit samples) and
+     every picture the JAX decoder's;
   5. count, per multi-model picture, the subblock positions the card
      computes differently from the same code on the CPU (both streams;
      L1 computes the sphere math's libm calls on the card): any
@@ -103,9 +105,12 @@ Phases (any failure exits non-zero and prints no result line):
      The classic path launches none of K1-K6;
   8d. bench configuration 5 (`erp6144x3072_ldp_qp37_encode_fps`:
      6144x3072 ERP, LDP, wrap-around, classic tools), 3 frames: POC 2 is
-     the first two-reference P picture; encode_sequence on the card, the
-     stream decoded on the card with 3 of 3 MD5 OK; seconds per picture
-     and the device memory peak printed;
+     the first two-reference P picture; encode_sequence on the card held
+     to the JAX encoder's sidecar `erp6144x3072_ldp_qp37_3f` (no stream is
+     committed at this size): the stream's SHA-256, and on a difference
+     each slice NAL's SHA-256 and bits; the stream decoded on the card
+     with 3 of 3 MD5 OK; seconds per picture and the device memory peak
+     printed;
   8e. bench configuration 4 plus the last two motion models and projected
      DMVR (`erp2048x1024_ra_qp37_allmm_dmvr`: MPA+3DT+TAN+ROT+GED+MMMVP,
      8 active models, epipole (1, 0, 0, 0, 1), dmvr on), 5 frames at GOP
@@ -179,7 +184,23 @@ Phases (any failure exits non-zero and prints no result line):
   8q. the two-level intra partitioning (`intra_split=True`): bench
      configuration 1 against `ai416x240_intra_split_qp37_2f` as in 8o,
      then one 2048x1024 I picture of the headline configuration with it,
-     its IDR NAL's SHA-256 against the JAX sidecar's and its seconds.
+     its IDR NAL's SHA-256 against the JAX sidecar's and its seconds;
+  8r. WPP (4 substreams: the I, P and B writers, and with TMVP the P merge
+     selection's HMVP resets), LMCS and the film grain SEI together, on
+     configuration 2's clip at 832x480, RA, GOP 4, 5 frames, QP 37: byte
+     for byte against `ra832x480_wpp_lmcs_fg_qp37_5f`, the port's stream
+     decoded on the card with every MD5 OK, the committed one too, its
+     display-domain pictures (DecLib.output_frames), its film grain
+     parameters and the grain applied to POC 0 equal to the JAX
+     decoder's, the encoder's display-domain pictures to the JAX
+     encoder's; per picture kind the seconds (host clock), the phase's
+     wall seconds and its kernel launches;
+  8s. MCTS (2x2 tiles) on that clip, LDP, 3 frames, QP 37: byte for byte
+     against `ldp832x480_mcts_qp37_3f`, decoded on the card with every MD5
+     OK and the SEI's tile grid read back; then the stream without POC 1's
+     slice NAL: POC 1 concealed, and the decoded POCs, their MD5s and the
+     hash verdicts equal to the JAX decoder's on the same bytes; seconds,
+     wall seconds and launches as in 8r.
      Where a committed stream is the port's byte for byte (every phase
      from 8c on but 8i's possible difference), its decode is the port's
      stream's (check_run) and is not repeated;
@@ -206,6 +227,7 @@ Phases (any failure exits non-zero and prints no result line):
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import json
 import os
@@ -220,6 +242,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 from vvc_mm_tpu_torch.common import bitstream as bs
+from vvc_mm_tpu_torch.common import film_grain
 from vvc_mm_tpu_torch.common.inter_frame import (MC_MARGIN, first_argmin,
                                                  pad_ref)
 from vvc_mm_tpu_torch.common.mm import frame_codec, reprojection
@@ -279,6 +302,12 @@ PART_QT = "ra832x480_qt2_qp37_5f"
 PART_MTT = "ra832x480_mtt_qp37_5f"
 PART_INTRA = "ai416x240_intra_split_qp37_2f"
 PART_INTRA_BIG = "erp2048x1024_ai_intra_split_qp37"
+# the sequence tools (phases 8r and 8s), the 10-bit streams decoded in
+# phase 4 and bench configuration 5's JAX sidecar (phase 8d)
+TOOLS_8R = "ra832x480_wpp_lmcs_fg_qp37_5f"
+MCTS_8S = "ldp832x480_mcts_qp37_3f"
+TENBIT = ("ai64x32_10bit_qp32_3f", "ldp64x32_10bit_qp32_3f")
+CONFIG5 = "erp6144x3072_ldp_qp37_3f"
 # 256x128 committed multi-model streams decoded in phase 4
 SMALL_MM = ("erp256x128_ra_mpa_qp37_5f", "erp256x128_ra_ctcpreset_qp37_5f",
             "erp256x128_ra_fullmm_qp37_5f", "erp256x128_ra_fullmm_ep_qp37_5f",
@@ -1092,7 +1121,7 @@ def encode_run(label: str, cfg: EncCfg, src: list, mode: str,
         fail(f"{label}: {len(enc.results)} results for {len(src)} frames")
     return dict(label=label, data=data, rows=enc.rows, launches=launches,
                 seconds=seconds, stages=profiling.totals(), frames=len(src),
-                width=cfg.width, height=cfg.height)
+                width=cfg.width, height=cfg.height, enc=enc)
 
 
 def check_run(run: dict, need: tuple, record: dict | None = None,
@@ -1396,6 +1425,8 @@ def main() -> None:
         mm_dec.decode_bytes(open(os.path.join(DATA, stream + ".bin"),
                                  "rb").read())
         md5_verdicts(f"decode {stream}", mm_dec.hash_status, sd)
+    for stream in TENBIT:
+        decode_tool_stream(f"decode {stream}", stream)
 
     # ---- 5. positions: card vs the same code on the CPU
     phase("5. positions, card against CPU")
@@ -1485,6 +1516,12 @@ def main() -> None:
     phase("8q. two-level intra partitioning (416x240, 2048x1024)")
     partition_path("intra split 416x240 AI", PART_INTRA, path_launches)
     intra_split_picture(path_launches)
+
+    # ---- 8r-8s. the sequence tools: WPP, LMCS, film grain, MCTS, loss
+    phase("8r. WPP + LMCS + the film grain SEI (832x480, RA, GOP 4)")
+    sequence_tools_path(path_launches)
+    phase("8s. MCTS and a lost picture (832x480, LDP)")
+    mcts_path(path_launches)
 
     # ---- 9. decision SADs through K6 (and K5 beside it)
     phase("9. decision SADs")
@@ -2230,11 +2267,7 @@ def partition_path(label: str, stream: str, path_launches: dict) -> None:
     hold_bytes(label, run["data"], committed, stream)
     decode_all_ok(label, stream, committed, sd["frames"],
                   run["data"])
-    for kind in sorted({r["kind"] for r in run["rows"]}):
-        per = [r["seconds"] for r in run["rows"] if r["kind"] == kind]
-        print(f"{label}: {kind} pictures {min(per):.3f}-{max(per):.3f} s, "
-              f"median {statistics.median(per):.3f} s over {len(per)} "
-              "(host clock)")
+    picture_seconds(label, run)
     # an AI sequence's first picture is its only sampled kind
     tclip = clip[:1] if cfg.gop == "AI" else clip
     traced = encode_run(label + " (traced)", cfg, tclip, "trace",
@@ -2299,10 +2332,17 @@ def intra_picture_work(label: str, plain: dict, traced: dict) -> None:
 
 def bench_configuration_5(path_launches: dict) -> None:
     """Phase 8d: `erp6144x3072_ldp_qp37_encode_fps` (bench.py:121-123), 3
-    frames: POC 1 takes one reference, POC 2 two.  No JAX record exists
-    at this size; the CPU tests hold the two-reference path to JAX."""
+    frames: POC 1 takes one reference, POC 2 two; held to the JAX
+    encoder's sidecar (its stream's SHA-256; per picture the slice NAL's
+    SHA-256, bits and Y-PSNR)."""
     cfg = EncCfg(width=6144, height=3072, qp=37, gop="LDP",
                  search_range=24, wrap_around=True)
+    side = json.load(open(os.path.join(DATA, CONFIG5 + ".json")))
+    if (side["width"], side["height"], side["qp"], side["gop"],
+            side["search_range"], side["wrap_around"], side["frames"]) != (
+                cfg.width, cfg.height, cfg.qp, cfg.gop, cfg.search_range,
+                cfg.wrap_around, 3):
+        fail(f"{CONFIG5}: the sidecar names another configuration")
     clip = realistic_sequence(cfg.width, cfg.height, 3)
     label = "config 5 6144x3072 LDP"
     torch.cuda.reset_peak_memory_stats()
@@ -2310,6 +2350,22 @@ def bench_configuration_5(path_launches: dict) -> None:
     peak = torch.cuda.max_memory_allocated()
     path_launches[label] = run["launches"]
     check_run(run, ())
+    rows = {r["poc"]: r for r in run["rows"]}
+    slices = [n for n in bs.read_annexb(run["data"])
+              if n.nal_type in (bs.NAL_IDR, bs.NAL_TRAIL)]
+    for n, p in zip(slices, side["pocs"]):
+        same = hashlib.sha256(n.payload).hexdigest() == p["slice_sha256"]
+        r = rows[p["poc"]]
+        print(f"{label} POC {p['poc']}: slice NAL "
+              f"{'equal to' if same else 'DIFFERENT from'} the JAX "
+              f"encoder's; {r['bits']} bits ({p['bits']}), Y-PSNR "
+              f"{r['psnr'][0]:.4f} dB ({p['psnr_y']:.4f})")
+    sha = hashlib.sha256(run["data"]).hexdigest()
+    print(f"{label}: SHA-256 {sha}, the JAX encoder's {side['sha256']} "
+          f"({side['bytes']} bytes): "
+          f"{'equal' if sha == side['sha256'] else 'DIFFERENT'}")
+    if sha != side["sha256"]:
+        fail(f"{label}: the card's stream differs from the JAX encoder's")
     print(f"{label}: device memory peak of the encode "
           f"{peak / 2 ** 30:.2f} GiB (torch.cuda.max_memory_allocated)")
     nals = bs.read_annexb(run["data"])
@@ -2320,6 +2376,178 @@ def bench_configuration_5(path_launches: dict) -> None:
     print(f"{label}: reference lists {refs}")
     if refs != {1: [0], 2: [1, 0]}:
         fail(f"{label}: POC 2 is not a two-reference P picture")
+
+
+def tool_sidecar(stream: str, cfg: EncCfg) -> dict:
+    """The sidecar of a sequence-tool stream
+    (tests/make_torch_port_streams.py TOOL_STREAMS), checked to name
+    `cfg`."""
+    sd = json.load(open(os.path.join(DATA, stream + ".json")))
+    keys = ("width", "height", "qp", "gop", "gop_size", "search_range",
+            "tmvp", "wpp", "num_substreams", "lmcs", "film_grain")
+    if any(sd.get(k, getattr(EncCfg, k)) != getattr(cfg, k) for k in keys) \
+            or tuple(sd["mcts_tiles"]) != tuple(cfg.mcts_tiles):
+        fail(f"{stream}: the sidecar names another configuration")
+    return sd
+
+
+def md5_of(planes, bit_depth: int = 8) -> str:
+    """The decoded-picture-hash MD5 of a picture's host planes."""
+    m = hashlib.md5()
+    for p in planes:
+        m.update(np.asarray(p).astype("<u2" if bit_depth > 8
+                                      else np.uint8).tobytes())
+    return m.hexdigest()
+
+
+def grain_record(params) -> dict | None:
+    """FilmGrainParams as its sidecar records them."""
+    return None if params is None else json.loads(json.dumps(
+        dataclasses.asdict(params)))
+
+
+def decode_tool_stream(label: str, stream: str, data: bytes | None = None):
+    """A committed sequence-tool stream (or `data`, other bytes of it)
+    decoded on the card: every MD5 verdict and every picture the JAX
+    decoder's (its sidecar).  Returns the DecLib."""
+    sd = json.load(open(os.path.join(DATA, stream + ".json")))
+    bd = sd.get("bit_depth", 8)
+    if data is None:
+        data = open(os.path.join(DATA, stream + ".bin"), "rb").read()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec = DecLib()
+    frames = dec.decode_bytes(data)
+    torch.cuda.synchronize()
+    verdicts = {str(k): v for k, v in sorted(dec.hash_status.items())}
+    same = [f.md5(bd) for f in frames] == sd["jax_decoder_frame_md5"]
+    print(f"{label}: {len(frames)} pictures decoded on the card in "
+          f"{time.perf_counter() - t0:.2f} s (host clock), hash {verdicts}, "
+          f"pictures equal to the JAX decoder's: {same}")
+    if verdicts != sd["jax_decoder_md5"] or not same \
+            or any(v != "OK" for v in verdicts.values()):
+        fail(f"{label}: the decode differs from the JAX decoder's")
+    return dec
+
+
+def picture_seconds(label: str, run: dict) -> None:
+    """Seconds a picture by kind (host clock, untraced)."""
+    for kind in sorted({r["kind"] for r in run["rows"]}):
+        per = [r["seconds"] for r in run["rows"] if r["kind"] == kind]
+        print(f"{label}: {kind} pictures {min(per):.3f}-{max(per):.3f} s, "
+              f"median {statistics.median(per):.3f} s over {len(per)} "
+              "(host clock)")
+
+
+def kernel_launches(label: str, run: dict) -> None:
+    """The run's kernel launches, printed whatever they are."""
+    n = {k: v for k, v in run["launches"].items() if isinstance(v, int)
+         and v}
+    print(f"{label}: kernel launches {n or 0}")
+
+
+def sequence_tools_path(path_launches: dict) -> None:
+    """Phase 8r: WPP (the I, P and B substream writers, the P merge
+    selection's HMVP resets under TMVP), LMCS and the film grain SEI on
+    configuration 2's clip, against the JAX encoder's stream and its
+    decoder's display-domain pictures and grain parameters."""
+    t0 = time.perf_counter()
+    cfg = EncCfg(width=832, height=480, qp=37, gop="RA", gop_size=4,
+                 search_range=24, tmvp=True, wpp=True, num_substreams=4,
+                 lmcs=True, film_grain=True)
+    sd = tool_sidecar(TOOLS_8R, cfg)
+    committed = open(os.path.join(DATA, TOOLS_8R + ".bin"), "rb").read()
+    label = "WPP+LMCS+film grain 832x480 GOP 4"
+    clip = realistic_sequence(cfg.width, cfg.height, sd["frames"])
+    run = encode_run(label, cfg, clip, "plain")
+    path_launches[label] = run["launches"]
+    check_run(run, (), {p["poc"]: p for p in sd["pocs"]})
+    hold_bytes(label, run["data"], committed, TOOLS_8R)
+    enc = run["enc"]
+    # the rows' Y-PSNRs above are the mapped domain's; the results' are
+    # re-scored on the display domain against the true source
+    shown_psnr = [(r.psnr_y, p["psnr_y"]) for r, p in zip(enc.results,
+                                                          sd["pocs"])]
+    print(f"{label}: display-domain Y-PSNR by POC " + ", ".join(
+        f"{a:.4f} ({b:.4f})" for a, b in shown_psnr) + " dB (JAX encoder)")
+    if any(abs(a - b) > 1e-3 for a, b in shown_psnr):
+        fail(f"{label}: display-domain Y-PSNR differs from the JAX "
+             "encoder's")
+    outs = [md5_of(r.output) for r in enc.results]
+    if outs != sd["encoder_output_md5"] or \
+            grain_record(enc.film_grain_params) != sd["film_grain_params"]:
+        fail(f"{label}: the encoder's display-domain pictures or grain "
+             "parameters differ from the JAX encoder's")
+    dec = decode_tool_stream(f"{label} committed {TOOLS_8R}", TOOLS_8R,
+                             committed)
+    shown = [f.md5() for f in dec.output_frames()]
+    params = grain_record(dec.film_grain)
+    t1 = time.perf_counter()
+    grain = film_grain.apply_grain(dec.frames[0].planes, dec.film_grain, 0)
+    grain_s = time.perf_counter() - t1
+    print(f"{label}: LMCS codewords {list(dec.sps.lmcs_cw)}, display-domain "
+          f"pictures equal to the JAX decoder's: {shown == sd['output_md5']}"
+          f"; film grain {params}, equal: "
+          f"{params == sd['film_grain_params']}; grain on POC 0 "
+          f"({grain_s:.3f} s, host) equal: "
+          f"{md5_of(grain) == sd['grain_poc0_md5']}")
+    if list(dec.sps.lmcs_cw) != sd["lmcs_cw"] or shown != sd["output_md5"] \
+            or params != sd["film_grain_params"] \
+            or md5_of(grain) != sd["grain_poc0_md5"]:
+        fail(f"{label}: LMCS output or film grain differ from the JAX "
+             "decoder's")
+    picture_seconds(label, run)
+    kernel_launches(label, run)
+    print(f"{label}: phase {time.perf_counter() - t0:.1f} s (host clock)")
+
+
+def drop_first_trail(data: bytes) -> bytes:
+    """The stream without its first TRAIL slice NAL (POC 1 of an LDP
+    stream; tests/test_apps.py:98)."""
+    nalus = bs.read_annexb(data)
+    first = next(i for i, n in enumerate(nalus)
+                 if n.nal_type == bs.NAL_TRAIL)
+    return bs.write_annexb([n for i, n in enumerate(nalus) if i != first])
+
+
+def mcts_path(path_launches: dict) -> None:
+    """Phase 8s: MCTS on configuration 2's clip against the JAX encoder's
+    stream, then the decode with POC 1's slice NAL lost against the JAX
+    decoder's."""
+    t0 = time.perf_counter()
+    cfg = EncCfg(width=832, height=480, qp=37, gop="LDP", search_range=24,
+                 mcts_tiles=(2, 2))
+    sd = tool_sidecar(MCTS_8S, cfg)
+    committed = open(os.path.join(DATA, MCTS_8S + ".bin"), "rb").read()
+    label = "MCTS 832x480 LDP"
+    clip = realistic_sequence(cfg.width, cfg.height, sd["frames"])
+    run = encode_run(label, cfg, clip, "plain")
+    path_launches[label] = run["launches"]
+    check_run(run, (), {p["poc"]: p for p in sd["pocs"]})
+    hold_bytes(label, run["data"], committed, MCTS_8S)
+    dec = decode_tool_stream(f"{label} committed {MCTS_8S}", MCTS_8S,
+                             committed)
+    print(f"{label}: MCTS SEI tile grid {dec.mcts_tiles}")
+    if dec.mcts_tiles != tuple(sd["jax_decoder_mcts_tiles"]):
+        fail(f"{label}: the MCTS SEI reads {dec.mcts_tiles}")
+    rec = sd["concealed"]
+    lost = DecLib()
+    t1 = time.perf_counter()
+    frames = lost.decode_bytes(drop_first_trail(committed))
+    torch.cuda.synchronize()
+    got = dict(concealed=lost.concealed, pocs=[f.poc for f in frames],
+               md5=[f.md5() for f in frames], hash_status={
+                   str(k): v for k, v in sorted(lost.hash_status.items())})
+    print(f"{label}: POC 1's slice NAL dropped: decoded in "
+          f"{time.perf_counter() - t1:.2f} s (host clock), concealed "
+          f"{got['concealed']}, POCs {got['pocs']}, hash "
+          f"{got['hash_status']}; equal to the JAX decoder's: {got == rec}")
+    if got != rec or got["concealed"] != [1]:
+        fail(f"{label}: the concealed decode differs from the JAX "
+             f"decoder's {rec}")
+    picture_seconds(label, run)
+    kernel_launches(label, run)
+    print(f"{label}: phase {time.perf_counter() - t0:.1f} s (host clock)")
 
 
 def bench_stream(name: str, stream: str):

@@ -115,6 +115,35 @@ IDR NAL, for the chip smoke run's encodes on the card.
 Each gets a JSON sidecar with every POC's MD5, the encoder's Y/U/V PSNR
 and bits, and the tools it turns on.
 
+The sequence tools and 10-bit coding (TOOL_STREAMS; each small one
+mirrors a test of the JAX package, its sizes, settings and content):
+
+  ra64x64_wpp_tmvp_qp32_6f      tests/test_wpp.py:85, WPP in 2 substreams;
+  ldp128x128_wpp_tmvp_qp28_6f   tests/test_wpp.py:109, 4 substreams, the
+                                HMVP resets of the P merge selection;
+  ldp64x64_lmcs_qp34_3f         tests/test_lmcs.py:33;
+  ldp128x64_mcts_qp32_3f        tests/test_mcts.py:49 (2x1 tiles);
+  ai96x64_film_grain_qp37_2f    tests/test_utility_apps.py:127;
+  ldp96x64_conceal_qp35_4f      tests/test_apps.py:98, whose sidecar also
+                                records the JAX decoder's decode with POC
+                                1's slice NAL dropped;
+  ai64x32_10bit_qp32_3f, ldp64x32_10bit_qp32_3f
+                                tests/test_highbitdepth.py:19-30;
+  ra832x480_wpp_lmcs_fg_qp37_5f bench configuration 2's clip, RA, GOP 4,
+                                WPP (4 substreams, TMVP), LMCS and film
+                                grain together (chip smoke phase 8r);
+  ldp832x480_mcts_qp37_3f       that clip, LDP, MCTS 2x2 (phase 8s), and
+                                its concealed decode.
+
+Their sidecars add the JAX decoder's MD5 verdicts and pictures and, by
+tool, its display-domain (LMCS) pictures, film grain parameters and the
+grain it applies to POC 0, and the MCTS tile grid.  `erp6144x3072_ldp_
+qp37_3f` is a sidecar without a stream: bench configuration 5's 3 frames
+(bits, Y-PSNR and the slice NAL's SHA-256 per picture, the stream's
+SHA-256) for phase 8d.  The 832x480 streams and that sidecar were written
+on the card machine's CPU, one process each in parallel (55, 25 and 180
+s of JAX encode), the small ones here (`... tools16`, 3 minutes).
+
     python tests/make_torch_port_streams.py                   # all streams
     python tests/make_torch_port_streams.py 256x128           # one size
     python tests/make_torch_port_streams.py erp256x128_ra_mpa_qp37_5f
@@ -122,12 +151,15 @@ and bits, and the tools it turns on.
     python tests/make_torch_port_streams.py 2048x1024i        # sidecar
     python tests/make_torch_port_streams.py 2048x1024s        # sidecar
     python tests/make_torch_port_streams.py partitioning      # the 8
+    python tests/make_torch_port_streams.py tools16           # the small
+    python tests/make_torch_port_streams.py erp6144x3072_ldp_qp37_3f
 
 This script imports the JAX package; pytest does not collect it (its name
 does not start with `test_`).
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -511,13 +543,321 @@ def make_preset_i(name: str = PRESET_I) -> dict:
     return side
 
 
+# ---- the tools of ROADMAP queue 1 items 10b and 11a-11e: WPP, MCTS, LMCS,
+# the film grain SEI, lost-picture concealment and 10-bit coding.  The
+# small streams mirror the JAX package's own tests (sizes, settings and
+# content); the two 832x480 ones take bench configuration 2's clip for the
+# chip smoke run's phases 8r and 8s.
+# name -> (EncCfg fields, content, frames)
+TOOL_STREAMS = {
+    # tests/test_wpp.py:85 (RA, TMVP, 2 substreams)
+    "ra64x64_wpp_tmvp_qp32_6f": (
+        dict(width=64, height=64, qp=32, gop="RA", gop_size=4,
+             inter_block_size=16, merge=True, tmvp=True, wpp=True,
+             num_substreams=2), "synthetic(3, 1)", 6),
+    # tests/test_wpp.py:109 (LDP, TMVP, 4 substreams, noisy block rows)
+    "ldp128x128_wpp_tmvp_qp28_6f": (
+        dict(width=128, height=128, qp=28, gop="LDP", inter_block_size=16,
+             merge=True, tmvp=True, wpp=True, num_substreams=4),
+        "synthetic(5, 3) + noise(7)", 6),
+    # tests/test_lmcs.py:33
+    "ldp64x64_lmcs_qp34_3f": (
+        dict(width=64, height=64, qp=34, gop="LDP", intra_period=0,
+             lmcs=True), "lmcs(1234)", 3),
+    # tests/test_mcts.py:49
+    "ldp128x64_mcts_qp32_3f": (
+        dict(width=128, height=64, qp=32, gop="LDP", intra_period=0,
+             search_range=16, mcts_tiles=(2, 1), alf=False),
+        "synthetic(6, 2)", 3),
+    # tests/test_utility_apps.py:127
+    "ai96x64_film_grain_qp37_2f": (
+        dict(width=96, height=64, qp=37, film_grain=True),
+        "synthetic(3, 1) + grain(1234)", 2),
+    # tests/test_apps.py:98 (POC 1's slice NAL is dropped before decoding)
+    "ldp96x64_conceal_qp35_4f": (
+        dict(width=96, height=64, qp=35, gop="LDP",
+             picture_hash_sei=False), "synthetic(2, 1)", 4),
+    # tests/test_highbitdepth.py:19-30
+    "ai64x32_10bit_qp32_3f": (
+        dict(width=64, height=32, bit_depth=10, qp=32, gop="AI",
+             intra_period=0, search_range=8), "synthetic10(2, 1)", 3),
+    "ldp64x32_10bit_qp32_3f": (
+        dict(width=64, height=32, bit_depth=10, qp=32, gop="LDP",
+             intra_period=0, search_range=8), "synthetic10(2, 1)", 3),
+    # phase 8r: WPP (I, P and B arms, the HMVP resets under TMVP), LMCS and
+    # the film grain SEI on bench configuration 2's clip
+    "ra832x480_wpp_lmcs_fg_qp37_5f": (
+        dict(width=832, height=480, qp=37, gop="RA", gop_size=4,
+             search_range=24, tmvp=True, wpp=True, num_substreams=4,
+             lmcs=True, film_grain=True), "realistic", 5),
+    # phase 8s: MCTS (2x2 tiles) on that clip; POC 1 dropped for the
+    # concealed decode
+    "ldp832x480_mcts_qp37_3f": (
+        dict(width=832, height=480, qp=37, gop="LDP", search_range=24,
+             mcts_tiles=(2, 2)), "realistic", 3),
+}
+# if the JAX decoder does not decode phase 8r's combined stream with every
+# MD5 OK, these two split it (WPP alone; LMCS and the film grain SEI)
+SPLIT_8R = {
+    "ra832x480_wpp_qp37_5f": (
+        dict(width=832, height=480, qp=37, gop="RA", gop_size=4,
+             search_range=24, tmvp=True, wpp=True, num_substreams=4),
+        "realistic", 5),
+    "ra832x480_lmcs_fg_qp37_5f": (
+        dict(width=832, height=480, qp=37, gop="RA", gop_size=4,
+             search_range=24, lmcs=True, film_grain=True), "realistic", 5),
+}
+# the streams whose concealed decode (POC 1's slice NAL dropped) the
+# sidecar records
+CONCEAL = ("ldp96x64_conceal_qp35_4f", "ldp832x480_mcts_qp37_3f")
+# bench configuration 5 (`bench.py:121-123`, erp6144x3072_ldp_qp37): a
+# sidecar of the JAX encoder's 3-frame encode, without the stream
+CONFIG5 = "erp6144x3072_ldp_qp37_3f"
+
+
+def tool_frames(content: str, w: int, h: int, n: int
+                ) -> list[list[np.ndarray]]:
+    """The source frames of a TOOL_STREAMS entry, as the JAX package's test
+    that it mirrors makes them (its `rng` fixture is default_rng(1234))."""
+    from vvc_mm_tpu_torch.utils.content import realistic_sequence
+    from vvc_mm_tpu_torch.utils.yuv_io import VideoFormat, \
+        synthetic_sequence
+
+    if content == "realistic":
+        return realistic_sequence(w, h, n)
+    if content.startswith("lmcs"):
+        rng = np.random.default_rng(1234)
+        base = np.clip(rng.normal(120, 15, size=(h + 8, w + 8)), 0,
+                       255).astype(np.int32)
+        frames = []
+        for t in range(n):
+            y = base[t:t + h, 2 * t:2 * t + w].astype(np.int32)
+            u = (y[::2, ::2] // 2 + 40).astype(np.int32)
+            frames.append([y, u, u.copy()])
+        return frames
+    bd = 10 if content.startswith("synthetic10") else 8
+    motion = tuple(float(v) for v in
+                   content.split("(")[1].split(")")[0].split(","))
+    frames = synthetic_sequence(VideoFormat(w, h, bd), n, motion=motion)
+    if "noise(7)" in content:
+        # tests/test_wpp.py:109: block-level noise so that the HMVP
+        # entries vary across rows
+        rng = np.random.default_rng(7)
+        for f in frames:
+            f[0][32:64, 48:96] = rng.integers(0, 256, size=(32, 48))
+    if "grain(1234)" in content:
+        rng = np.random.default_rng(1234)
+        frames = [[np.clip(f[0].astype(np.int64)
+                           + rng.integers(-6, 7, f[0].shape), 0, 255
+                           ).astype(f[0].dtype), f[1], f[2]] for f in frames]
+    return frames
+
+
+def tool_stream(name: str):
+    """(EncCfg fields, source frames) of a TOOL_STREAMS / SPLIT_8R
+    entry."""
+    fields, content, n = {**TOOL_STREAMS, **SPLIT_8R}[name]
+    return dict(fields), tool_frames(content, fields["width"],
+                                     fields["height"], n)
+
+
+def plane_md5(planes, bit_depth: int = 8) -> str:
+    """The decoded-picture-hash MD5 of a picture (16-bit samples above 8
+    bits)."""
+    m = hashlib.md5()
+    for p in planes:
+        p = np.asarray(p)
+        m.update(p.astype("<u2" if bit_depth > 8 else np.uint8).tobytes())
+    return m.hexdigest()
+
+
+def drop_first_trail(data: bytes) -> bytes:
+    """The stream without its first TRAIL slice NAL (POC 1 of an LDP
+    stream), as tests/test_apps.py:98 drops it."""
+    from vvc_mm_tpu_torch.common.bitstream import (NAL_TRAIL, read_annexb,
+                                                   write_annexb)
+    nalus = read_annexb(data)
+    first = next(i for i, n in enumerate(nalus) if n.nal_type == NAL_TRAIL)
+    return write_annexb([n for i, n in enumerate(nalus) if i != first])
+
+
+def film_grain_record(params) -> dict | None:
+    """Either package's FilmGrainParams as its sidecar records them."""
+    return None if params is None else json.loads(json.dumps(
+        dataclasses.asdict(params)))
+
+
+def port_tool_run(name: str) -> dict:
+    """The port's CPU encode of a TOOL_STREAMS entry's source, and its CPU
+    decode of the committed JAX stream: {fields, frames, sd (the sidecar),
+    committed, enc, data (the port's stream), dec, out (dec's
+    pictures)}."""
+    from vvc_mm_tpu_torch.decoder.declib import DecLib
+    from vvc_mm_tpu_torch.encoder.enclib import EncCfg, EncLib
+
+    fields, frames = tool_stream(name)
+    with open(os.path.join(OUT_DIR, name + ".json")) as f:
+        sd = json.load(f)
+    with open(os.path.join(OUT_DIR, name + ".bin"), "rb") as f:
+        committed = f.read()
+    enc = EncLib(EncCfg(**fields), device="cpu")
+    data = enc.encode_sequence(frames)
+    dec = DecLib(device="cpu")
+    out = dec.decode_bytes(committed)
+    return dict(fields=fields, frames=frames, sd=sd, committed=committed,
+                enc=enc, data=data, dec=dec, out=out)
+
+
+def assert_tool_run(run: dict) -> None:
+    """A port_tool_run against its sidecar: the port's stream equals the
+    JAX stream byte for byte, its pictures' MD5s, bits and PSNRs equal the
+    JAX encoder's, and the port decodes the JAX stream to the JAX
+    decoder's MD5 verdicts and pictures.  The JAX encoder's PSNRs are
+    float32, the port's float64 of the same sums: they agree within 1e-4
+    dB."""
+    sd, bd = run["sd"], run["fields"].get("bit_depth", 8)
+    assert run["data"] == run["committed"]
+    res = sorted(run["enc"].results, key=lambda r: r.poc)
+    assert [(r.poc, plane_md5(r.recon, bd), r.bits) for r in res] == \
+        [(p["poc"], p["md5"], p["bits"]) for p in sd["pocs"]]
+    for r, p in zip(res, sd["pocs"]):
+        assert np.allclose([r.psnr_y, r.psnr_u, r.psnr_v],
+                           [p["psnr_y"], p["psnr_u"], p["psnr_v"]],
+                           rtol=0, atol=1e-4), r.poc
+    assert {str(k): v for k, v in sorted(run["dec"].hash_status.items())} \
+        == sd["jax_decoder_md5"]
+    assert all(v == "OK" for v in sd["jax_decoder_md5"].values())
+    assert [plane_md5(f.numpy(), bd) for f in run["out"]] == \
+        sd["jax_decoder_frame_md5"]
+
+
+def make_tool_stream(name: str) -> dict:
+    """One TOOL_STREAMS / SPLIT_8R stream and its sidecar: every POC's MD5,
+    PSNR and bits, the JAX decoder's MD5 verdicts and, by tool, its
+    display-domain (LMCS) MD5s, the film grain parameters and the MD5 of
+    the grain it applies to POC 0, the MCTS tile grid and the concealed
+    decode."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from vvc_mm_tpu.common import film_grain as fg
+    from vvc_mm_tpu.decoder.declib import DecLib
+    from vvc_mm_tpu.encoder.enclib import EncCfg, EncLib
+
+    fields, frames = tool_stream(name)
+    bd = fields.get("bit_depth", 8)
+    enc = EncLib(EncCfg(**fields))
+    t0 = time.perf_counter()
+    data = enc.encode_sequence(frames)
+    secs = time.perf_counter() - t0
+    with open(os.path.join(OUT_DIR, name + ".bin"), "wb") as f:
+        f.write(data)
+    pocs = [dict(poc=int(r.poc), md5=plane_md5(r.recon, bd),
+                 psnr_y=float(r.psnr_y), psnr_u=float(r.psnr_u),
+                 psnr_v=float(r.psnr_v), bits=int(r.bits))
+            for r in sorted(enc.results, key=lambda r: r.poc)]
+    dec = DecLib()
+    out = dec.decode_bytes(data)
+    side = dict(fields, mcts_tiles=list(fields.get("mcts_tiles", ())),
+                frames=len(frames), content={**TOOL_STREAMS,
+                                             **SPLIT_8R}[name][1],
+                bytes=len(data), encode_seconds_cpu=round(secs, 1),
+                pocs=pocs, jax_decoder_md5={
+                    str(k): v for k, v in sorted(dec.hash_status.items())},
+                jax_decoder_frame_md5=[plane_md5(f.planes, bd) for f in out])
+    if fields.get("lmcs"):
+        side.update(lmcs_cw=[int(c) for c in dec.sps.lmcs_cw],
+                    output_md5=[plane_md5(f.planes, bd)
+                                for f in dec.output_frames()],
+                    encoder_output_md5=[
+                        plane_md5(r.output, bd) for r in
+                        sorted(enc.results, key=lambda r: r.poc)])
+    if fields.get("film_grain"):
+        side.update(film_grain_params=film_grain_record(dec.film_grain))
+        if dec.film_grain is not None:
+            grain = fg.apply_grain(out[0].planes, dec.film_grain, 0, bd)
+            side.update(grain_poc0_md5=plane_md5(grain, bd))
+    if fields.get("mcts_tiles"):
+        side.update(jax_decoder_mcts_tiles=list(dec.mcts_tiles))
+    if name in CONCEAL:
+        cdec = DecLib()
+        cout = cdec.decode_bytes(drop_first_trail(data))
+        side.update(concealed=dict(
+            concealed=list(cdec.concealed), pocs=[f.poc for f in cout],
+            md5=[plane_md5(f.planes, bd) for f in cout],
+            hash_status={str(k): v for k, v in
+                         sorted(cdec.hash_status.items())}))
+    with open(os.path.join(OUT_DIR, name + ".json"), "w") as f:
+        json.dump(side, f, indent=1)
+        f.write("\n")
+    print(f"{name}: {len(data)} bytes, encode {secs:.1f} s on CPU, JAX "
+          f"decoder {side['jax_decoder_md5']}", flush=True)
+    return side
+
+
+def make_8r() -> None:
+    """Phase 8r's stream; the split pair too where the JAX decoder does not
+    give every MD5 OK on the combined one."""
+    side = make_tool_stream("ra832x480_wpp_lmcs_fg_qp37_5f")
+    if any(v != "OK" for v in side["jax_decoder_md5"].values()):
+        for name in SPLIT_8R:
+            make_tool_stream(name)
+
+
+def config5_cfg():
+    """Bench configuration 5's EncCfg fields (bench.py:121-123)."""
+    return dict(width=6144, height=3072, qp=37, gop="LDP", search_range=24,
+                wrap_around=True)
+
+
+def make_config5() -> dict:
+    """The JAX encoder's 3-frame encode of bench configuration 5: bits,
+    Y-PSNR and the slice NAL's SHA-256 per picture, and the stream's
+    SHA-256 (the 1.8 MB stream itself is not committed)."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from vvc_mm_tpu.common.bitstream import NAL_IDR, NAL_TRAIL, read_annexb
+    from vvc_mm_tpu.encoder.enclib import EncCfg, EncLib
+    from vvc_mm_tpu_torch.utils.content import realistic_sequence
+
+    fields = config5_cfg()
+    frames = realistic_sequence(fields["width"], fields["height"], 3)
+    enc = EncLib(EncCfg(**fields))
+    t0 = time.perf_counter()
+    for kind in ("encode_intra_frame", "encode_p_frame"):
+        def timed(*a, _f=getattr(enc, kind), **kw):
+            out = _f(*a, **kw)
+            print(f"{CONFIG5}: POC {a[0]} done at "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            return out
+        setattr(enc, kind, timed)
+    data = enc.encode_sequence(frames)
+    secs = time.perf_counter() - t0
+    slices = [n for n in read_annexb(data)
+              if n.nal_type in (NAL_IDR, NAL_TRAIL)]
+    res = sorted(enc.results, key=lambda r: r.poc)
+    side = dict(fields, frames=3, content="bench.realistic_sequence(seed=11)",
+                bytes=len(data), sha256=hashlib.sha256(data).hexdigest(),
+                encode_seconds_cpu=round(secs, 1),
+                pocs=[dict(poc=int(r.poc), bits=int(r.bits),
+                           psnr_y=float(r.psnr_y),
+                           slice_sha256=hashlib.sha256(n.payload).hexdigest())
+                      for r, n in zip(res, slices)])
+    with open(os.path.join(OUT_DIR, CONFIG5 + ".json"), "w") as f:
+        json.dump(side, f, indent=1)
+        f.write("\n")
+    print(f"{CONFIG5}: {len(data)} bytes, encode {secs:.1f} s on CPU",
+          flush=True)
+    return side
+
+
 def main(argv: list[str]) -> None:
     """Each argument names a stream, a size (every multi-model stream of
     it), `classic` (every classic stream) or `partitioning` (the quadtree,
     MTT and intra-split ones)."""
     os.makedirs(OUT_DIR, exist_ok=True)
     names = []
-    for key in (argv or list(STREAMS) + list(CLASSIC)):
+    for key in (argv or list(STREAMS) + list(CLASSIC) + list(TOOL_STREAMS)
+                + [CONFIG5]):
         if key in SIZES:
             names += [n for n, (_, size) in STREAMS.items() if size == key]
         elif key == "classic":
@@ -528,11 +868,19 @@ def main(argv: list[str]) -> None:
             names.append(SPLIT_I)
         elif key == "partitioning":
             names += list(PARTITIONING)
+        elif key == "tools16":     # the small TOOL_STREAMS
+            names += [n for n in TOOL_STREAMS if "832x480" not in n]
         else:
             names.append(key)
     for name in names:
         if name in (PRESET_I, SPLIT_I):
             make_preset_i(name)
+        elif name == "ra832x480_wpp_lmcs_fg_qp37_5f":
+            make_8r()
+        elif name in TOOL_STREAMS or name in SPLIT_8R:
+            make_tool_stream(name)
+        elif name == CONFIG5:
+            make_config5()
         elif name in CLASSIC:
             make_classic(name)
         else:

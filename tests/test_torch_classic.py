@@ -479,12 +479,16 @@ def test_candidate_lists_equal_jax(grids, mer):
 
 
 def test_unported_inter_tools_raise(pics):
-    """MCTS clamps name ROADMAP queue 1 item 11; scaling lists (item 9)
-    and the tools of item 8 (TMVP/HMVP, AMVR, GPM/CIIP, weighted
-    prediction, BDOF, DMVR) are accepted by the writers, the parsers and
-    the frame functions (tests/test_torch_tmvp_amvr.py,
-    test_torch_gpm_wp.py and test_torch_intra_streams.py hold them to
-    JAX)."""
+    """Every inter tool is carried now.  MCTS (item 11b): the P searches
+    and the merge-off program clamp their MVs with the JAX package's
+    mcts_clamp_mvs, after the same search (sad_me stays the unclamped
+    MV's, as in JAX), and the candidate fields follow the clamped field
+    (tests/test_torch_mcts.py holds the clamp and a stream to JAX).
+    Scaling lists (item 9) and the tools of item 8 (TMVP/HMVP, AMVR,
+    GPM/CIIP, weighted prediction, BDOF, DMVR) are accepted by the
+    writers, the parsers and the frame functions
+    (tests/test_torch_tmvp_amvr.py, test_torch_gpm_wp.py and
+    test_torch_intra_streams.py hold them to JAX)."""
     lev = np.zeros((NBY, NBX, S, S), np.int32)
     levc = np.zeros((NBY, NBX, S // 2, S // 2), np.int32)
     mvs = np.zeros((NBY, NBX, 2), np.int64)
@@ -492,10 +496,25 @@ def test_unported_inter_tools_raise(pics):
     o, r0, r1 = _tt(pics["orig"]), tuple(_tt(pics["ref0"])), \
         tuple(_tt(pics["ref1"]))
     m, d = _t(mvs), _t(z)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1 item 11$"):
-        tif.search_p_frame(o[0], r0[0], m, QP, S, BD, SR, False,
-                           mcts=(2, 1))
+    tiles = (2, 1)
+
+    def clamp(f):
+        return np.asarray(jif.mcts_clamp_mvs(jnp.asarray(_np(f)), S, W, H,
+                                             *tiles))
+
+    plain = tif.search_p_frame(o[0], r0[0], m, QP, S, BD, SR, False)
+    mcts = tif.search_p_frame(o[0], r0[0], m, QP, S, BD, SR, False,
+                              mcts=tiles)
+    _eq(mcts[0], clamp(plain[0]), "search_p_frame mcts mvs")
+    _eq(mcts[2], plain[2], "search_p_frame mcts sad_me")
+    _eq(mcts[3][0], tif._shift_mv_field(mcts[0], 0, -1), "left field")
+    assert not np.array_equal(_np(mcts[0]), _np(plain[0]))
+    two = tif.search_p_frame_2ref(o[0], r0[0], r1[0], m, QP, S, BD, SR,
+                                  False, mcts=tiles)
+    assert (np.abs(_np(two[1]) - clamp(two[1])) == 0).all()
+    out = tif.encode_p_frame(*o, *r0, QP, S, BD, SR, False, mcts=tiles)
+    _eq(out[0], clamp(tif.encode_p_frame(*o, *r0, QP, S, BD, SR,
+                                         False)[0]), "encode_p_frame mcts")
     steep = tuple(int(16 + 2 * (x + y)) for y in range(8) for x in range(8))
     ly, lu, lv, rec = tif.finish_p_frame(*o, *r0, m, QP, S, BD, False,
                                          scaling=steep)

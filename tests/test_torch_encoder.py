@@ -217,10 +217,9 @@ def test_summary_and_cascade(runs):
 # the JAX package; the I picture's quantization and transform tools and
 # scaling lists; its prediction tools of 9d and 9e: CCLM, MIP, MRL, IBC;
 # the block partitioning of 9f and 11: the classic quadtree, its
-# multi-type tree and the two-level intra partitioning)
-REFUSED = {"wpp": (dict(wpp=True), "11"),
-           "rate_control": (dict(target_bitrate_kbps=500), "11"),
-           "lmcs": (dict(lmcs=True), "11"),
+# multi-type tree and the two-level intra partitioning; the sequence tools
+# of 11a-11d: WPP, LMCS, the film grain SEI and MCTS tiles)
+REFUSED = {"rate_control": (dict(target_bitrate_kbps=500), "11"),
            "mctf": (dict(mctf=True), "11")}
 CLASSIC = dict(mm=MMConfig(), qt_depth=0)
 ACCEPTED = {
@@ -253,7 +252,11 @@ ACCEPTED = {
     "ibc": dict(ibc=True),
     "intra_split": dict(intra_split=True),
     "classic_qtree": dict(CLASSIC, qt_depth=1),
-    "classic_mtt": dict(CLASSIC, qt_depth=2, mtt=True)}
+    "classic_mtt": dict(CLASSIC, qt_depth=2, mtt=True),
+    "wpp": dict(wpp=True),
+    "lmcs": dict(lmcs=True),
+    "film_grain": dict(film_grain=True),
+    "mcts_tiles": dict(CLASSIC, mcts_tiles=(2, 1))}
 CASES = (["no_card"] + [f"refused-{k}" for k in REFUSED]
          + [f"accepted-{k}" for k in ACCEPTED])
 
@@ -282,8 +285,10 @@ def test_unported_branches_raise(case):
     assert enc.sps.mm.active_models() == cfg.mm.active_models()
     for tool in ("dmvr", "bdof", "affine", "tmvp", "amvr", "gpm", "ciip",
                  "dep_quant", "lfnst", "mts", "bdpcm", "lossless", "cclm",
-                 "mip", "mrl", "ibc"):
+                 "mip", "mrl", "ibc", "wpp"):
         assert getattr(enc.sps, tool) == getattr(cfg, tool), tool
+    assert [n.payload[0] for n in enc.encode_headers()[2:]] == (
+        [enc.SEI_MCTS] if cfg.mcts_tiles else [])
     assert enc.sps.ts == (cfg.transform_skip or cfg.lossless)
     assert enc.sps.scaling_list == tuple(cfg.scaling_list)
     if cfg.lossless:       # QP 4 transform skip, filters off, as in JAX

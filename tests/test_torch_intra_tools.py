@@ -180,11 +180,13 @@ def test_intra_tools_slice_and_decode_roundtrip(encoded, planes):
 
 
 def test_remaining_intra_tools_are_refused():
-    """What remains refused on the I picture: WPP's substreams (ROADMAP
-    queue 1 item 11), in the port's DecLib; an unknown option to the
+    """No tool of the I picture is refused now: an unknown option to the
     wavefront or the parser is a TypeError.  The prediction tools parse
     (tests/test_torch_intra_pred_tools.py holds them to JAX), and so does
-    the two-level intra partitioning (tests/test_torch_intra_part.py)."""
+    the two-level intra partitioning (tests/test_torch_intra_part.py).
+    WPP's substreams (item 11a): the port's DecLib takes a WPP SPS, and
+    the WPP writer gives the JAX writer's bytes, parsed back by both
+    packages (tests/test_torch_wpp.py holds the streams to JAX)."""
     y = torch.zeros((16, 16), dtype=torch.int32)
     c = torch.zeros((8, 8), dtype=torch.int32)
     with pytest.raises(TypeError):
@@ -198,11 +200,27 @@ def test_remaining_intra_tools_are_refused():
         data = intra_coder.encode_intra_slice(g, lev, levc, levc, **kw)
         back = decode_intra_slice(data, 2, 2, 8, **{k: True for k in kw})
         np.testing.assert_array_equal(back[0], g)
+    from vvc_mm_tpu.decoder import intra_parser as jax_parser
+    from vvc_mm_tpu.encoder import intra_coder as jax_coder
+    from vvc_mm_tpu_torch.decoder import intra_parser
     from vvc_mm_tpu_torch.decoder.declib import DecLib
     dec = DecLib(device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1 item 11$"):
-        dec._activate_sps(slice_ps.SPS(width=16, height=16, wpp=True))
+    dec._activate_sps(slice_ps.SPS(width=16, height=16, wpp=True))
+    assert dec.sps.wpp
+    modes = np.array([[0, 50], [18, 1]], np.int32)
+    lev[1, 0, 0, 0] = 3
+    for kw in (dict(num_substreams=2), dict(mip=True, cclm=g, mrl=g)):
+        data = intra_coder.encode_intra_slice_wpp(modes, lev, levc, levc,
+                                                  **kw)
+        assert data == jax_coder.encode_intra_slice_wpp(modes, lev, levc,
+                                                        levc, **kw)
+        flags = {k: True for k in kw if k != "num_substreams"}
+        back = intra_parser.decode_intra_slice_wpp(data, 2, 2, 8, **flags)
+        for a, b in zip(back, jax_parser.decode_intra_slice_wpp(
+                data, 2, 2, 8, **flags)):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(back[0], modes)
+        np.testing.assert_array_equal(back[6], lev)
 
 
 def test_sps_tool_fields_roundtrip_both_packages():

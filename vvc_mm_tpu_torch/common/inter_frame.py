@@ -23,8 +23,9 @@ bit for bit; that includes the signalling-free refinements of bi blocks,
 DMVR (common/dmvr.py) and BDOF (common/bdof.py), the GPM and CIIP blends
 (common/gpm.py) and explicit weighted prediction (`apply_wp`, the weighted
 bi combine).  A scaling list weights the P passes' (and the B
-reconstruction's) quantization.  MCTS clamps (ROADMAP queue 1 item 11)
-raise NotImplementedError.
+reconstruction's) quantization.  Motion-constrained tile sets clamp the
+P searches' MVs into each block's tile (`mcts_clamp_mvs`, encoder side
+only: the decoder needs no change).
 """
 from __future__ import annotations
 
@@ -114,21 +115,85 @@ def _mc_planes_internal(ref_y, ref_u, ref_v, mvs, s: int, bit_depth: int,
     return py, pu, pv
 
 
-# Inter tools the port does not carry yet: flag -> (what, ROADMAP queue 1
-# item).  Every classic frame function and the decoder's classic branch
-# refuses through `refuse`.
-_UNPORTED_TOOLS = {
-    "mcts": ("MCTS tiles", "11"),
-}
+SEI_MCTS = 134     # temporal motion-constrained tile sets SEI: (cols,
+                   # rows) of the tile grid the clamps below keep motion
+                   # inside (reference: SEI::TEMPORAL_MOTION_CONSTRAINED_
+                   # TILE_SETS)
 
 
-def refuse(**flags) -> None:
-    """Raise NotImplementedError naming the ROADMAP queue 1 item of the
-    first set flag (keys of _UNPORTED_TOOLS)."""
-    for name, on in flags.items():
-        if on:
-            what, item = _UNPORTED_TOOLS[name]
-            raise NotImplementedError(f"{what}: ROADMAP queue 1 item {item}")
+def _floor_div(a, b):
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _tile_origins(n: int, s: int, extent: int, device):
+    """Block positions (n blocks of s samples) and their tiles' origins."""
+    b = torch.arange(n, dtype=torch.int32, device=device) * s
+    return b, (b // extent) * extent
+
+
+def mcts_clamp_mvs(mvs: torch.Tensor, block_size: int, width: int,
+                   height: int, tile_cols: int, tile_rows: int
+                   ) -> torch.Tensor:
+    """Motion-constrained tile sets: clamp every block's MV so the full
+    interpolation support (8-tap: 3 left / 4 right of the integer sample)
+    stays inside the block's own tile (reference: MCTS.{cpp,h} —
+    MCTSInfo::clipMvToArea).  Encoder side only: the decoder needs no
+    change.  The bounds are rounded inward to the 4-pel grid (multiples of
+    64 in 1/16 pel), so a later AMVR rounding cannot push a clamped MV
+    back out of its tile.  mvs: (nby, nbx, 2) 1/16-pel (x, y), int32."""
+    s = block_size
+    nby, nbx = height // s, width // s
+    tw, th = width // tile_cols, height // tile_rows
+
+    def bounds(n, extent):
+        b, t0 = _tile_origins(n, s, extent, mvs.device)
+        # support [pos - 3, pos + s + 4) must stay in [t0, t0 + extent)
+        lo = _floor_div((t0 - b + 3) * 16 + 63, 64) * 64
+        hi = _floor_div((t0 + extent - s - 4 - b) * 16, 64) * 64
+        return lo, torch.maximum(hi, lo)
+
+    lo_x, hi_x = bounds(nbx, tw)
+    lo_y, hi_y = bounds(nby, th)
+    mx = torch.minimum(torch.maximum(mvs[..., 0], lo_x[None, :]),
+                       hi_x[None, :])
+    my = torch.minimum(torch.maximum(mvs[..., 1], lo_y[:, None]),
+                       hi_y[:, None])
+    return torch.stack([mx, my], -1)
+
+
+def mcts_clamp(mvs: torch.Tensor, s: int, w: int, h: int,
+               tiles: tuple[int, int]) -> torch.Tensor:
+    """The JAX package's other MCTS clamp (no codec caller there either):
+    every block's MC read window, the luma 8-tap and the chroma 4-tap at
+    half resolution (a 4/5-sample margin), inside the block's own tile,
+    without the 4-pel rounding.  mvs: (nby, nbx, 2) 1/16-pel (x, y);
+    tiles: (cols, rows)."""
+    ncx, ncy = tiles
+    tw, th = w // ncx, h // ncy
+    nby, nbx = mvs.shape[:2]
+
+    def bounds(n, extent):
+        b, t0 = _tile_origins(n, s, extent, mvs.device)
+        lo = (t0 - b + 4) * 16
+        hi = (t0 + extent - b - s - 5) * 16
+        return lo, torch.maximum(hi, lo)
+
+    lo_x, hi_x = bounds(nbx, tw)
+    lo_y, hi_y = bounds(nby, th)
+    mx = torch.minimum(torch.maximum(mvs[..., 0], lo_x[None, :]),
+                       hi_x[None, :])
+    my = torch.minimum(torch.maximum(mvs[..., 1], lo_y[:, None]),
+                       hi_y[:, None])
+    return torch.stack([mx, my], -1)
+
+
+def _mcts(mvs: torch.Tensor, s: int, orig_y: torch.Tensor, mcts):
+    """The searches' MCTS step: mvs clamped into their tiles when `mcts`
+    ((cols, rows)) is given."""
+    if not mcts:
+        return mvs
+    h, w = orig_y.shape
+    return mcts_clamp_mvs(mvs, s, w, h, mcts[0], mcts[1]).to(mvs.dtype)
 
 
 AMVR_SHIFTS = (2, 4, 6)    # 1/16-pel grid shifts: quarter-, full-, 4-pel
@@ -346,12 +411,13 @@ def encode_p_frame(orig_y, orig_u, orig_v, ref_y, ref_u, ref_v, qp: int,
     the one-shot program of the merge-off path.  Returns (mvs (nby,nbx,2)
     1/16-pel, lev_y, lev_u, lev_v, recon dict); with `amvr`, (mvs, imv,
     lev_y, lev_u, lev_v, recon), mvs already rounded to each block's
-    signalled precision."""
-    refuse(mcts=mcts)
+    signalled precision.  `mcts` ((cols, rows) or None) clamps the MVs
+    into their tiles before the AMVR decision."""
     s = block_size
     lam_bits_x16 = _lambda_bits_x16(qp)
     ry_pad = pad_ref(ref_y, MC_MARGIN, wrap_around)
     mvs, _ = _me(orig_y, ry_pad, s, search_range, lam_bits_x16, bit_depth)
+    mvs = _mcts(mvs, s, orig_y, mcts)
     imv = None
     if amvr:
         imv, mvs = amvr_decide(orig_y, ry_pad, mvs, s, bit_depth,
@@ -399,16 +465,18 @@ def search_p_frame(orig_y, ref_y, col_mvs, qp: int, block_size: int,
     """Merge-aware P search: hierarchical ME + fractional refine (+ the
     AMVR rounding), then ONE batched MC+SAD pass per candidate field (the
     left, above and above-right neighbours' MVs, zero, and the co-located
-    TMVP field `col_mvs`, zeros when absent).
+    TMVP field `col_mvs`, zeros when absent).  `mcts` ((cols, rows) or
+    None) clamps the MVs into their tiles; as in the JAX package, sad_me
+    stays the SAD of the unclamped MV unless AMVR recomputes it.
 
     Returns (mvs, imv, sad_me, cand_mvs (K,nby,nbx,2), cand_sads (K,...))."""
-    refuse(mcts=mcts)
     s = block_size
     h, w = orig_y.shape
     lam_bits_x16 = _lambda_bits_x16(qp)
     ry_pad = pad_ref(ref_y, MC_MARGIN, wrap_around)
     mvs, sad_me = _me(orig_y, ry_pad, s, search_range, lam_bits_x16,
                       bit_depth)
+    mvs = _mcts(mvs, s, orig_y, mcts)
     imv = torch.zeros((h // s, w // s), dtype=torch.int32,
                       device=orig_y.device)
     if amvr:
@@ -436,9 +504,10 @@ def search_p_frame_2ref(orig_y, ref0_y, ref1_y, col_mvs, qp: int,
     (ref_idx, mv) and its SAD reads ITS reference (reference: the per-ref
     ME loop InterSearch.cpp:4937 + ref_idx RD).
 
+    `mcts` clamps each reference's MVs as in search_p_frame.
+
     Returns (ref_idx, mvs, imv, sad_sel, cand_ref (K,..), cand_mvs,
     cand_sads)."""
-    refuse(mcts=mcts)
     s = block_size
     lam_bits_x16 = _lambda_bits_x16(qp)
     pads, mvs_r, sads_r, imvs_r = [], [], [], []
@@ -447,6 +516,7 @@ def search_p_frame_2ref(orig_y, ref0_y, ref1_y, col_mvs, qp: int,
         pads.append(ry_pad)
         mvs, sad = _me(orig_y, ry_pad, s, search_range, lam_bits_x16,
                        bit_depth)
+        mvs = _mcts(mvs, s, orig_y, mcts)
         imv = torch.zeros_like(sad)
         if amvr:
             imv, mvs = amvr_decide(orig_y, ry_pad, mvs, s, bit_depth,

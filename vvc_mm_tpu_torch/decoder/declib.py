@@ -13,11 +13,14 @@ random-access tools (TMVP/HMVP, AMVR, GPM, CIIP, explicit weights from the
 slice header, and affine P slices predicted through K1/K2), and MM P slices
 on the flat grid or the quadtree (`inter_qt_depth > 0`) and MM B slices,
 with merge on or off, GED epipoles (PH delta against the coded predictor)
-and MM-MVP, each followed by deblocking, SAO and ALF.  Entropy decoding runs
-on the host (numpy + the native CABAC coder); reconstruction, the DPB and
-the loop filters run on `device`, the MC through kernels K1/K2 on CUDA.
-Every other branch raises NotImplementedError naming the ROADMAP queue 1
-item that ports it.
+and MM-MVP, each followed by deblocking, SAO and ALF.  The sequence-level
+tools: WPP substreams (the fixed-grid I slice and the classic merge P and
+B slices), LMCS (the DPB holds mapped pictures; `output_frames` gives the
+display-domain ones), the film grain SEI (`film_grain`) and the temporal
+MCTS SEI (`mcts_tiles`), and a lost reference concealed by a clone of the
+nearest decoded picture (`concealed`).  Entropy decoding runs on the host
+(numpy + the native CABAC coder); reconstruction, the DPB and the loop
+filters run on `device`, the MC through kernels K1/K2 on CUDA.
 """
 from __future__ import annotations
 
@@ -29,7 +32,9 @@ import torch
 
 from ..common import affine as affine_mod
 from ..common import alf, deblock, inter_frame, intra_part, qtree, sao
+from ..common import film_grain as fg
 from ..common import mtt as mtt_mod
+from ..common import reshape
 from ..common import wavefront
 from ..common.bitstream import (BitReader, read_annexb, NAL_SPS, NAL_PPS,
                                 NAL_IDR, NAL_SEI, NAL_TRAIL)
@@ -48,8 +53,10 @@ from .inter_parser import (decode_b_slice, decode_b_slice_mm,
                            decode_p_slice, decode_p_slice_2ref,
                            decode_p_slice_affine, decode_p_slice_mm,
                            decode_p_slice_mtt, decode_p_slice_qt,
-                           decode_p_slice_qt_mm)
-from .intra_parser import decode_intra_slice, decode_intra_slice_part
+                           decode_p_slice_qt_mm, decode_b_slice_wpp,
+                           decode_p_slice_wpp)
+from .intra_parser import (decode_intra_slice, decode_intra_slice_part,
+                           decode_intra_slice_wpp)
 
 
 @dataclass
@@ -68,10 +75,6 @@ class DecodedFrame:
             else:
                 m.update(p.astype(np.uint8).tobytes())
         return m.hexdigest()
-
-
-def _todo(what: str, item: str):
-    raise NotImplementedError(f"{what}: ROADMAP queue 1 item {item}")
 
 
 class DecLib:
@@ -100,14 +103,20 @@ class DecLib:
         # POC -> decoded classic P MV field (host): the co-located field
         # TMVP reads (mirrors EncLib._mv_fields)
         self._mv_fields: dict[int, np.ndarray] = {}
+        self.film_grain: fg.FilmGrainParams | None = None   # fgc SEI
+        self.mcts_tiles: tuple | None = None  # (cols, rows), MCTS SEI
+        self.concealed: list[int] = []  # POCs created by loss concealment
+        self._conceal_cache: dict[int, DecodedFrame] = {}
+        self._inv_lut: torch.Tensor | None = None   # LMCS, on the device
 
     def _activate_sps(self, sps: SPS) -> None:
-        """reference: DecLib.cpp:1904 xActivateParameterSets."""
-        if sps.lmcs:
-            _todo("LMCS", "11")
-        if sps.wpp:
-            _todo("WPP", "11")
+        """reference: DecLib.cpp:1904 xActivateParameterSets; under LMCS
+        the inverse LUT is rebuilt on the device from the SPS's codeword
+        counts."""
         self.sps = sps
+        self._inv_lut = (reshape.build_inv_lut(
+            np.asarray(sps.lmcs_cw, dtype=np.int32), sps.bit_depth,
+            self.device) if sps.lmcs else None)
         if sps.mm.any_enabled():
             proj = make_projection(int(sps.mm.projection), sps.width,
                                    sps.height)
@@ -130,15 +139,35 @@ class DecLib:
             elif nalu.nal_type == NAL_PPS:
                 self.pps = PPS.read(BitReader(nalu.payload))
             elif nalu.nal_type == NAL_SEI:
-                if nalu.payload and nalu.payload[0] == 19:
-                    _todo("film grain SEI", "11")
-                if nalu.payload and nalu.payload[0] == 134:
-                    _todo("temporal MCTS SEI", "11")
-                self._check_hash_sei(nalu.payload)
+                kind = nalu.payload[0] if nalu.payload else None
+                if kind in (fg.SEI_FILM_GRAIN, inter_frame.SEI_MCTS):
+                    br = BitReader(nalu.payload)
+                    br.read(8)
+                    if kind == fg.SEI_FILM_GRAIN:
+                        # film grain characteristics (reference: SEIread
+                        # fgc)
+                        self.film_grain = fg.FilmGrainParams.read(br)
+                    else:
+                        # temporal MCTS: the (cols, rows) tile grid whose
+                        # motion is self-contained
+                        self.mcts_tiles = (br.read_uvlc(), br.read_uvlc())
+                else:
+                    self._check_hash_sei(nalu.payload)
             elif nalu.nal_type in (NAL_IDR, NAL_TRAIL):
                 self.decode_slice(nalu.payload)
         self.frames.sort(key=lambda f: f.poc)
         return self.frames
+
+    def output_frames(self) -> list[DecodedFrame]:
+        """Display-domain pictures: under LMCS the DPB holds mapped
+        reconstructions, and the luma is inverse-mapped on the device at
+        output (reference: the Reshape inverse LUT at picture output)."""
+        if self._inv_lut is None:
+            return self.frames
+        return [DecodedFrame(f.poc, [reshape.map_plane(self._inv_lut,
+                                                       f.planes[0]),
+                                     f.planes[1], f.planes[2]])
+                for f in self.frames]
 
     def _check_hash_sei(self, payload: bytes) -> None:
         """Verify a decoded-picture-hash SEI against the just-decoded
@@ -234,7 +263,8 @@ class DecLib:
             return
         s = sps.intra_block_size
         nby, nbx = sps.height // s, sps.width // s
-        modes, lm, lf, mr, tsg, mtsg, ly, lu, lv = decode_intra_slice(
+        parse = decode_intra_slice_wpp if sps.wpp else decode_intra_slice
+        modes, lm, lf, mr, tsg, mtsg, ly, lu, lv = parse(
             cabac_bytes, nby, nbx, s, cclm=sps.cclm, mip=sps.mip,
             lfnst=sps.lfnst, mrl=sps.mrl, ts=sps.ts and not sps.lossless,
             bdpcm=sps.bdpcm, ibc=sps.ibc, mts=sps.mts)
@@ -340,7 +370,9 @@ class DecLib:
         weights win per slice: a B slice whose header carries weight
         tables has BDOF, DMVR, GPM and CIIP off (reference: BDOF
         biocheck0 / DMVR's no-WP condition, InterPrediction.cpp:566,252;
-        the encoder's mirror is EncLib._b_classic)."""
+        the encoder's mirror is EncLib._b_classic).  Under WPP the
+        one-reference P and the B slices with merge on come in
+        substreams."""
         sps = self.sps
         if sps.inter_qt_depth > 0:
             self._decode_tree(sh, cabac_bytes)
@@ -360,7 +392,9 @@ class DecLib:
             sl_bdof, sl_dmvr, sl_gpm, sl_ciip = (
                 on and wp0 is None and wp1 is None
                 for on in (sps.bdof, sps.dmvr, sps.gpm, sps.ciip))
-            mv0, mv1, dirs, ly, lu, lv, gpm_modes = decode_b_slice(
+            parse = (decode_b_slice_wpp if sps.wpp and sps.merge
+                     else decode_b_slice)
+            mv0, mv1, dirs, ly, lu, lv, gpm_modes = parse(
                 cabac_bytes, nby, nbx, s, use_gpm=sl_gpm, use_ciip=sl_ciip,
                 use_merge=sps.merge, mer_blocks_log2=mer)
             ref1 = self._ref_by_poc(sh.ref_pocs_l1[0])
@@ -385,7 +419,9 @@ class DecLib:
                 *self._tensors(ridx, mvs, ly, lu, lv), ref.planes,
                 ref2.planes, *args, wp=wp0, scaling=scaling)
         else:
-            mvs, ly, lu, lv = decode_p_slice(
+            parse = (decode_p_slice_wpp if sps.wpp and sps.merge
+                     else decode_p_slice)
+            mvs, ly, lu, lv = parse(
                 cabac_bytes, nby, nbx, s, use_merge=sps.merge,
                 mer_blocks_log2=mer, **tools)
             self._mv_fields[sh.poc] = mvs
@@ -497,15 +533,30 @@ class DecLib:
         self._store(sh.poc, recon, sh, bs, s)
 
     def _ref_by_poc(self, poc: int) -> DecodedFrame:
-        """DPB lookup; a reference picture must lie on the decoder's
-        device.  Lost-picture concealment (DecLib.cpp:1000
-        xCreateLostPicture) is ROADMAP queue 1 item 11."""
+        """DPB lookup with lost-picture concealment (reference:
+        DecLib.cpp:1000 xCreateLostPicture): a missing reference is
+        concealed by a clone, on the decoder's device, of the nearest
+        decoded picture (the first in decoding order on a tie), kept for
+        later lookups of the same POC, so that decoding goes on.  A
+        reference picture must lie on the decoder's device; KeyError when
+        no picture is there to clone."""
+        best = None
         for f in self.frames:
             if f.poc == poc:
                 for p in f.planes:
                     check_device(p, self.device, f"reference POC {poc}")
                 return f
-        _todo(f"reference POC {poc} missing (concealment)", "11")
+            if best is None or abs(f.poc - poc) < abs(best.poc - poc):
+                best = f
+        if poc in self._conceal_cache:
+            return self._conceal_cache[poc]
+        if best is None:
+            raise KeyError(f"reference POC {poc} not in DPB and no picture "
+                           "available for concealment")
+        self.concealed.append(poc)
+        clone = DecodedFrame(poc, [p.clone() for p in best.planes])
+        self._conceal_cache[poc] = clone
+        return clone
 
 
 def _stack_of(model_idx: np.ndarray, mvs: np.ndarray, n_active: int

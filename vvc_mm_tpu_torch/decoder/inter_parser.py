@@ -10,8 +10,9 @@ B slice, with MM-MVP where the SPS turns it on), with the classic
 random-access tools: TMVP/HMVP, AMVR, GPM/CIIP and the affine P slice,
 and the classic quadtree and multi-type-tree P and B slices (one tree
 walker and one leaf parser, `_decode_tree`).  Host numpy code over the
-native CABAC decoder.  The WPP parsers (ROADMAP queue 1 item 11) are not
-ported.
+native CABAC decoder.  Under WPP the classic P and B slices (merge on)
+carry one substream a block-row group (`decode_p_slice_wpp`,
+`decode_b_slice_wpp`), parsed in row order into shared grids.
 """
 from __future__ import annotations
 
@@ -33,6 +34,8 @@ from ..encoder.inter_coder import (MERGE_MAX, HmvpList, _b_dir_pred,
                                    mvp_unit_grid, mvp_unit_grid_mm,
                                    walk_tree)
 from ..utils.native import NativeBinDecoder
+from ..encoder.intra_coder import wpp_bounds
+from .intra_parser import parse_wpp_frame
 
 
 def decode_mvd_comp(dec: BinDecoder, ctx_base: str = "Mvd") -> int:
@@ -101,20 +104,26 @@ def _decode_amvp_mv(dec: BinDecoder, cands, use_tmvp: bool,
 def decode_p_slice(data: bytes, nby: int, nbx: int, s: int,
                    col_mvs: np.ndarray | None = None,
                    use_tmvp: bool = False, use_amvr: bool = False,
-                   use_merge: bool = False, mer_blocks_log2: int = 0):
+                   use_merge: bool = False, mer_blocks_log2: int = 0,
+                   rows: tuple | None = None, state=None):
     """Exact inverse of encoder.inter_coder.encode_p_slice.  Returns (mvs
     (nby,nbx,2) 1/16-pel, lev_y, lev_u, lev_v).  With use_merge, skip
     means merge+no-residual and non-skip blocks carry a merge_flag; merge
     blocks take candidate merge_idx of the shared list (reference:
     CABACReader merge_data / merge_idx).  With use_tmvp the merge and AMVP
     lists carry the co-located MV (`col_mvs`) and the HMVP FIFO; with
-    use_amvr each AMVP block's precision scales its mvd."""
+    use_amvr each AMVP block's precision scales its mvd.  `rows` (r0, r1)
+    parses only those block rows (one WPP substream, a fresh HMVP FIFO)
+    into `state`, the (mvs, lev_y, lev_u, lev_v) grids of the slice."""
     dec = NativeBinDecoder(data)
-    mvs = np.zeros((nby, nbx, 2), dtype=np.int64)
-    levs = _new_levels(nby, nbx, s)
+    if state is None:
+        state = (np.zeros((nby, nbx, 2), dtype=np.int64),) + _new_levels(
+            nby, nbx, s)
+    mvs, levs = state[0], state[1:]
     sizes = (s, s // 2, s // 2)
     hist = HmvpList() if use_tmvp else None
-    for by in range(nby):
+    r0, r1 = rows if rows is not None else (0, nby)
+    for by in range(r0, r1):
         for bx in range(nbx):
             col = (col_mvs[by, bx]
                    if (use_tmvp and col_mvs is not None) else None)
@@ -140,7 +149,7 @@ def decode_p_slice(data: bytes, nby: int, nbx: int, s: int,
                     _decode_residual(dec, levs, sizes, by, bx)
             if hist is not None:
                 hist.push(mvs[by, bx])
-    return (mvs,) + levs
+    return (mvs,) + tuple(levs)
 
 
 def decode_p_slice_2ref(data: bytes, nby: int, nbx: int, s: int,
@@ -203,18 +212,23 @@ def decode_p_slice_affine(data: bytes, nby: int, nbx: int, s: int):
 
 def decode_b_slice(data: bytes, nby: int, nbx: int, s: int,
                    use_gpm: bool = False, use_ciip: bool = False,
-                   use_merge: bool = False, mer_blocks_log2: int = 0):
+                   use_merge: bool = False, mer_blocks_log2: int = 0,
+                   rows: tuple | None = None, state=None):
     """Exact inverse of encoder.inter_coder.encode_b_slice.  Returns (mv0,
     mv1, dirs, lev_y, lev_u, lev_v, gpm_modes): dirs 3 (GPM, its mask in
-    gpm_modes) and 4 (CIIP) are read where the SPS gates their bins in."""
+    gpm_modes) and 4 (CIIP) are read where the SPS gates their bins in.
+    `rows` (r0, r1) parses only those block rows (one WPP substream) into
+    `state`, a tuple of those seven grids."""
     dec = NativeBinDecoder(data)
-    mv0 = np.zeros((nby, nbx, 2), dtype=np.int64)
-    mv1 = np.zeros((nby, nbx, 2), dtype=np.int64)
-    dirs = np.zeros((nby, nbx), dtype=np.int32)
-    gpm_modes = np.zeros((nby, nbx), dtype=np.int32)
-    levs = _new_levels(nby, nbx, s)
+    if state is None:
+        state = (np.zeros((nby, nbx, 2), dtype=np.int64),
+                 np.zeros((nby, nbx, 2), dtype=np.int64),
+                 np.zeros((nby, nbx), dtype=np.int32)) + _new_levels(
+            nby, nbx, s) + (np.zeros((nby, nbx), dtype=np.int32),)
+    mv0, mv1, dirs, *levs, gpm_modes = state
     sizes = (s, s // 2, s // 2)
-    for by in range(nby):
+    r0, r1 = rows if rows is not None else (0, nby)
+    for by in range(r0, r1):
         for bx in range(nbx):
             pred0 = mvp_median(mv0, by, bx)
             pred1 = mvp_median(mv1, by, bx)
@@ -269,7 +283,34 @@ def decode_b_slice(data: bytes, nby: int, nbx: int, s: int,
             else:
                 mv1[by, bx] = pred1 + _decode_mvd(dec)
             _decode_residual(dec, levs, sizes, by, bx)
-    return (mv0, mv1, dirs) + levs + (gpm_modes,)
+    return (mv0, mv1, dirs, *levs, gpm_modes)
+
+
+def decode_p_slice_wpp(data: bytes, nby: int, nbx: int, s: int, **kw):
+    """Inter WPP parse of a P slice (decode_p_slice's arguments and
+    result): one independently decodable substream a row group, with
+    fresh contexts and HMVP, over grids that evolve across substreams."""
+    subs = parse_wpp_frame(data)
+    bounds = wpp_bounds(nby, len(subs))
+    state = None
+    for i, sub in enumerate(subs):
+        state = decode_p_slice(sub, nby, nbx, s,
+                               rows=(bounds[i], bounds[i + 1]),
+                               state=state, **kw)
+    return state
+
+
+def decode_b_slice_wpp(data: bytes, nby: int, nbx: int, s: int, **kw):
+    """Inter WPP parse of a B slice (decode_b_slice's arguments and
+    result)."""
+    subs = parse_wpp_frame(data)
+    bounds = wpp_bounds(nby, len(subs))
+    state = None
+    for i, sub in enumerate(subs):
+        state = decode_b_slice(sub, nby, nbx, s,
+                               rows=(bounds[i], bounds[i + 1]),
+                               state=state, **kw)
+    return state
 
 
 def decode_p_slice_mm(data: bytes, nby: int, nbx: int, s: int,

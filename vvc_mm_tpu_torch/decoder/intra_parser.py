@@ -6,9 +6,9 @@ intra_luma_pred_mode, residual_coding).  Host numpy code over the native
 CABAC decoder.  It parses the prediction tools' syntax (IBC flag and
 block-vector index, MIP flag and mode, MultiRefLineIdx, the chroma LM
 flag) and the residual tools' (transform skip and BDPCM flags, lfnst_idx,
-tu_mts_idx), and the two-level intra-split slice
-(`decode_intra_slice_part`); the WPP parser is not ported (ROADMAP queue 1
-item 11).
+tu_mts_idx), the two-level intra-split slice (`decode_intra_slice_part`)
+and the WPP slice (`decode_intra_slice_wpp`, whose framing the inter WPP
+parsers share).
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import numpy as np
 from ..common.cabac import BinDecoder
 from ..common.contexts import ctx_id
 from ..common.wavefront import IBC_BASE, mpm3_host
+from ..encoder.intra_coder import wpp_bounds
 from ..utils.native import NativeBinDecoder
 
 
@@ -42,6 +43,34 @@ def decode_intra_slice(data: bytes, nby: int, nbx: int, s: int,
     grids = _alloc_grids(nby, nbx, s)
     _decode_intra_rows(dec, grids, s, 0, nby, lfnst, ts, bdpcm, mts, cclm,
                        mip, mrl, ibc)
+    return grids
+
+
+def parse_wpp_frame(data: bytes) -> list[bytes]:
+    """The substreams of a WPP payload (inverse of the encoder's framing:
+    u16 count, u32 lengths, streams)."""
+    n = int.from_bytes(data[:2], "big")
+    lens = [int.from_bytes(data[2 + 4 * i:6 + 4 * i], "big")
+            for i in range(n)]
+    off = 2 + 4 * n
+    subs = []
+    for ln in lens:
+        subs.append(data[off:off + ln])
+        off += ln
+    return subs
+
+
+def decode_intra_slice_wpp(data: bytes, nby: int, nbx: int, s: int,
+                           **tools):
+    """The WPP variant of decode_intra_slice (same tool flags and result):
+    one independently decodable substream with fresh contexts per row
+    group, parsed in row order into shared grids."""
+    subs = parse_wpp_frame(data)
+    bounds = wpp_bounds(nby, len(subs))
+    grids = _alloc_grids(nby, nbx, s)
+    for i, sub in enumerate(subs):
+        _decode_intra_rows(NativeBinDecoder(sub), grids, s, bounds[i],
+                           bounds[i + 1], **tools)
     return grids
 
 

@@ -36,8 +36,15 @@ cascade) order.  The pictures it encodes:
        finish on the device (K1/K2 predict, transform/quant, deblock);
   all  SAO/ALF on the device while the host writes CABAC -> slice NAL.
 
-Every other branch of the JAX package's encoder raises
-NotImplementedError naming its ROADMAP item.
+The sequence-level tools ride these paths as in the JAX package: LMCS
+forward-maps each source luma plane once (common/reshape.py) and codes the
+whole sequence in the mapped domain; WPP codes the fixed-grid I slice and
+the classic merge P and B slices as substreams with fresh contexts (the P
+merge selection resets its HMVP FIFO where they start); MCTS clamps the
+classic P searches' MVs into their tiles and signals the tile grid in an
+SEI; the film grain SEI carries the parameters that common/film_grain.py
+estimates from the first picture.  The 360 metrics, rate control and the
+MCTF pre-filter raise NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -50,6 +57,8 @@ import torch
 
 from ..common import affine as affine_mod
 from ..common import deblock, inter_frame, intra_part, qtree, quant, wavefront
+from ..common import film_grain as fg
+from ..common import reshape
 from ..common import mtt as mtt_mod
 from ..common.bitstream import (BitWriter, NalUnit, NAL_IDR, NAL_PPS,
                                 NAL_SEI, NAL_SPS, NAL_TRAIL, write_annexb)
@@ -63,17 +72,21 @@ from ..common.typedefs import MotionModelID, SliceType
 from ..device import resolve_device
 from ..lib360.projection import make_projection
 from ..utils import profiling, xfer
+from ..utils.content import psnr
 from . import filter_stage
 from .inter_coder import (encode_b_slice, encode_b_slice_mm,
                           encode_p_slice, encode_p_slice_2ref,
                           encode_b_slice_mtt, encode_b_slice_qt,
                           encode_p_slice_affine, encode_p_slice_mm,
                           encode_p_slice_mtt, encode_p_slice_qt,
-                          encode_p_slice_qt_mm,
+                          encode_p_slice_qt_mm, encode_b_slice_wpp,
+                          encode_p_slice_wpp,
                           mer_blocks_log2, resolve_tree_qt_mm, select_merge_b,
                           select_merge_b_mm, select_merge_mm,
-                          select_merge_p, select_merge_p_2ref, select_qt_mm)
-from .intra_coder import encode_intra_slice, encode_intra_slice_part
+                          select_merge_p, select_merge_p_2ref, select_qt_mm,
+                          wpp_substream_starts)
+from .intra_coder import (encode_intra_slice, encode_intra_slice_part,
+                          encode_intra_slice_wpp)
 
 
 def _wp_table(wp) -> tuple | None:
@@ -315,10 +328,6 @@ _UNPORTED = (
     ("metrics_360", False, "WS-PSNR/S-PSNR/CPP-PSNR", "11"),
     ("target_bitrate_kbps", 0, "rate control", "11"),
     ("mctf", False, "MCTF pre-filter", "11"),
-    ("lmcs", False, "LMCS", "11"),
-    ("wpp", False, "WPP", "11"),
-    ("film_grain", False, "film grain SEI", "11"),
-    ("mcts_tiles", (), "MCTS tiles", "11"),
 )
 
 
@@ -380,6 +389,10 @@ class EncLib:
         self.prefilter_recon = None
         self.payload = b""
         self.slice_header = None
+        # LMCS: the forward and inverse LUTs on the device (set by
+        # encode_sequence); the film grain SEI's parameters once sent
+        self._fwd_lut = self._inv_lut = None
+        self.film_grain_params = None
 
     ra_coding_order = staticmethod(ra_coding_order)
 
@@ -419,14 +432,47 @@ class EncLib:
                                      self.device)
         return dev
 
+    def _film_grain_sei(self, planes, recon) -> NalUnit | None:
+        """Source-against-recon grain analysis -> an fgc SEI (reference:
+        SEIFilmGrainAnalyzer -> SEI payload type 19); None when no band
+        has grain."""
+        params = fg.analyze(planes[0], recon[0], self.cfg.bit_depth)
+        if params is None:
+            return None
+        self.film_grain_params = params
+        bw = BitWriter()
+        bw.write(fg.SEI_FILM_GRAIN, 8)
+        params.write(bw)
+        bw.align()
+        return NalUnit(NAL_SEI, 0, bw.get_bytes())
+
+    SEI_MCTS = inter_frame.SEI_MCTS
+
+    def _mcts_sei(self) -> NalUnit:
+        """The tile grid whose sets are motion-constrained, so that an
+        extractor can pull any tile on its own (reference: MCTS.{cpp,h} +
+        the temporal MCTS SEI; the ME side is
+        inter_frame.mcts_clamp_mvs)."""
+        cols, rows = self.cfg.mcts_tiles
+        bw = BitWriter()
+        bw.write(self.SEI_MCTS, 8)
+        bw.write_uvlc(cols)
+        bw.write_uvlc(rows)
+        bw.align()
+        return NalUnit(NAL_SEI, 0, bw.get_bytes())
+
     def encode_headers(self) -> list[NalUnit]:
-        """The SPS and PPS NAL units."""
+        """The SPS and PPS NAL units, and the MCTS SEI where tiles are
+        set."""
         bw = BitWriter()
         self.sps.write(bw)
         sps_nal = NalUnit(NAL_SPS, 0, bw.get_bytes())
         bw = BitWriter()
         self.pps.write(bw)
-        return [sps_nal, NalUnit(NAL_PPS, 0, bw.get_bytes())]
+        out = [sps_nal, NalUnit(NAL_PPS, 0, bw.get_bytes())]
+        if self.cfg.mcts_tiles:
+            out.append(self._mcts_sei())
+        return out
 
     def encode_intra_frame(self, poc: int, planes: list[np.ndarray],
                            qp: int | None = None
@@ -469,12 +515,16 @@ class EncLib:
             modes, lm, lf, mrl, tsg, mtsg, ly, lu, lv = (
                 wavefront.steps_to_grid(p, coords, valid) for p in pulled)
             use_ts = cfg.transform_skip and not cfg.lossless
-            return encode_intra_slice(
-                modes, ly, lu, lv, cclm=lm if cfg.cclm else None,
-                mip=cfg.mip, lfnst=lf if cfg.lfnst else None,
-                mrl=mrl if cfg.mrl else None, ts=tsg if use_ts else None,
-                bdpcm=cfg.bdpcm, ibc=cfg.ibc,
-                mts=mtsg if cfg.mts else None)
+            args = dict(cclm=lm if cfg.cclm else None, mip=cfg.mip,
+                        lfnst=lf if cfg.lfnst else None,
+                        mrl=mrl if cfg.mrl else None,
+                        ts=tsg if use_ts else None, bdpcm=cfg.bdpcm,
+                        ibc=cfg.ibc, mts=mtsg if cfg.mts else None)
+            if cfg.wpp:
+                return encode_intra_slice_wpp(
+                    modes, ly, lu, lv, num_substreams=cfg.num_substreams,
+                    **args)
+            return encode_intra_slice(modes, ly, lu, lv, **args)
 
         return self._finish_slice_overlap(
             poc, planes, recon, make_payload, qp, t0, SliceType.I, [], [],
@@ -550,10 +600,9 @@ class EncLib:
                 return self._finish_slice_overlap(
                     poc, planes, recon, make_payload, qp, t0, SliceType.P,
                     [ref_poc], [], None, 0, dev)
-            # the JAX package's other conditions (no MCTS or WPP) hold:
-            # EncLib refuses those configurations
-            use_2ref = ref2 is not None and cfg.max_num_ref >= 2 and \
-                cfg.merge
+            use_2ref = (ref2 is not None and cfg.max_num_ref >= 2
+                        and cfg.merge and not cfg.mcts_tiles
+                        and not cfg.wpp)
             r2dev = self._refs(ref2_poc, ref2) if use_2ref else None
             wp = (self._estimate_wp(planes, ref) if cfg.weighted_pred
                   else None)
@@ -584,7 +633,11 @@ class EncLib:
         xCheckRDCostMerge2Nx2N); without it, one program codes the
         search's MVs.  TMVP reads the reference's final MV field (none
         after an I picture); `wp` ((w, o) per plane, or None) weights the
-        prediction.  Returns (recon, make_payload)."""
+        prediction.  MCTS clamps the search's MVs and turns off snapping to
+        other candidates (a neighbour's MV can leave this block's tile);
+        WPP codes the merge slice in substreams, and with TMVP the
+        selection resets its HMVP FIFO where they start.  Returns (recon,
+        make_payload)."""
         cfg = self.cfg
         s = cfg.inter_block_size
         bd = cfg.bit_depth
@@ -601,12 +654,13 @@ class EncLib:
         # the scaling list reaches the P passes only (the JAX package's B,
         # affine and multi-model passes do not take it)
         scaling = tuple(cfg.scaling_list) or None
+        mcts = tuple(cfg.mcts_tiles) or None
         if not cfg.merge:
             with profiling.stage("finish") as ps:
                 out = inter_frame.encode_p_frame(
                     *dev, *rdev, qp, s, bd, cfg.search_range,
                     cfg.wrap_around, wp=wp_d, scaling=scaling,
-                    amvr=cfg.amvr)
+                    amvr=cfg.amvr, mcts=mcts)
                 mvs, ly, lu, lv, recon = out[0], *out[-4:]
                 imv = out[1] if cfg.amvr else None
                 recon = self._deblock_inter(recon, mvs, (ly, lu, lv), qp)
@@ -623,7 +677,7 @@ class EncLib:
                 else:
                     out = inter_frame.search_p_frame(
                         dev[0], rdev[0], col, qp, s, bd, cfg.search_range,
-                        cfg.wrap_around, amvr=cfg.amvr)
+                        cfg.wrap_around, amvr=cfg.amvr, mcts=mcts)
                 ps.set_sync(self.device)
             with profiling.stage("select+pull"):
                 pulled = xfer.pull_i32(*out)
@@ -635,9 +689,12 @@ class EncLib:
                         lam_sqrt, cfg.tmvp, mer)
                 else:
                     mvs_h, imv_h, sad_h, cmv_h, csad_h = pulled
+                    starts = (wpp_substream_starts(nby, cfg.num_substreams)
+                              if cfg.wpp and cfg.tmvp else ())
                     final, mflag, midx = select_merge_p(
                         mvs_h, sad_h, cmv_h, csad_h, col_h, lam_sqrt,
-                        cfg.tmvp, mer)
+                        cfg.tmvp, mer, snap=not mcts,
+                        substream_starts=starts)
                 imv = imv_h if cfg.amvr else None
             self._mv_fields[poc] = final
             mvs = t(final)
@@ -667,6 +724,11 @@ class EncLib:
                 return encode_p_slice_2ref(f_ref, final, lyh, luh, lvh,
                                            imv=imv, merge_flag=mflag,
                                            merge_idx=midx, **tools)
+            if cfg.wpp:
+                return encode_p_slice_wpp(
+                    final, lyh, luh, lvh, imv=imv, merge_flag=mflag,
+                    merge_idx=midx, num_substreams=cfg.num_substreams,
+                    **tools)
             return encode_p_slice(final, lyh, luh, lvh, imv=imv,
                                   merge_flag=mflag, merge_idx=midx, **tools)
 
@@ -1077,9 +1139,13 @@ class EncLib:
             else:
                 lyh, luh, lvh, m0, m1, d, g = xfer.pull_levels(
                     ly, lu, lv, mv0, mv1, dirs, gpm_modes)
-            return encode_b_slice(m0, m1, d, lyh, luh, lvh, gpm_modes=g,
-                                  use_gpm=sl_gpm, use_ciip=sl_ciip,
-                                  merge_flag=mflag, merge_idx=midx)[0]
+            args = dict(gpm_modes=g, use_gpm=sl_gpm, use_ciip=sl_ciip,
+                        merge_flag=mflag, merge_idx=midx)
+            if cfg.wpp and cfg.merge:
+                return encode_b_slice_wpp(
+                    m0, m1, d, lyh, luh, lvh,
+                    num_substreams=cfg.num_substreams, **args)
+            return encode_b_slice(m0, m1, d, lyh, luh, lvh, **args)[0]
 
         return recon, make_payload
 
@@ -1147,8 +1213,24 @@ class EncLib:
         return nal, res
 
     def encode_sequence(self, frames: list[list[np.ndarray]]) -> bytes:
-        """Encode a frame list -> Annex-B bytes (AI / LDP / RA GOP)."""
+        """Encode a frame list -> Annex-B bytes (AI / LDP / RA GOP).  With
+        LMCS the luma planes are forward-mapped first and the results get
+        their display-domain pictures (`_lmcs_outputs`); with film grain
+        the first picture's analysis rides an SEI."""
         cfg = self.cfg
+        originals = frames
+        if cfg.lmcs:
+            # one forward map a source picture; the whole pipeline (the
+            # picture hash included) runs in the mapped domain
+            cw = reshape.estimate_codewords(frames[0][0], cfg.bit_depth)
+            self.sps.lmcs_cw = tuple(int(c) for c in cw)
+            self.sps.lmcs = True
+            self._fwd_lut = reshape.build_fwd_lut(cw, cfg.bit_depth,
+                                                  self.device)
+            self._inv_lut = reshape.build_inv_lut(cw, cfg.bit_depth,
+                                                  self.device)
+            frames = [[reshape.map_plane(self._fwd_lut, f[0]), f[1], f[2]]
+                      for f in frames]
         nalus = self.encode_headers()
         cascade = cfg.ctc_qp_offsets and cfg.gop == "RA"
 
@@ -1159,6 +1241,10 @@ class EncLib:
             dpb: dict[int, list[np.ndarray]] = {}
             nal, res = self.encode_intra_frame(0, frames[0], qp=qp_of("I"))
             nalus.append(nal)
+            if cfg.film_grain:
+                fg_nal = self._film_grain_sei(frames[0], res.recon)
+                if fg_nal is not None:
+                    nalus.append(fg_nal)
             if cfg.picture_hash_sei:
                 nalus.append(self._hash_sei(0, res.recon))
             dpb[0] = res.recon
@@ -1197,6 +1283,7 @@ class EncLib:
                         del self._dpb_dev[p]
                 self._prune_mv_fields()
             self.results.sort(key=lambda r: r.poc)
+            self._lmcs_outputs(originals)
             return write_annexb(nalus)
         last_rec = prev2_rec = None
         last_poc = prev2_poc = -1
@@ -1210,6 +1297,12 @@ class EncLib:
                 nal, res = self.encode_p_frame(
                     poc, planes, last_rec, last_poc, ref2=prev2_rec,
                     ref2_poc=prev2_poc)
+            if poc == 0 and cfg.film_grain:
+                # AI/LDP: the SEI goes before the first picture's NAL, as
+                # in the JAX package
+                fg_nal = self._film_grain_sei(planes, res.recon)
+                if fg_nal is not None:
+                    nalus.append(fg_nal)
             # LDP: the last TWO recons stay referenceable
             for p in list(self._dpb_dev):
                 if p not in (poc, last_poc):
@@ -1223,7 +1316,21 @@ class EncLib:
             nalus.append(nal)
             if cfg.picture_hash_sei:
                 nalus.append(self._hash_sei(poc, res.recon))
+        self._lmcs_outputs(originals)
         return write_annexb(nalus)
+
+    def _lmcs_outputs(self, originals) -> None:
+        """Under LMCS: every result's display-domain picture (the luma
+        inverse-mapped on the device) and its Y-PSNR against the true
+        original (reference: the encoder reports PSNR on the
+        inverse-reshaped picture, EncGOP xCalculateAddPSNR)."""
+        if not self.cfg.lmcs:
+            return
+        for res in self.results:
+            out_y = reshape.map_plane(self._inv_lut, res.recon[0])
+            res.recon_out = [out_y, res.recon[1], res.recon[2]]
+            res.psnr_y = psnr(originals[res.poc][0], out_y,
+                              self.cfg.bit_depth)
 
     def _finish_frame(self, res: FrameResult, orig: list[np.ndarray]
                       ) -> FrameResult:

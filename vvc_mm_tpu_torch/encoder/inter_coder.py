@@ -16,7 +16,11 @@ in the merge and AMVP lists), AMVR (the per-block MVD precision), GPM and
 CIIP (B block modes) and the affine P slice.  The classic quadtree and
 its multi-type tree (BT/TT) code P and B slices through one tree walker
 (`walk_tree`) and one leaf syntax per slice type, over the causal unit
-grid.  The WPP writers (ROADMAP queue 1 item 11) are not ported.
+grid.  Under WPP the classic P and B slices (merge on) code each block
+row group as its own substream (`encode_p_slice_wpp`,
+`encode_b_slice_wpp`: fresh contexts and a fresh HMVP FIFO, the row
+ranges of `encode_p_slice` / `encode_b_slice`), and the P merge selection
+resets its HMVP FIFO at the same rows.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from ..common.cabac import BinEncoder
 from ..common.inter_frame import AMVR_SHIFTS, round_mv_amvr
 from ..common.contexts import ctx_id
 from ..utils.native import NativeBinEncoder
+from .intra_coder import encode_substreams, wpp_bounds
 
 
 MERGE_MAX = 6     # merge candidate list size (reference: CommonDef.h
@@ -175,7 +180,9 @@ def merge_candidates(coded: np.ndarray, by: int, bx: int, col_mv=None,
 def select_merge_p(mv_me: np.ndarray, sad_me: np.ndarray,
                    cand_mvs: np.ndarray, cand_sads: np.ndarray,
                    col_mvs: np.ndarray | None, lam_sqrt: float,
-                   use_tmvp: bool, mer_blocks_log2: int = 0):
+                   use_tmvp: bool, mer_blocks_log2: int = 0,
+                   snap: bool = True,
+                   substream_starts: tuple[int, ...] = ()):
     """Encoder merge decision in coding order (the host pass between the
     two device programs; reference analog: EncCu::xCheckRDCostMerge2Nx2N).
 
@@ -186,6 +193,15 @@ def select_merge_p(mv_me: np.ndarray, sad_me: np.ndarray,
     tie keeps the earlier candidate, and a tie with AMVP merges.  With
     use_tmvp the lists carry the co-located MV (`col_mvs`, None when the
     reference has no field) and the HMVP FIFO, pushed in coding order.
+    With snap=False only candidates equal to the ME MV are taken, so the
+    MV field stays as searched (MCTS: a neighbour's MV can leave this
+    block's tile).
+
+    substream_starts: the block rows at which the entropy pass starts a
+    new WPP substream.  The HMVP FIFO resets there exactly as in the
+    syntax pass (encode_p_slice rows= / the decoder's WPP parse), so the
+    list this selection derives is the one the decoder derives (reference:
+    the per-CTU-row HMVP reset under WPP).
 
     Returns (final_mvs, merge_flag, merge_idx)."""
     nby, nbx = mv_me.shape[:2]
@@ -201,6 +217,8 @@ def select_merge_p(mv_me: np.ndarray, sad_me: np.ndarray,
     cmv_l = np.asarray(cand_mvs).tolist()
     csad_l = np.asarray(cand_sads).tolist()
     for by in range(nby):
+        if hist is not None and by in substream_starts:
+            hist = HmvpList()
         for bx in range(nbx):
             col = (col_mvs[by, bx] if (use_tmvp and col_mvs is not None)
                    else None)
@@ -211,6 +229,8 @@ def select_merge_p(mv_me: np.ndarray, sad_me: np.ndarray,
             for i, c in enumerate(cands):
                 if c == me_mv:
                     sad = sad_l[by][bx]
+                elif not snap:
+                    continue
                 else:
                     sad = None
                     for k in range(n_fields):
@@ -1306,9 +1326,11 @@ def encode_p_slice(mvs: np.ndarray, lev_y: np.ndarray, lev_u: np.ndarray,
                    use_tmvp: bool = False,
                    imv: np.ndarray | None = None,
                    merge_flag: np.ndarray | None = None,
-                   merge_idx: np.ndarray | None = None) -> bytes:
+                   merge_idx: np.ndarray | None = None,
+                   rows: tuple | None = None) -> bytes:
     """Classic P slice: mvs (nby, nbx, 2) 1/16-pel; lev_* (nby, nbx, s, s);
-    raster order.  With merge_flag/merge_idx (from select_merge_p), skip
+    raster order.  `rows` (r0, r1) codes only those block rows: one WPP
+    substream, with fresh contexts and a fresh HMVP FIFO.  With merge_flag/merge_idx (from select_merge_p), skip
     means merge+no-residual and is followed by merge_idx; non-skip blocks
     signal merge_flag, then either merge_idx (+residual) or the AMVP syntax
     (reference: CABACWriter merge_flag/merge_idx/cu_skip).  Without them,
@@ -1325,7 +1347,8 @@ def encode_p_slice(mvs: np.ndarray, lev_y: np.ndarray, lev_u: np.ndarray,
     use_merge = merge_flag is not None
     hist = HmvpList() if use_tmvp else None
     cbf_yg, cbf_ug, cbf_vg = _cbf_grids(lev_y, lev_u, lev_v)
-    for by in range(nby):
+    r0, r1 = rows if rows is not None else (0, nby)
+    for by in range(r0, r1):
         for bx in range(nbx):
             mv = mvs[by, bx]
             cbfs = (bool(cbf_yg[by, bx]), bool(cbf_ug[by, bx]),
@@ -1445,7 +1468,8 @@ def encode_b_slice(mv0: np.ndarray, mv1: np.ndarray, dirs: np.ndarray,
                    gpm_modes: np.ndarray | None = None,
                    use_gpm: bool = False, use_ciip: bool = False,
                    merge_flag: np.ndarray | None = None,
-                   merge_idx: np.ndarray | None = None
+                   merge_idx: np.ndarray | None = None,
+                   rows: tuple | None = None
                    ) -> tuple[bytes, np.ndarray, np.ndarray]:
     """Classic B slice: skip / inter_dir / per-list mvd / residual
     (reference: CABACWriter inter_pred_idc + mvd_coding per list, SMVD;
@@ -1454,14 +1478,17 @@ def encode_b_slice(mv0: np.ndarray, mv1: np.ndarray, dirs: np.ndarray,
     mode with a sub-type bin gated by the SPS tool flags; GPM adds a 4-bit
     EP mask index.  Unused-list entries in the coded MV grids are replaced
     by their MVP so the dense grid evolves identically on the decoder;
-    returns (payload, coded0, coded1)."""
+    returns (payload, coded0, coded1).  `rows` (r0, r1) codes only those
+    block rows (one WPP substream): as in the JAX package, the rows above
+    r0 then keep the given MVs, without their MVP replacements."""
     enc = NativeBinEncoder()
     nby, nbx = dirs.shape
     use_merge = merge_flag is not None
     coded0 = mv0.astype(np.int64).copy()
     coded1 = mv1.astype(np.int64).copy()
     cbf_y, cbf_u, cbf_v = _cbf_grids(lev_y, lev_u, lev_v)
-    for by in range(nby):
+    r0, r1 = rows if rows is not None else (0, nby)
+    for by in range(r0, r1):
         for bx in range(nbx):
             d = int(dirs[by, bx])
             pred0 = mvp_median(coded0, by, bx)
@@ -1535,6 +1562,43 @@ def encode_b_slice(mv0: np.ndarray, mv1: np.ndarray, dirs: np.ndarray,
                 encode_mvd_comp(enc, mvd1y)
             _code_residual(enc, cbfs, levs)
     return enc.finish(), coded0, coded1
+
+
+def encode_p_slice_wpp(mvs, lev_y, lev_u, lev_v, col_mvs=None,
+                       use_tmvp: bool = False, imv=None, merge_flag=None,
+                       merge_idx=None, num_substreams: int = 4) -> bytes:
+    """Inter WPP: the P slice's block rows split into independently
+    decodable substreams with fresh contexts and a fresh HMVP FIFO each
+    (reference: EncSlice.cpp:2024-2113 substream termination; the WPP HMVP
+    reset).  The candidate and MVP grids still read across substreams
+    (values, not bins), as in the intra WPP path."""
+    def one(r0: int, r1: int) -> bytes:
+        return encode_p_slice(mvs, lev_y, lev_u, lev_v, col_mvs=col_mvs,
+                              use_tmvp=use_tmvp, imv=imv,
+                              merge_flag=merge_flag, merge_idx=merge_idx,
+                              rows=(r0, r1))
+
+    return encode_substreams(one, wpp_bounds(mvs.shape[0], num_substreams))
+
+
+def encode_b_slice_wpp(mv0, mv1, dirs, lev_y, lev_u, lev_v, gpm_modes=None,
+                       use_gpm: bool = False, use_ciip: bool = False,
+                       merge_flag=None, merge_idx=None,
+                       num_substreams: int = 4) -> bytes:
+    """Inter WPP for B slices (encode_b_slice per row group)."""
+    def one(r0: int, r1: int) -> bytes:
+        return encode_b_slice(mv0, mv1, dirs, lev_y, lev_u, lev_v,
+                              gpm_modes=gpm_modes, use_gpm=use_gpm,
+                              use_ciip=use_ciip, merge_flag=merge_flag,
+                              merge_idx=merge_idx, rows=(r0, r1))[0]
+
+    return encode_substreams(one, wpp_bounds(dirs.shape[0], num_substreams))
+
+
+def wpp_substream_starts(nby: int, num_substreams: int) -> tuple[int, ...]:
+    """The block rows at which WPP substreams 2.. start (the HMVP resets
+    select_merge_p must mirror)."""
+    return tuple(wpp_bounds(nby, num_substreams)[1:-1])
 
 
 # ------------------------------------------------ classic quadtree / MTT
