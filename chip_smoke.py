@@ -69,7 +69,7 @@ Phases (any failure exits non-zero and prints no result line):
      17 MD5s must match, K1-K4 and the sphere kernel must be launched, one
      launch a codec call of the positions (frame_codec.POSITION_CALLS,
      printed beside the launches), K > 1 fields in the steps' launches,
-     and the stream's SHA-256 must equal the parent commit's
+     and the stream's SHA-256 must equal the JAX encoder's
      (HEADLINE_SHA256);
      per-picture bits, Y-PSNR, seconds and L1 launches and the frames per
      second are printed (one timed encode, no repeat); one more under
@@ -201,6 +201,23 @@ Phases (any failure exits non-zero and prints no result line):
      slice NAL: POC 1 concealed, and the decoded POCs, their MD5s and the
      hash verdicts equal to the JAX decoder's on the same bytes; seconds,
      wall seconds and launches as in 8r.
+  8t. the headline tools at 2048x1024, RA, GOP 4, 5 frames, with the MCTF
+     pre-filter, rate control (1,920 kbit/s) and the 360 metrics: byte
+     for byte against `erp2048x1024_ra_mm_rc_mctf_5f`, decoded on the card
+     with every MD5 OK (the JAX decoder's verdicts, from the sidecar, too);
+     the card's
+     filtered pictures equal to the JAX prefilter's (MD5), every QP to the
+     rate control's pick, every per-POC metric within 1e-3 dB of the JAX
+     encoder's sidecar (the largest difference printed); geo_convert of
+     the first source picture to CMP (1536x1024) and fisheye (1024x1024)
+     with lanczos3 on the card equal to the port's CPU result; seconds,
+     seconds a picture and the phase's wall seconds;
+  8u. Equisolid (fisheye) content at 1088x1088 (the default focal's
+     sensor width), MPA+ROT, the MM quadtree, RA, GOP 4, 5 frames: byte
+     for byte against `fish1088x1088_ra_mm_qp37_5f`, decoded on the card
+     with every MD5 OK; K1-K4 and L1's elementwise entry
+     points launched, the sphere kernel's entries not (it computes ERP's
+     sphere math only); seconds as in 8t.
      Where a committed stream is the port's byte for byte (every phase
      from 8c on but 8i's possible difference), its decode is the port's
      stream's (check_run) and is not repeated;
@@ -250,6 +267,10 @@ from vvc_mm_tpu_torch.common.mm.reprojection import MVReprojection
 from vvc_mm_tpu_torch.common.slice_ps import SPS, MMConfig, SliceHeader
 from vvc_mm_tpu_torch.decoder.declib import DecLib
 from vvc_mm_tpu_torch.encoder.enclib import EncCfg, EncLib
+from vvc_mm_tpu_torch.encoder.mctf import prefilter_sequence
+from vvc_mm_tpu_torch.encoder.rate_ctrl import RateControl
+from vvc_mm_tpu_torch.common.typedefs import ProjectionID
+from vvc_mm_tpu_torch.lib360 import geometry
 from vvc_mm_tpu_torch.lib360.projection import ERP
 from vvc_mm_tpu_torch.common import depquant, libm_f32
 from vvc_mm_tpu_torch.ops import (cuda_lib, depquant_kernel, libm_kernel,
@@ -343,13 +364,17 @@ SPHERE_OPS = {("sphere_positions", "mpa"): {None: (46, 4, 0, 4),
               ("sphere_positions", "rot"): {None: (99, 4, 0, 20),
                                              "merged": (111, 4, 0, 12),
                                              "search": (129, 4, 0, 16)},
-              ("sphere_centers", "mpa"): {None: (71, 6, 1, 10)},
-              ("sphere_centers", "rot"): {None: (95, 4, 0, 20)}}
-# the headline stream's SHA-256 on the card at the parent commit 6eb3dc6
-# (compare_checkouts.py, parent and change in one call): the sphere kernel
-# computes the same positions, so the stream stays the same
-HEADLINE_SHA256 = ("eee9bbb41f89a504f28090fe4236c1366c671db584254077c13469bb7"
-                   "7dd2dad")
+              ("sphere_centers", "mpa"): {None: (71, 6, 1, 10),
+                                           "search": (80, 6, 1, 10)},
+              ("sphere_centers", "rot"): {None: (95, 4, 0, 20),
+                                           "search": (120, 4, 0, 16)}}
+# the headline stream's SHA-256 on the card: the JAX encoder's own stream
+# of the same sequence (its CPU encode of bench.py:127-129's 17 frames).
+# The search's block centres took the op-by-op form up to PR 16 and gave
+# eee9bbb4...; since they take the JAX search jits' compiled form the
+# stream is the JAX encoder's
+HEADLINE_SHA256 = ("c7470bcc98942252c31fba8f51637bb6a86162a0cb86acc07f78428"
+                   "410497e04")
 STEEP = tuple(int(16 + 2 * (x + y)) for y in range(8) for x in range(8))
 PSNR_TOL_DB = 0.1
 BITS_TOL = 1.02
@@ -832,8 +857,8 @@ def sphere_cases(dev) -> list:
     call, plain call).  Every form of sphere_positions with MPA's three
     planes and ROT beside CLASSIC (merged also with a GED layer, which the
     chain fills first), the op-by-op diamond fields of each model at the
-    search's subsampling, and sphere_centers merged and per model; random,
-    extreme and zero fields."""
+    search's subsampling, and sphere_centers merged and per model, op by
+    op and in the search form; random, extreme and zero fields."""
     w, h = 2048, 1024
     reproj = MVReprojection(ERP(w, h), w, h, 1, device=dev)
     rng = np.random.default_rng(14)
@@ -868,19 +893,21 @@ def sphere_cases(dev) -> list:
                     f"{kind}",
                     lambda a=args: reproj.positions(*a),
                     lambda a=args: reproj.positions_plain(*a)))
-        for s, k, ms in ((16, 5, models), (8, 1, models + [7]),
-                         (16, 5, [1]), (16, 5, [2]), (16, 5, [3]),
-                         (16, 5, [6]), (8, 5, [0])):
-            nby, nbx = h // s, w // s
-            idx = None if len(ms) == 1 else torch.as_tensor(
-                rng.integers(0, len(ms), (k, nby, nbx)), dtype=torch.int32,
-                device=dev)
-            mv = sphere_fields(rng, k, len(ms), nby, nbx, kind).to(dev)
-            args = (ms, idx, mv, s, eps)
-            cases.append((
-                "sphere_centers", f"s={s} K={k}, models {ms}, {kind}",
-                lambda a=args: reproj.centers(*a),
-                lambda a=args: reproj.centers_plain(*a)))
+        for form in (None, "search"):
+            for s, k, ms in ((16, 5, models), (8, 1, models + [7]),
+                             (16, 5, [1]), (16, 5, [2]), (16, 5, [3]),
+                             (16, 5, [6]), (8, 5, [0])):
+                nby, nbx = h // s, w // s
+                idx = None if len(ms) == 1 else torch.as_tensor(
+                    rng.integers(0, len(ms), (k, nby, nbx)),
+                    dtype=torch.int32, device=dev)
+                mv = sphere_fields(rng, k, len(ms), nby, nbx, kind).to(dev)
+                args = (ms, idx, mv, s, eps, form)
+                cases.append((
+                    "sphere_centers", f"{form or 'op by op'} s={s} K={k}, "
+                    f"models {ms}, {kind}",
+                    lambda a=args: reproj.centers(*a),
+                    lambda a=args: reproj.centers_plain(*a)))
     return cases
 
 
@@ -1523,6 +1550,12 @@ def main() -> None:
     phase("8s. MCTS and a lost picture (832x480, LDP)")
     mcts_path(path_launches)
 
+    # ---- 8t-8u. rate control, MCTF, the 360 metrics; Equisolid content
+    phase("8t. MCTF + rate control + 360 metrics (2048x1024, RA, GOP 4)")
+    rc_mctf_path(path_launches)
+    phase("8u. Equisolid (fisheye) content (1088x1088, RA, GOP 4)")
+    equisolid_path(path_launches)
+
     # ---- 9. decision SADs through K6 (and K5 beside it)
     phase("9. decision SADs")
     positions = card_positions[-1].to(torch.int32).contiguous()
@@ -1602,10 +1635,10 @@ def headline_sequence(label: str, cfg: EncCfg, clip: list, need: tuple,
     one_launch_a_call(label, first["launches"])
     if sha256 is not None:
         got = hashlib.sha256(first["data"]).hexdigest()
-        print(f"{label}: SHA-256 {got}, the parent's {sha256}: "
+        print(f"{label}: SHA-256 {got}, the JAX encoder's {sha256}: "
               f"{'equal' if got == sha256 else 'DIFFERENT'}")
         if got != sha256:
-            fail(f"{label}: the stream differs from the parent's")
+            fail(f"{label}: the stream differs from the JAX encoder's")
     l1 = ("libm_f32", "sphere_positions", "sphere_centers")
     for kind in sorted({r["kind"] for r in first["rows"]}):
         rows = [r for r in first["rows"] if r["kind"] == kind]
@@ -2550,6 +2583,146 @@ def mcts_path(path_launches: dict) -> None:
     print(f"{label}: phase {time.perf_counter() - t0:.1f} s (host clock)")
 
 
+RC_MCTF_8T = "erp2048x1024_ra_mm_rc_mctf_5f"
+FISHEYE_8U = "fish1088x1088_ra_mm_qp37_5f"
+METRICS_TOL_DB = 1e-3
+# the main path's kernels on a multi-model sequence at 512 rows or more
+MM_BLOCK_KERNELS = ("mc_luma_positions", "mc_chroma_positions",
+                    "sad_block_positions", "mc_block_positions")
+
+
+def lib360_stream(stream: str):
+    """A committed stream of items 11f/11g: its sidecar, bytes, the
+    port's EncCfg made from the sidecar's fields and the source clip."""
+    sd = json.load(open(os.path.join(DATA, stream + ".json")))
+    committed = open(os.path.join(DATA, stream + ".bin"), "rb").read()
+    mm = dict(sd["mm"])
+    mm["projection"] = ProjectionID[mm["projection"]]
+    fields = {f.name: sd[f.name] for f in dataclasses.fields(EncCfg)
+              if f.name in sd and f.name not in ("mm", "frames")}
+    cfg = EncCfg(mm=MMConfig(**mm), **fields)
+    clip = realistic_sequence(cfg.width, cfg.height, sd["frames"])
+    return sd, committed, cfg, clip
+
+
+def lib360_run(label: str, stream: str, need: tuple,
+               path_launches: dict) -> tuple[dict, dict]:
+    """The port's encode of a lib360 stream's source on the card, held to
+    the committed JAX stream byte for byte and decoded on the card with
+    every MD5 OK (check_run; the committed stream is the same bytes, so
+    its decode is not repeated)."""
+    sd, committed, cfg, clip = lib360_stream(stream)
+    run = encode_run(label, cfg, clip, "plain")
+    path_launches[label] = run["launches"]
+    check_run(run, need, {p["poc"]: p for p in sd["pocs"]})
+    hold_bytes(label, run["data"], committed, stream)
+    md5_verdicts(f"{label} JAX decoder (sidecar)",
+                 {int(k): v for k, v in sd["jax_decoder_md5"].items()}, sd)
+    picture_seconds(label, run)
+    print(f"{label}: {run['seconds'] / run['frames']:.3f} s a picture "
+          "(host clock)")
+    return run, sd
+
+
+def slice_qps(data: bytes, sps: SPS) -> dict:
+    """POC -> slice QP of an Annex-B stream."""
+    out = {}
+    for n in bs.read_annexb(data):
+        if n.nal_type in (bs.NAL_IDR, bs.NAL_TRAIL):
+            sh = SliceHeader.read(bs.BitReader(n.payload), sps)
+            out[sh.poc] = sh.qp
+    return out
+
+
+def rc_mctf_path(path_launches: dict) -> None:
+    """Phase 8t: MCTF, rate control and the 360 metrics on the headline
+    tools at 2048x1024, then geo_convert on the card against the CPU.
+    Besides the stream, the tools are held on their own: the filtered
+    source pictures to the JAX prefilter's MD5s, the QPs to the rate
+    control's picks from the JAX encoder's bits, the metrics to the JAX
+    encoder's within 1e-3 dB."""
+    t0 = time.perf_counter()
+    label = "MCTF+RC+360 metrics 2048x1024 GOP 4"
+    run, sd = lib360_run(label, RC_MCTF_8T, MM_BLOCK_KERNELS + (
+        "sphere_positions", "sphere_centers"), path_launches)
+    enc = run["enc"]
+    _, _, cfg, clip = lib360_stream(RC_MCTF_8T)
+    t1 = time.perf_counter()
+    filtered = prefilter_sequence(clip, cfg.qp, cfg.bit_depth,
+                                  period=cfg.gop_size)
+    torch.cuda.synchronize()
+    got = {str(p): md5_of(filtered[int(p)]) for p in sd["mctf_md5"]}
+    print(f"{label}: MCTF on the card {time.perf_counter() - t1:.2f} s "
+          f"(host clock), filtered pictures {sorted(got)} equal to the JAX "
+          f"prefilter's: {got == sd['mctf_md5']}")
+    if got != sd["mctf_md5"]:
+        fail(f"{label}: the MCTF-filtered pictures differ from the JAX "
+             "prefilter's")
+    rc = RateControl(cfg.target_bitrate_kbps * 1000.0, cfg.frame_rate,
+                     cfg.width, cfg.height)
+    want_qp = {}
+    for poc, tid, kind in [(0, 0, "I")] + [
+            (p, t, "P" if b < 0 else "B")
+            for p, _, b, t in EncLib.ra_coding_order(sd["frames"], 4)]:
+        want_qp[poc] = rc.pick_qp(kind, tid)
+        rc.update(next(q["bits"] for q in sd["pocs"] if q["poc"] == poc))
+    qps = slice_qps(run["data"], enc.sps)
+    print(f"{label}: slice QPs by POC {dict(sorted(qps.items()))}, the rate "
+          f"control's picks from the JAX encoder's bits "
+          f"{dict(sorted(want_qp.items()))}")
+    if qps != want_qp:
+        fail(f"{label}: a QP differs from the rate control's pick")
+    res = sorted(enc.results, key=lambda r: r.poc)
+    worst = max(abs(r.metrics_360[k] - p["metrics_360"][k])
+                for r, p in zip(res, sd["pocs"]) for k in p["metrics_360"])
+    for r in res:
+        print(f"{label} POC {r.poc}: " + ", ".join(
+            f"{k} {v:.6f}" for k, v in r.metrics_360.items()) + " dB")
+    summ = enc.summary()
+    print(f"{label}: 360 metrics within {worst:.2e} dB of the JAX "
+          f"encoder's (limit {METRICS_TOL_DB}); averages WS-PSNR "
+          f"{summ['ws_psnr']:.6f}, S-PSNR-NN {summ['s_psnr_nn']:.6f}, "
+          f"CPP-PSNR {summ['cpp_psnr']:.6f} dB")
+    if not worst <= METRICS_TOL_DB or any(
+            abs(summ[k] - sd["summary"][k]) > METRICS_TOL_DB
+            for k in ("ws_psnr", "s_psnr_nn", "cpp_psnr")):
+        fail(f"{label}: a 360 metric differs from the JAX encoder's by "
+             f"more than {METRICS_TOL_DB} dB")
+    src = clip[0][0]
+    for dst, size in (("cmp", (1024, 1536)), ("fisheye", (1024, 1024))):
+        t1 = time.perf_counter()
+        card = geometry.geo_convert(src, "erp", dst, size, "lanczos3",
+                                    device="cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        host = geometry.geo_convert(src, "erp", dst, size, "lanczos3",
+                                    device="cpu")
+        t3 = time.perf_counter()
+        off = int((card != host).sum())
+        print(f"{label}: geo_convert erp -> {dst} {size[1]}x{size[0]} "
+              f"lanczos3: card {t2 - t1:.2f} s, CPU {t3 - t2:.2f} s (host "
+              f"clock, first call), {off} samples differ")
+        if off or card.shape != size:
+            fail(f"{label}: geo_convert to {dst} differs between the card "
+                 "and the CPU")
+    kernel_launches(label, run)
+    print(f"{label}: phase {time.perf_counter() - t0:.1f} s (host clock)")
+
+
+def equisolid_path(path_launches: dict) -> None:
+    """Phase 8u: multi-model coding of Equisolid content; every position
+    through the float32 chain (L1's elementwise entry points)."""
+    t0 = time.perf_counter()
+    label = "Equisolid 1088x1088 GOP 4"
+    run, _ = lib360_run(label, FISHEYE_8U, MM_BLOCK_KERNELS + ("libm_f32",),
+                        path_launches)
+    n = run["launches"]
+    if n["sphere_positions"] or n["sphere_centers"]:
+        fail(f"{label}: the sphere kernel launched on Equisolid content")
+    kernel_launches(label, run)
+    print(f"{label}: phase {time.perf_counter() - t0:.1f} s (host clock)")
+
+
 def bench_stream(name: str, stream: str):
     """The committed stream of a bench configuration: its sidecar, bytes,
     EncCfg (checked against the sidecar) and source clip."""
@@ -2878,8 +3051,7 @@ def sphere_bound(name: str, c: dict) -> tuple[float, str]:
         fam = "mpa" if m in (1, 2, 3) else "rot" if m == 6 else None
         if fam is None:
             continue
-        form = c["form"] if name == "sphere_positions" else None
-        own, atan2s, tans, sincos = SPHERE_OPS[(name, fam)][form]
+        own, atan2s, tans, sincos = SPHERE_OPS[(name, fam)][c["form"]]
         f64 += n * (sincos * LIBM_F64_OPS["sinf"]
                     + tans * LIBM_F64_OPS["tanf"])
         f32 += n * (own + atan2s * ATAN2F_F32 + tans * TANF_F32)
@@ -2915,14 +3087,13 @@ def sphere_timed_cases(sphere_captured: dict, by_shape: dict) -> list:
         fn = getattr(c["reproj"], entry)
         plain = getattr(c["reproj"], entry + "_plain")
         args = (c["models"], c["model_idx"], c["mvs"], c["block_size"])
-        if name == "sphere_positions":
-            args += (c["row_step"], c["col_step"], c["form"])
+        args += ((c["row_step"], c["col_step"], c["form"])
+                 if name == "sphere_positions" else (None, c["form"]))
         before = dict(sphere_kernel.LAUNCHES)
         got, want = fn(*args), plain(*args)
         sphere_kernel.LAUNCHES.update(before)
         bad = int((got != want).any(-1).sum())
-        form = "" if name == "sphere_centers" else \
-            f"{'op by op' if c['form'] is None else c['form']}, "
+        form = f"{'op by op' if c['form'] is None else c['form']}, "
         n = len(c["models"])
         label = (f"{form}{n} model{'s' if n > 1 else ''}, block size "
                  f"{c['block_size']}, out {tuple(got.shape)} (headline)")

@@ -144,6 +144,28 @@ SHA-256) for phase 8d.  The 832x480 streams and that sidecar were written
 on the card machine's CPU, one process each in parallel (55, 25 and 180
 s of JAX encode), the small ones here (`... tools16`, 3 minutes).
 
+Equisolid (fisheye) content, rate control, MCTF and the 360 metrics
+(LIB360_STREAMS, `bench.realistic_sequence` content, QP 37, RA GOP 4,
+search range 24, the MM quadtree at depth 1, 5 frames):
+
+  fish128x128_ra_mm_qp37_5f     Equisolid at the default focal (a
+                                1088-pixel sensor), MPA+ROT, no
+                                wrap-around;
+  fish1088x1088_ra_mm_qp37_5f   the same at the sensor's width (chip
+                                smoke phase 8u);
+  erp256x128_ra_mm_rc_mctf_5f   the headline tools with the MCTF
+                                pre-filter, rate control (30 kbit/s) and
+                                the 360 metrics;
+  erp2048x1024_ra_mm_rc_mctf_5f the same at 2048x1024 and 1,920 kbit/s
+                                (phase 8t).
+
+Their sidecars record every POC's MD5, bits, PSNRs and 360 metrics, the
+summary, the JAX decoder's verdicts, the stream's SHA-256 and, with MCTF,
+the MD5 of each filtered source picture (`mctf_md5`; `python
+tests/make_torch_port_streams.py mctf_md5:NAME` adds it to a sidecar).  The two
+large ones were written on the card machine's CPU, one process each in
+parallel; the small ones here (`... lib360`).
+
     python tests/make_torch_port_streams.py                   # all streams
     python tests/make_torch_port_streams.py 256x128           # one size
     python tests/make_torch_port_streams.py erp256x128_ra_mpa_qp37_5f
@@ -153,6 +175,7 @@ s of JAX encode), the small ones here (`... tools16`, 3 minutes).
     python tests/make_torch_port_streams.py partitioning      # the 8
     python tests/make_torch_port_streams.py tools16           # the small
     python tests/make_torch_port_streams.py erp6144x3072_ldp_qp37_3f
+    python tests/make_torch_port_streams.py lib360            # the small 2
 
 This script imports the JAX package; pytest does not collect it (its name
 does not start with `test_`).
@@ -850,6 +873,185 @@ def make_config5() -> dict:
     return side
 
 
+# ---- ROADMAP queue 1 items 11f and 11g: multi-model coding of Equisolid
+# (fisheye) content, rate control, the MCTF pre-filter and the 360
+# metrics.  name -> (EncCfg fields, MMConfig fields, frames); the content
+# is bench.realistic_sequence.
+RC_MCTF = dict(mctf=True, metrics_360=True)
+LIB360_STREAMS = {
+    # Equisolid at the default focal, the headline tools (MPA+ROT, the MM
+    # quadtree at depth 1), RA GOP 4, no wrap-around (a fisheye image has
+    # no horizontal wrap)
+    "fish128x128_ra_mm_qp37_5f": (
+        dict(width=128, height=128, qp=37, gop="RA", gop_size=4,
+             qt_depth=1, search_range=24),
+        dict(mpa=True, rot=True, projection="EQUISOLID"), 5),
+    # phase 8u: the same at the default focal's sensor width
+    "fish1088x1088_ra_mm_qp37_5f": (
+        dict(width=1088, height=1088, qp=37, gop="RA", gop_size=4,
+             qt_depth=1, search_range=24),
+        dict(mpa=True, rot=True, projection="EQUISOLID"), 5),
+    # the headline tools with the MCTF pre-filter, rate control and the
+    # 360 metrics (ERP, wrap-around); the target is 30 kbit/s per 32,768
+    # luma samples at 30 frames a second
+    "erp256x128_ra_mm_rc_mctf_5f": (
+        dict(width=256, height=128, qp=37, gop="RA", gop_size=4,
+             qt_depth=1, search_range=24, wrap_around=True,
+             target_bitrate_kbps=30, **RC_MCTF),
+        dict(mpa=True, rot=True, projection="EQUIRECTANGULAR"), 5),
+    # phase 8t: the same at 2048x1024
+    "erp2048x1024_ra_mm_rc_mctf_5f": (
+        dict(width=2048, height=1024, qp=37, gop="RA", gop_size=4,
+             qt_depth=1, search_range=24, wrap_around=True,
+             target_bitrate_kbps=1920, **RC_MCTF),
+        dict(mpa=True, rot=True, projection="EQUIRECTANGULAR"), 5),
+}
+
+
+def lib360_cfg(name: str, port: bool = True):
+    """The EncCfg of a LIB360_STREAMS entry, the port's or (port=False)
+    the JAX package's."""
+    if port:
+        from vvc_mm_tpu_torch.common.slice_ps import MMConfig
+        from vvc_mm_tpu_torch.common.typedefs import ProjectionID
+        from vvc_mm_tpu_torch.encoder.enclib import EncCfg
+    else:
+        from vvc_mm_tpu.common.slice_ps import MMConfig
+        from vvc_mm_tpu.common.typedefs import ProjectionID
+        from vvc_mm_tpu.encoder.enclib import EncCfg
+    fields, mm, _ = LIB360_STREAMS[name]
+    mm = dict(mm, projection=ProjectionID[mm["projection"]])
+    return EncCfg(mm=MMConfig(**mm), **fields)
+
+
+def lib360_frames(name: str) -> list[list[np.ndarray]]:
+    from vvc_mm_tpu_torch.utils.content import realistic_sequence
+    fields, _, n = LIB360_STREAMS[name]
+    return realistic_sequence(fields["width"], fields["height"], n)
+
+
+def port_lib360_run(name: str, device: str = "cpu") -> dict:
+    """The port's encode of a LIB360_STREAMS entry's source on `device`,
+    and its decode there of the committed JAX stream: {sd (the sidecar),
+    committed, enc, data (the port's stream), dec}."""
+    from vvc_mm_tpu_torch.decoder.declib import DecLib
+    from vvc_mm_tpu_torch.encoder.enclib import EncLib
+
+    with open(os.path.join(OUT_DIR, name + ".json")) as f:
+        sd = json.load(f)
+    with open(os.path.join(OUT_DIR, name + ".bin"), "rb") as f:
+        committed = f.read()
+    enc = EncLib(lib360_cfg(name), device=device)
+    data = enc.encode_sequence(lib360_frames(name))
+    dec = DecLib(device=device)
+    dec.decode_bytes(committed)
+    return dict(sd=sd, committed=committed, enc=enc, data=data, dec=dec)
+
+
+def metrics_360_diff(results, sd: dict) -> float:
+    """The largest |port - JAX| of the per-POC 360 metrics and the
+    summary's averages, in dB (the JAX encoder's are float32 sums in its
+    own reduction order)."""
+    res = sorted(results, key=lambda r: r.poc)
+    diffs = [abs(r.metrics_360[k] - p["metrics_360"][k])
+             for r, p in zip(res, sd["pocs"]) for k in p["metrics_360"]]
+    assert len(diffs) == 4 * len(sd["pocs"])
+    return max(diffs)
+
+
+def assert_lib360_run(run: dict) -> None:
+    """A port_lib360_run against its sidecar: the port's stream equals the
+    JAX stream byte for byte, its pictures' MD5s and bits equal the JAX
+    encoder's, and the port decodes the JAX stream with every MD5 OK, as
+    the JAX decoder does; with metrics_360 every metric is within 1e-3 dB
+    of the JAX encoder's."""
+    sd = run["sd"]
+    assert run["data"] == run["committed"]
+    res = sorted(run["enc"].results, key=lambda r: r.poc)
+    assert [(r.poc, plane_md5(r.recon), r.bits) for r in res] == \
+        [(p["poc"], p["md5"], p["bits"]) for p in sd["pocs"]]
+    assert {str(k): v for k, v in sorted(run["dec"].hash_status.items())} \
+        == sd["jax_decoder_md5"]
+    assert all(v == "OK" for v in sd["jax_decoder_md5"].values())
+    if sd.get("metrics_360"):
+        assert metrics_360_diff(res, sd) <= 1e-3
+        summ = run["enc"].summary()
+        for k in ("ws_psnr", "s_psnr_nn", "cpp_psnr"):
+            assert abs(summ[k] - sd["summary"][k]) <= 1e-3, k
+
+
+def jax_mctf_md5(name: str) -> dict:
+    """POC -> MD5 of the JAX package's MCTF-filtered source picture (the
+    RA anchors prefilter_sequence changes) of a LIB360_STREAMS entry."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from vvc_mm_tpu.encoder.mctf import prefilter_sequence
+
+    fields, _, _ = LIB360_STREAMS[name]
+    frames = lib360_frames(name)
+    out = prefilter_sequence(frames, fields["qp"], 8,
+                             period=max(fields["gop_size"], 1))
+    return {str(p): plane_md5([np.asarray(c) for c in out[p]])
+            for p in range(0, len(frames), fields["gop_size"])}
+
+
+def add_mctf_md5(name: str) -> None:
+    """Record jax_mctf_md5 in an existing sidecar."""
+    path = os.path.join(OUT_DIR, name + ".json")
+    with open(path) as f:
+        side = json.load(f)
+    side["mctf_md5"] = jax_mctf_md5(name)
+    with open(path, "w") as f:
+        json.dump(side, f, indent=1)
+        f.write("\n")
+    print(f"{name}: MCTF MD5s {side['mctf_md5']}", flush=True)
+
+
+def make_lib360_stream(name: str) -> dict:
+    """One LIB360_STREAMS stream and its sidecar: every POC's MD5, bits,
+    PSNRs and (metrics_360) 360 metrics, the JAX decoder's MD5 verdicts and
+    the stream's SHA-256."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from vvc_mm_tpu.decoder.declib import DecLib
+    from vvc_mm_tpu.encoder.enclib import EncLib
+
+    fields, mm, n = LIB360_STREAMS[name]
+    frames = lib360_frames(name)
+    enc = EncLib(lib360_cfg(name, port=False))
+    t0 = time.perf_counter()
+    data = enc.encode_sequence(frames)
+    secs = time.perf_counter() - t0
+    with open(os.path.join(OUT_DIR, name + ".bin"), "wb") as f:
+        f.write(data)
+    res = sorted(enc.results, key=lambda r: r.poc)
+    pocs = [dict(poc=int(r.poc), md5=plane_md5(r.recon),
+                 psnr_y=float(r.psnr_y), psnr_u=float(r.psnr_u),
+                 psnr_v=float(r.psnr_v), bits=int(r.bits),
+                 **({"metrics_360": {k: float(v) for k, v in
+                                     r.metrics_360.items()}}
+                    if r.metrics_360 else {}))
+            for r in res]
+    dec = DecLib()
+    dec.decode_bytes(data)
+    side = dict(fields, mm=mm, frames=n,
+                content="bench.realistic_sequence(seed=11)",
+                bytes=len(data), sha256=hashlib.sha256(data).hexdigest(),
+                encode_seconds_cpu=round(secs, 1), pocs=pocs,
+                summary={k: float(v) for k, v in enc.summary().items()
+                         if k != "fps"},
+                jax_decoder_md5={str(k): v for k, v in
+                                 sorted(dec.hash_status.items())})
+    if fields.get("mctf"):
+        side.update(mctf_md5=jax_mctf_md5(name))
+    with open(os.path.join(OUT_DIR, name + ".json"), "w") as f:
+        json.dump(side, f, indent=1)
+        f.write("\n")
+    print(f"{name}: {len(data)} bytes, encode {secs:.1f} s on CPU, JAX "
+          f"decoder {side['jax_decoder_md5']}", flush=True)
+    return side
+
+
 def main(argv: list[str]) -> None:
     """Each argument names a stream, a size (every multi-model stream of
     it), `classic` (every classic stream) or `partitioning` (the quadtree,
@@ -857,7 +1059,7 @@ def main(argv: list[str]) -> None:
     os.makedirs(OUT_DIR, exist_ok=True)
     names = []
     for key in (argv or list(STREAMS) + list(CLASSIC) + list(TOOL_STREAMS)
-                + [CONFIG5]):
+                + [CONFIG5] + list(LIB360_STREAMS)):
         if key in SIZES:
             names += [n for n, (_, size) in STREAMS.items() if size == key]
         elif key == "classic":
@@ -870,6 +1072,9 @@ def main(argv: list[str]) -> None:
             names += list(PARTITIONING)
         elif key == "tools16":     # the small TOOL_STREAMS
             names += [n for n in TOOL_STREAMS if "832x480" not in n]
+        elif key == "lib360":      # the small LIB360_STREAMS
+            names += [n for n in LIB360_STREAMS
+                      if n.split("_")[0] in ("fish128x128", "erp256x128")]
         else:
             names.append(key)
     for name in names:
@@ -881,6 +1086,10 @@ def main(argv: list[str]) -> None:
             make_tool_stream(name)
         elif name == CONFIG5:
             make_config5()
+        elif name in LIB360_STREAMS:
+            make_lib360_stream(name)
+        elif name.startswith("mctf_md5:"):
+            add_mctf_md5(name.split(":", 1)[1])
         elif name in CLASSIC:
             make_classic(name)
         else:

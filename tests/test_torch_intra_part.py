@@ -1,7 +1,6 @@
 """PyTorch port, the two-level intra partitioning (common/intra_part.py:
 16x16 superblocks against four 8x8 sub-blocks), against the JAX package
-on the same seeded numpy inputs, tolerance 0; and the tools EncLib still
-refuses.
+on the same seeded numpy inputs, tolerance 0.
 
   frames    encode_intra_frame_part (the JAX program, jitted as the JAX
             encoder runs it) at 64x32 and 128x64: the split, the 16x16 and
@@ -17,9 +16,7 @@ refuses.
             count to pin);
   property  flat sky over detail uses both sizes (tests/test_intra_part.py's
             scene), and the split picture codes in fewer bits than the
-            fixed 8x8 grid at a Y-PSNR within 0.25 dB;
-  refusals  EncLib raises NotImplementedError naming the ROADMAP item for
-            every tool left in enclib._UNPORTED.
+            fixed 8x8 grid at a Y-PSNR within 0.25 dB.
 
 Cost on one core: about 25 s (the JAX programs' compiles)."""
 import json
@@ -36,7 +33,7 @@ from vvc_mm_tpu_torch.common import intra_part as tp
 from vvc_mm_tpu_torch.common.wavefront import steps_to_grid, wavefront_coords
 from vvc_mm_tpu_torch.decoder import intra_parser
 from vvc_mm_tpu_torch.decoder.declib import DecLib
-from vvc_mm_tpu_torch.encoder import enclib, intra_coder
+from vvc_mm_tpu_torch.encoder import intra_coder
 from vvc_mm_tpu_torch.encoder.enclib import EncCfg, EncLib
 from vvc_mm_tpu_torch.utils.content import realistic_sequence
 
@@ -131,13 +128,3 @@ def test_port_decodes_committed_stream():
                                    "rb").read())
     assert dec.hash_status == {p["poc"]: "OK" for p in sd["pocs"]}
     assert [f.md5() for f in frames] == [p["md5"] for p in sd["pocs"]]
-
-
-@pytest.mark.parametrize("field,carried,what,item", enclib._UNPORTED,
-                         ids=[u[0] for u in enclib._UNPORTED])
-def test_unported_tools_refused(field, carried, what, item):
-    value = {bool: True, int: 500, tuple: ((0, 0, 32, 32),)}[type(carried)]
-    cfg = EncCfg(width=64, height=32, qp=37, gop="AI", **{field: value})
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP queue 1 item {item}"):
-        EncLib(cfg, device="cpu")

@@ -197,6 +197,31 @@ def test_block_centers_match_jax(size, s, k):
         np.testing.assert_array_equal(got[f], want)
 
 
+@pytest.mark.parametrize("size,s,k", CENTER_CASES,
+                         ids=[f"{w}x{rh}-s{s}-K{k}"
+                              for (w, _, rh), s, k in CENTER_CASES])
+def test_block_centers_search_form_match_jax_jit(size, s, k):
+    """The search form of the block centres (the JAX codec computes them
+    inside its search jits): K fields of every model, merged by the
+    block's model index, against jax.jit(reproject_block_centers) per
+    model, 0 differing centres (op by op, 8-119 of 8,192-32,768 at
+    2048x1024 differ from the jit)."""
+    jr, tr = _pair(size)
+    rng = np.random.default_rng(1470 + s + k)
+    nby, nbx = tr.height // s, tr.width // s
+    idx = _idx(rng, k, nby, nbx, len(MODELS))
+    mv = _fields(rng, k, len(MODELS), nby, nbx)
+    got = tr.centers_plain(MODELS, torch.from_numpy(idx),
+                           torch.from_numpy(mv), s, None, "search").numpy()
+    for f in range(k):
+        per_model = np.stack([np.asarray(jax.jit(
+            lambda v, m=m: jr.reproject_block_centers(m, v, s))(
+                jnp.asarray(mv[f, i]))) for i, m in enumerate(MODELS)])
+        want = np.take_along_axis(per_model, idx[f][None, :, :, None],
+                                  axis=0)[0]
+        np.testing.assert_array_equal(got[f], want)
+
+
 def test_wrapper_on_the_cpu_is_the_plain_version():
     """On a CPU reprojection the entry points return the plain versions
     and launch nothing; reproject_frame and reproject_block_centers go
@@ -209,8 +234,10 @@ def test_wrapper_on_the_cpu_is_the_plain_version():
     got = tr.positions(MODELS, idx, mv, 16, 4, 2, "search")
     want = tr.positions_plain(MODELS, idx, mv, 16, 4, 2, "search")
     assert torch.equal(got, want)
-    got = tr.centers(MODELS, idx, mv, 16)
-    assert torch.equal(got, tr.centers_plain(MODELS, idx, mv, 16))
+    for form in (None, "search"):
+        got = tr.centers(MODELS, idx, mv, 16, None, form)
+        assert torch.equal(got, tr.centers_plain(MODELS, idx, mv, 16, None,
+                                                 form))
     assert torch.equal(tr.reproject_frame(6, mv[0, 4], 16, None, 4),
                        tr._frame_chain(6, mv[0, 4], 16, None, 4))
     assert torch.equal(tr.reproject_block_centers(2, mv[1, 2], 16),

@@ -428,6 +428,37 @@ def fma32(a, b, c):
     return _round_odd_sum(a * b, c).to(F32)
 
 
+# XLA's CPU exp (its own float32 polynomial, not glibc's): the argument
+# clamped to [-87.8, 88.8], n = floor(x log2(e) + 0.5) clamped to +-127,
+# t = x - n ln(2) in two steps, a degree-5 polynomial by Horner, then
+# exp(t) = 1 + (t + t^2 p(t)) scaled by 2^n through the exponent bits
+# (n = -127 gives 0).  Every multiply-add is one FMA, as XLA's backend
+# contracts them.
+_EXP_LO, _EXP_HI = -87.80000305175781, 88.80000305175781
+_EXP_LOG2E = 1.4426950216293335
+_EXP_C1, _EXP_C2 = 0.693359375, -0.00021219444170128554
+_EXP_P = (0.00019875691214110702, 0.001398199936375022,
+          0.008333452045917511, 0.04166579619050026, 0.1666666567325592,
+          0.5)
+
+
+def exp_xla(x):
+    """jnp.exp of a float32 tensor as XLA's CPU code computes it."""
+    x = torch.as_tensor(x, dtype=F32)
+    x = torch.where(x >= _EXP_LO, x, torch.full_like(x, _EXP_LO))
+    x = torch.where(x <= _EXP_HI, x, torch.full_like(x, _EXP_HI))
+    n = torch.floor(fma32(x, _EXP_LOG2E, 0.5))
+    n = torch.clamp(n, -127.0, 127.0)
+    t = fma32(-_EXP_C1, n, x)
+    t = fma32(-_EXP_C2, n, t)
+    y = fma32(t, _EXP_P[0], _EXP_P[1])
+    for c in _EXP_P[2:]:
+        y = fma32(y, t, c)
+    y = fma32(y, t * t, t) + 1.0
+    scale = ((n.to(torch.int32) + 127) << 23).view(F32)
+    return y * scale
+
+
 # RSQRTSS of the Intel Xeon that wrote the JAX package's reference: the
 # estimate depends on the exponent's parity and the top 10 mantissa bits;
 # per parity, the first entry's float32 word >> 11 and then the decrements

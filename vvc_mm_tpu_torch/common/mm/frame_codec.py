@@ -60,9 +60,11 @@ def _positions(reproj: MVReprojection, model_ids: list[int], model_idx,
 
 def _centers(reproj: MVReprojection, model_ids: list[int], model_idx, mvs,
              block_size: int, epipoles: dict | None) -> torch.Tensor:
-    """reproj.centers of K fields, counted in POSITION_CALLS."""
+    """reproj.centers of K fields in the form of the JAX codec's search
+    jits, counted in POSITION_CALLS."""
     POSITION_CALLS["sphere_centers"] += 1
-    return reproj.centers(model_ids, model_idx, mvs, block_size, epipoles)
+    return reproj.centers(model_ids, model_idx, mvs, block_size, epipoles,
+                          "search")
 
 
 def _model_positions(reproj: MVReprojection, model_id: int,

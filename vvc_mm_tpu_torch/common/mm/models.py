@@ -29,7 +29,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ...lib360.projection import (Perspective, cartesian_to_spherical, div,
+from ...lib360.projection import (Equisolid, Perspective,
+                                  cartesian_to_spherical, div,
                                   spherical_to_cartesian, PI)
 from ..typedefs import MotionModelID as M
 from ...ops import libm_kernel as lm
@@ -98,12 +99,49 @@ def mpa_from_perspective_fused(proj, plane: int, px, py, vip):
     the top/bottom plane."""
     ct, st, cp, sp = Perspective(proj.focal).to_sphere_fused(px, py, vip)
     a, b = st * cp, st * sp
+    if isinstance(proj, Equisolid):
+        x, y, z = _mpa_axes_from_plane(plane, -ct, a, -b)
+        return proj.from_sphere_fused(x, y, z, proj.sphere_ss_fused(
+            x, y, z, q_first=plane == M.MPA_TOP_BOTTOM))
     if plane == M.MPA_TOP_BOTTOM:
         ss = lm.fma32(ct, ct, lm.fma32(b, b, a * a))
     else:
         ss = lm.fma32(b, b, lm.fma32(ct, ct, a * a))
     x, y, z = _mpa_axes_from_plane(plane, -ct, a, -b)
     return proj.from_sphere_fused(x, y, z, ss)
+
+
+def mpa_center_motion_fused(proj, plane: int, cx, cy, mv_x, mv_y):
+    """MPA's motion of ERP block centres in the form XLA compiles for the
+    JAX codec's search jits (reproject_block_centers inside them): the
+    centre's sphere point op by op, its perspective-plane angles through
+    r^2 with the row's ct*ct rounded on its own (hoisted) and the other
+    two squares fused, fma(r, r, fma(p, p, ct*ct)) on the front/back and
+    left/right planes and fma(p, p, q*q) + ct*ct on the top/bottom plane
+    ((p, q, r) the spherical arguments), the plane radius tan(theta) *
+    focal and the MV step fused into its coordinates, fma(R, cos(phi),
+    mv * sign); then the merged positions' form back."""
+    fma = lm.fma32
+    phi = -div(cx + proj.pixel_offset, proj.width) * 2.0 * PI
+    theta = div(cy + proj.pixel_offset, proj.height) * PI
+    cp, sp = lm.cos(phi), lm.sin(phi)
+    st, ct = lm.sin(theta), lm.cos(theta)
+    ct2 = ct * ct
+    a, b = st * cp, st * sp
+    if plane == M.MPA_TOP_BOTTOM:
+        p, q, r = b, -a, ct
+        ss = fma(p, p, q * q) + ct2
+    else:
+        p, q, r = (b, -ct, -a) if plane == M.MPA_FRONT_BACK else (-a, -ct, -b)
+        ss = fma(r, r, fma(p, p, ct2))
+    theta_p = lm.acos(torch.clamp(lm.rsqrt_xla(ss) * r, -1.0, 1.0))
+    phi_p = lm.atan2(q, p)
+    radius = lm.tan(theta_p) * float(np.float32(proj.focal))
+    vip = radius < 0
+    sign = torch.where(vip, -1.0, 1.0).to(radius.dtype)
+    px = fma(radius, lm.cos(phi_p), mv_x * sign)
+    py = fma(radius, lm.sin(phi_p), mv_y * sign)
+    return mpa_from_perspective_fused(proj, plane, px, py, vip)
 
 
 def mpa_motion(proj, plane: int, grid_x, grid_y, mv_x, mv_y, cx=None, cy=None,
@@ -150,6 +188,9 @@ def t3d_motion(proj, grid_x, grid_y, mv_x, mv_y, cx, cy,
     of the displacement one FMA, fma(cp*st at the moved center, -(center's
     product)), and r^2 = fma(z, z, fma(x, x, y*y)).  The merge search
     ("search") computes it op by op."""
+    if form == "merged" and isinstance(proj, Equisolid):
+        return _t3d_motion_equisolid(proj, grid_sphere, grid_x, grid_y,
+                                     mv_x, mv_y, cx, cy)
     if form == "merged":
         gx, gy, gz = grid_sphere
         th_c = div(cy + proj.pixel_offset, proj.height) * PI
@@ -170,6 +211,27 @@ def t3d_motion(proj, grid_x, grid_y, mv_x, mv_y, cx, cy,
         gx, gy, gz = proj.to_sphere(grid_x, grid_y)
         out_x, out_y = proj.from_sphere(gx + (m3x - c3x), gy + (m3y - c3y),
                                         gz + (m3z - c3z))
+    zero = (mv_x == 0) & (mv_y == 0)
+    return (torch.where(zero, grid_x, out_x), torch.where(zero, grid_y, out_y))
+
+
+def _t3d_motion_equisolid(proj, grid_sphere, grid_x, grid_y, mv_x, mv_y,
+                          cx, cy):
+    """t3d_motion on an Equisolid in the form XLA compiles for the JAX
+    codec's merged positions: the grid's sphere points folded
+    (grid_sphere), the centres' angles with two rounded squares, the moved
+    centres' with r^2 one FMA; the displacement's y and z one FMA each
+    (the moved centre's product fused in y, the centre's in z), and
+    r^2 = fma(x, x, fma(y, y, z*z))."""
+    gx, gy, gz = grid_sphere
+    th_c, ph_c = proj.sphere_angles_fused(cx, cy, False)
+    th_m, ph_m = proj.sphere_angles_fused(cx + mv_x, cy + mv_y, True)
+    st_c, st_m = lm.sin(th_c), lm.sin(th_m)
+    x = gx + (lm.cos(th_c) - lm.cos(th_m))
+    y = gy + lm.fma32(lm.cos(ph_m), st_m, -(lm.cos(ph_c) * st_c))
+    z = gz + lm.fma32(lm.sin(ph_c), st_c, -(lm.sin(ph_m) * st_m))
+    out_x, out_y = proj.from_sphere_fused(
+        x, y, z, proj.sphere_ss_fused(x, y, z, q_first=False))
     zero = (mv_x == 0) & (mv_y == 0)
     return (torch.where(zero, grid_x, out_x), torch.where(zero, grid_y, out_y))
 
@@ -241,14 +303,17 @@ def tan_motion(proj, angle_res: float, grid_x, grid_y, mv_x, mv_y, cx, cy,
 def _tan_motion_fused(proj, angle_res: float, grid_sphere, grid_x, grid_y,
                       mv_x, mv_y, cx, cy):
     """tan_motion in the form XLA compiles for the JAX codec's merged
-    positions: the grid's sphere points folded in double, its angles and
-    their sines op by op (true divisions), the block centers' angles as
-    ROT's; then each a*b +- c*d one FMA, the sums of squares FMAs."""
+    positions: the grid's sphere points folded, its angles and their
+    sines op by op (true divisions), the block centers' angles as ROT's;
+    then each a*b +- c*d one FMA, the sums of squares FMAs (on an
+    Equisolid the projection's own centre angles and squared norm)."""
     fma = lm.fma32
     _, theta, phi = cartesian_to_spherical(*grid_sphere)
     eps = PI / 2 - theta
     sin_e, cos_e = lm.sin(eps), lm.cos(eps)
-    theta_c, alpha_c = _center_spherical_fused(proj, cx, cy, False)
+    equisolid = isinstance(proj, Equisolid)
+    theta_c, alpha_c = (proj.center_spherical_fused(cx, cy) if equisolid
+                        else _center_spherical_fused(proj, cx, cy, False))
     eps_c = PI / 2 - theta_c
     sin_c, cos_c = lm.sin(eps_c), lm.cos(eps_c)
     d_alpha = phi - alpha_c
@@ -267,8 +332,9 @@ def _tan_motion_fused(proj, angle_res: float, grid_sphere, grid_x, grid_y,
     theta_m = PI / 2 - eps_m
     st, ct = lm.sin(theta_m), lm.cos(theta_m)
     x, y = lm.cos(alpha_m) * st, lm.sin(alpha_m) * st
-    out_x, out_y = proj.from_sphere_fused(
-        x, y, ct, fma(ct, ct, fma(x, x, y * y)))
+    ss = (proj.sphere_ss_fused(x, y, ct, q_first=True) if equisolid
+          else fma(ct, ct, fma(x, x, y * y)))
+    out_x, out_y = proj.from_sphere_fused(x, y, ct, ss)
     zero = (mv_x == 0) & (mv_y == 0)
     return (torch.where(zero, grid_x, out_x), torch.where(zero, grid_y, out_y))
 
@@ -319,7 +385,11 @@ def _rot_motion_fused(proj, angle_res: float, grid_sphere, grid_x, grid_y,
     is split over several fusions, and three FMAs take the other product:
     x2, z5, and the y4 that feeds phi."""
     fma = lm.fma32
-    theta_c, phi_c = _center_spherical_fused(proj, cx, cy, search)
+    equisolid = isinstance(proj, Equisolid)
+    if equisolid:
+        theta_c, phi_c = proj.center_spherical_fused(cx, cy)
+    else:
+        theta_c, phi_c = _center_spherical_fused(proj, cx, cy, search)
     px, py, pz = proj.to_sphere(grid_x, grid_y) if search else grid_sphere
     cf, sf = lm.cos(phi_c), lm.sin(phi_c)
     beta = PI / 2 - theta_c
@@ -341,6 +411,12 @@ def _rot_motion_fused(proj, angle_res: float, grid_sphere, grid_x, grid_y,
     z5 = fma(x4, sb, z3 * cb) if search else fma(cb, z3, sb * x4)
     x6 = fma(cf, x5, -(sf * y4))
     y6 = fma(cf, y4, sf * x5)
+    if equisolid:
+        out_x, out_y = proj.from_sphere_fused(
+            x6, y6, z5, proj.sphere_ss_fused(x6, y6, z5, q_first=True))
+        zero = (mv_x == 0) & (mv_y == 0)
+        return (torch.where(zero, grid_x, out_x),
+                torch.where(zero, grid_y, out_y))
     ss = fma(z5, z5, fma(x6, x6, y6 * y6))
     if search:
         x6 = fma(cf, x5, -(sf * y4_phi))

@@ -29,7 +29,7 @@ from . import models
 from .mc import classic_positions
 from .. import libm_f32
 from ...device import resolve_device
-from ...lib360.projection import PI, Perspective, recip32
+from ...lib360.projection import ERP, PI, Perspective, recip32
 from ...ops import sphere_kernel as sk
 from ..typedefs import MotionModelID as M
 
@@ -44,6 +44,42 @@ _GED = (M.GEODESIC_CAMPOSE, M.GEODESIC_AXIS_X, M.GEODESIC_AXIS_Y,
 # in it, keyed by (kernel, form, model count, output shape): a timing run
 # replays the encoder's own calls.
 CAPTURED: dict | None = None
+
+
+class ReprojectionLUT:
+    """2-D grid LUT caching a plane -> projection reprojection map
+    (reference: ReprojectionLUT.h:10-35 — instantiated over
+    [-1393, 1393] x [-1364, 1364] in the MPA constructor,
+    MotionPlaneAdaptiveMotionModel.cpp:10-24; the reference bypasses it in
+    favour of the direct path, and so does the codec here: it serves
+    host-side scalar queries).  Samples `fn` (vectorized (x, y) -> (u, v))
+    on a step-strided grid in float64 numpy and answers queries with
+    bilinear interpolation, as the JAX package's copy does."""
+
+    def __init__(self, fn, x_range, y_range, step: float = 1.0):
+        self.x0, x1 = x_range
+        self.y0, y1 = y_range
+        self.step = float(step)
+        xs = np.arange(self.x0, x1 + step, step, dtype=np.float64)
+        ys = np.arange(self.y0, y1 + step, step, dtype=np.float64)
+        gx, gy = np.meshgrid(xs, ys)
+        u, v = fn(gx, gy)
+        self.u = np.asarray(u, np.float64)
+        self.v = np.asarray(v, np.float64)
+
+    def __call__(self, x, y):
+        fx = (np.asarray(x, np.float64) - self.x0) / self.step
+        fy = (np.asarray(y, np.float64) - self.y0) / self.step
+        ix = np.clip(fx.astype(int), 0, self.u.shape[1] - 2)
+        iy = np.clip(fy.astype(int), 0, self.u.shape[0] - 2)
+        ax = np.clip(fx - ix, 0.0, 1.0)
+        ay = np.clip(fy - iy, 0.0, 1.0)
+
+        def bil(t):
+            return ((1 - ay) * ((1 - ax) * t[iy, ix] + ax * t[iy, ix + 1])
+                    + ay * ((1 - ax) * t[iy + 1, ix]
+                            + ax * t[iy + 1, ix + 1]))
+        return bil(self.u), bil(self.v)
 
 
 def offset4x4_value(code: int) -> float:
@@ -96,8 +132,8 @@ class MVReprojection:
 
     def grid_sphere(self) -> tuple:
         """The subblock grid's sphere points as XLA folds them into the
-        JAX codec's merged positions (ERP.to_sphere_folded): computed on
-        the host once, then kept on this device."""
+        JAX codec's merged positions (the projection's to_sphere_folded):
+        computed on the host once, then kept on this device."""
         if self._grid_sphere is None:
             self._grid_sphere = tuple(
                 c.to(self.device) for c in self.proj.to_sphere_folded(
@@ -180,6 +216,7 @@ class MVReprojection:
         """reproject_frame by the float32 chain, with its arguments and
         result (for MPA and ROT the sphere kernel's plain version)."""
         mvs = mvs.to(self.device)
+        form = self._form(model_id, form)
         mv_x, mv_y, c_x, c_y = self._subblock_mv_center(mvs, block_size,
                                                         row_step)
         gx, gy = self.grid_x[::row_step], self.grid_y[::row_step]
@@ -217,10 +254,30 @@ class MVReprojection:
         return self.centers([model_id], None, mvs[None, None], block_size,
                             {model_id: epipole})[0]
 
+    def _form(self, model_id: int, form: str | None) -> str | None:
+        """The float32 form a model's positions take: on ERP the one asked
+        for; on Equisolid the merged form of MPA, ROT, 3DT and TAN (their
+        compiled form in the JAX codec's merged positions), MPA's merged
+        form in the merge search too, and op by op otherwise (GED, and the
+        merge search's other models)."""
+        if isinstance(self.proj, ERP) or form is None:
+            return form
+        if model_id in _MPA:
+            return form
+        if model_id in (M.ROTATIONAL, M.THREE_D_TRANSLATIONAL,
+                        M.TANGENTIAL) and form == "merged":
+            return form
+        return None
+
     def _centers_chain(self, model_id: int, mvs: torch.Tensor,
-                       block_size: int, epipole=None) -> torch.Tensor:
+                       block_size: int, epipole=None,
+                       form: str | None = None) -> torch.Tensor:
         """reproject_block_centers by the float32 chain (for CLASSIC, MPA
-        and ROT the sphere kernel's plain version)."""
+        and ROT the sphere kernel's plain version).  form "search": the
+        form XLA compiles inside the JAX codec's search jits, for MPA and
+        ROT on ERP (models.mpa_center_motion_fused; ROT's merged form at
+        the centre's own sphere point); None, and the other models, op by
+        op."""
         mvs = mvs.to(self.device)
         nby, nbx = mvs.shape[:2]
         s = block_size
@@ -230,9 +287,18 @@ class MVReprojection:
         cx = cx[None, :].expand(nby, nbx)
         cy = cy[:, None].expand(nby, nbx)
         mvf = mvs.to(torch.float32) / 16.0
-        ox, oy = self._model_motion_pointwise(model_id, cx, cy,
-                                              mvf[..., 0], mvf[..., 1],
-                                              cx, cy, epipole)
+        fused = form == "search" and isinstance(self.proj, ERP)
+        if fused and model_id in _MPA:
+            ox, oy = models.mpa_center_motion_fused(
+                self.proj, model_id, cx, cy, mvf[..., 0], mvf[..., 1])
+        elif fused and model_id == M.ROTATIONAL:
+            ox, oy = models.rot_motion(
+                self.proj, self.angle_res, cx, cy, mvf[..., 0],
+                mvf[..., 1], cx, cy, "merged", self.proj.to_sphere(cx, cy))
+        else:
+            ox, oy = self._model_motion_pointwise(model_id, cx, cy,
+                                                  mvf[..., 0], mvf[..., 1],
+                                                  cx, cy, epipole)
         bad = torch.isnan(ox) | torch.isnan(oy)
         ox = torch.where(bad, cx, ox)
         oy = torch.where(bad, cy, oy)
@@ -253,17 +319,17 @@ class MVReprojection:
         reproject_frame's; epipoles {model: epipole} for GED.  Returns
         (K, ny, nx, 2) int32 1/16-pel positions.
 
-        On the card CLASSIC, MPA and ROT take one launch of the sphere
-        kernel, after the chain has filled the other models' positions;
-        on the CPU `positions_plain`."""
+        On the card, on ERP, CLASSIC, MPA and ROT take one launch of the
+        sphere kernel, after the chain has filled the other models'
+        positions; on the CPU, and on every other projection,
+        `positions_plain`."""
         model_idx, mvs = self._fields(model_idx, mvs)
         nsy, nsx, rep = self._grid_dims(mvs, block_size)
-        used = model_ids[:1] if model_idx is None else model_ids
-        if mvs.device.type != "cuda" or not any(m in sk.KERNEL_MODELS
-                                                for m in used):
+        if not self._kernel_route(mvs, model_idx, model_ids):
             return self.positions_plain(model_ids, model_idx, mvs,
                                         block_size, row_step, col_step, form,
                                         epipoles)
+        used = model_ids[:1] if model_idx is None else model_ids
         k = mvs.shape[0]
         out = torch.empty((k, len(range(0, nsy, row_step)),
                            len(range(0, nsx, col_step)), 2),
@@ -294,18 +360,18 @@ class MVReprojection:
         return out
 
     def centers(self, model_ids: list[int], model_idx, mvs,
-                block_size: int, epipoles: dict | None = None
-                ) -> torch.Tensor:
+                block_size: int, epipoles: dict | None = None,
+                form: str | None = None) -> torch.Tensor:
         """Block-centre positions of K fields, merged by model (arguments
-        as `positions`'): (K, nby, nbx, 2) int32; on the card one launch of
-        the sphere kernel for CLASSIC, MPA and ROT, on the CPU
-        `centers_plain`."""
+        as `positions`'; form None op by op, "search" the JAX codec's
+        search jits' form, `_centers_chain`): (K, nby, nbx, 2) int32; on
+        the card one launch of the sphere kernel for CLASSIC, MPA and ROT,
+        on the CPU `centers_plain`."""
         model_idx, mvs = self._fields(model_idx, mvs)
         used = model_ids[:1] if model_idx is None else model_ids
-        if mvs.device.type != "cuda" or not any(m in sk.KERNEL_MODELS
-                                                for m in used):
+        if not self._kernel_route(mvs, model_idx, model_ids):
             return self.centers_plain(model_ids, model_idx, mvs, block_size,
-                                      epipoles)
+                                      epipoles, form)
         k, _, nby, nbx = mvs.shape[:4]
         out = torch.empty((k, nby, nbx, 2), dtype=torch.int32,
                           device=mvs.device)
@@ -314,19 +380,19 @@ class MVReprojection:
                 continue
             for f in range(k):
                 pos = self._centers_chain(m, mvs[f, i], block_size,
-                                          (epipoles or {}).get(m))
+                                          (epipoles or {}).get(m), form)
                 out[f] = pos if model_idx is None else torch.where(
                     (model_idx[f] == i)[..., None], pos, out[f])
         sk.launch("sphere_centers",
-                  self._template("sphere_centers", model_ids, None,
+                  self._template("sphere_centers", model_ids, form,
                                  block_size),
                   model_idx, mvs, out)
         if CAPTURED is not None:
-            CAPTURED[("sphere_centers", None, len(model_ids),
+            CAPTURED[("sphere_centers", form, len(model_ids),
                       tuple(out.shape))] = dict(
                 reproj=self, models=list(model_ids), model_idx=model_idx,
                 mvs=mvs, block_size=block_size, row_step=1, col_step=1,
-                form=None)
+                form=form)
         return out
 
     def positions_plain(self, model_ids: list[int], model_idx, mvs,
@@ -357,8 +423,8 @@ class MVReprojection:
         return torch.stack(out)
 
     def centers_plain(self, model_ids: list[int], model_idx, mvs,
-                      block_size: int, epipoles: dict | None = None
-                      ) -> torch.Tensor:
+                      block_size: int, epipoles: dict | None = None,
+                      form: str | None = None) -> torch.Tensor:
         """`centers` by the float32 chain (the sphere kernel's plain
         version)."""
         model_idx, mvs = self._fields(model_idx, mvs)
@@ -368,10 +434,11 @@ class MVReprojection:
             if model_idx is None:
                 out.append(self._centers_chain(model_ids[0], mvs[k, 0],
                                                block_size,
-                                               eps.get(model_ids[0])))
+                                               eps.get(model_ids[0]), form))
                 continue
             pos_all = torch.stack([
-                self._centers_chain(m, mvs[k, i], block_size, eps.get(m))
+                self._centers_chain(m, mvs[k, i], block_size, eps.get(m),
+                                    form)
                 for i, m in enumerate(model_ids)])
             idx = model_idx[k].to(torch.int64)[None, :, :, None]
             out.append(torch.gather(pos_all, 0, idx.expand(1, -1, -1, 2))[0])
@@ -427,6 +494,15 @@ class MVReprojection:
                 a["codes"], a["grids"], a["rsqrt_tab"], a["consts"],
                 block_size, self.width // SUBBLK, form), a)
         return hit[0]
+
+    def _kernel_route(self, mvs, model_idx, model_ids) -> bool:
+        """Whether a positions/centers call takes the sphere kernel: on the
+        card, on ERP (the kernel computes ERP's sphere math only), when a
+        model it computes is used.  Every other call takes the float32
+        chain, which launches L1's elementwise functions on the card."""
+        used = model_ids[:1] if model_idx is None else model_ids
+        return (mvs.device.type == "cuda" and isinstance(self.proj, ERP)
+                and any(m in sk.KERNEL_MODELS for m in used))
 
     def _fields(self, model_idx, mvs):
         mvs = torch.as_tensor(mvs, device=self.device)

@@ -24,9 +24,12 @@
 //                    search (FORM_SEARCH).  A model of code SKIP (3DT, TAN,
 //                    GED) is left to the caller, who fills its positions
 //                    first.
-//  sphere_centers    block-centre positions, (K, nby, nbx, 2), op by op:
-//                    each block centre moved by its block's model and MV,
-//                    as the position of the block's top-left sample.
+//  sphere_centers    block-centre positions, (K, nby, nbx, 2): each block
+//                    centre moved by its block's model and MV, as the
+//                    position of the block's top-left sample; op by op
+//                    (FORM_OP) or as the JAX codec's search jits compile
+//                    it (FORM_SEARCH: MPA's mpa_center_fused, ROT's merged
+//                    form at the centre's own sphere point).
 //
 // Every operation is the plain chain's, in its order: products, sums and
 // differences are __fmul_rn / __fadd_rn / __fsub_rn, each FMA that XLA
@@ -245,6 +248,37 @@ __device__ void mpa_back_fused(const Consts& c,
                         oy);
 }
 
+// models.mpa_center_motion_fused: MPA's motion of a block centre in the
+// JAX codec's search jits
+__device__ void mpa_center_fused(const Consts& c,
+                                 const int64_t* __restrict__ tab, int plane,
+                                 float cx, float cy, float mvx, float mvy,
+                                 float* ox, float* oy) {
+  const float phi = mul(mul(-fdiv(add(cx, c.po), c.width), 2.0f), c.pi);
+  const float theta = mul(fdiv(add(cy, c.po), c.height), c.pi);
+  const float cp = cos_(phi), sp = sin_(phi);
+  const float st = sin_(theta), ct = cos_(theta);
+  const float ct2 = mul(ct, ct);
+  const float a = mul(st, cp), b = mul(st, sp);
+  float p, q, r, ss;
+  if (plane == MPA_TB) {
+    p = b; q = -a; r = ct;
+    ss = add(fma32(p, p, mul(q, q)), ct2);
+  } else {
+    if (plane == MPA_FB) { p = b; q = -ct; r = -a; }
+    else { p = -a; q = -ct; r = -b; }
+    ss = fma32(r, r, fma32(p, p, ct2));
+  }
+  const float theta_p = acos_(clamp1(mul(rsqrt_xla(ss, tab), r)));
+  const float phi_p = g_atan2f(q, p);
+  const float radius = mul(g_tanf(theta_p), c.focal);
+  const bool vip = radius < 0.0f;
+  const float sign = vip ? -1.0f : 1.0f;
+  const float px = fma32(radius, cos_(phi_p), mul(mvx, sign));
+  const float py = fma32(radius, sin_(phi_p), mul(mvy, sign));
+  mpa_back_fused(c, tab, plane, px, py, vip, ox, oy);
+}
+
 // models._rot_z / _rot_y, by the rotation angle's cosine and sine
 __device__ V3 rot_z(float ca, float sa, V3 p) {
   return {sub(mul(p.x, ca), mul(p.y, sa)), add(mul(p.x, sa), mul(p.y, ca)),
@@ -428,9 +462,19 @@ sphere_centers_kernel(const Args a) {
       ox = add(cx, mvx);
       oy = add(cy, mvy);
     } else if (code == ROT) {
-      const RotTerms t = rot_terms(c, a.rsqrt_tab, FORM_OP, mvx, mvy, cx, cy);
-      rot_op(c, t.cs, cx, cy, &ox, &oy);
+      if (a.form == FORM_SEARCH) {        // the merged form at the centre
+        const RotTerms t = rot_terms(c, a.rsqrt_tab, FORM_MERGED, mvx, mvy,
+                                     cx, cy);
+        rot_fused(c, a.rsqrt_tab, t.cs, erp_to_sphere(c, cx, cy), false, &ox,
+                  &oy);
+      } else {
+        const RotTerms t = rot_terms(c, a.rsqrt_tab, FORM_OP, mvx, mvy, cx,
+                                     cy);
+        rot_op(c, t.cs, cx, cy, &ox, &oy);
+      }
       if (mvx == 0.0f && mvy == 0.0f) { ox = cx; oy = cy; }
+    } else if (a.form == FORM_SEARCH) {
+      mpa_center_fused(c, a.rsqrt_tab, code, cx, cy, mvx, mvy, &ox, &oy);
     } else {
       float px, py;
       bool vip;

@@ -119,7 +119,7 @@ class DecLib:
             self.device) if sps.lmcs else None)
         if sps.mm.any_enabled():
             proj = make_projection(int(sps.mm.projection), sps.width,
-                                   sps.height)
+                                   sps.height, motion=True)
             self.reproj = MVReprojection(proj, sps.width, sps.height,
                                          sps.mm.mm_offset_4x4,
                                          int(sps.mm.ged_flavor),

@@ -43,8 +43,13 @@ the classic merge P and B slices as substreams with fresh contexts (the P
 merge selection resets its HMVP FIFO where they start); MCTS clamps the
 classic P searches' MVs into their tiles and signals the tile grid in an
 SEI; the film grain SEI carries the parameters that common/film_grain.py
-estimates from the first picture.  The 360 metrics, rate control and the
-MCTF pre-filter raise NotImplementedError naming their ROADMAP item.
+estimates from the first picture.  The MCTF pre-filter (encoder/mctf.py)
+blends each RA anchor's source with its aligned neighbours before any
+coding; rate control (encoder/rate_ctrl.py) picks each picture's QP from a
+bit budget; with `metrics_360` every picture gets its WS-PSNR, S-PSNR-NN,
+S-PSNR-I and CPP-PSNR (lib360/metrics.py, on the device).  The source
+projection is ERP or Equisolid (fisheye); multi-model coding refuses a
+calibrated projection, which has no focal length for the MPA plane.
 """
 from __future__ import annotations
 
@@ -70,10 +75,13 @@ from ..common.mm.reprojection import MVReprojection
 from ..common.slice_ps import MMConfig, PPS, SPS, SliceHeader
 from ..common.typedefs import MotionModelID, SliceType
 from ..device import resolve_device
+from ..lib360.metrics import metrics_360
 from ..lib360.projection import make_projection
 from ..utils import profiling, xfer
 from ..utils.content import psnr
 from . import filter_stage
+from .mctf import prefilter_sequence
+from .rate_ctrl import RateControl
 from .inter_coder import (encode_b_slice, encode_b_slice_mm,
                           encode_p_slice, encode_p_slice_2ref,
                           encode_b_slice_mtt, encode_b_slice_qt,
@@ -92,10 +100,6 @@ from .intra_coder import (encode_intra_slice, encode_intra_slice_part,
 def _wp_table(wp) -> tuple | None:
     """A slice header's weight table: ((w, o) per plane) as ints."""
     return None if wp is None else tuple((int(a), int(b)) for a, b in wp)
-
-
-def _todo(what: str, item: str):
-    raise NotImplementedError(f"{what}: ROADMAP queue 1 item {item}")
 
 
 # CTC-style RA QP cascade at fixed QP (reference:
@@ -322,24 +326,12 @@ def ra_coding_order(n: int, gop_size: int) -> list[tuple[int, int, int,
     return order
 
 
-# EncCfg fields whose tool is not ported: (field, value that is carried,
-# what, ROADMAP queue 1 item)
-_UNPORTED = (
-    ("metrics_360", False, "WS-PSNR/S-PSNR/CPP-PSNR", "11"),
-    ("target_bitrate_kbps", 0, "rate control", "11"),
-    ("mctf", False, "MCTF pre-filter", "11"),
-)
-
-
 class EncLib:
     """reference: EncLib (EncLib.cpp:147 init / :734 encode).  State lives
     on `device`: CUDA unless another is named (raises without a card)."""
 
     def __init__(self, cfg: EncCfg, device=None) -> None:
         self.device = resolve_device(device)
-        for name, carried, what, item in _UNPORTED:
-            if getattr(cfg, name) != carried:
-                _todo(what, item)
         if cfg.lossless:
             # the lossless operating point: qStep 1 (QP 4 after the TS
             # clamp), in-loop filters off so that recon == source exactly
@@ -367,7 +359,8 @@ class EncLib:
         self._pending_alf_chroma = None
         self._pending_ccalf = None
         # reference: EncLib.cpp:335-357 projection + MVReprojection init
-        proj = make_projection(int(mm.projection), cfg.width, cfg.height)
+        proj = make_projection(int(mm.projection), cfg.width, cfg.height,
+                               motion=mm.any_enabled())
         self.reproj = MVReprojection(proj, cfg.width, cfg.height,
                                      mm.mm_offset_4x4, int(mm.ged_flavor),
                                      device=self.device)
@@ -395,6 +388,14 @@ class EncLib:
         self.film_grain_params = None
 
     ra_coding_order = staticmethod(ra_coding_order)
+
+    def _make_rc(self) -> RateControl | None:
+        """reference: RateCtrl.h EncRCSeq init from the target bit rate."""
+        if self.cfg.target_bitrate_kbps <= 0:
+            return None
+        return RateControl(self.cfg.target_bitrate_kbps * 1000.0,
+                           self.cfg.frame_rate, self.cfg.width,
+                           self.cfg.height)
 
     def _prune_mv_fields(self) -> None:
         """Keep the MV fields of the pictures still in the DPB only."""
@@ -1231,15 +1232,34 @@ class EncLib:
                                                   self.device)
             frames = [[reshape.map_plane(self._fwd_lut, f[0]), f[1], f[2]]
                       for f in frames]
+        if cfg.mctf and len(frames) > 1:
+            # MCTF on the RA anchors before any coding (reference:
+            # EncApp.cpp:1547-1551 -> EncTemporalFilter::filter)
+            frames = prefilter_sequence(frames, cfg.qp, cfg.bit_depth,
+                                        period=max(cfg.gop_size, 1),
+                                        device=self.device)
         nalus = self.encode_headers()
+        rc = self._make_rc()
         cascade = cfg.ctc_qp_offsets and cfg.gop == "RA"
 
+        def rc_qp(kind, tid=0):
+            return rc.pick_qp(kind, tid) if rc is not None else None
+
         def qp_of(kind, tid=0):
+            # the RA loop: rate control's pick, else the CTC cascade at a
+            # fixed QP
+            if rc is not None:
+                return rc_qp(kind, tid)
             return ctc_qp(cfg.qp, kind, tid) if cascade else None
+
+        def rc_update(res):
+            if rc is not None:
+                rc.update(res.bits)
 
         if cfg.gop == "RA" and len(frames) > 1:
             dpb: dict[int, list[np.ndarray]] = {}
             nal, res = self.encode_intra_frame(0, frames[0], qp=qp_of("I"))
+            rc_update(res)
             nalus.append(nal)
             if cfg.film_grain:
                 fg_nal = self._film_grain_sei(frames[0], res.recon)
@@ -1269,6 +1289,7 @@ class EncLib:
                     nal, res = self.encode_b_frame(
                         poc, frames[poc], dpb[r0], r0, dpb[r1], r1, tid,
                         qp=qp_of("B", tid))
+                rc_update(res)
                 dpb[poc] = res.recon
                 nalus.append(nal)
                 if cfg.picture_hash_sei:
@@ -1292,11 +1313,13 @@ class EncLib:
                         or (cfg.intra_period > 0
                             and poc % cfg.intra_period == 0))
             if is_intra:
-                nal, res = self.encode_intra_frame(poc, planes)
+                nal, res = self.encode_intra_frame(poc, planes,
+                                                   qp=rc_qp("I"))
             else:
                 nal, res = self.encode_p_frame(
-                    poc, planes, last_rec, last_poc, ref2=prev2_rec,
-                    ref2_poc=prev2_poc)
+                    poc, planes, last_rec, last_poc, qp=rc_qp("P"),
+                    ref2=prev2_rec, ref2_poc=prev2_poc)
+            rc_update(res)
             if poc == 0 and cfg.film_grain:
                 # AI/LDP: the SEI goes before the first picture's NAL, as
                 # in the JAX package
@@ -1335,16 +1358,27 @@ class EncLib:
     def _finish_frame(self, res: FrameResult, orig: list[np.ndarray]
                       ) -> FrameResult:
         """Per-POC metric hook (reference: EncGOP.cpp:4914
-        m_ext360.calculatePSNRs); the 360 metrics are not ported."""
+        m_ext360.calculatePSNRs): the 360 metrics of the luma plane, on
+        this encoder's device."""
+        if self.cfg.metrics_360:
+            res.metrics_360 = metrics_360(orig[0], res.recon[0],
+                                          self.cfg.bit_depth,
+                                          device=self.device)
         return res
 
     def summary(self) -> dict:
-        """reference: EncGOP::printOutSummary (EncGOP.cpp:4244)."""
+        """reference: EncGOP::printOutSummary (EncGOP.cpp:4244); with
+        metrics_360 the 360 metrics' averages too."""
         n = max(len(self.results), 1)
-        return dict(
+        out = dict(
             frames=len(self.results),
             bits=sum(r.bits for r in self.results),
             psnr_y=sum(r.psnr_y for r in self.results) / n,
             psnr_u=sum(r.psnr_u for r in self.results) / n,
             psnr_v=sum(r.psnr_v for r in self.results) / n,
             fps=n / max(sum(r.seconds for r in self.results), 1e-9))
+        ms = [r.metrics_360 for r in self.results if r.metrics_360]
+        if self.cfg.metrics_360 and ms:
+            for key in ("ws_psnr", "s_psnr_nn", "cpp_psnr"):
+                out[key] = sum(m[key] for m in ms) / len(ms)
+        return out
