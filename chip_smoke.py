@@ -218,9 +218,27 @@ Phases (any failure exits non-zero and prints no result line):
      with every MD5 OK; K1-K4 and L1's elementwise entry
      points launched, the sphere kernel's entries not (it computes ERP's
      sphere math only); seconds as in 8t.
+     The committed 128x128 Equisolid stream of 3DT, TAN, GED (a
+     signalled epipole) and GEDA is decoded on the card too: every MD5 OK.
      Where a committed stream is the port's byte for byte (every phase
      from 8c on but 8i's possible difference), its decode is the port's
      stream's (check_run) and is not repeated;
+  8v. the apps on the card: encoder_app.main on a 2048x1024
+     realistic_sequence YUV written to smoke_out/, with the options of
+     the committed `erp2048x1024_ra_mm_qp37_5f` (MPA+ROT, the MM quadtree,
+     RA GOP 4, 5 frames): its stream byte for byte; decoder_app.main on it
+     with --CacheModel and --TraceFile: every MD5 OK, its YUV the encoder
+     app's reconstruction byte for byte; decoder_app --BitStats (the
+     Python spec coder) on the committed 256x128 stream: its report the
+     JAX decoder app's (tests/data/torch_port/apps.json); parcat of two
+     chunks the encoder app codes at 256x128, decoded with every MD5 OK;
+  8w. the sharded encodes (parallel/sharding.py) in 2 ranks on the one
+     card, spawned, gloo for the exchanges: frame-parallel intra on 2
+     pictures (1024x512), the row-sharded multi-model P encode (MPA+ROT,
+     ERP 2048x1024, the reference replicated) and the row-sharded classic
+     P encode with its reference's halo exchange (2048x1024): each bit for
+     bit the unsharded encode of the same inputs on the card, the ranks'
+     launches counted;
   9. decision SADs (K6's path): frame_codec._sad_fields_bilin with
      exact=False and exact=True on the tensors captured from the 256x128
      encodes' diamond steps and on one full 2048x1024 grid: the bilinear
@@ -485,10 +503,10 @@ def device_ms(fn, iters: int = 20, tag: str = "positions_kernel"
     "positions_kernel"): the gaps between launches, which the CUDA-event
     loop of cuda_ms includes, are left out.  The profiler misses the first
     few operations after it starts, so the mean is taken over the kernels
-    it caught.  Where it traces none, or more than one for a call, twice in
-    a row, the time is not measured (None) and the CUDA-event time of
-    cuda_ms stands alone."""
-    for _ in range(2):          # now and then a trace is unusable
+    it caught.  Where it traces none, or more than one for a call, four
+    times in a row, the time is not measured (None) and the CUDA-event
+    time of cuda_ms stands alone."""
+    for _ in range(4):          # now and then a trace is unusable
         with _profiler() as prof:
             for _ in range(iters):
                 fn()
@@ -1556,6 +1574,12 @@ def main() -> None:
     phase("8u. Equisolid (fisheye) content (1088x1088, RA, GOP 4)")
     equisolid_path(path_launches)
 
+    # ---- 8v-8w. the apps, and the sharded encodes in 2 ranks
+    phase("8v. the apps on the card (2048x1024, 256x128)")
+    apps_path(path_launches)
+    phase("8w. sharded encodes in 2 ranks on the card (2048x1024)")
+    sharded_path(path_launches)
+
     # ---- 9. decision SADs through K6 (and K5 beside it)
     phase("9. decision SADs")
     positions = card_positions[-1].to(torch.int32).contiguous()
@@ -2585,6 +2609,9 @@ def mcts_path(path_launches: dict) -> None:
 
 RC_MCTF_8T = "erp2048x1024_ra_mm_rc_mctf_5f"
 FISHEYE_8U = "fish1088x1088_ra_mm_qp37_5f"
+# the other models on a 128x128 Equisolid (3DT, TAN, GED, GEDA): decoded in
+# phase 8u
+FISHEYE_MODELS = "fish128x128_ra_t3d_tan_ged_qp37_5f"
 METRICS_TOL_DB = 1e-3
 # the main path's kernels on a multi-model sequence at 512 rows or more
 MM_BLOCK_KERNELS = ("mc_luma_positions", "mc_chroma_positions",
@@ -2720,7 +2747,303 @@ def equisolid_path(path_launches: dict) -> None:
     if n["sphere_positions"] or n["sphere_centers"]:
         fail(f"{label}: the sphere kernel launched on Equisolid content")
     kernel_launches(label, run)
+    sd = json.load(open(os.path.join(DATA, FISHEYE_MODELS + ".json")))
+    dec = DecLib()
+    reset_launches()
+    dec.decode_bytes(open(os.path.join(DATA, FISHEYE_MODELS + ".bin"),
+                          "rb").read())
+    md5_verdicts(f"decode {FISHEYE_MODELS}", dec.hash_status, sd)
+    n = launch_counts()
+    print(f"decode {FISHEYE_MODELS}: launches {all_launches()}")
+    if not n["libm_f32"]:
+        fail(f"decode {FISHEYE_MODELS}: L1's elementwise entries not "
+             "launched")
+    path_launches[f"decode {FISHEYE_MODELS}"] = n
     print(f"{label}: phase {time.perf_counter() - t0:.1f} s (host clock)")
+
+
+def app_run(main, args: list[str]) -> list[str]:
+    """An app's main(args) on the card: its standard output lines (also
+    printed, at most 12), failing the run on a non-zero return."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(args)
+    lines = buf.getvalue().splitlines()
+    for line in lines[:12]:
+        print(f"  | {line}")
+    if rc != 0:
+        fail(f"{main.__module__} returned {rc}")
+    return lines
+
+
+def write_yuv(path: str, frames: list) -> None:
+    from vvc_mm_tpu_torch.common.typedefs import ChromaFormat
+    from vvc_mm_tpu_torch.utils.yuv_io import VideoFormat, YuvWriter
+    h, w = frames[0][0].shape
+    with YuvWriter(path, VideoFormat(w, h, 8, ChromaFormat.C420)) as wr:
+        for f in frames:
+            wr.write_frame(f)
+
+
+def apps_path(path_launches: dict) -> None:
+    """Phase 8v: encoder_app, decoder_app (--CacheModel, --TraceFile,
+    --BitStats) and parcat through their main() on the card."""
+    from vvc_mm_tpu_torch.apps import decoder_app, encoder_app, parcat
+    t0 = time.perf_counter()
+    out = os.path.join(ROOT, "smoke_out", "apps")
+    os.makedirs(out, exist_ok=True)
+    f = {k: os.path.join(out, v) for k, v in dict(
+        src="src2048x1024.yuv", bin="app2048x1024.bin",
+        rec="rec2048x1024.yuv", dec="dec2048x1024.yuv",
+        trace="trace2048x1024.txt").items()}
+    sd = json.load(open(os.path.join(DATA, BIG + ".json")))
+    write_yuv(f["src"], realistic_sequence(2048, 1024, sd["frames"]))
+    label = "encoder app 2048x1024"
+    reset_launches()
+    t1 = time.perf_counter()
+    app_run(encoder_app.main, [
+        "-i", f["src"], "-b", f["bin"], "-o", f["rec"], "-wdt", "2048",
+        "-hgt", "1024", "-f", str(sd["frames"]), "-q", "37", "--GOP=RA",
+        "--GOPSize=4", "--QTDepth=1", "--MPA", "--ROT", "--WrapAround",
+        "--SearchRange=24", "--IntraPeriod=32"])
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t1
+    path_launches[label] = launch_counts()
+    print(f"{label}: {enc_s:.2f} s (host clock), launches {all_launches()}")
+    hold_bytes(label, open(f["bin"], "rb").read(),
+               open(os.path.join(DATA, BIG + ".bin"), "rb").read(), BIG)
+    for name in MM_BLOCK_KERNELS + ("sphere_positions", "sphere_centers"):
+        if not path_launches[label][name]:
+            fail(f"{label}: {name} not launched")
+    label = "decoder app 2048x1024"
+    reset_launches()
+    t1 = time.perf_counter()
+    lines = app_run(decoder_app.main, [
+        "-b", f["bin"], "-o", f["dec"], "--CacheModel",
+        f"--TraceFile={f['trace']}"])
+    dec_s = time.perf_counter() - t1
+    path_launches[label] = launch_counts()
+    md5 = [ln for ln in lines if "[MD5:" in ln]
+    if len(md5) != sd["frames"] or not all(ln.endswith("(OK)")
+                                           for ln in md5):
+        fail(f"{label}: MD5 lines {md5}")
+    if not any(ln.startswith("CacheModel:") for ln in lines):
+        fail(f"{label}: no cache model report")
+    same = open(f["dec"], "rb").read() == open(f["rec"], "rb").read()
+    print(f"{label}: {dec_s:.2f} s (host clock), {len(md5)} MD5 OK, output "
+          f"YUV equal to the encoder app's reconstruction: {same}, "
+          f"launches {all_launches()}")
+    if not same:
+        fail(f"{label}: its YUV differs from the encoder app's "
+             "reconstruction")
+    for name in ("mc_luma_positions", "mc_chroma_positions"):
+        if not path_launches[label][name]:
+            fail(f"{label}: {name} not launched")
+    # --BitStats: the Python spec coder on the committed 256x128 stream
+    record = json.load(open(os.path.join(DATA, "apps.json")))
+    t1 = time.perf_counter()
+    lines = app_run(decoder_app.main, [
+        "-b", os.path.join(DATA, SMALL + ".bin"), "--BitStats"])
+    got = [ln for ln in lines if not ln.startswith("decoded ")]
+    want = [ln for ln in record["dec"]["bitstats"]["stdout"]
+            if not ln.startswith("decoded ")]
+    print(f"decoder app --BitStats {SMALL}: {time.perf_counter() - t1:.2f} "
+          f"s (host clock), the JAX decoder app's report: {got == want}")
+    if got != want:
+        fail("decoder app --BitStats differs from the JAX decoder app's")
+    # parcat: two chunks coded by the encoder app, spliced, decoded
+    clip = realistic_sequence(256, 128, 5)
+    chunks = []
+    for i, part in enumerate((clip[:3], clip[3:])):
+        yuv = os.path.join(out, f"chunk{i}.yuv")
+        write_yuv(yuv, part)
+        chunks.append(os.path.join(out, f"chunk{i}.bin"))
+        app_run(encoder_app.main, [
+            "-i", yuv, "-b", chunks[-1], "-wdt", "256", "-hgt", "128",
+            "-q", "37", "--GOP=LDP", "--SearchRange=24", "--MPA", "--ROT",
+            "--WrapAround"])
+    spliced = os.path.join(out, "spliced.bin")
+    app_run(parcat.main, [spliced] + chunks)
+    dec = DecLib()
+    frames = dec.decode_bytes(open(spliced, "rb").read())
+    pocs = sorted(fr.poc for fr in frames)
+    print(f"parcat of 2 chunks: POCs {pocs}, hash {dec.hash_status}")
+    if pocs != list(range(5)) or len(dec.hash_status) != 5 or \
+            any(v != "OK" for v in dec.hash_status.values()):
+        fail("parcat: the spliced stream does not decode with every MD5 OK")
+    print(f"8v: phase {time.perf_counter() - t0:.1f} s (host clock)")
+
+
+SHARD_RANKS = 2
+SHARD_MM = (2048, 1024)       # ERP, MPA+ROT, replicated reference
+SHARD_INTRA = (1024, 512)     # frame-parallel intra, 2 pictures
+
+
+def shard_inputs() -> dict:
+    """8w's inputs: realistic_sequence pictures of each case."""
+    w, h = SHARD_MM
+    clip = realistic_sequence(w, h, 2)
+    iw, ih = SHARD_INTRA
+    return dict(ref=clip[0], cur=clip[1],
+                intra=realistic_sequence(iw, ih, SHARD_RANKS))
+
+
+def shard_rank(rank: int, init: str, out: str) -> None:
+    """One rank of 8w, spawned: the three sharded encodes on the card over
+    a gloo group; rank 0 writes the results, each rank its launches."""
+    import pickle
+    import torch.distributed as dist
+    from vvc_mm_tpu_torch.parallel import sharding
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=SHARD_RANKS)
+    try:
+        torch.cuda.set_device(0)
+        with open(os.path.join(out, "inputs.pkl"), "rb") as fh:
+            inp = pickle.load(fh)
+        mesh = sharding.make_mesh()
+        h, w = np.asarray(inp["cur"][0]).shape
+        res, secs = {}, {}
+        reset_launches()
+        t = time.perf_counter()
+        res["intra"] = sharding.encode_frames_sharded(inp["intra"], 37,
+                                                       mesh)
+        secs["intra"] = time.perf_counter() - t
+        intra_launches = launch_counts()
+        reset_launches()
+        t = time.perf_counter()
+        mm = MMConfig(mpa=True, rot=True)
+        reproj = MVReprojection(ERP(w, h), w, h, mm.mm_offset_4x4, 1)
+        res["mm"] = sharding.encode_p_frame_mm_sharded(
+            reproj, mm.active_models(), inp["cur"], inp["ref"], 37, mesh,
+            search_range=24, wrap_around=True)
+        torch.cuda.synchronize()
+        secs["mm"] = time.perf_counter() - t
+        mm_launches = launch_counts()
+        reset_launches()
+        t = time.perf_counter()
+        res["halo"] = sharding.encode_p_frame_sharded_ref(
+            inp["cur"], inp["ref"], 37, mesh, search_range=24,
+            wrap_around=True)
+        secs["halo"] = time.perf_counter() - t
+        with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as fh:
+            pickle.dump(dict(intra=intra_launches, mm=mm_launches,
+                             halo=launch_counts(), secs=secs), fh)
+        if rank == 0:
+            with open(os.path.join(out, "results.pkl"), "wb") as fh:
+                pickle.dump(res, fh)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_path(path_launches: dict) -> None:
+    """Phase 8w: 2 spawned ranks on the one card (gloo: NCCL refuses two
+    ranks on a device), each sharded encode held bit for bit to the
+    unsharded one of the same inputs on the card."""
+    import pickle
+    import torch.multiprocessing as mp
+    from vvc_mm_tpu_torch.common import inter_frame, wavefront
+    t0 = time.perf_counter()
+    out = os.path.join(ROOT, "smoke_out", "sharding")
+    os.makedirs(out, exist_ok=True)
+    for name in os.listdir(out):
+        os.remove(os.path.join(out, name))
+    inp = shard_inputs()
+    with open(os.path.join(out, "inputs.pkl"), "wb") as fh:
+        pickle.dump(inp, fh)
+    init = "file://" + os.path.join(out, "rendezvous")
+    t1 = time.perf_counter()
+    try:
+        mp.spawn(shard_rank, args=(init, out), nprocs=SHARD_RANKS,
+                 join=True)
+    except Exception as e:        # a rank's failure fails the run
+        fail(f"8w: a rank failed: {e}")
+    spawn_s = time.perf_counter() - t1
+    with open(os.path.join(out, "results.pkl"), "rb") as fh:
+        res = pickle.load(fh)
+    ranks = []
+    for r in range(SHARD_RANKS):
+        with open(os.path.join(out, f"rank{r}.pkl"), "rb") as fh:
+            ranks.append(pickle.load(fh))
+    print(f"8w: {SHARD_RANKS} ranks in {spawn_s:.1f} s (spawn to join, host "
+          f"clock); rank seconds {[r['secs'] for r in ranks]}")
+    dev = torch.device("cuda")
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=dev)
+
+    def same(label, got, want) -> None:
+        ok = all(np.array_equal(np.asarray(g), w.cpu().numpy()
+                                if torch.is_tensor(w) else np.asarray(w))
+                 for g, w in zip(got, want))
+        print(f"{label}: sharded = unsharded bit for bit: {ok}")
+        if not ok:
+            fail(f"{label}: the sharded encode differs from the unsharded")
+
+    def launches(case: str) -> dict:
+        """The ranks' launch_counts() of a case, summed."""
+        tot = dict(by_shape={}, sphere_calls={})
+        for r in ranks:
+            for k, v in r[case].items():
+                if isinstance(v, dict):
+                    for kk, vv in v.items():
+                        d = tot[k].setdefault(kk, {} if isinstance(
+                            vv, dict) else 0)
+                        if isinstance(vv, dict):
+                            for shape, n in vv.items():
+                                d[shape] = d.get(shape, 0) + n
+                        else:
+                            tot[k][kk] = d + vv
+                else:
+                    tot[k] = tot.get(k, 0) + v
+        return tot
+
+    outs, rec = res["intra"]
+    for i, fr in enumerate(inp["intra"]):
+        o, rc = wavefront.encode_intra_frame(*map(t, fr), 37, 8, 8)
+        same(f"frame-parallel intra {SHARD_INTRA[0]}x{SHARD_INTRA[1]} "
+             f"picture {i}", [*(x[i] for x in outs)] +
+             [rec[c][i] for c in "yuv"], [*o] + [rc[c] for c in "yuv"])
+    w, h = SHARD_MM
+    mm = MMConfig(mpa=True, rot=True)
+    active = mm.active_models()
+    reproj = MVReprojection(ERP(w, h), w, h, mm.mm_offset_4x4, 1)
+    cur, ref = [t(p) for p in inp["cur"]], [t(p) for p in inp["ref"]]
+    t1 = time.perf_counter()
+    midx, stack = frame_codec.search_p_mm(reproj, active, cur[0], ref[0], 37,
+                                          16, 8, 24, None, True)
+    pos = frame_codec.merged_positions(reproj, active, midx, stack, 16,
+                                       None)
+    ly, lu, lv, rc = frame_codec.enc_finish_p_mm(
+        midx, stack, pos, *cur, *ref, 37, 16, 8, True, True)
+    torch.cuda.synchronize()
+    print(f"unsharded MM P {w}x{h}: {time.perf_counter() - t1:.2f} s "
+          "(host clock)")
+    g = res["mm"]
+    same(f"row-sharded MM P {w}x{h}", [g[0], g[1], *g[2]] +
+         [g[3][c] for c in "yuv"], [midx, stack, ly, lu, lv] +
+         [rc[c] for c in "yuv"])
+    want = inter_frame.encode_p_frame(*cur, *ref, 37, 16, 8, 24, True)
+    g = res["halo"]
+    same(f"row-sharded P {w}x{h}, halo exchange", [*g[:4]] +
+         [g[4][c] for c in "yuv"], [*want[:4]] +
+         [want[4][c] for c in "yuv"])
+    for case, label, need in (
+            ("intra", "sharded intra 2 ranks", ()),
+            ("mm", "sharded MM P 2048x1024 2 ranks",      # K4: B only
+             ("mc_luma_positions", "mc_chroma_positions",
+              "sad_block_positions", "sphere_positions", "sphere_centers")),
+            ("halo", "sharded P halo 2048x1024 2 ranks", ())):
+        n = launches(case)
+        path_launches[label] = n
+        print(f"{label}: launches "
+              f"{ {k: v for k, v in n.items() if not isinstance(v, dict)} }")
+        for name in need:
+            if not n[name]:
+                fail(f"{label}: {name} not launched")
+    print(f"8w: phase {time.perf_counter() - t0:.1f} s (host clock)")
 
 
 def bench_stream(name: str, stream: str):

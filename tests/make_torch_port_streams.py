@@ -151,6 +151,8 @@ search range 24, the MM quadtree at depth 1, 5 frames):
   fish128x128_ra_mm_qp37_5f     Equisolid at the default focal (a
                                 1088-pixel sensor), MPA+ROT, no
                                 wrap-around;
+  fish128x128_ra_t3d_tan_ged_qp37_5f  the same Equisolid with 3DT, TAN,
+                                GED (a signalled epipole) and GEDA;
   fish1088x1088_ra_mm_qp37_5f   the same at the sensor's width (chip
                                 smoke phase 8u);
   erp256x128_ra_mm_rc_mctf_5f   the headline tools with the MCTF
@@ -175,7 +177,9 @@ parallel; the small ones here (`... lib360`).
     python tests/make_torch_port_streams.py partitioning      # the 8
     python tests/make_torch_port_streams.py tools16           # the small
     python tests/make_torch_port_streams.py erp6144x3072_ldp_qp37_3f
-    python tests/make_torch_port_streams.py lib360            # the small 2
+    python tests/make_torch_port_streams.py lib360            # the small 3
+    python tests/make_torch_port_streams.py equisolid_sha256  # 1088 hashes
+    python tests/make_torch_port_streams.py apps              # app records
 
 This script imports the JAX package; pytest does not collect it (its name
 does not start with `test_`).
@@ -886,6 +890,15 @@ LIB360_STREAMS = {
         dict(width=128, height=128, qp=37, gop="RA", gop_size=4,
              qt_depth=1, search_range=24),
         dict(mpa=True, rot=True, projection="EQUISOLID"), 5),
+    # the other sphere models on the same Equisolid: 3DT, TAN, GED with a
+    # signalled epipole and the three GEDA axes (the merged positions'
+    # compiled forms of every model but MPA and ROT)
+    "fish128x128_ra_t3d_tan_ged_qp37_5f": (
+        dict(width=128, height=128, qp=37, gop="RA", gop_size=4,
+             qt_depth=1, search_range=24,
+             epipoles=[(4, 0, 0.3, -0.5, 0.8)]),
+        dict(t3d=True, tan=True, ged=True, geda=True,
+             projection="EQUISOLID"), 5),
     # phase 8u: the same at the default focal's sensor width
     "fish1088x1088_ra_mm_qp37_5f": (
         dict(width=1088, height=1088, qp=37, gop="RA", gop_size=4,
@@ -1052,6 +1065,182 @@ def make_lib360_stream(name: str) -> dict:
     return side
 
 
+def equisolid_sha256() -> dict:
+    """Model -> SHA-256 of the JAX package's merged positions (its jit of
+    merged_positions, little-endian int32) on a 1088x1088 Equisolid with
+    tests/test_torch_equisolid.py's seeded fields: SHA256_1088 there."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    from vvc_mm_tpu.common.mm import frame_codec, reprojection
+    from vvc_mm_tpu.common.typedefs import ProjectionID
+    from vvc_mm_tpu.lib360 import projection
+    from tests.test_torch_equisolid import equisolid_fields
+
+    w = 1088
+    jr = reprojection.MVReprojection(projection.make_projection(
+        ProjectionID.EQUISOLID, w, w), w, w, 1)
+    out = {}
+    for model in (5, 7, 8):
+        idx, mv, eps = equisolid_fields(w, model)
+        pos = np.asarray(frame_codec.merged_positions(
+            jr, [model], jnp.asarray(idx), jnp.asarray(mv[None]), 16, eps))
+        out[model] = hashlib.sha256(np.ascontiguousarray(
+            pos, "<i4").tobytes()).hexdigest()
+        print(f"{model}: {out[model]}", flush=True)
+    return out
+
+
+# ------------------------------------------------------------ app records
+# The CLI apps' reference outputs: the JAX package's apps run in this
+# process on the CPU (`python tests/make_torch_port_streams.py apps`) and
+# their outputs recorded in tests/data/torch_port/apps.json (with the
+# encoder app's stream app_ra128x64_mm_qp37_5f.bin).  Arguments name their
+# files by placeholder ({IN}, {BIN}, {REC}, {OUT}, {CFG}, {TRACE},
+# {STREAM:name}); `app_args` fills them in.
+APP_RECORD = "apps"
+APP_W, APP_H, APP_FRAMES = 128, 64, 5
+APP_CFG = "QP : 37            # the CTC QP\nGOP : RA\nGOPSize : 4\n" \
+    "SearchRange : 24\n"
+APP_ENC_ARGS = ["-c", "{CFG}", "-i", "{IN}", "-b", "{BIN}", "-o", "{REC}",
+                "-wdt", str(APP_W), "-hgt", str(APP_H), "-f",
+                str(APP_FRAMES), "--MPA", "--ROT", "--QTDepth=1",
+                "--WrapAround", "--Epipole=1,0,0.0,0.0,1.0"]
+APP_DEC_RUNS = {
+    # the encoder app's stream: cache model, trace, output YUV
+    "cache_trace": ["-b", "{BIN}", "-o", "{OUT}", "--CacheModel",
+                    "--TraceFile={TRACE}"],
+    # the Python spec coder's per-syntax bits of the headline tools
+    "bitstats": ["-b", "{STREAM:erp256x128_ra_mm_qp37_5f}", "--BitStats"],
+    # rate control signals HRD parameters: the CPB check
+    "hrd": ["-b", "{STREAM:erp256x128_ra_mm_rc_mctf_5f}", "--CacheModel"],
+    # the film grain SEI applied on output
+    "film_grain": ["-b", "{STREAM:ai96x64_film_grain_qp37_2f}", "-o",
+                   "{OUT}", "--FilmGrain", "--OutputBitDepth=8"],
+    # the flat MM P parser's trace events (GED, MM-MVP), a classic
+    # stream's cache model
+    "trace_flat": ["-b", "{STREAM:erp256x128_ra_fullmm_qp37_5f}",
+                   "--TraceFile={TRACE}", "--TraceRule=motion_model,mvd"],
+    "cache_classic": ["-b", "{STREAM:ra192x96_ctc_tools_qp37_9f}",
+                      "--CacheModel"],
+}
+APP_BD_ARGS = ["--Width=64", "--Height=32", "--Frames=2", "--GOP=LDP",
+               "--QPs=32,37,42", "--Tool=merge"]
+APP_TARGET_ARGS = ["-i", "{IN}", "-wdt", str(APP_W), "-hgt", str(APP_H),
+                   "-f", "3", "--TargetBitrate=40000", "--GOP=LDP"]
+
+
+def app_args(args: list[str], files: dict) -> list[str]:
+    """An app's argument list with its placeholders filled in from
+    `files` ({"IN": path, ...}); {STREAM:name} is a committed stream."""
+    out = []
+    for a in args:
+        for k, v in files.items():
+            a = a.replace("{" + k + "}", v)
+        if "{STREAM:" in a:
+            pre, rest = a.split("{STREAM:", 1)
+            name, post = rest.split("}", 1)
+            a = pre + os.path.join(OUT_DIR, name + ".bin") + post
+        out.append(a)
+    return out
+
+
+def app_lines(text: str) -> list[str]:
+    """An app's standard output without its clock readings: the
+    encoder's SUMMARY fps and the decoder's seconds and fps."""
+    import re
+    out = []
+    for line in text.splitlines():
+        line = re.sub(r", [0-9.]+ fps$", "", line)
+        line = re.sub(r" in [0-9.]+s \([0-9.]+ fps\)$", "", line)
+        out.append(line)
+    return out
+
+
+def app_source(path: str) -> None:
+    """The apps' source YUV: realistic_sequence(APP_W, APP_H,
+    APP_FRAMES)."""
+    from vvc_mm_tpu_torch.common.typedefs import ChromaFormat
+    from vvc_mm_tpu_torch.utils.content import realistic_sequence
+    from vvc_mm_tpu_torch.utils.yuv_io import VideoFormat, YuvWriter
+
+    with YuvWriter(path, VideoFormat(APP_W, APP_H, 8,
+                                     ChromaFormat.C420)) as wr:
+        for f in realistic_sequence(APP_W, APP_H, APP_FRAMES):
+            wr.write_frame(f)
+
+
+def file_md5(path: str) -> str:
+    with open(path, "rb") as f:
+        return hashlib.md5(f.read()).hexdigest()
+
+
+def run_app(main, args: list[str]) -> list[str]:
+    """main(args)'s standard output lines (app_lines)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(args) == 0
+    return app_lines(buf.getvalue())
+
+
+def make_app_records() -> dict:
+    """Run the JAX package's apps on the CPU and record their outputs in
+    apps.json (the encoder app's stream beside it)."""
+    import tempfile
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from vvc_mm_tpu.apps import (bd_rate, bitrate_targeting, decoder_app,
+                                 encoder_app)
+
+    rec: dict = dict(width=APP_W, height=APP_H, frames=APP_FRAMES,
+                     content="realistic_sequence", cfg=APP_CFG,
+                     enc_args=APP_ENC_ARGS, dec_runs=APP_DEC_RUNS,
+                     bd_args=APP_BD_ARGS, target_args=APP_TARGET_ARGS)
+    with tempfile.TemporaryDirectory() as d:
+        files = {k: os.path.join(d, v) for k, v in dict(
+            IN="in.yuv", BIN="app.bin", REC="rec.yuv", OUT="out.yuv",
+            CFG="enc.cfg", TRACE="trace.txt").items()}
+        app_source(files["IN"])
+        with open(files["CFG"], "w") as f:
+            f.write(APP_CFG)
+        rec["enc_stdout"] = run_app(encoder_app.main,
+                                    app_args(APP_ENC_ARGS, files))
+        with open(files["BIN"], "rb") as f:
+            data = f.read()
+        with open(os.path.join(OUT_DIR, "app_ra128x64_mm_qp37_5f.bin"),
+                  "wb") as f:
+            f.write(data)
+        rec["stream_sha256"] = hashlib.sha256(data).hexdigest()
+        rec["recon_md5"] = file_md5(files["REC"])
+        files["BIN"] = os.path.join(OUT_DIR, "app_ra128x64_mm_qp37_5f.bin")
+        rec["dec"] = {}
+        for name, args in APP_DEC_RUNS.items():
+            for k in ("OUT", "TRACE"):
+                if os.path.exists(files[k]):
+                    os.remove(files[k])
+            out = dict(stdout=run_app(decoder_app.main,
+                                      app_args(args, files)))
+            if "{OUT}" in args:
+                out["yuv_md5"] = file_md5(files["OUT"])
+            if any("{TRACE}" in a for a in args):
+                with open(files["TRACE"]) as f:
+                    out["trace"] = f.read().splitlines()
+            rec["dec"][name] = out
+            print(f"decoder app {name}: {len(out['stdout'])} lines",
+                  flush=True)
+        rec["bd_stdout"] = run_app(bd_rate.main, APP_BD_ARGS)
+        rec["target_stdout"] = run_app(bitrate_targeting.main,
+                                       app_args(APP_TARGET_ARGS, files))
+    with open(os.path.join(OUT_DIR, APP_RECORD + ".json"), "w") as f:
+        json.dump(rec, f, indent=1)
+        f.write("\n")
+    print(f"app records: stream {rec['stream_sha256'][:8]}..., "
+          f"{len(rec['enc_stdout'])} encoder lines", flush=True)
+    return rec
+
+
 def main(argv: list[str]) -> None:
     """Each argument names a stream, a size (every multi-model stream of
     it), `classic` (every classic stream) or `partitioning` (the quadtree,
@@ -1088,6 +1277,10 @@ def main(argv: list[str]) -> None:
             make_config5()
         elif name in LIB360_STREAMS:
             make_lib360_stream(name)
+        elif name == APP_RECORD:
+            make_app_records()
+        elif name == "equisolid_sha256":
+            equisolid_sha256()
         elif name.startswith("mctf_md5:"):
             add_mctf_md5(name.split(":", 1)[1])
         elif name in CLASSIC:

@@ -10,20 +10,26 @@ package.
               tests/test_mm_models.py:176's case;
   positions   the merged positions (the JAX decoder's jit of
               merged_positions) of MPA x3, ROT, 3DT, TAN, GED and GEDA on
-              a 128x128 Equisolid, random MV fields: the differing
-              subblocks pinned (MPA, ROT, 3DT and TAN copy the compiled
-              form, 0; GED and GEDA take the op-by-op chain, 1 and 9);
+              a 128x128 Equisolid, random MV fields: every model copies
+              the compiled form, 0 differing subblocks; at 1088x1088 (the
+              default focal's sensor) TAN, GED and GEDA equal the JAX
+              positions' SHA-256 (tests/make_torch_port_streams.py
+              equisolid_sha256 wrote them; a JAX run there takes 18 s);
   stream      the port's CPU encode of fish128x128_ra_mm_qp37_5f
               (Equisolid, MPA+ROT, the MM quadtree, RA GOP 4, 5 frames)
-              equals the committed JAX stream byte for byte, and the port
-              decodes it with every MD5 OK (0 differing decisions);
+              and of fish128x128_ra_t3d_tan_ged_qp37_5f (3DT, TAN, GED
+              with a signalled epipole and GEDA) equal the committed JAX
+              streams byte for byte, and the port decodes them with every
+              MD5 OK (0 differing decisions);
   refusals    CALIBRATED with a motion model is refused when EncLib is
               built (the JAX package's Calibrated has no `focal`, so its
               encoder fails at the first P picture); PERSPECTIVE raises in
               both packages.
 
-Cost on one core: about 25 s (the stream 12 s, the JAX positions'
-compiles)."""
+Cost on one core: about 55 s (the streams 12 s and 28 s, the JAX
+positions' compiles)."""
+import hashlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -49,7 +55,14 @@ EPIPOLE = (0.3, -0.5, 0.8)
 # model id -> subblocks of the 128x128 Equisolid merged positions that
 # differ from the JAX package's (seed 100 + model, MVs uniform in +-24
 # pel); measured on the development machine's CPU, no slack
-MEASURED = {1: 0, 2: 0, 3: 0, 6: 0, 4: 0, 5: 0, 7: 1, 8: 9}
+MEASURED = {1: 0, 2: 0, 3: 0, 6: 0, 4: 0, 5: 0, 7: 0, 8: 0}
+# model id -> SHA-256 of the JAX package's merged positions (little-endian
+# int32) on a 1088x1088 Equisolid, the same fields at that size
+# (tests/make_torch_port_streams.py equisolid_sha256)
+SHA256_1088 = {
+    5: "40960327c8d15e623c2f82590d5f7330ada14fbe37c36a3076a02b3cd07f8936",
+    7: "734e9543e77fd0dfff1a402570d9b34beec4b1923baf60069d6e9e469ec41bb1",
+    8: "a5d00c2fa96330a58ac48f60783de015db8ae01b67e5dbdce8e4c47eb31b43ff"}
 
 
 def _points(n=4096, seed=3, lo=-80.0, hi=1200.0):
@@ -162,10 +175,40 @@ def test_equisolid_positions_match_jax(reprojections, model):
     assert int((d != 0).any(-1).sum()) == MEASURED[model]
 
 
+def equisolid_fields(w: int, model: int):
+    """The seeded (model_idx, MV field, epipoles) of the positions tests
+    on a w x w Equisolid."""
+    rng = np.random.default_rng(100 + model)
+    mv = rng.integers(-384, 385, (w // BLOCK, w // BLOCK, 2)).astype(
+        np.int32)
+    idx = np.zeros((w // BLOCK, w // BLOCK), np.int32)
+    return idx, mv, ({7: EPIPOLE} if model == 7 else None)
+
+
+@pytest.mark.parametrize("model", list(SHA256_1088),
+                         ids=[f"m{m}" for m in SHA256_1088])
+def test_equisolid_positions_1088_match_jax(model):
+    w = 1088
+    pr = rp.MVReprojection(proj.make_projection(ProjectionID.EQUISOLID, w,
+                                                w), w, w, 1, device="cpu")
+    idx, mv, eps = equisolid_fields(w, model)
+    got = frame_codec.merged_positions(pr, [model], T(idx), T(mv[None]),
+                                       BLOCK, eps).numpy()
+    assert hashlib.sha256(np.ascontiguousarray(got, "<i4").tobytes()
+                          ).hexdigest() == SHA256_1088[model]
+
+
 def test_equisolid_stream_byte_exact():
     run = port_lib360_run("fish128x128_ra_mm_qp37_5f")
     assert_lib360_run(run)
     assert run["sd"]["mm"]["projection"] == "EQUISOLID"
+
+
+def test_equisolid_other_models_stream_byte_exact():
+    run = port_lib360_run("fish128x128_ra_t3d_tan_ged_qp37_5f")
+    assert_lib360_run(run)
+    assert run["sd"]["mm"] == dict(t3d=True, tan=True, ged=True, geda=True,
+                                   projection="EQUISOLID")
 
 
 def test_calibrated_motion_refused():

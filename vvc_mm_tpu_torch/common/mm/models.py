@@ -304,14 +304,22 @@ def _tan_motion_fused(proj, angle_res: float, grid_sphere, grid_x, grid_y,
                       mv_x, mv_y, cx, cy):
     """tan_motion in the form XLA compiles for the JAX codec's merged
     positions: the grid's sphere points folded, its angles and their
-    sines op by op (true divisions), the block centers' angles as ROT's;
+    sines op by op (true divisions; on an Equisolid XLA's fold of z/r,
+    z * (1/sqrt(r^2)) with the reciprocal rounded), the block centers'
+    angles as ROT's;
     then each a*b +- c*d one FMA, the sums of squares FMAs (on an
     Equisolid the projection's own centre angles and squared norm)."""
     fma = lm.fma32
-    _, theta, phi = cartesian_to_spherical(*grid_sphere)
+    equisolid = isinstance(proj, Equisolid)
+    if equisolid:
+        gx, gy, gz = grid_sphere
+        rr = 1.0 / lm.sqrt(gx * gx + gy * gy + gz * gz)
+        theta = lm.acos(torch.clamp(gz * rr, -1.0, 1.0))
+        phi = lm.atan2(gy, gx)
+    else:
+        _, theta, phi = cartesian_to_spherical(*grid_sphere)
     eps = PI / 2 - theta
     sin_e, cos_e = lm.sin(eps), lm.cos(eps)
-    equisolid = isinstance(proj, Equisolid)
     theta_c, alpha_c = (proj.center_spherical_fused(cx, cy) if equisolid
                         else _center_spherical_fused(proj, cx, cy, False))
     eps_c = PI / 2 - theta_c
@@ -508,6 +516,54 @@ def _row_fused(a: float, b: float, x, y):
     return lm.fma32(y, b, x * a)
 
 
+def _pair_fused(a: float, b: float, x, y):
+    """a*x + b*y as XLA compiles it on an Equisolid: one FMA with the
+    first product fused, but a negative a alone (b >= 0) moves y's
+    product first."""
+    if b < 0 or a >= 0:
+        return lm.fma32(x, a, y * b)
+    return lm.fma32(y, b, x * a)
+
+
+def _ged_motion_equisolid(proj, angle_res: float, m, grid_sphere, grid_x,
+                          grid_y, mv_x, mv_y, cx, cy):
+    """_ged_motion_fused on an Equisolid: the grid's points, rotation,
+    angles and their sines op by op (as to_sphere); the block centres'
+    angles as sphere_angles_fused, their rotation rows
+    fma(Z, m2, _pair_fused(-m0, m1, cos theta, Y)) on the sphere point
+    (-cos theta, Y, Z) and r^2 = fma(z, z, fma(x, x, y*y)); the rotation
+    back fma(cz, m2i, _pair_fused(m0i, m1i, cx, cy)) a coordinate, r^2
+    as from_sphere_fused's; phi's fusion adds a*mvy to phi on its own,
+    the other fuses it (an FMA)."""
+    gx, gy, gz = grid_sphere
+    r, theta, phi = cartesian_to_spherical(
+        *(m[i][0] * gx + m[i][1] * gy + m[i][2] * gz for i in range(3)))
+    sin_t, cos_t = lm.sin(theta), lm.cos(theta)
+    th_c, ph_c = proj.sphere_angles_fused(cx, cy, False)
+    st_c, ct_c = lm.sin(th_c), lm.cos(th_c)
+    y_c, z_c = lm.cos(ph_c) * st_c, st_c * -lm.sin(ph_c)
+    crx, cry, crz = (lm.fma32(z_c, m[i][2],
+                              _pair_fused(-m[i][0], m[i][1], ct_c, y_c))
+                     for i in range(3))
+    ss_c = lm.fma32(crz, crz, lm.fma32(crx, crx, cry * cry))
+    theta_c = lm.acos(torch.clamp(crz * lm.rsqrt_xla(ss_c), -1.0, 1.0))
+    a = mv_x * angle_res
+    k = lm.sin(theta_c + a) / lm.sin(a)
+    theta_m = theta + lm.atan(sin_t / (k + (-cos_t)))
+    rst, cz = r * lm.sin(theta_m), r * lm.cos(theta_m)
+
+    def back(phi_m):
+        cx3, cy3 = rst * lm.cos(phi_m), rst * lm.sin(phi_m)
+        return [lm.fma32(cz, m[2][i], _pair_fused(m[0][i], m[1][i], cx3,
+                                                  cy3)) for i in range(3)]
+    ox, oy, oz = back(lm.fma32(mv_y, angle_res, phi))
+    phi_yz = back(phi + mv_y * angle_res)[1:]
+    out_x, out_y = proj.from_sphere_fused(
+        ox, oy, oz, proj.sphere_ss_fused(ox, oy, oz, q_first=False), phi_yz)
+    zero = (mv_x == 0) & (mv_y == 0)
+    return (torch.where(zero, grid_x, out_x), torch.where(zero, grid_y, out_y))
+
+
 def _ged_motion_fused(proj, angle_res: float, rot_mat, grid_sphere, grid_x,
                       grid_y, mv_x, mv_y, cx, cy):
     """ged_motion's modulated flavour in the form XLA compiles for the JAX
@@ -518,6 +574,9 @@ def _ged_motion_fused(proj, angle_res: float, rot_mat, grid_sphere, grid_x,
     its own, the other fuses it (an FMA).  rot_mat is a host array: its
     entries enter as float32 scalars."""
     m = [[float(v) for v in row] for row in np.asarray(rot_mat, np.float32)]
+    if isinstance(proj, Equisolid):
+        return _ged_motion_equisolid(proj, angle_res, m, grid_sphere, grid_x,
+                                     grid_y, mv_x, mv_y, cx, cy)
     gx, gy, gz = grid_sphere
     r, theta, phi = cartesian_to_spherical(
         *(m[i][0] * gx + m[i][1] * gy + m[i][2] * gz for i in range(3)))

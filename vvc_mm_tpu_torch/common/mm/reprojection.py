@@ -98,28 +98,46 @@ class MVReprojection:
     """Per-frame-geometry reprojection state on one device, CUDA unless
     another is named (caches the subblock grid, the MPA perspective-plane
     caches, the grid's folded sphere points and the GED epipole-alignment
-    matrices)."""
+    matrices).
+
+    rows=(y0, y1) restricts it to a slab of the frame's rows (a multiple
+    of the block size apart, for row-sharded encodes): the models run at
+    the slab's absolute rows, `height` stays the frame's (the angle
+    resolution and the search arm follow the whole frame), and every
+    position it returns is relative to row y0 (the slab's own planes)."""
 
     def __init__(self, proj, width: int, height: int,
                  offset4x4_code: int = 1, ged_flavor: int = 1,
-                 device: torch.device | str | None = None) -> None:
+                 device: torch.device | str | None = None,
+                 rows: tuple[int, int] | None = None) -> None:
         self.proj = proj
         self.width = width
         self.height = height
+        self.offset4x4_code = offset4x4_code
+        self.row0, row1 = rows if rows is not None else (0, height)
+        self.rows = row1 - self.row0
         self.device = resolve_device(device)
         self.offset = offset4x4_value(offset4x4_code)
         self.angle_res = math.pi / height
         self.ged_flavor = ged_flavor
-        nsx, nsy = width // SUBBLK, height // SUBBLK
+        nsx, nsy = width // SUBBLK, self.rows // SUBBLK
         f32 = dict(dtype=torch.float32, device=self.device)
         gx = torch.arange(nsx, **f32) * SUBBLK + self.offset
-        gy = torch.arange(nsy, **f32) * SUBBLK + self.offset
+        gy = torch.arange(self.row0 // SUBBLK, row1 // SUBBLK,
+                          **f32) * SUBBLK + self.offset
         self.grid_x = gx[None, :].expand(nsy, nsx).contiguous()
         self.grid_y = gy[:, None].expand(nsy, nsx).contiguous()
         self._mpa_cache: dict[int, tuple] = {}
         self._grid_sphere: tuple | None = None
         self._ged_rot: dict[tuple, torch.Tensor] = {}
         self._templates: dict[tuple, tuple] = {}
+
+    def slab(self, y0: int, y1: int) -> "MVReprojection":
+        """The same geometry restricted to the frame's rows [y0, y1), on
+        this device."""
+        return MVReprojection(self.proj, self.width, self.height,
+                              self.offset4x4_code, self.ged_flavor,
+                              self.device, rows=(y0, y1))
 
     # -- caches ------------------------------------------------------------
     def mpa_cache(self, plane: int):
@@ -177,9 +195,10 @@ class MVReprojection:
         mvf = mvs.to(torch.float32) / 16.0
         nby, nbx = mvs.shape[:2]
         f32 = dict(dtype=torch.float32, device=mvs.device)
+        by0 = self.row0 // block_size
         cx = (torch.arange(nbx, **f32) * block_size
               + (block_size - 1) / 2.0)
-        cy = (torch.arange(nby, **f32) * block_size
+        cy = (torch.arange(by0, by0 + nby, **f32) * block_size
               + (block_size - 1) / 2.0)
         cx = cx[None, :].expand(nby, nbx)
         cy = cy[:, None].expand(nby, nbx)
@@ -235,7 +254,7 @@ class MVReprojection:
         ox = torch.where(bad, gx, ox) - self.offset
         oy = torch.where(bad, gy, oy) - self.offset
         fx = torch.round(ox * 16.0).to(torch.int32)
-        fy = torch.round(oy * 16.0).to(torch.int32)
+        fy = torch.round(oy * 16.0).to(torch.int32) - self.row0 * 16
         return torch.stack([fx, fy], dim=-1)
 
     def reproject_block_centers(self, model_id: int, mvs: torch.Tensor,
@@ -265,7 +284,7 @@ class MVReprojection:
         if model_id in _MPA:
             return form
         if model_id in (M.ROTATIONAL, M.THREE_D_TRANSLATIONAL,
-                        M.TANGENTIAL) and form == "merged":
+                        M.TANGENTIAL, *_GED) and form == "merged":
             return form
         return None
 
@@ -282,8 +301,9 @@ class MVReprojection:
         nby, nbx = mvs.shape[:2]
         s = block_size
         f32 = dict(dtype=torch.float32, device=self.device)
+        by0 = self.row0 // s
         cx = torch.arange(nbx, **f32) * s + (s - 1) / 2.0
-        cy = torch.arange(nby, **f32) * s + (s - 1) / 2.0
+        cy = torch.arange(by0, by0 + nby, **f32) * s + (s - 1) / 2.0
         cx = cx[None, :].expand(nby, nbx)
         cy = cy[:, None].expand(nby, nbx)
         mvf = mvs.to(torch.float32) / 16.0
@@ -304,7 +324,7 @@ class MVReprojection:
         oy = torch.where(bad, cy, oy)
         half = (s - 1) / 2.0
         fx = torch.round((ox - half) * 16.0).to(torch.int32)
-        fy = torch.round((oy - half) * 16.0).to(torch.int32)
+        fy = torch.round((oy - half) * 16.0).to(torch.int32) - self.row0 * 16
         return torch.stack([fx, fy], dim=-1)
 
     # -- K fields at once: the sphere kernel on the card -------------------
@@ -492,7 +512,8 @@ class MVReprojection:
                                  centers=name == "sphere_centers")
             hit = self._templates[key] = (sk.template(
                 a["codes"], a["grids"], a["rsqrt_tab"], a["consts"],
-                block_size, self.width // SUBBLK, form), a)
+                block_size, self.width // SUBBLK, form,
+                self.row0 // SUBBLK), a)
         return hit[0]
 
     def _kernel_route(self, mvs, model_idx, model_ids) -> bool:
@@ -519,7 +540,7 @@ class MVReprojection:
         return model_idx, mvs
 
     def _grid_dims(self, mvs: torch.Tensor, block_size: int) -> tuple:
-        nsy, nsx = self.height // SUBBLK, self.width // SUBBLK
+        nsy, nsx = self.rows // SUBBLK, self.width // SUBBLK
         rep = block_size // SUBBLK
         nby, nbx = mvs.shape[-3:-1]
         if (nby * rep, nbx * rep) != (nsy, nsx):
@@ -534,7 +555,7 @@ class MVReprojection:
         subblock column, by the float32 chain (CLASSIC by its integer
         formula)."""
         if model_id == M.CLASSIC:
-            return classic_positions(self.width, self.height, mvs,
+            return classic_positions(self.width, self.rows, mvs,
                                      block_size, row_step)
         return self._frame_chain(model_id, mvs, block_size,
                                  (epipoles or {}).get(model_id), row_step,

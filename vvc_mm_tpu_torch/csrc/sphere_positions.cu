@@ -94,7 +94,11 @@ struct Args {
   const float* gc[MAXM];     // ROT folded z
   const uint8_t* vip[MAXM];  // MPA cache: behind the camera
   int code[MAXM];
-  int n_models, k, nby, nbx, bs, row_step, col_step, ny, nx, grid_w, form;
+  // sy0: the frame's subblock row of the grid's row 0 (a row slab's
+  // origin): the models run at absolute rows, positions come out
+  // relative to the slab
+  int n_models, k, nby, nbx, bs, row_step, col_step, ny, nx, grid_w, form,
+      sy0;
   Consts c;
 };
 
@@ -392,14 +396,15 @@ __device__ __forceinline__ void position(const Args& a, int k, int sy, int sx,
   }
   const float mvx = mv_pel(mv[0]), mvy = mv_pel(mv[1]);
   const float gx = add(mul(static_cast<float>(sx), 4.0f), c.offset);
-  const float gy = add(mul(static_cast<float>(sy), 4.0f), c.offset);
+  const float gy = add(mul(static_cast<float>(sy + a.sy0), 4.0f), c.offset);
   const int64_t g = static_cast<int64_t>(sy) * a.grid_w + sx;
   float ox, oy;
   if (code == ROT) {
     const RotTerms t = rot_terms(
         c, a.rsqrt_tab, a.form, mvx, mvy,
         add(mul(static_cast<float>(bx), static_cast<float>(a.bs)), c.half),
-        add(mul(static_cast<float>(by), static_cast<float>(a.bs)), c.half));
+        add(mul(static_cast<float>(by + a.sy0 / rep),
+                static_cast<float>(a.bs)), c.half));
     if (a.form == FORM_OP) {
       rot_op(c, t.cs, gx, gy, &ox, &oy);
     } else {
@@ -419,7 +424,7 @@ __device__ __forceinline__ void position(const Args& a, int k, int sy, int sx,
   }
   const bool bad = isnan(ox) || isnan(oy);     // no motion
   o[0] = fixed16(sub(bad ? gx : ox, c.offset));
-  o[1] = fixed16(sub(bad ? gy : oy, c.offset));
+  o[1] = fixed16(sub(bad ? gy : oy, c.offset)) - a.sy0 * 64;
 }
 
 // One thread a position.
@@ -455,8 +460,8 @@ sphere_centers_kernel(const Args a) {
     const float mvx = mv_pel(mv[0]), mvy = mv_pel(mv[1]);
     const float cx = add(mul(static_cast<float>(bx), static_cast<float>(a.bs)),
                          c.half);
-    const float cy = add(mul(static_cast<float>(by), static_cast<float>(a.bs)),
-                         c.half);
+    const float cy = add(mul(static_cast<float>(by + a.sy0 / (a.bs / 4)),
+                             static_cast<float>(a.bs)), c.half);
     float ox, oy;
     if (code == CLASSIC) {                // models.translational_motion
       ox = add(cx, mvx);
@@ -486,7 +491,7 @@ sphere_centers_kernel(const Args a) {
     const bool bad = isnan(ox) || isnan(oy);
     int32_t* o = a.out + i * 2;
     o[0] = fixed16(sub(bad ? cx : ox, c.half));
-    o[1] = fixed16(sub(bad ? cy : oy, c.half));
+    o[1] = fixed16(sub(bad ? cy : oy, c.half)) - a.sy0 * 64;
   }
 }
 

@@ -21,6 +21,13 @@ MCTS SEI (`mcts_tiles`), and a lost reference concealed by a clone of the
 nearest decoded picture (`concealed`).  Entropy decoding runs on the host
 (numpy + the native CABAC coder); reconstruction, the DPB and the loop
 filters run on `device`, the MC through kernels K1/K2 on CUDA.
+
+The analyser hooks, as the JAX DecLib's: `stats` (a utils.trace.BitStats)
+parses every slice with the Python spec coder and per-syntax accounting,
+`cache_model` (a utils.cache_model.CacheModel) records each picture's
+reference traffic, and `picture_bits` keeps each slice NAL's size for the
+decoder app's HRD check.  With both hooks None the decode path is the
+native one.
 """
 from __future__ import annotations
 
@@ -89,9 +96,14 @@ class DecLib:
     requested as those of the one-model list [model] at the search's row
     step.  Everything downstream of the positions tensors is the port's."""
 
-    def __init__(self, device=None, positions_fn=None) -> None:
+    def __init__(self, device=None, positions_fn=None, stats=None,
+                 cache_model=None) -> None:
         self.device = resolve_device(device)
         self.positions_fn = positions_fn
+        self.stats = stats        # utils.trace.BitStats: analyser mode
+        self.cache_model = cache_model  # utils.cache_model.CacheModel
+        # POC -> bits of its slice NAL (the HRD's CPB check)
+        self.picture_bits: dict[int, int] = {}
         self.sps: SPS | None = None
         self.pps: PPS | None = None
         self.frames: list[DecodedFrame] = []
@@ -245,6 +257,9 @@ class DecLib:
         br = BitReader(payload)
         sh = SliceHeader.read(br, sps)
         cabac_bytes = bytes(payload[br._pos // 8:])
+        self.picture_bits[sh.poc] = len(payload) * 8
+        if self.cache_model is not None:
+            self.cache_model.start_frame(sh.poc)
         if sh.slice_type == SliceType.I:
             self._decode_i(sh, cabac_bytes)
         elif not sps.mm.any_enabled():
@@ -267,7 +282,7 @@ class DecLib:
         modes, lm, lf, mr, tsg, mtsg, ly, lu, lv = parse(
             cabac_bytes, nby, nbx, s, cclm=sps.cclm, mip=sps.mip,
             lfnst=sps.lfnst, mrl=sps.mrl, ts=sps.ts and not sps.lossless,
-            bdpcm=sps.bdpcm, ibc=sps.ibc, mts=sps.mts)
+            bdpcm=sps.bdpcm, ibc=sps.ibc, mts=sps.mts, stats=self.stats)
         if sps.lossless:
             tsg = np.ones_like(tsg)
         coords, valid = wavefront.wavefront_coords(nby, nbx)
@@ -292,7 +307,8 @@ class DecLib:
         nsy, nsx = sps.height // intra_part.SB, sps.width // intra_part.SB
         coords, valid = wavefront.wavefront_coords(nsy, nsx)
         steps = [wavefront.grid_to_steps(g, coords, valid)
-                 for g in decode_intra_slice_part(cabac_bytes, nsy, nsx)]
+                 for g in decode_intra_slice_part(cabac_bytes, nsy, nsx,
+                                                  self.stats)]
         recon = intra_part.decode_intra_frame_part(
             *steps, sh.qp, sps.height, sps.width, sps.bit_depth,
             device=self.device)
@@ -310,16 +326,17 @@ class DecLib:
         ref0 = self._ref_by_poc(sh.ref_pocs_l0[0])
         args = (sh.qp, s, nd, sps.bit_depth, sps.wrap_around)
         parse_args = (cabac_bytes, sps.height, sps.width, s, nd)
+        stats = self.stats
         if sh.slice_type == SliceType.P:
             if sps.mtt:
                 mv_u, sq, rect, hr, lid = decode_p_slice_mtt(
-                    *parse_args, use_merge=sps.merge)
+                    *parse_args, use_merge=sps.merge, stats=stats)
                 recon = mtt_mod.reconstruct_mtt(
                     *self._tensors(mv_u), self._level_tensors(sq),
                     self._level_tensors(rect), *ref0.planes, *args)
             else:
-                mv_u, sq, hr, lid = decode_p_slice_qt(*parse_args,
-                                                      use_merge=sps.merge)
+                mv_u, sq, hr, lid = decode_p_slice_qt(
+                    *parse_args, use_merge=sps.merge, stats=stats)
                 recon = qtree.reconstruct_qt(
                     *self._tensors(mv_u), self._level_tensors(sq),
                     *ref0.planes, *args)
@@ -327,14 +344,14 @@ class DecLib:
             ref1 = self._ref_by_poc(sh.ref_pocs_l1[0])
             if sps.mtt:
                 mv0, mv1, dirs, sq, rect, hr, lid = decode_b_slice_mtt(
-                    *parse_args, use_merge=sps.merge)
+                    *parse_args, use_merge=sps.merge, stats=stats)
                 recon = mtt_mod.reconstruct_mtt_b(
                     *self._tensors(mv0, mv1, dirs), self._level_tensors(sq),
                     self._level_tensors(rect), ref0.planes, ref1.planes,
                     *args)
             else:
                 mv0, mv1, dirs, sq, hr, lid = decode_b_slice_qt(
-                    *parse_args, use_merge=sps.merge)
+                    *parse_args, use_merge=sps.merge, stats=stats)
                 recon = qtree.reconstruct_qt_b(
                     *self._tensors(mv0, mv1, dirs), self._level_tensors(sq),
                     ref0.planes, ref1.planes, *args, sps.bdof, sps.dmvr)
@@ -387,7 +404,9 @@ class DecLib:
                     for w in (sh.wp_params, sh.wp_params_l1))
         col = (self._mv_fields.get(sh.ref_pocs_l0[0]) if sps.tmvp
                else None)
-        tools = dict(col_mvs=col, use_tmvp=sps.tmvp, use_amvr=sps.amvr)
+        tools = dict(col_mvs=col, use_tmvp=sps.tmvp, use_amvr=sps.amvr,
+                     stats=self.stats)
+        cache = self.cache_model
         if sh.slice_type == SliceType.B:
             sl_bdof, sl_dmvr, sl_gpm, sl_ciip = (
                 on and wp0 is None and wp1 is None
@@ -396,8 +415,11 @@ class DecLib:
                      else decode_b_slice)
             mv0, mv1, dirs, ly, lu, lv, gpm_modes = parse(
                 cabac_bytes, nby, nbx, s, use_gpm=sl_gpm, use_ciip=sl_ciip,
-                use_merge=sps.merge, mer_blocks_log2=mer)
+                use_merge=sps.merge, mer_blocks_log2=mer, stats=self.stats)
             ref1 = self._ref_by_poc(sh.ref_pocs_l1[0])
+            if cache is not None:
+                cache.simulate_mc(np.where(dirs[..., None] == 1, mv1, mv0),
+                                  s, sps.width)
             recon = inter_frame.reconstruct_b_frame(
                 *self._tensors(mv0, mv1, dirs, ly, lu, lv), ref.planes,
                 ref1.planes, *args, bdof=sl_bdof, dmvr=sl_dmvr,
@@ -406,7 +428,7 @@ class DecLib:
             mvs = np.where(dirs[..., None] == 1, mv1, mv0)
         elif sps.affine:
             mvs, aff, dmv, ly, lu, lv = decode_p_slice_affine(
-                cabac_bytes, nby, nbx, s)
+                cabac_bytes, nby, nbx, s, stats=self.stats)
             recon = affine_mod.reconstruct_p_frame_affine(
                 *self._tensors(mvs, aff, dmv, ly, lu, lv), *ref.planes,
                 *args)
@@ -414,6 +436,8 @@ class DecLib:
             ridx, mvs, ly, lu, lv = decode_p_slice_2ref(
                 cabac_bytes, nby, nbx, s, mer_blocks_log2=mer, **tools)
             self._mv_fields[sh.poc] = mvs
+            if cache is not None:
+                cache.simulate_mc(mvs, s, sps.width)
             ref2 = self._ref_by_poc(sh.ref_pocs_l0[1])
             recon = inter_frame.reconstruct_p_frame_2ref(
                 *self._tensors(ridx, mvs, ly, lu, lv), ref.planes,
@@ -425,6 +449,8 @@ class DecLib:
                 cabac_bytes, nby, nbx, s, use_merge=sps.merge,
                 mer_blocks_log2=mer, **tools)
             self._mv_fields[sh.poc] = mvs
+            if cache is not None:
+                cache.simulate_mc(mvs, s, sps.width)
             recon = inter_frame.reconstruct_p_frame(
                 *self._tensors(mvs, ly, lu, lv), *ref.planes, *args,
                 wp=wp0, scaling=scaling)
@@ -452,7 +478,8 @@ class DecLib:
             self._decode_p_flat(sh, cabac_bytes, ref, active, epipoles)
             return
         midx_u, mv_u, levels, has_resid_u, leaf_id_u = decode_p_slice_qt_mm(
-            cabac_bytes, sps.height, sps.width, s, depth, len(active))
+            cabac_bytes, sps.height, sps.width, s, depth, len(active),
+            stats=self.stats)
         u = s >> depth
         positions = None
         if self.positions_fn is not None:
@@ -478,8 +505,11 @@ class DecLib:
         model_idx, mvs, ly, lu, lv = decode_p_slice_mm(
             cabac_bytes, nby, nbx, s, active, self.mvp_conv, ep_mvp,
             use_merge=sps.merge, mer_blocks_log2=mer_blocks_log2(
-                sps.log2_parallel_merge_level, s))
+                sps.log2_parallel_merge_level, s), stats=self.stats)
         stack = _stack_of(model_idx, mvs, len(active))
+        if self.cache_model is not None:
+            self.cache_model.report_subblock_mc(
+                (sps.height // 4) * (sps.width // 4))
         positions = self._positions(active, model_idx, stack, s, epipoles)
         recon = mm_codec.reconstruct_p_frame_mm(
             self.reproj, active, model_idx, stack, ly, lu, lv, *ref.planes,
@@ -513,7 +543,7 @@ class DecLib:
             (eps0 or {}).get(MotionModelID.GEODESIC_CAMPOSE),
             (eps1 or {}).get(MotionModelID.GEODESIC_CAMPOSE),
             use_merge=sps.merge, mer_blocks_log2=mer_blocks_log2(
-                sps.log2_parallel_merge_level, s))
+                sps.log2_parallel_merge_level, s), stats=self.stats)
         n_active = len(active)
         stacks = [_stack_of(midx0, mv0, n_active),
                   _stack_of(midx1, mv1, n_active)]

@@ -33,7 +33,8 @@ from ..encoder.inter_coder import (MERGE_MAX, HmvpList, _b_dir_pred,
                                    merge_candidates_unit_b, mvp_median,
                                    mvp_unit_grid, mvp_unit_grid_mm,
                                    walk_tree)
-from ..utils.native import NativeBinDecoder
+from ..utils import trace as trace_mod
+from ..utils.trace import label, make_decoder
 from ..encoder.intra_coder import wpp_bounds
 from .intra_parser import parse_wpp_frame
 
@@ -71,7 +72,9 @@ def decode_motion_model(dec: BinDecoder, n_active: int) -> int:
 def _decode_residual(dec: BinDecoder, levs, sizes, by: int, bx: int
                      ) -> None:
     for ci, (lev, size) in enumerate(zip(levs, sizes)):
+        label(dec, "cbf")
         if dec.decode_bin(ctx_id("QtCbf", (0, 4, 5)[ci])):
+            label(dec, "residual_" + "yuv"[ci])
             lev[by, bx] = dec.decode_coeffs(size, size, chroma=(ci != 0))
 
 
@@ -91,13 +94,19 @@ def _decode_amvp_mv(dec: BinDecoder, cands, use_tmvp: bool,
                     use_amvr: bool) -> np.ndarray:
     """The mvp index (TMVP), the AMVR precision and the mvd of an AMVP
     block -> its MV (inverse of inter_coder._code_amvp_mvd)."""
-    idx = dec.decode_bin(ctx_id("MvpIdx")) if use_tmvp else 0
+    idx = 0
+    if use_tmvp:
+        label(dec, "mvp_idx")
+        idx = dec.decode_bin(ctx_id("MvpIdx"))
     if not use_amvr:
+        label(dec, "mvd")
         return cands[idx] + _decode_mvd(dec)
+    label(dec, "amvr_mode")
     m = 0
     if dec.decode_bin(ctx_id("Amvr", 0)):
         m = 1 + dec.decode_bin(ctx_id("Amvr", 1))
     sh = AMVR_SHIFTS[m]
+    label(dec, "mvd")
     return round_mv_amvr(cands[idx], sh) + (_decode_mvd(dec) << sh)
 
 
@@ -105,7 +114,7 @@ def decode_p_slice(data: bytes, nby: int, nbx: int, s: int,
                    col_mvs: np.ndarray | None = None,
                    use_tmvp: bool = False, use_amvr: bool = False,
                    use_merge: bool = False, mer_blocks_log2: int = 0,
-                   rows: tuple | None = None, state=None):
+                   rows: tuple | None = None, state=None, stats=None):
     """Exact inverse of encoder.inter_coder.encode_p_slice.  Returns (mvs
     (nby,nbx,2) 1/16-pel, lev_y, lev_u, lev_v).  With use_merge, skip
     means merge+no-residual and non-skip blocks carry a merge_flag; merge
@@ -115,7 +124,7 @@ def decode_p_slice(data: bytes, nby: int, nbx: int, s: int,
     use_amvr each AMVP block's precision scales its mvd.  `rows` (r0, r1)
     parses only those block rows (one WPP substream, a fresh HMVP FIFO)
     into `state`, the (mvs, lev_y, lev_u, lev_v) grids of the slice."""
-    dec = NativeBinDecoder(data)
+    dec = make_decoder(data, stats)
     if state is None:
         state = (np.zeros((nby, nbx, 2), dtype=np.int64),) + _new_levels(
             nby, nbx, s)
@@ -129,19 +138,23 @@ def decode_p_slice(data: bytes, nby: int, nbx: int, s: int,
                    if (use_tmvp and col_mvs is not None) else None)
             mrg = False
             if use_merge:
+                label(dec, "skip_flag")
                 skip = bool(dec.decode_bin(ctx_id("SkipFlag")))
-                mrg = skip or bool(dec.decode_bin(ctx_id("MergeFlag")))
+                mrg = skip or bool(label(dec, "merge_flag") or dec.decode_bin(
+                    ctx_id("MergeFlag")))
                 if mrg:
                     mcands = merge_candidates(
                         mvs, by, bx, col, hist,
                         mer_blocks_log2=mer_blocks_log2)
+                    label(dec, "merge_idx")
                     mvs[by, bx] = mcands[decode_merge_idx(dec)]
                     if not skip:
                         _decode_residual(dec, levs, sizes, by, bx)
             if not mrg:
                 cands = (amvp_list(mvs, by, bx, col, hist) if use_tmvp
                          else [mvp_median(mvs, by, bx)])
-                if not use_merge and dec.decode_bin(ctx_id("SkipFlag")):
+                if not use_merge and (label(dec, "skip_flag")
+                                      or dec.decode_bin(ctx_id("SkipFlag"))):
                     mvs[by, bx] = cands[0]
                 else:
                     mvs[by, bx] = _decode_amvp_mv(dec, cands, use_tmvp,
@@ -155,10 +168,10 @@ def decode_p_slice(data: bytes, nby: int, nbx: int, s: int,
 def decode_p_slice_2ref(data: bytes, nby: int, nbx: int, s: int,
                         col_mvs: np.ndarray | None = None,
                         use_tmvp: bool = False, use_amvr: bool = False,
-                        mer_blocks_log2: int = 0):
+                        mer_blocks_log2: int = 0, stats=None):
     """Exact inverse of encoder.inter_coder.encode_p_slice_2ref.  Returns
     (ref_idx, mvs, lev_y, lev_u, lev_v)."""
-    dec = NativeBinDecoder(data)
+    dec = make_decoder(data, stats)
     ref_idx = np.zeros((nby, nbx), dtype=np.int32)
     mvs = np.zeros((nby, nbx, 2), dtype=np.int64)
     levs = _new_levels(nby, nbx, s)
@@ -168,13 +181,17 @@ def decode_p_slice_2ref(data: bytes, nby: int, nbx: int, s: int,
         for bx in range(nbx):
             col = (col_mvs[by, bx]
                    if (use_tmvp and col_mvs is not None) else None)
+            label(dec, "skip_flag")
             skip = bool(dec.decode_bin(ctx_id("SkipFlag")))
-            if skip or dec.decode_bin(ctx_id("MergeFlag")):
+            if skip or (label(dec, "merge_flag")
+                        or dec.decode_bin(ctx_id("MergeFlag"))):
                 mcands = merge_candidates_ref(
                     ref_idx, mvs, by, bx, col, hist,
                     mer_blocks_log2=mer_blocks_log2)
+                label(dec, "merge_idx")
                 ref_idx[by, bx], mvs[by, bx] = mcands[decode_merge_idx(dec)]
             else:
+                label(dec, "ref_idx")
                 ref_idx[by, bx] = dec.decode_bin(ctx_id("RefPic", 0))
                 cands = (amvp_list(mvs, by, bx, col, hist) if use_tmvp
                          else [mvp_median(mvs, by, bx)])
@@ -187,10 +204,11 @@ def decode_p_slice_2ref(data: bytes, nby: int, nbx: int, s: int,
     return (ref_idx, mvs) + levs
 
 
-def decode_p_slice_affine(data: bytes, nby: int, nbx: int, s: int):
+def decode_p_slice_affine(data: bytes, nby: int, nbx: int, s: int,
+                          stats=None):
     """Exact inverse of encoder.inter_coder.encode_p_slice_affine.
     Returns (mvs, aff, dmv, lev_y, lev_u, lev_v)."""
-    dec = NativeBinDecoder(data)
+    dec = make_decoder(data, stats)
     mvs = np.zeros((nby, nbx, 2), dtype=np.int64)
     aff = np.zeros((nby, nbx), dtype=bool)
     dmv = np.zeros((nby, nbx, 2), dtype=np.int64)
@@ -199,10 +217,13 @@ def decode_p_slice_affine(data: bytes, nby: int, nbx: int, s: int):
     for by in range(nby):
         for bx in range(nbx):
             pred = mvp_median(mvs, by, bx)
+            label(dec, "skip_flag")
             if dec.decode_bin(ctx_id("SkipFlag")):
                 mvs[by, bx] = pred
                 continue
+            label(dec, "affine_flag")
             aff[by, bx] = bool(dec.decode_bin(ctx_id("AffineFlag", 0)))
+            label(dec, "mvd")
             mvs[by, bx] = pred + _decode_mvd(dec)
             if aff[by, bx]:
                 dmv[by, bx] = _decode_mvd(dec)
@@ -213,13 +234,13 @@ def decode_p_slice_affine(data: bytes, nby: int, nbx: int, s: int):
 def decode_b_slice(data: bytes, nby: int, nbx: int, s: int,
                    use_gpm: bool = False, use_ciip: bool = False,
                    use_merge: bool = False, mer_blocks_log2: int = 0,
-                   rows: tuple | None = None, state=None):
+                   rows: tuple | None = None, state=None, stats=None):
     """Exact inverse of encoder.inter_coder.encode_b_slice.  Returns (mv0,
     mv1, dirs, lev_y, lev_u, lev_v, gpm_modes): dirs 3 (GPM, its mask in
     gpm_modes) and 4 (CIIP) are read where the SPS gates their bins in.
     `rows` (r0, r1) parses only those block rows (one WPP substream) into
     `state`, a tuple of those seven grids."""
-    dec = NativeBinDecoder(data)
+    dec = make_decoder(data, stats)
     if state is None:
         state = (np.zeros((nby, nbx, 2), dtype=np.int64),
                  np.zeros((nby, nbx, 2), dtype=np.int64),
@@ -233,11 +254,14 @@ def decode_b_slice(data: bytes, nby: int, nbx: int, s: int,
             pred0 = mvp_median(mv0, by, bx)
             pred1 = mvp_median(mv1, by, bx)
             if use_merge:
+                label(dec, "skip_flag")
                 skip = bool(dec.decode_bin(ctx_id("SkipFlag")))
-                if skip or dec.decode_bin(ctx_id("MergeFlag")):
+                if skip or (label(dec, "merge_flag")
+                            or dec.decode_bin(ctx_id("MergeFlag"))):
                     mcands = merge_candidates_b(
                         dirs, mv0, mv1, by, bx,
                         mer_blocks_log2=mer_blocks_log2)
+                    label(dec, "merge_idx")
                     cd, c0, c1 = mcands[decode_merge_idx(dec)]
                     dirs[by, bx] = cd
                     # entropy convention: the unused list takes its MVP
@@ -246,7 +270,8 @@ def decode_b_slice(data: bytes, nby: int, nbx: int, s: int,
                     if not skip:
                         _decode_residual(dec, levs, sizes, by, bx)
                     continue
-            elif dec.decode_bin(ctx_id("SkipFlag")):
+            elif label(dec, "skip_flag") or dec.decode_bin(
+                    ctx_id("SkipFlag")):
                 d_pred = (int(dirs[by, bx - 1]) if bx > 0
                           else int(dirs[by - 1, bx]) if by > 0 else 0)
                 dirs[by, bx] = min(d_pred, 2)
@@ -256,15 +281,19 @@ def decode_b_slice(data: bytes, nby: int, nbx: int, s: int,
             if dec.decode_bin(ctx_id("InterDir", 0)):
                 d = 2
                 if use_gpm and use_ciip:
+                    label(dec, "geo_flag")
                     if dec.decode_bin(ctx_id("GeoFlag")):
                         d = 4 if dec.decode_bin(ctx_id("CiipFlag")) else 3
                 elif use_gpm:
+                    label(dec, "geo_flag")
                     if dec.decode_bin(ctx_id("GeoFlag")):
                         d = 3
                 elif use_ciip:
+                    label(dec, "ciip_flag")
                     if dec.decode_bin(ctx_id("CiipFlag")):
                         d = 4
                 if d == 3:
+                    label(dec, "gpm_mode")
                     g = 0
                     for _ in range(4):
                         g = (g << 1) | dec.decode_bin_ep()
@@ -272,7 +301,8 @@ def decode_b_slice(data: bytes, nby: int, nbx: int, s: int,
             else:
                 d = dec.decode_bin(ctx_id("InterDir", 1))
             dirs[by, bx] = d
-            smvd = d == 2 and bool(dec.decode_bin(ctx_id("SmvdFlag")))
+            smvd = d == 2 and bool(label(dec, "smvd_flag") or dec.decode_bin(
+                ctx_id("SmvdFlag")))
             mvd = _decode_mvd(dec) if d != 1 else np.zeros(2, np.int64)
             mv0[by, bx] = pred0 + mvd
             if d == 0:
@@ -315,11 +345,12 @@ def decode_b_slice_wpp(data: bytes, nby: int, nbx: int, s: int, **kw):
 
 def decode_p_slice_mm(data: bytes, nby: int, nbx: int, s: int,
                       active_models: list[int], conv=None, epipole=None,
-                      use_merge: bool = False, mer_blocks_log2: int = 0):
+                      use_merge: bool = False, mer_blocks_log2: int = 0,
+                      stats=None):
     """Exact inverse of encoder.inter_coder.encode_p_slice_mm (flat grid).
     Returns (model_idx, mvs (nby,nbx,2), lev_y, lev_u, lev_v) — mvs holds
     each block's MV in its model."""
-    dec = NativeBinDecoder(data)
+    dec = make_decoder(data, stats)
     sc = s // 2
     model_idx = np.zeros((nby, nbx), dtype=np.int32)
     models_sel = np.zeros((nby, nbx), dtype=np.int32)
@@ -332,11 +363,15 @@ def decode_p_slice_mm(data: bytes, nby: int, nbx: int, s: int,
     for by in range(nby):
         for bx in range(nbx):
             if use_merge:
+                label(dec, "skip_flag")
                 skip = bool(dec.decode_bin(ctx_id("SkipFlag")))
+                if not skip:
+                    label(dec, "merge_flag")
                 if skip or dec.decode_bin(ctx_id("MergeFlag")):
                     mcands = merge_candidates_mm(
                         model_idx, mvs, by, bx,
                         mer_blocks_log2=mer_blocks_log2)
+                    label(dec, "merge_idx")
                     ci, cmv = mcands[decode_merge_idx(dec)]
                     model_idx[by, bx] = ci
                     models_sel[by, bx] = active_models[ci]
@@ -344,19 +379,28 @@ def decode_p_slice_mm(data: bytes, nby: int, nbx: int, s: int,
                     if not skip:
                         _decode_residual(dec, levs, sizes, by, bx)
                     continue
-            elif dec.decode_bin(ctx_id("SkipFlag")):
+            elif label(dec, "skip_flag") or dec.decode_bin(
+                    ctx_id("SkipFlag")):
                 model = inherited_model(models_sel, by, bx)
                 models_sel[by, bx] = model
                 model_idx[by, bx] = model_to_idx[model]
                 mvs[by, bx] = _mm_mvp(mvs, models_sel, by, bx, model, s,
                                       conv, epipole)
                 continue
+            label(dec, "motion_model")
             midx = decode_motion_model(dec, len(active_models))
             model = active_models[midx]
             model_idx[by, bx] = midx
             models_sel[by, bx] = model
+            if trace_mod.TRACE is not None:
+                trace_mod.TRACE.log("motion_model", by=by, bx=bx,
+                                    model=model)
+            label(dec, "mvd")
             mvd = np.array([decode_mvd_comp(dec), decode_mvd_comp(dec)],
                            dtype=np.int64)
+            if trace_mod.TRACE is not None:
+                trace_mod.TRACE.log("mvd", by=by, bx=bx, x=int(mvd[0]),
+                                    y=int(mvd[1]))
             pred = _mm_mvp(mvs, models_sel, by, bx, model, s, conv, epipole)
             mvs[by, bx] = pred + mvd
             _decode_residual(dec, levs, sizes, by, bx)
@@ -364,13 +408,13 @@ def decode_p_slice_mm(data: bytes, nby: int, nbx: int, s: int,
 
 
 def decode_p_slice_qt_mm(data: bytes, h: int, w: int, top: int,
-                         depth: int, n_active: int):
+                         depth: int, n_active: int, stats=None):
     """Exact inverse of encoder.inter_coder.encode_p_slice_qt_mm (the
     merge-aware leaf syntax: skip(=merge+no-residual) / merge /
     motion_model+mvd, then cbf+coeffs; candidates on the causal unit
     grid via merge_candidates_qt_mm).  Returns (midx_unit, mv_unit,
     levels [per size (ly,lu,lv)], has_resid_unit, leaf_id_unit)."""
-    dec = NativeBinDecoder(data)
+    dec = make_decoder(data, stats)
     u = top >> depth
     nuy, nux = h // u, w // u
     nty, ntx = h // top, w // top
@@ -390,7 +434,9 @@ def decode_p_slice_qt_mm(data: bytes, h: int, w: int, top: int,
     def parse_resid(d, by, bx, s):
         hr = False
         for ci, lev in enumerate(levels[d]):
+            label(dec, "cbf")
             if dec.decode_bin(ctx_id("QtCbf", (0, 4, 5)[ci])):
+                label(dec, "residual_" + "yuv"[ci])
                 sz = s if ci == 0 else s // 2
                 lev[by, bx] = dec.decode_coeffs(sz, sz,
                                                 chroma=(ci != 0))
@@ -402,21 +448,27 @@ def decode_p_slice_qt_mm(data: bytes, h: int, w: int, top: int,
         k = s // u
         uy, ux = by * k, bx * k
         hr = False
+        label(dec, "skip_flag")
         if dec.decode_bin(ctx_id("SkipFlag")):
             cands = merge_candidates_qt_mm(models_u, coded, avail, uy, ux,
                                            k)
+            label(dec, "merge_idx")
             midx, mv = cands[decode_merge_idx(dec)]
             mv = np.asarray(mv, dtype=np.int64)
         else:
+            label(dec, "merge_flag")
             if dec.decode_bin(ctx_id("MergeFlag")):
                 cands = merge_candidates_qt_mm(models_u, coded, avail, uy,
                                                ux, k)
+                label(dec, "merge_idx")
                 midx, mv = cands[decode_merge_idx(dec)]
                 mv = np.asarray(mv, dtype=np.int64)
             else:
+                label(dec, "motion_model")
                 midx = decode_motion_model(dec, n_active)
                 pred = mvp_unit_grid_mm(coded, models_u, avail, uy, ux, k,
                                         midx)
+                label(dec, "mvd")
                 mvd = np.array([decode_mvd_comp(dec),
                                 decode_mvd_comp(dec)], dtype=np.int64)
                 mv = pred + mvd
@@ -429,6 +481,7 @@ def decode_p_slice_qt_mm(data: bytes, h: int, w: int, top: int,
 
     def parse_node(d, by, bx):
         if d < depth:
+            label(dec, "split_flag")
             if dec.decode_bin(ctx_id("SplitFlag", min(d, 8))):
                 for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
                     parse_node(d + 1, 2 * by + dy, 2 * bx + dx)
@@ -444,11 +497,11 @@ def decode_p_slice_qt_mm(data: bytes, h: int, w: int, top: int,
 def decode_b_slice_mm(data: bytes, nby: int, nbx: int, s: int,
                       active_models: list[int], conv=None, epipole0=None,
                       epipole1=None, use_merge: bool = False,
-                      mer_blocks_log2: int = 0):
+                      mer_blocks_log2: int = 0, stats=None):
     """Exact inverse of encoder.inter_coder.encode_b_slice_mm.  Returns
     (model_idx0, model_idx1, mv0, mv1, dirs, lev_y, lev_u, lev_v) — mv
     grids carry the selected model's MV per block."""
-    dec = NativeBinDecoder(data)
+    dec = make_decoder(data, stats)
     sc = s // 2
     n_active = len(active_models)
     midx0 = np.zeros((nby, nbx), dtype=np.int32)
@@ -496,11 +549,14 @@ def decode_b_slice_mm(data: bytes, nby: int, nbx: int, s: int,
                         mv1[by, bx] = _mm_mvp(mv1, models1, by, bx, inh1,
                                               s, conv, epipole1)
 
+                label(dec, "skip_flag")
                 skip = bool(dec.decode_bin(ctx_id("SkipFlag")))
                 mrg = skip
                 if not skip:
+                    label(dec, "merge_flag")
                     mrg = bool(dec.decode_bin(ctx_id("MergeFlag")))
                 if mrg:
+                    label(dec, "merge_idx")
                     apply_cand(mcands[decode_merge_idx(dec)])
                     if skip:
                         continue
@@ -511,18 +567,22 @@ def decode_b_slice_mm(data: bytes, nby: int, nbx: int, s: int,
                         d = dec.decode_bin(ctx_id("InterDir", 1))
                     dirs[by, bx] = d
                     if d != 1:
+                        label(dec, "motion_model")
                         mi = decode_motion_model(dec, n_active)
                         midx0[by, bx] = mi
                         models0[by, bx] = active_models[mi]
+                        label(dec, "mvd")
                         mvd = np.array([decode_mvd_comp(dec),
                                         decode_mvd_comp(dec)], np.int64)
                         p = _mm_mvp(mv0, models0, by, bx,
                                     active_models[mi], s, conv, epipole0)
                         mv0[by, bx] = p + mvd
                     if d != 0:
+                        label(dec, "motion_model")
                         mi = decode_motion_model(dec, n_active)
                         midx1[by, bx] = mi
                         models1[by, bx] = active_models[mi]
+                        label(dec, "mvd")
                         mvd = np.array([decode_mvd_comp(dec),
                                         decode_mvd_comp(dec)], np.int64)
                         p = _mm_mvp(mv1, models1, by, bx,
@@ -531,7 +591,9 @@ def decode_b_slice_mm(data: bytes, nby: int, nbx: int, s: int,
                     _unused_override(d)
                 for ci, (lev, size) in enumerate(((lev_y, s), (lev_u, sc),
                                                  (lev_v, sc))):
+                    label(dec, "cbf")
                     if dec.decode_bin(ctx_id("QtCbf", (0, 4, 5)[ci])):
+                        label(dec, "residual_" + "yuv"[ci])
                         lev[by, bx] = dec.decode_coeffs(size, size,
                                                         chroma=(ci != 0))
         return midx0, midx1, mv0, mv1, dirs, lev_y, lev_u, lev_v
@@ -541,6 +603,7 @@ def decode_b_slice_mm(data: bytes, nby: int, nbx: int, s: int,
                       else int(dirs[by - 1, bx]) if by > 0 else 0)
             inh0 = inherited_model(models0, by, bx)
             inh1 = inherited_model(models1, by, bx)
+            label(dec, "skip_flag")
             if dec.decode_bin(ctx_id("SkipFlag")):
                 d = d_pred
                 dirs[by, bx] = d
@@ -559,18 +622,22 @@ def decode_b_slice_mm(data: bytes, nby: int, nbx: int, s: int,
                 d = dec.decode_bin(ctx_id("InterDir", 1))
             dirs[by, bx] = d
             if d != 1:
+                label(dec, "motion_model")
                 mi = decode_motion_model(dec, n_active)
                 midx0[by, bx] = mi
                 models0[by, bx] = active_models[mi]
+                label(dec, "mvd")
                 mvd = np.array([decode_mvd_comp(dec),
                                 decode_mvd_comp(dec)], dtype=np.int64)
                 p = _mm_mvp(mv0, models0, by, bx, active_models[mi], s,
                             conv, epipole0)
                 mv0[by, bx] = p + mvd
             if d != 0:
+                label(dec, "motion_model")
                 mi = decode_motion_model(dec, n_active)
                 midx1[by, bx] = mi
                 models1[by, bx] = active_models[mi]
+                label(dec, "mvd")
                 mvd = np.array([decode_mvd_comp(dec),
                                 decode_mvd_comp(dec)], dtype=np.int64)
                 p = _mm_mvp(mv1, models1, by, bx, active_models[mi], s,
@@ -578,7 +645,9 @@ def decode_b_slice_mm(data: bytes, nby: int, nbx: int, s: int,
                 mv1[by, bx] = p + mvd
             for ci, (lev, size) in enumerate(((lev_y, s), (lev_u, sc),
                                              (lev_v, sc))):
+                label(dec, "cbf")
                 if dec.decode_bin(ctx_id("QtCbf", (0, 4, 5)[ci])):
+                    label(dec, "residual_" + "yuv"[ci])
                     lev[by, bx] = dec.decode_coeffs(size, size,
                                                     chroma=(ci != 0))
             # unused-list entries: inherited model + its MVP (mirrors the
@@ -602,15 +671,19 @@ def decode_b_slice_mm(data: bytes, nby: int, nbx: int, s: int,
 def _parse_split_syntax(dec: BinDecoder, d: int, s: int, u: int,
                         mtt: bool) -> int:
     """Inverse of inter_coder._code_split_syntax: the split code."""
+    label(dec, "split_flag")
     if not dec.decode_bin(ctx_id("SplitFlag", min(d, 8))):
         return mtt_mod.LEAF
-    if not mtt or dec.decode_bin(ctx_id("QtSplitFlag", min(d, 2))):
+    if not mtt or (label(dec, "split_qt_flag")
+                   or dec.decode_bin(ctx_id("QtSplitFlag", min(d, 2)))):
         return mtt_mod.QUAD
     bt_ok = mtt_mod.bt_allowed(s, u)
     if bt_ok and mtt_mod.tt_allowed(s, u):
+        label(dec, "mtt_binary_flag")
         bt = bool(dec.decode_bin(ctx_id("BtFlag", min(d, 2))))
     else:
         bt = bt_ok
+    label(dec, "mtt_vertical_flag")
     vert = bool(dec.decode_bin(ctx_id("MttVert", min(d, 2))))
     if bt:
         return mtt_mod.BTV if vert else mtt_mod.BTH
@@ -636,12 +709,12 @@ def _alloc_tree_levels(h: int, w: int, top: int, depth: int, mtt: bool):
 
 
 def _decode_tree(data: bytes, h: int, w: int, top: int, depth: int,
-                 mtt: bool, use_merge: bool, bi: bool):
+                 mtt: bool, use_merge: bool, bi: bool, stats=None):
     """Exact inverse of inter_coder._encode_tree.  Returns (coded grids —
     (mv_unit,) for P, (mv0_unit, mv1_unit, dirs_unit) for B —, square
     levels [per size (ly, lu, lv)], rect levels {(kind, d): trio},
     has_resid_unit, leaf_id_unit)."""
-    dec = NativeBinDecoder(data)
+    dec = make_decoder(data, stats)
     u = top >> depth
     nuy, nux = h // u, w // u
     sq, rect = _alloc_tree_levels(h, w, top, depth, mtt)
@@ -653,10 +726,17 @@ def _decode_tree(data: bytes, h: int, w: int, top: int, depth: int,
     has_resid = np.zeros((nuy, nux), dtype=bool)
     leaf_id = np.zeros((nuy, nux), dtype=np.int32)
 
+    # the JAX parsers' labels: a classic quadtree B slice without merge
+    # counts its residual bins under "cbf"
+    resid_label = mtt or use_merge or not bi
+
     def parse_resid(levs):
         hr = False
         for ci, lev in enumerate(levs):
+            label(dec, "cbf")
             if dec.decode_bin(ctx_id("QtCbf", (0, 4, 5)[ci])):
+                if resid_label:
+                    label(dec, "residual_" + "yuv"[ci])
                 lev[...] = dec.decode_coeffs(*lev.shape, chroma=(ci != 0))
                 hr = True
         return hr
@@ -679,10 +759,13 @@ def _decode_tree(data: bytes, h: int, w: int, top: int, depth: int,
         else:
             cands = (merge_candidates_unit(coded0, avail, uy, ux, kx)
                      if use_merge else None)
+        label(dec, "skip_flag")
         skip = bool(dec.decode_bin(ctx_id("SkipFlag")))
         if use_merge:
-            mrg = skip or bool(dec.decode_bin(ctx_id("MergeFlag")))
+            mrg = skip or bool(label(dec, "merge_flag") or dec.decode_bin(
+                ctx_id("MergeFlag")))
             if mrg:
+                label(dec, "merge_idx")
                 c = cands[decode_merge_idx(dec)]
                 if bi:
                     dv, mv0, mv1 = (c[0], np.asarray(c[1], np.int64),
@@ -701,6 +784,7 @@ def _decode_tree(data: bytes, h: int, w: int, top: int, depth: int,
             if bi:
                 dv, mv0, mv1 = dir_and_mvds(pred0, pred1)
             else:
+                label(dec, "mvd")
                 mv0 = pred0 + _decode_mvd(dec)
         hr = False if skip else parse_resid(levs)
         span = (slice(uy, uy + ky), slice(ux, ux + kx))
@@ -721,39 +805,39 @@ def _decode_tree(data: bytes, h: int, w: int, top: int, depth: int,
 
 
 def decode_p_slice_qt(data: bytes, h: int, w: int, top: int, depth: int,
-                      use_merge: bool = False):
+                      use_merge: bool = False, stats=None):
     """Exact inverse of encoder.inter_coder.encode_p_slice_qt.  Returns
     (mv_unit (nuy,nux,2), levels [per size (ly,lu,lv)], has_resid_unit,
     leaf_id_unit), the resolved outputs of qtree.encode_p_frame_qt."""
     (mv_u,), sq, _, hr, lid = _decode_tree(data, h, w, top, depth, False,
-                                           use_merge, False)
+                                           use_merge, False, stats)
     return mv_u, sq, hr, lid
 
 
 def decode_b_slice_qt(data: bytes, h: int, w: int, top: int, depth: int,
-                      use_merge: bool = False):
+                      use_merge: bool = False, stats=None):
     """Exact inverse of encoder.inter_coder.encode_b_slice_qt.  Returns
     (mv0_unit, mv1_unit, dirs_unit, levels, has_resid_unit,
     leaf_id_unit)."""
     coded, sq, _, hr, lid = _decode_tree(data, h, w, top, depth, False,
-                                         use_merge, True)
+                                         use_merge, True, stats)
     return (*coded, sq, hr, lid)
 
 
 def decode_p_slice_mtt(data: bytes, h: int, w: int, top: int, depth: int,
-                       use_merge: bool = False):
+                       use_merge: bool = False, stats=None):
     """Exact inverse of encoder.inter_coder.encode_p_slice_mtt.  Returns
     (mv_unit, sq_levels, rect_levels, has_resid_unit, leaf_id_unit)."""
     (mv_u,), sq, rect, hr, lid = _decode_tree(data, h, w, top, depth, True,
-                                              use_merge, False)
+                                              use_merge, False, stats)
     return mv_u, sq, rect, hr, lid
 
 
 def decode_b_slice_mtt(data: bytes, h: int, w: int, top: int, depth: int,
-                       use_merge: bool = False):
+                       use_merge: bool = False, stats=None):
     """Exact inverse of encoder.inter_coder.encode_b_slice_mtt.  Returns
     (mv0_unit, mv1_unit, dirs_unit, sq_levels, rect_levels,
     has_resid_unit, leaf_id_unit)."""
     coded, sq, rect, hr, lid = _decode_tree(data, h, w, top, depth, True,
-                                            use_merge, True)
+                                            use_merge, True, stats)
     return (*coded, sq, rect, hr, lid)

@@ -18,7 +18,7 @@ from ..common.cabac import BinDecoder
 from ..common.contexts import ctx_id
 from ..common.wavefront import IBC_BASE, mpm3_host
 from ..encoder.intra_coder import wpp_bounds
-from ..utils.native import NativeBinDecoder
+from ..utils.trace import label, make_decoder
 
 
 def decode_intra_mode(dec: BinDecoder, left: int, above: int) -> int:
@@ -35,11 +35,13 @@ def decode_intra_slice(data: bytes, nby: int, nbx: int, s: int,
                        lfnst: bool = False, ts: bool = False,
                        bdpcm: bool = False, mts: bool = False,
                        cclm: bool = False, mip: bool = False,
-                       mrl: bool = False, ibc: bool = False):
+                       mrl: bool = False, ibc: bool = False, stats=None):
     """Returns the dense grids (modes, cclm_flags, lfnst_idx, mrl_idx,
     ts_mode, mts_idx, lev_y, lev_u, lev_v).  The flags: the SPS tools
-    whose syntax the slice carries."""
-    dec = NativeBinDecoder(data)
+    whose syntax the slice carries.  With `stats` (utils.trace.BitStats)
+    the Python spec coder runs with per-syntax accounting (the
+    DecoderAnalyserApp analog)."""
+    dec = make_decoder(data, stats)
     grids = _alloc_grids(nby, nbx, s)
     _decode_intra_rows(dec, grids, s, 0, nby, lfnst, ts, bdpcm, mts, cclm,
                        mip, mrl, ibc)
@@ -61,7 +63,7 @@ def parse_wpp_frame(data: bytes) -> list[bytes]:
 
 
 def decode_intra_slice_wpp(data: bytes, nby: int, nbx: int, s: int,
-                           **tools):
+                           stats=None, **tools):
     """The WPP variant of decode_intra_slice (same tool flags and result):
     one independently decodable substream with fresh contexts per row
     group, parsed in row order into shared grids."""
@@ -69,7 +71,7 @@ def decode_intra_slice_wpp(data: bytes, nby: int, nbx: int, s: int,
     bounds = wpp_bounds(nby, len(subs))
     grids = _alloc_grids(nby, nbx, s)
     for i, sub in enumerate(subs):
-        _decode_intra_rows(NativeBinDecoder(sub), grids, s, bounds[i],
+        _decode_intra_rows(make_decoder(sub, stats), grids, s, bounds[i],
                            bounds[i + 1], **tools)
     return grids
 
@@ -103,33 +105,43 @@ def _decode_intra_rows(dec, grids, s: int, r0: int, r1: int,
             above = int(modes[by - 1, bx]) if by > 0 else -1
             left = 0 if left >= 67 else left
             above = 0 if above >= 67 else above
-            is_ibc = ibc and bool(dec.decode_bin(ctx_id("IbcFlag", 0)))
+            label(dec, "intra_mode")
+            is_ibc = ibc and bool(label(dec, "ibc_flag") or dec.decode_bin(
+                ctx_id("IbcFlag", 0)))
             if is_ibc:
                 modes[by, bx] = IBC_BASE + dec.decode_bins_ep(4)
-            elif mip and dec.decode_bin(ctx_id("MipFlag")):
+            elif mip and (label(dec, "mip_flag")
+                          or dec.decode_bin(ctx_id("MipFlag"))):
                 modes[by, bx] = 67 + dec.decode_bins_ep(3)
             else:
                 modes[by, bx] = decode_intra_mode(dec, left, above)
                 if mrl:
+                    label(dec, "mrl_idx")
                     mr[by, bx] = dec.decode_bin(ctx_id("MultiRefLineIdx"))
             if cclm and not is_ibc:
+                label(dec, "cclm_flag")
                 lm[by, bx] = dec.decode_bin(ctx_id("IntraChromaPredMode"))
-            if ts and dec.decode_bin(ctx_id("TransformSkipFlag", 0)):
+            if ts and (label(dec, "transform_skip_flag")
+                       or dec.decode_bin(ctx_id("TransformSkipFlag", 0))):
                 tsg[by, bx] = 1
                 if bdpcm and dec.decode_bin(ctx_id("BDPCMFlag", 0)):
                     tsg[by, bx] = 2 + dec.decode_bin(ctx_id("BDPCMFlag", 1))
             for comp, lev, size in (("y", lev_y, s), ("u", lev_u, sc),
                                     ("v", lev_v, sc)):
                 cbf_ctx = ctx_id("QtCbf", {"y": 0, "u": 4, "v": 5}[comp])
+                label(dec, "cbf")
                 cbf = bool(dec.decode_bin(cbf_ctx))
                 if cbf:
+                    label(dec, "residual_" + comp)
                     lev[by, bx] = dec.decode_coeffs(size, size,
                                                     chroma=(comp != "y"))
                 if comp != "y" or not cbf or tsg[by, bx]:
                     continue
-                if lfnst and dec.decode_bin(ctx_id("LFNSTIdx", 0)):
+                if lfnst and (label(dec, "lfnst_idx")
+                              or dec.decode_bin(ctx_id("LFNSTIdx", 0))):
                     lf[by, bx] = 1 + dec.decode_bin(ctx_id("LFNSTIdx", 1))
                 if mts and lf[by, bx] == 0:
+                    label(dec, "mts_idx")
                     m = 0
                     for k in range(4):
                         if not dec.decode_bin(ctx_id("MtsIdx", k)):
@@ -138,12 +150,12 @@ def _decode_intra_rows(dec, grids, s: int, r0: int, r1: int,
                     mtsg[by, bx] = m
 
 
-def decode_intra_slice_part(data: bytes, nsy: int, nsx: int):
+def decode_intra_slice_part(data: bytes, nsy: int, nsx: int, stats=None):
     """Exact inverse of encoder.intra_coder.encode_intra_slice_part.
     Returns the grids (split, mode16, modes8, l16y, l16u, l16v, l8y, l8u,
     l8v)."""
     from ..common.intra_part import _QUADS, SB, SUB
-    dec = NativeBinDecoder(data)
+    dec = make_decoder(data, stats)
     sc16, sc8 = SB // 2, SUB // 2
     split = np.zeros((nsy, nsx), dtype=np.int32)
     mode16 = np.zeros((nsy, nsx), dtype=np.int32)
@@ -157,14 +169,18 @@ def decode_intra_slice_part(data: bytes, nsy: int, nsx: int):
     def parse_one(cy, cx, levs):
         left = int(cell[cy, cx - 1]) if cx > 0 else -1
         above = int(cell[cy - 1, cx]) if cy > 0 else -1
+        label(dec, "intra_mode")
         mode = decode_intra_mode(dec, left, above)
         for lev, cid in zip(levs, (0, 4, 5)):
+            label(dec, "cbf")
             if dec.decode_bin(ctx_id("QtCbf", cid)):
+                label(dec, "residual")
                 lev[...] = dec.decode_coeffs(*lev.shape, chroma=(cid != 0))
         return mode
 
     for sy in range(nsy):
         for sx in range(nsx):
+            label(dec, "split_flag")
             sp = dec.decode_bin(ctx_id("SplitFlag", 0))
             split[sy, sx] = sp
             if sp:

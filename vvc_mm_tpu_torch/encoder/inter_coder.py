@@ -30,6 +30,7 @@ from ..common import mtt as mtt_mod
 from ..common.cabac import BinEncoder
 from ..common.inter_frame import AMVR_SHIFTS, round_mv_amvr
 from ..common.contexts import ctx_id
+from ..utils import trace as trace_mod
 from ..utils.native import NativeBinEncoder
 from .intra_coder import encode_substreams, wpp_bounds
 
@@ -843,8 +844,15 @@ def encode_p_slice_mm(model_idx: np.ndarray, active_models: list[int],
                 if skip:
                     continue
             encode_motion_model(enc, midx, n_active)
+            if trace_mod.TRACE is not None:
+                trace_mod.TRACE.log("motion_model", by=by, bx=bx,
+                                    model=model)
             pred = _mm_mvp(mvs_sel, models_sel, by, bx, model, block_size,
                            conv, epipole)
+            if trace_mod.TRACE is not None:
+                trace_mod.TRACE.log("mvd", by=by, bx=bx,
+                                    x=int(mv[0] - pred[0]),
+                                    y=int(mv[1] - pred[1]))
             encode_mvd_comp(enc, int(mv[0] - pred[0]))
             encode_mvd_comp(enc, int(mv[1] - pred[1]))
             _code_residual(enc, cbfs, levs)
@@ -1019,6 +1027,9 @@ def encode_p_slice_qt_mm(splits, decisions, levels, top: int, depth: int,
             encode_merge_idx(enc, mi)
         else:
             encode_motion_model(enc, midx, n_active)
+            if trace_mod.TRACE is not None:
+                trace_mod.TRACE.log("motion_model", by=by, bx=bx,
+                                    model=midx)
             encode_mvd_comp(enc, int(mvd[0]))
             encode_mvd_comp(enc, int(mvd[1]))
         for cbf, lev, cid in zip(cbfs, levs, (0, 4, 5)):

@@ -201,14 +201,16 @@ class Equisolid:
         equals to_sphere (on any device)."""
         return self.to_sphere(x, y)
 
-    def from_sphere_fused(self, cx3, cy3, cz3, ss):
+    def from_sphere_fused(self, cx3, cy3, cz3, ss, phi_yz=None):
         """from_sphere inside a jit; ss is the squared norm of (cy3, -cz3,
         -cx3) in the caller's compiled form (sphere_ss_fused).  (-cx3) / r
         is (-cx3) * rsqrt(ss), and the image point fma(cos(phi), r, c) per
-        axis."""
+        axis; phi_yz: the (cy3, cz3) that phi's own fusion computes, where
+        it differs."""
         zr = lm.rsqrt_xla(ss) * -cx3
         theta = lm.acos(torch.clamp(zr, -1.0, 1.0))
-        phi = lm.atan2(-cz3, cy3)
+        py, pz = (cy3, cz3) if phi_yz is None else phi_yz
+        phi = lm.atan2(-pz, py)
         r = lm.sin(theta * 0.5) * float(np.float32(2.0 * self.focal))
         return (lm.fma32(lm.cos(phi), r, float(np.float32(self.cx))),
                 lm.fma32(lm.sin(phi), r, float(np.float32(self.cy))))

@@ -66,7 +66,8 @@ class _Args(ctypes.Structure):
                 ("code", ctypes.c_int * MAX_MODELS)] + [
         (n, ctypes.c_int) for n in ("n_models", "k", "nby", "nbx", "bs",
                                     "row_step", "col_step", "ny", "nx",
-                                    "grid_w", "form")] + [("c", _Consts)]
+                                    "grid_w", "form", "sy0")] + [
+        ("c", _Consts)]
 
 
 _BOUND: dict = {}
@@ -82,12 +83,14 @@ def reset_launches() -> None:
 
 def template(codes: list[int], grids: list, rsqrt_tab: torch.Tensor,
              consts: dict[str, float], block_size: int, grid_w: int,
-             form: str | None) -> _Args:
+             form: str | None, sy0: int = 0) -> _Args:
     """The part of a launch's Args that stays from call to call: each model
     slot's code (SKIP for a model the kernel leaves to the chain) and grid
     constants (None, or the MPA cache's (px, py, vip) or ROT's folded
     (x, y, z), each (nsy, nsx) on the card), the rsqrt table, the
-    constants, the block size, the subblock grid's width and the form.
+    constants, the block size, the subblock grid's width, the form and
+    sy0, the subblock row of the frame that the grid's row 0 is (a row
+    slab's; its positions come out relative to it).
     The caller keeps the tensors alive for as long as the template."""
     if len(codes) > MAX_MODELS:
         raise ValueError(f"{len(codes)} models: the kernel takes at most "
@@ -105,7 +108,7 @@ def template(codes: list[int], grids: list, rsqrt_tab: torch.Tensor,
             else:
                 args.gc[i] = grid[2].data_ptr()
     args.n_models, args.bs = len(codes), block_size
-    args.grid_w, args.form = grid_w, FORMS[form]
+    args.grid_w, args.form, args.sy0 = grid_w, FORMS[form], sy0
     for c in CONST_NAMES:
         setattr(args.c, c, consts[c])
     return args

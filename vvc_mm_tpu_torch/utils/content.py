@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..common.picture import psnr  # noqa: F401  (re-exported)
+
 
 def realistic_sequence(width: int, height: int, num_frames: int,
                        seed: int = 11):
@@ -78,14 +80,3 @@ def fade_sequence(frames, step: float):
                    + [np.clip(128 + (np.asarray(c, np.float64) - 128) * g,
                               0, 255).astype(np.int32) for c in (u, v)])
     return out
-
-
-def psnr(orig: np.ndarray, recon: np.ndarray, bit_depth: int = 8) -> float:
-    """PSNR in dB of one plane (999.99 when identical), as the JAX
-    package's common/picture.py computes it."""
-    maxv = (1 << bit_depth) - 1
-    d = np.asarray(orig, np.int32) - np.asarray(recon, np.int32)
-    mse = float(np.mean(d * d, dtype=np.float64))
-    if mse == 0:
-        return 999.99
-    return 10.0 * np.log10(maxv * maxv / mse)
