@@ -1,0 +1,13 @@
+"""filters_pct.decode: Share of the decoder's stage seconds (utils/profiling.py's
+`parse`, `recon`, `filters`, `hash`, each synchronised) in `filters`:
+deblocking, SAO, ALF and the int32 DPB planes.
+"""
+from port_bench import spantable
+
+UNIT = "%"
+LAYER = "decoder"
+MOVES = "decode_fps"
+
+
+def read(rec: dict) -> float | None:
+    return spantable.decode_stage_pct(rec, 'filters')

@@ -1,6 +1,8 @@
 """Decoder CLI of the PyTorch port: the JAX package's apps/decoder_app.py
 options and output (MD5 lines, --BitStats, --CacheModel, --TraceFile,
---FilmGrain, --OutputBitDepth, the HRD CPB check), plus --Device.
+--FilmGrain, --OutputBitDepth, the HRD CPB check), plus --Device and
+--Profile (the stage timers, seconds by picture kind and host waits by
+stage, utils/profiling.py).
 
 The analog of the reference DecoderApp (reference:
 source/App/DecoderApp/decmain.cpp:51 main; DecApp.cpp:143-355 NAL loop;
@@ -18,6 +20,7 @@ import sys
 import time
 
 from ..decoder.declib import DecLib
+from ..utils import profiling
 from ..utils.options import OptionParser
 from ..utils.yuv_io import VideoFormat, YuvWriter
 
@@ -37,6 +40,9 @@ def build_parser() -> OptionParser:
           "SEIFilmGrainApp / DecApp FGS post-filter)")
     p.add("Device", "", "torch device to decode on (empty = the CUDA "
           "device; cpu for tests)")
+    p.add("Profile", False, "per-stage decoder timers (parse, recon, "
+          "filters, hash; serializes the pipeline), seconds by picture "
+          "kind and host waits by stage; also VVC_PROFILE=1")
     return p
 
 
@@ -46,6 +52,9 @@ def main(argv: list[str] | None = None) -> int:
         raise SystemExit("need -b bitstream.bin (see --help)")
     with open(opts["BitstreamFile"], "rb") as f:
         data = f.read()
+    profile = opts["Profile"] or profiling.ENABLED
+    if profile:
+        profiling.enable()
     t0 = time.time()
     stats = None
     if opts["BitStats"]:
@@ -83,6 +92,10 @@ def main(argv: list[str] | None = None) -> int:
         print(stats.report())
     if cache is not None:
         print(cache.report())
+    if profile:
+        spans, _ = profiling.take_spans()
+        profiling.enable(False)
+        print(profiling.report(spans))
     if sps.hrd is not None:
         # CPB conformance: leaky-bucket check of the signaled HRD params
         # (reference: the HRD's CPB arrival/removal model, HRD.h; a

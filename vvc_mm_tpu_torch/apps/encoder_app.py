@@ -25,6 +25,7 @@ from ..common.slice_ps import MMConfig
 from ..common.typedefs import ChromaFormat, GeodesicFlavor, ProjectionID
 from ..device import resolve_device
 from ..encoder.enclib import EncCfg, EncLib
+from ..utils import profiling
 from ..utils.options import OptionParser, parse_epipole
 from ..utils.yuv_io import VideoFormat, YuvReader, YuvWriter
 
@@ -81,7 +82,8 @@ def build_parser() -> OptionParser:
     p.add("FilmGrain", False, "film grain characteristics SEI (analyzer)")
     p.add("Lossless", False, "lossless intra coding (all-TS, qStep 1)")
     p.add("Profile", False, "per-stage encoder timers (INTERPRED_PROFILING "
-          "analog; serializes the pipeline)")
+          "analog; serializes the pipeline), seconds by picture kind and "
+          "host waits by stage; also VVC_PROFILE=1")
     p.add("NumSubstreams", 4, "substream count for --WPP")
     p.add("WrapAround", False, "ERP horizontal wrap-around")
     p.add("Deblocking", True, "in-loop deblocking")
@@ -173,8 +175,8 @@ def main(argv: list[str] | None = None) -> int:
     frames = [reader.read_frame() for _ in range(n)]
     reader.close()
 
-    if opts["Profile"]:
-        from ..utils import profiling
+    profile = opts["Profile"] or profiling.ENABLED
+    if profile:
         profiling.enable()
     device = resolve_device(opts["Device"] or None)
     print(f"vvc_mm_tpu encoder: {w}x{h} {n} frames QP{opts['QP']} "
@@ -197,9 +199,10 @@ def main(argv: list[str] | None = None) -> int:
     print(f"SUMMARY: {s['frames']} frames, {s['bits']} bits, "
           f"Y {s['psnr_y']:.3f} U {s['psnr_u']:.3f} V {s['psnr_v']:.3f} dB, "
           f"{s['frames'] / dt:.2f} fps")
-    if opts["Profile"]:
-        from ..utils import profiling
-        print(profiling.report())
+    if profile:
+        spans, _ = profiling.take_spans()
+        profiling.enable(False)
+        print(profiling.report(spans))
     if "ws_psnr" in s:
         print(f"360:     WS-PSNR {s['ws_psnr']:.3f}  "
               f"S-PSNR-NN {s['s_psnr_nn']:.3f}  CPP-PSNR {s['cpp_psnr']:.3f}")

@@ -32,6 +32,7 @@ import torch
 
 from .. import quant, transforms
 from ...device import check_device
+from ...utils import profiling
 from ..inter_frame import (MC_MARGIN, _from_blocks, _residual_pass,
                            _to_blocks, first_argmin, pad_ref)
 from ..typedefs import MotionModelID as M
@@ -42,7 +43,8 @@ from .reprojection import MVReprojection
 # .centers): each a merged-positions call, a merge-search or decision step
 # of K fields, or a diamond step of K candidates.  On the card each that
 # reaches a sphere model is one kernel launch.
-POSITION_CALLS = {"sphere_positions": 0, "sphere_centers": 0}
+POSITION_CALLS = profiling.counters("frame_codec.position_calls",
+                                    ("sphere_positions", "sphere_centers"))
 
 
 def _up(t: torch.Tensor, rep: int) -> torch.Tensor:

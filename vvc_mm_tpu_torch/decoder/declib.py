@@ -28,6 +28,14 @@ parses every slice with the Python spec coder and per-syntax accounting,
 reference traffic, and `picture_bits` keeps each slice NAL's size for the
 decoder app's HRD check.  With both hooks None the decode path is the
 native one.
+
+The tracer's view (utils/profiling.py): `decode_bytes` is a `sequence`
+span and each slice a picture span (kind, POC, the instance's sequence
+id); every picture path runs the stages `parse` (the CABAC parse and the
+host grid work up to the upload), `recon` (the upload, prediction,
+residual and the boundary strengths) and `filters` (deblocking, SAO, ALF
+and the DPB's int32 planes), and each hash SEI the stage `hash`.  Each
+stage waits for the device on exit while the stage timers are on.
 """
 from __future__ import annotations
 
@@ -55,6 +63,7 @@ from ..common.typedefs import MotionModelID, SliceType
 from ..device import check_device, resolve_device
 from ..lib360.projection import make_projection
 from ..encoder.inter_coder import mer_blocks_log2
+from ..utils import profiling
 from .inter_parser import (decode_b_slice, decode_b_slice_mm,
                            decode_b_slice_mtt, decode_b_slice_qt,
                            decode_p_slice, decode_p_slice_2ref,
@@ -120,6 +129,7 @@ class DecLib:
         self.concealed: list[int] = []  # POCs created by loss concealment
         self._conceal_cache: dict[int, DecodedFrame] = {}
         self._inv_lut: torch.Tensor | None = None   # LMCS, on the device
+        self.seq_id = profiling.sequence_id()    # its spans' sequence
 
     def _activate_sps(self, sps: SPS) -> None:
         """reference: DecLib.cpp:1904 xActivateParameterSets; under LMCS
@@ -145,6 +155,10 @@ class DecLib:
             self.mvp_conv = None
 
     def decode_bytes(self, data: bytes) -> list[DecodedFrame]:
+        with profiling.span("sequence", self.seq_id):
+            return self._decode_nals(data)
+
+    def _decode_nals(self, data: bytes) -> list[DecodedFrame]:
         for nalu in read_annexb(data):
             if nalu.nal_type == NAL_SPS:
                 self._activate_sps(SPS.read(BitReader(nalu.payload)))
@@ -189,12 +203,13 @@ class DecLib:
             return
         poc = br.read_uvlc()
         digest = bytes(br.read(8) for _ in range(16))
-        for f in self.frames:
-            if f.poc == poc:
-                ok = bytes.fromhex(f.md5(self.sps.bit_depth)) == digest
-                self.hash_status[poc] = "OK" if ok else "MISMATCH"
-                return
-        self.hash_status[poc] = "MISSING"
+        with profiling.stage("hash", self.device):
+            for f in self.frames:
+                if f.poc == poc:
+                    ok = bytes.fromhex(f.md5(self.sps.bit_depth)) == digest
+                    self.hash_status[poc] = "OK" if ok else "MISMATCH"
+                    return
+            self.hash_status[poc] = "MISSING"
 
     def _apply_sao(self, recon: dict, sh) -> dict:
         """SAO then ALF (luma, chroma, CC-ALF) after deblocking (reference:
@@ -230,14 +245,15 @@ class DecLib:
 
     def _store(self, poc: int, recon: dict, sh, bs, unit: int):
         """Deblock (with `bs` = (bs_ver, bs_hor) on a `unit` grid), SAO,
-        ALF, then add the picture to the DPB."""
-        if self.sps.deblocking:
-            recon = dict(zip("yuv", deblock.deblock_frame(
-                recon["y"], recon["u"], recon["v"], bs[0], bs[1], unit,
-                sh.qp, self.sps.bit_depth)))
-        recon = self._apply_sao(recon, sh)
-        self.frames.append(DecodedFrame(
-            poc, [recon[k].to(torch.int32) for k in "yuv"]))
+        ALF, then add the picture to the DPB: the stage `filters`."""
+        with profiling.stage("filters", self.device):
+            if self.sps.deblocking:
+                recon = dict(zip("yuv", deblock.deblock_frame(
+                    recon["y"], recon["u"], recon["v"], bs[0], bs[1], unit,
+                    sh.qp, self.sps.bit_depth)))
+            recon = self._apply_sao(recon, sh)
+            self.frames.append(DecodedFrame(
+                poc, [recon[k].to(torch.int32) for k in "yuv"]))
 
     def _positions(self, active, model_idx, mvs_stack, block_size,
                    epipoles, row_step: int = 1):
@@ -260,16 +276,17 @@ class DecLib:
         self.picture_bits[sh.poc] = len(payload) * 8
         if self.cache_model is not None:
             self.cache_model.start_frame(sh.poc)
-        if sh.slice_type == SliceType.I:
-            self._decode_i(sh, cabac_bytes)
-        elif not sps.mm.any_enabled():
-            self._decode_classic(sh, cabac_bytes)
-        elif sh.slice_type == SliceType.P:
-            self._decode_p_mm(sh, cabac_bytes)
-        elif sh.slice_type == SliceType.B:
-            self._decode_b_mm(sh, cabac_bytes)
-        else:
+        if sh.slice_type not in _KIND:
             raise NotImplementedError(f"slice type {sh.slice_type}")
+        with profiling.picture(_KIND[sh.slice_type], sh.poc, self.seq_id):
+            if sh.slice_type == SliceType.I:
+                self._decode_i(sh, cabac_bytes)
+            elif not sps.mm.any_enabled():
+                self._decode_classic(sh, cabac_bytes)
+            elif sh.slice_type == SliceType.P:
+                self._decode_p_mm(sh, cabac_bytes)
+            else:
+                self._decode_b_mm(sh, cabac_bytes)
 
     def _decode_i(self, sh, cabac_bytes: bytes) -> None:
         sps = self.sps
@@ -279,25 +296,27 @@ class DecLib:
         s = sps.intra_block_size
         nby, nbx = sps.height // s, sps.width // s
         parse = decode_intra_slice_wpp if sps.wpp else decode_intra_slice
-        modes, lm, lf, mr, tsg, mtsg, ly, lu, lv = parse(
-            cabac_bytes, nby, nbx, s, cclm=sps.cclm, mip=sps.mip,
-            lfnst=sps.lfnst, mrl=sps.mrl, ts=sps.ts and not sps.lossless,
-            bdpcm=sps.bdpcm, ibc=sps.ibc, mts=sps.mts, stats=self.stats)
-        if sps.lossless:
-            tsg = np.ones_like(tsg)
-        coords, valid = wavefront.wavefront_coords(nby, nbx)
-        lm, mr, lf, tsg, mtsg, *steps = (
-            wavefront.grid_to_steps(g, coords, valid)
-            for g in (lm, mr, lf, tsg, mtsg, modes, ly, lu, lv))
-        recon = wavefront.decode_intra_frame(
-            *steps, sh.qp, sps.height, sps.width, s, sps.bit_depth,
-            device=self.device, dep_quant=sps.dep_quant,
-            use_lfnst=sps.lfnst, lfnst_steps=lf, use_ts=sps.ts,
-            ts_steps=tsg, lossless=sps.lossless, use_mts=sps.mts,
-            mts_steps=mtsg, use_cclm=sps.cclm, cclm_steps=lm,
-            use_mip=sps.mip, use_mrl=sps.mrl, mrl_steps=mr,
-            use_ibc=sps.ibc)
-        bs = deblock.boundary_strengths_intra(nby, nbx, self.device)
+        with profiling.stage("parse", self.device):
+            modes, lm, lf, mr, tsg, mtsg, ly, lu, lv = parse(
+                cabac_bytes, nby, nbx, s, cclm=sps.cclm, mip=sps.mip,
+                lfnst=sps.lfnst, mrl=sps.mrl, ts=sps.ts and not sps.lossless,
+                bdpcm=sps.bdpcm, ibc=sps.ibc, mts=sps.mts, stats=self.stats)
+            if sps.lossless:
+                tsg = np.ones_like(tsg)
+            coords, valid = wavefront.wavefront_coords(nby, nbx)
+            lm, mr, lf, tsg, mtsg, *steps = (
+                wavefront.grid_to_steps(g, coords, valid)
+                for g in (lm, mr, lf, tsg, mtsg, modes, ly, lu, lv))
+        with profiling.stage("recon", self.device):
+            recon = wavefront.decode_intra_frame(
+                *steps, sh.qp, sps.height, sps.width, s, sps.bit_depth,
+                device=self.device, dep_quant=sps.dep_quant,
+                use_lfnst=sps.lfnst, lfnst_steps=lf, use_ts=sps.ts,
+                ts_steps=tsg, lossless=sps.lossless, use_mts=sps.mts,
+                mts_steps=mtsg, use_cclm=sps.cclm, cclm_steps=lm,
+                use_mip=sps.mip, use_mrl=sps.mrl, mrl_steps=mr,
+                use_ibc=sps.ibc)
+            bs = deblock.boundary_strengths_intra(nby, nbx, self.device)
         self._store(sh.poc, recon, sh, bs, s)
 
     def _decode_i_part(self, sh, cabac_bytes: bytes) -> None:
@@ -305,15 +324,17 @@ class DecLib:
         8x8 grid as the encoder does."""
         sps = self.sps
         nsy, nsx = sps.height // intra_part.SB, sps.width // intra_part.SB
-        coords, valid = wavefront.wavefront_coords(nsy, nsx)
-        steps = [wavefront.grid_to_steps(g, coords, valid)
-                 for g in decode_intra_slice_part(cabac_bytes, nsy, nsx,
-                                                  self.stats)]
-        recon = intra_part.decode_intra_frame_part(
-            *steps, sh.qp, sps.height, sps.width, sps.bit_depth,
-            device=self.device)
-        bs = deblock.boundary_strengths_intra(sps.height // 8,
-                                              sps.width // 8, self.device)
+        with profiling.stage("parse", self.device):
+            coords, valid = wavefront.wavefront_coords(nsy, nsx)
+            steps = [wavefront.grid_to_steps(g, coords, valid)
+                     for g in decode_intra_slice_part(cabac_bytes, nsy, nsx,
+                                                      self.stats)]
+        with profiling.stage("recon", self.device):
+            recon = intra_part.decode_intra_frame_part(
+                *steps, sh.qp, sps.height, sps.width, sps.bit_depth,
+                device=self.device)
+            bs = deblock.boundary_strengths_intra(
+                sps.height // 8, sps.width // 8, self.device)
         self._store(sh.poc, recon, sh, bs, 8)
 
     def _decode_tree(self, sh, cabac_bytes: bytes) -> None:
@@ -327,36 +348,44 @@ class DecLib:
         args = (sh.qp, s, nd, sps.bit_depth, sps.wrap_around)
         parse_args = (cabac_bytes, sps.height, sps.width, s, nd)
         stats = self.stats
-        if sh.slice_type == SliceType.P:
-            if sps.mtt:
+        is_p = sh.slice_type == SliceType.P
+        with profiling.stage("parse", self.device):
+            if is_p and sps.mtt:
                 mv_u, sq, rect, hr, lid = decode_p_slice_mtt(
                     *parse_args, use_merge=sps.merge, stats=stats)
-                recon = mtt_mod.reconstruct_mtt(
-                    *self._tensors(mv_u), self._level_tensors(sq),
-                    self._level_tensors(rect), *ref0.planes, *args)
-            else:
+            elif is_p:
                 mv_u, sq, hr, lid = decode_p_slice_qt(
                     *parse_args, use_merge=sps.merge, stats=stats)
-                recon = qtree.reconstruct_qt(
-                    *self._tensors(mv_u), self._level_tensors(sq),
-                    *ref0.planes, *args)
-        else:
-            ref1 = self._ref_by_poc(sh.ref_pocs_l1[0])
-            if sps.mtt:
+            elif sps.mtt:
                 mv0, mv1, dirs, sq, rect, hr, lid = decode_b_slice_mtt(
                     *parse_args, use_merge=sps.merge, stats=stats)
-                recon = mtt_mod.reconstruct_mtt_b(
-                    *self._tensors(mv0, mv1, dirs), self._level_tensors(sq),
-                    self._level_tensors(rect), ref0.planes, ref1.planes,
-                    *args)
             else:
                 mv0, mv1, dirs, sq, hr, lid = decode_b_slice_qt(
                     *parse_args, use_merge=sps.merge, stats=stats)
-                recon = qtree.reconstruct_qt_b(
-                    *self._tensors(mv0, mv1, dirs), self._level_tensors(sq),
-                    ref0.planes, ref1.planes, *args, sps.bdof, sps.dmvr)
-            mv_u = np.where(dirs[..., None] == 1, mv1, mv0)
-        bs = qtree.qt_boundary_strengths(*self._tensors(mv_u, hr, lid))
+            if not is_p:
+                mv_u = np.where(dirs[..., None] == 1, mv1, mv0)
+        with profiling.stage("recon", self.device):
+            if is_p and sps.mtt:
+                recon = mtt_mod.reconstruct_mtt(
+                    *self._tensors(mv_u), self._level_tensors(sq),
+                    self._level_tensors(rect), *ref0.planes, *args)
+            elif is_p:
+                recon = qtree.reconstruct_qt(
+                    *self._tensors(mv_u), self._level_tensors(sq),
+                    *ref0.planes, *args)
+            else:
+                ref1 = self._ref_by_poc(sh.ref_pocs_l1[0])
+                if sps.mtt:
+                    recon = mtt_mod.reconstruct_mtt_b(
+                        *self._tensors(mv0, mv1, dirs),
+                        self._level_tensors(sq), self._level_tensors(rect),
+                        ref0.planes, ref1.planes, *args)
+                else:
+                    recon = qtree.reconstruct_qt_b(
+                        *self._tensors(mv0, mv1, dirs),
+                        self._level_tensors(sq), ref0.planes, ref1.planes,
+                        *args, sps.bdof, sps.dmvr)
+            bs = qtree.qt_boundary_strengths(*self._tensors(mv_u, hr, lid))
         self._store(sh.poc, recon, sh, bs, s >> nd)
 
     def _level_tensors(self, levels):
@@ -400,64 +429,70 @@ class DecLib:
         ref = self._ref_by_poc(sh.ref_pocs_l0[0])
         args = (sh.qp, s, sps.bit_depth, sps.wrap_around)
         scaling = tuple(sps.scaling_list) or None     # P pictures only
-        wp0, wp1 = (None if w is None else self._tensors(np.asarray(w))[0]
-                    for w in (sh.wp_params, sh.wp_params_l1))
         col = (self._mv_fields.get(sh.ref_pocs_l0[0]) if sps.tmvp
                else None)
         tools = dict(col_mvs=col, use_tmvp=sps.tmvp, use_amvr=sps.amvr,
                      stats=self.stats)
         cache = self.cache_model
-        if sh.slice_type == SliceType.B:
-            sl_bdof, sl_dmvr, sl_gpm, sl_ciip = (
-                on and wp0 is None and wp1 is None
-                for on in (sps.bdof, sps.dmvr, sps.gpm, sps.ciip))
-            parse = (decode_b_slice_wpp if sps.wpp and sps.merge
-                     else decode_b_slice)
-            mv0, mv1, dirs, ly, lu, lv, gpm_modes = parse(
-                cabac_bytes, nby, nbx, s, use_gpm=sl_gpm, use_ciip=sl_ciip,
-                use_merge=sps.merge, mer_blocks_log2=mer, stats=self.stats)
-            ref1 = self._ref_by_poc(sh.ref_pocs_l1[0])
-            if cache is not None:
-                cache.simulate_mc(np.where(dirs[..., None] == 1, mv1, mv0),
-                                  s, sps.width)
-            recon = inter_frame.reconstruct_b_frame(
-                *self._tensors(mv0, mv1, dirs, ly, lu, lv), ref.planes,
-                ref1.planes, *args, bdof=sl_bdof, dmvr=sl_dmvr,
-                gpm_modes=self._tensors(gpm_modes)[0], gpm=sl_gpm,
-                ciip=sl_ciip, wp0=wp0, wp1=wp1)
-            mvs = np.where(dirs[..., None] == 1, mv1, mv0)
-        elif sps.affine:
-            mvs, aff, dmv, ly, lu, lv = decode_p_slice_affine(
-                cabac_bytes, nby, nbx, s, stats=self.stats)
-            recon = affine_mod.reconstruct_p_frame_affine(
-                *self._tensors(mvs, aff, dmv, ly, lu, lv), *ref.planes,
-                *args)
-        elif len(sh.ref_pocs_l0) >= 2 and sps.merge:
-            ridx, mvs, ly, lu, lv = decode_p_slice_2ref(
-                cabac_bytes, nby, nbx, s, mer_blocks_log2=mer, **tools)
-            self._mv_fields[sh.poc] = mvs
-            if cache is not None:
+        is_b = sh.slice_type == SliceType.B
+        two_ref = len(sh.ref_pocs_l0) >= 2 and sps.merge
+        with profiling.stage("parse", self.device):
+            if is_b:
+                no_wp = sh.wp_params is None and sh.wp_params_l1 is None
+                sl_bdof, sl_dmvr, sl_gpm, sl_ciip = (
+                    on and no_wp
+                    for on in (sps.bdof, sps.dmvr, sps.gpm, sps.ciip))
+                parse = (decode_b_slice_wpp if sps.wpp and sps.merge
+                         else decode_b_slice)
+                mv0, mv1, dirs, ly, lu, lv, gpm_modes = parse(
+                    cabac_bytes, nby, nbx, s, use_gpm=sl_gpm,
+                    use_ciip=sl_ciip, use_merge=sps.merge,
+                    mer_blocks_log2=mer, stats=self.stats)
+                mvs = np.where(dirs[..., None] == 1, mv1, mv0)
+            elif sps.affine:
+                mvs, aff, dmv, ly, lu, lv = decode_p_slice_affine(
+                    cabac_bytes, nby, nbx, s, stats=self.stats)
+            elif two_ref:
+                ridx, mvs, ly, lu, lv = decode_p_slice_2ref(
+                    cabac_bytes, nby, nbx, s, mer_blocks_log2=mer, **tools)
+                self._mv_fields[sh.poc] = mvs
+            else:
+                parse = (decode_p_slice_wpp if sps.wpp and sps.merge
+                         else decode_p_slice)
+                mvs, ly, lu, lv = parse(
+                    cabac_bytes, nby, nbx, s, use_merge=sps.merge,
+                    mer_blocks_log2=mer, **tools)
+                self._mv_fields[sh.poc] = mvs
+            if cache is not None and (is_b or not sps.affine):
                 cache.simulate_mc(mvs, s, sps.width)
-            ref2 = self._ref_by_poc(sh.ref_pocs_l0[1])
-            recon = inter_frame.reconstruct_p_frame_2ref(
-                *self._tensors(ridx, mvs, ly, lu, lv), ref.planes,
-                ref2.planes, *args, wp=wp0, scaling=scaling)
-        else:
-            parse = (decode_p_slice_wpp if sps.wpp and sps.merge
-                     else decode_p_slice)
-            mvs, ly, lu, lv = parse(
-                cabac_bytes, nby, nbx, s, use_merge=sps.merge,
-                mer_blocks_log2=mer, **tools)
-            self._mv_fields[sh.poc] = mvs
-            if cache is not None:
-                cache.simulate_mc(mvs, s, sps.width)
-            recon = inter_frame.reconstruct_p_frame(
-                *self._tensors(mvs, ly, lu, lv), *ref.planes, *args,
-                wp=wp0, scaling=scaling)
-        has_resid = ((ly != 0).any((2, 3)) | (lu != 0).any((2, 3))
-                     | (lv != 0).any((2, 3)))
-        bs = deblock.boundary_strengths_inter(
-            *self._tensors(mvs, has_resid))
+            has_resid = ((ly != 0).any((2, 3)) | (lu != 0).any((2, 3))
+                         | (lv != 0).any((2, 3)))
+        with profiling.stage("recon", self.device):
+            wp0, wp1 = (None if w is None
+                        else self._tensors(np.asarray(w))[0]
+                        for w in (sh.wp_params, sh.wp_params_l1))
+            if is_b:
+                ref1 = self._ref_by_poc(sh.ref_pocs_l1[0])
+                recon = inter_frame.reconstruct_b_frame(
+                    *self._tensors(mv0, mv1, dirs, ly, lu, lv), ref.planes,
+                    ref1.planes, *args, bdof=sl_bdof, dmvr=sl_dmvr,
+                    gpm_modes=self._tensors(gpm_modes)[0], gpm=sl_gpm,
+                    ciip=sl_ciip, wp0=wp0, wp1=wp1)
+            elif sps.affine:
+                recon = affine_mod.reconstruct_p_frame_affine(
+                    *self._tensors(mvs, aff, dmv, ly, lu, lv), *ref.planes,
+                    *args)
+            elif two_ref:
+                ref2 = self._ref_by_poc(sh.ref_pocs_l0[1])
+                recon = inter_frame.reconstruct_p_frame_2ref(
+                    *self._tensors(ridx, mvs, ly, lu, lv), ref.planes,
+                    ref2.planes, *args, wp=wp0, scaling=scaling)
+            else:
+                recon = inter_frame.reconstruct_p_frame(
+                    *self._tensors(mvs, ly, lu, lv), *ref.planes, *args,
+                    wp=wp0, scaling=scaling)
+            bs = deblock.boundary_strengths_inter(
+                *self._tensors(mvs, has_resid))
         self._store(sh.poc, recon, sh, bs, s)
 
     def _tensors(self, *arrays):
@@ -477,21 +512,27 @@ class DecLib:
         if depth <= 0:
             self._decode_p_flat(sh, cabac_bytes, ref, active, epipoles)
             return
-        midx_u, mv_u, levels, has_resid_u, leaf_id_u = decode_p_slice_qt_mm(
-            cabac_bytes, sps.height, sps.width, s, depth, len(active),
-            stats=self.stats)
         u = s >> depth
-        positions = None
-        if self.positions_fn is not None:
-            stack = np.where(
-                (midx_u[None] == np.arange(len(active))[:, None, None])
-                [..., None], mv_u[None], 0)
-            positions = self._positions(active, midx_u, stack, u, epipoles)
-        recon = qt_codec.reconstruct_qt_mm(
-            self.reproj, active, midx_u, mv_u, levels, *ref.planes, sh.qp,
-            s, depth, sps.bit_depth, epipoles, sps.wrap_around,
-            positions=positions)
-        bs = qtree.qt_boundary_strengths(mv_u, has_resid_u, leaf_id_u)
+        with profiling.stage("parse", self.device):
+            (midx_u, mv_u, levels, has_resid_u,
+             leaf_id_u) = decode_p_slice_qt_mm(
+                cabac_bytes, sps.height, sps.width, s, depth, len(active),
+                stats=self.stats)
+            stack = None
+            if self.positions_fn is not None:
+                stack = np.where(
+                    (midx_u[None] == np.arange(len(active))[:, None, None])
+                    [..., None], mv_u[None], 0)
+        with profiling.stage("recon", self.device):
+            positions = None
+            if stack is not None:
+                positions = self._positions(active, midx_u, stack, u,
+                                            epipoles)
+            recon = qt_codec.reconstruct_qt_mm(
+                self.reproj, active, midx_u, mv_u, levels, *ref.planes,
+                sh.qp, s, depth, sps.bit_depth, epipoles, sps.wrap_around,
+                positions=positions)
+            bs = qtree.qt_boundary_strengths(mv_u, has_resid_u, leaf_id_u)
         self._store(sh.poc, recon, sh, bs, u)
 
     def _decode_p_flat(self, sh, cabac_bytes: bytes, ref, active,
@@ -502,24 +543,27 @@ class DecLib:
         s = sps.inter_block_size
         nby, nbx = sps.height // s, sps.width // s
         ep_mvp = (epipoles or {}).get(MotionModelID.GEODESIC_CAMPOSE)
-        model_idx, mvs, ly, lu, lv = decode_p_slice_mm(
-            cabac_bytes, nby, nbx, s, active, self.mvp_conv, ep_mvp,
-            use_merge=sps.merge, mer_blocks_log2=mer_blocks_log2(
-                sps.log2_parallel_merge_level, s), stats=self.stats)
-        stack = _stack_of(model_idx, mvs, len(active))
-        if self.cache_model is not None:
-            self.cache_model.report_subblock_mc(
-                (sps.height // 4) * (sps.width // 4))
-        positions = self._positions(active, model_idx, stack, s, epipoles)
-        recon = mm_codec.reconstruct_p_frame_mm(
-            self.reproj, active, model_idx, stack, ly, lu, lv, *ref.planes,
-            sh.qp, s, sps.bit_depth, epipoles, sps.wrap_around,
-            positions=positions)
-        has_resid = ((ly != 0).any((2, 3)) | (lu != 0).any((2, 3))
-                     | (lv != 0).any((2, 3)))
-        bs = deblock.boundary_strengths_inter(
-            torch.as_tensor(mvs, dtype=torch.int32),
-            torch.as_tensor(has_resid))
+        with profiling.stage("parse", self.device):
+            model_idx, mvs, ly, lu, lv = decode_p_slice_mm(
+                cabac_bytes, nby, nbx, s, active, self.mvp_conv, ep_mvp,
+                use_merge=sps.merge, mer_blocks_log2=mer_blocks_log2(
+                    sps.log2_parallel_merge_level, s), stats=self.stats)
+            stack = _stack_of(model_idx, mvs, len(active))
+            if self.cache_model is not None:
+                self.cache_model.report_subblock_mc(
+                    (sps.height // 4) * (sps.width // 4))
+            has_resid = ((ly != 0).any((2, 3)) | (lu != 0).any((2, 3))
+                         | (lv != 0).any((2, 3)))
+        with profiling.stage("recon", self.device):
+            positions = self._positions(active, model_idx, stack, s,
+                                        epipoles)
+            recon = mm_codec.reconstruct_p_frame_mm(
+                self.reproj, active, model_idx, stack, ly, lu, lv,
+                *ref.planes, sh.qp, s, sps.bit_depth, epipoles,
+                sps.wrap_around, positions=positions)
+            bs = deblock.boundary_strengths_inter(
+                torch.as_tensor(mvs, dtype=torch.int32),
+                torch.as_tensor(has_resid))
         self._store(sh.poc, recon, sh, bs, s)
 
     def _decode_b_mm(self, sh, cabac_bytes: bytes) -> None:
@@ -537,29 +581,31 @@ class DecLib:
             eps1 = {MotionModelID.GEODESIC_CAMPOSE:
                     self.epipole_list.find_epipole(sh.poc,
                                                    sh.ref_pocs_l1[0])}
-        (midx0, midx1, mv0, mv1, dirs, ly, lu,
-         lv) = decode_b_slice_mm(
-            cabac_bytes, nby, nbx, s, active, self.mvp_conv,
-            (eps0 or {}).get(MotionModelID.GEODESIC_CAMPOSE),
-            (eps1 or {}).get(MotionModelID.GEODESIC_CAMPOSE),
-            use_merge=sps.merge, mer_blocks_log2=mer_blocks_log2(
-                sps.log2_parallel_merge_level, s), stats=self.stats)
-        n_active = len(active)
-        stacks = [_stack_of(midx0, mv0, n_active),
-                  _stack_of(midx1, mv1, n_active)]
-        # projected DMVR refines the prediction's MVs; deblocking reads the
-        # signalled ones
-        recon = mm_codec.reconstruct_b_frame_mm(
-            self.reproj, active, midx0, midx1, stacks[0], stacks[1], dirs,
-            ly, lu, lv, ref0.planes, ref1.planes, sh.qp, s, sps.bit_depth,
-            eps0, eps1, sps.wrap_around, sps.dmvr,
-            None if self.positions_fn is None else self._positions)
-        has_resid = ((ly != 0).any((2, 3)) | (lu != 0).any((2, 3))
-                     | (lv != 0).any((2, 3)))
-        sel_mv = np.where(dirs[..., None] == 1, mv1, mv0)
-        bs = deblock.boundary_strengths_inter(
-            torch.as_tensor(sel_mv, dtype=torch.int32),
-            torch.as_tensor(has_resid))
+        with profiling.stage("parse", self.device):
+            (midx0, midx1, mv0, mv1, dirs, ly, lu,
+             lv) = decode_b_slice_mm(
+                cabac_bytes, nby, nbx, s, active, self.mvp_conv,
+                (eps0 or {}).get(MotionModelID.GEODESIC_CAMPOSE),
+                (eps1 or {}).get(MotionModelID.GEODESIC_CAMPOSE),
+                use_merge=sps.merge, mer_blocks_log2=mer_blocks_log2(
+                    sps.log2_parallel_merge_level, s), stats=self.stats)
+            n_active = len(active)
+            stacks = [_stack_of(midx0, mv0, n_active),
+                      _stack_of(midx1, mv1, n_active)]
+            has_resid = ((ly != 0).any((2, 3)) | (lu != 0).any((2, 3))
+                         | (lv != 0).any((2, 3)))
+            sel_mv = np.where(dirs[..., None] == 1, mv1, mv0)
+        with profiling.stage("recon", self.device):
+            # projected DMVR refines the prediction's MVs; deblocking reads
+            # the signalled ones
+            recon = mm_codec.reconstruct_b_frame_mm(
+                self.reproj, active, midx0, midx1, stacks[0], stacks[1],
+                dirs, ly, lu, lv, ref0.planes, ref1.planes, sh.qp, s,
+                sps.bit_depth, eps0, eps1, sps.wrap_around, sps.dmvr,
+                None if self.positions_fn is None else self._positions)
+            bs = deblock.boundary_strengths_inter(
+                torch.as_tensor(sel_mv, dtype=torch.int32),
+                torch.as_tensor(has_resid))
         self._store(sh.poc, recon, sh, bs, s)
 
     def _ref_by_poc(self, poc: int) -> DecodedFrame:
@@ -587,6 +633,9 @@ class DecLib:
         clone = DecodedFrame(poc, [p.clone() for p in best.planes])
         self._conceal_cache[poc] = clone
         return clone
+
+
+_KIND = {SliceType.I: "I", SliceType.P: "P", SliceType.B: "B"}
 
 
 def _stack_of(model_idx: np.ndarray, mvs: np.ndarray, n_active: int

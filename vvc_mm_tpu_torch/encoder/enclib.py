@@ -53,8 +53,8 @@ calibrated projection, which has no focal length for the MPA plane.
 """
 from __future__ import annotations
 
+import functools
 import hashlib
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -291,7 +291,7 @@ class FrameResult:
     psnr_u: float
     psnr_v: float
     recon: list[np.ndarray]           # internal domain (mapped under LMCS)
-    seconds: float = 0.0
+    seconds: float = 0.0              # the picture span's (perf_counter)
     metrics_360: dict | None = None   # WS-PSNR/S-PSNR-NN/CPP-PSNR (luma)
     recon_out: list[np.ndarray] | None = None  # display domain (LMCS
                                                # inverse-mapped); None ->
@@ -326,12 +326,27 @@ def ra_coding_order(n: int, gop_size: int) -> list[tuple[int, int, int,
     return order
 
 
+def _picture(kind: str):
+    """An EncLib picture method (`poc` first) inside a picture span of
+    `kind`; its FrameResult takes the span's seconds."""
+    def wrap(method):
+        @functools.wraps(method)
+        def call(self, poc, *args, **kw):
+            with profiling.picture(kind, poc, self.seq_id) as pic:
+                nal, res = method(self, poc, *args, **kw)
+            res.seconds = pic.seconds
+            return nal, res
+        return call
+    return wrap
+
+
 class EncLib:
     """reference: EncLib (EncLib.cpp:147 init / :734 encode).  State lives
     on `device`: CUDA unless another is named (raises without a card)."""
 
     def __init__(self, cfg: EncCfg, device=None) -> None:
         self.device = resolve_device(device)
+        self.seq_id = profiling.sequence_id()    # its spans' sequence
         if cfg.lossless:
             # the lossless operating point: qStep 1 (QP 4 after the TS
             # clamp), in-loop filters off so that recon == source exactly
@@ -475,6 +490,7 @@ class EncLib:
             out.append(self._mcts_sei())
         return out
 
+    @_picture("I")
     def encode_intra_frame(self, poc: int, planes: list[np.ndarray],
                            qp: int | None = None
                            ) -> tuple[NalUnit, FrameResult]:
@@ -483,13 +499,12 @@ class EncLib:
         device runs SAO and the ALF statistics."""
         cfg = self.cfg
         qp = cfg.qp if qp is None else qp
-        t0 = time.time()
         s = cfg.intra_block_size
         self._mm_seed = None        # closed GOP: no temporal seed across IDR
         self._mm_seed_qt = None
         dev = xfer.upload_planes(planes, cfg.bit_depth, self.device)
         if cfg.intra_split:
-            return self._encode_intra_frame_part(poc, planes, dev, qp, t0)
+            return self._encode_intra_frame_part(poc, planes, dev, qp)
         nby, nbx = cfg.height // s, cfg.width // s
         with profiling.stage("intra_search") as ps:
             outs, recon = wavefront.encode_intra_frame(
@@ -528,10 +543,10 @@ class EncLib:
             return encode_intra_slice(modes, ly, lu, lv, **args)
 
         return self._finish_slice_overlap(
-            poc, planes, recon, make_payload, qp, t0, SliceType.I, [], [],
+            poc, planes, recon, make_payload, qp, SliceType.I, [], [],
             None, 0, dev, NAL_IDR)
 
-    def _encode_intra_frame_part(self, poc, planes, dev, qp, t0):
+    def _encode_intra_frame_part(self, poc, planes, dev, qp):
         """Two-level (16x16 against four 8x8) intra picture
         (common/intra_part.py), deblocked on the 8x8 grid (every possible
         transform edge) on both sides."""
@@ -555,7 +570,7 @@ class EncLib:
                 for p in xfer.pull_levels(*outs)))
 
         return self._finish_slice_overlap(
-            poc, planes, recon, make_payload, qp, t0, SliceType.I, [], [],
+            poc, planes, recon, make_payload, qp, SliceType.I, [], [],
             None, 0, dev, NAL_IDR)
 
     def _p_epipoles(self, poc: int, ref_poc: int):
@@ -575,6 +590,7 @@ class EncLib:
         self.coded_epipoles.set_epipole(poc, ref_poc, ep_used)
         return {MotionModelID.GEODESIC_CAMPOSE: ep_used}, delta
 
+    @_picture("P")
     def encode_p_frame(self, poc: int, planes: list[np.ndarray],
                        ref: list[np.ndarray], ref_poc: int,
                        qp: int | None = None,
@@ -587,19 +603,18 @@ class EncLib:
         the classic merge path; a multi-model configuration ignores it."""
         cfg = self.cfg
         qp = cfg.qp if qp is None else qp
-        t0 = time.time()
         dev = xfer.upload_planes(planes, cfg.bit_depth, self.device)
         rdev = self._refs(ref_poc, ref)
         if not cfg.mm.any_enabled():
             if cfg.qt_depth > 0:
                 recon, make_payload = self._tree_picture(dev, rdev, None, qp)
                 return self._finish_slice_overlap(
-                    poc, planes, recon, make_payload, qp, t0, SliceType.P,
+                    poc, planes, recon, make_payload, qp, SliceType.P,
                     [ref_poc], [], None, 0, dev)
             if cfg.affine:
                 recon, make_payload = self._p_affine(dev, rdev, qp)
                 return self._finish_slice_overlap(
-                    poc, planes, recon, make_payload, qp, t0, SliceType.P,
+                    poc, planes, recon, make_payload, qp, SliceType.P,
                     [ref_poc], [], None, 0, dev)
             use_2ref = (ref2 is not None and cfg.max_num_ref >= 2
                         and cfg.merge and not cfg.mcts_tiles
@@ -610,7 +625,7 @@ class EncLib:
             recon, make_payload = self._p_classic(poc, dev, rdev, r2dev, qp,
                                                   ref_poc, wp)
             return self._finish_slice_overlap(
-                poc, planes, recon, make_payload, qp, t0, SliceType.P,
+                poc, planes, recon, make_payload, qp, SliceType.P,
                 [ref_poc, ref2_poc] if use_2ref else [ref_poc], [], None, 0,
                 dev, wp_params=wp)
         active = cfg.mm.active_models()
@@ -622,7 +637,7 @@ class EncLib:
             recon, make_payload = self._p_flat(active, dev, rdev, qp,
                                                epipoles)
         return self._finish_slice_overlap(
-            poc, planes, recon, make_payload, qp, t0, SliceType.P,
+            poc, planes, recon, make_payload, qp, SliceType.P,
             [ref_poc], [], epipole_delta, 0, dev)
 
     def _p_classic(self, poc, dev, rdev, r2dev, qp, ref_poc, wp):
@@ -963,6 +978,7 @@ class EncLib:
 
         return recon, make_payload
 
+    @_picture("B")
     def encode_b_frame(self, poc: int, planes: list[np.ndarray],
                        ref0: list[np.ndarray], ref0_poc: int,
                        ref1: list[np.ndarray], ref1_poc: int, tid: int = 0,
@@ -975,7 +991,6 @@ class EncLib:
         slices carry no epipole syntax."""
         cfg = self.cfg
         qp = cfg.qp if qp is None else qp
-        t0 = time.time()
         s = cfg.inter_block_size
         dev = xfer.upload_planes(planes, cfg.bit_depth, self.device)
         r0 = self._refs(ref0_poc, ref0)
@@ -983,7 +998,7 @@ class EncLib:
         if not cfg.mm.any_enabled() and cfg.qt_depth > 0:
             recon, make_payload = self._tree_picture(dev, r0, r1, qp)
             return self._finish_slice_overlap(
-                poc, planes, recon, make_payload, qp, t0, SliceType.B,
+                poc, planes, recon, make_payload, qp, SliceType.B,
                 [ref0_poc], [ref1_poc], None, tid, dev)
         if not cfg.mm.any_enabled():
             wp0 = wp1 = None
@@ -996,7 +1011,7 @@ class EncLib:
                     wp1 = wp1 if wp1 is not None else ident
             recon, make_payload = self._b_classic(dev, r0, r1, qp, wp0, wp1)
             return self._finish_slice_overlap(
-                poc, planes, recon, make_payload, qp, t0, SliceType.B,
+                poc, planes, recon, make_payload, qp, SliceType.B,
                 [ref0_poc], [ref1_poc], None, tid, dev, wp_params=wp0,
                 wp_params_l1=wp1)
         active = cfg.mm.active_models()
@@ -1073,7 +1088,7 @@ class EncLib:
                 ep0, ep1)
 
         return self._finish_slice_overlap(
-            poc, planes, recon, make_payload, qp, t0, SliceType.B,
+            poc, planes, recon, make_payload, qp, SliceType.B,
             [ref0_poc], [ref1_poc], None, tid, dev)
 
     def _b_classic(self, dev, r0, r1, qp, wp0, wp1):
@@ -1151,7 +1166,7 @@ class EncLib:
         return recon, make_payload
 
     def _finish_slice_overlap(self, poc, planes, recon, make_payload, qp,
-                              t0, slice_type, ref_pocs_l0, ref_pocs_l1,
+                              slice_type, ref_pocs_l0, ref_pocs_l1,
                               epipole_delta, tid, dev, nal_type=NAL_TRAIL,
                               wp_params=None, wp_params_l1=None):
         """Picture tail with entropy/filter overlap: enqueue the
@@ -1208,7 +1223,7 @@ class EncLib:
         res = FrameResult(
             poc=poc, bits=len(nal.payload) * 8,
             psnr_y=psnrs[0], psnr_u=psnrs[1], psnr_v=psnrs[2],
-            recon=rec, seconds=time.time() - t0)
+            recon=rec)
         self._finish_frame(res, planes)
         self.results.append(res)
         return nal, res
@@ -1217,7 +1232,12 @@ class EncLib:
         """Encode a frame list -> Annex-B bytes (AI / LDP / RA GOP).  With
         LMCS the luma planes are forward-mapped first and the results get
         their display-domain pictures (`_lmcs_outputs`); with film grain
-        the first picture's analysis rides an SEI."""
+        the first picture's analysis rides an SEI.  A `sequence` span
+        while tracing."""
+        with profiling.span("sequence", self.seq_id):
+            return self._encode_sequence(frames)
+
+    def _encode_sequence(self, frames: list[list[np.ndarray]]) -> bytes:
         cfg = self.cfg
         originals = frames
         if cfg.lmcs:

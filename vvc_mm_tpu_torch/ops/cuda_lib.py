@@ -6,6 +6,8 @@ loaded with ctypes; the `csrc/*.cuh` headers are shared by the sources.
 Nothing is built when a module is imported: the first launch builds (or
 reuses a build newer than its source and the headers), and
 `build_all()` compiles every source at once, one `nvcc` each, in parallel.
+While tracing (utils/profiling.py), `build_all` and each first `load` are
+spans (`build`, `load`) that count the `nvcc_compiles` they start.
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ import ctypes
 import os
 import shutil
 import subprocess
+
+from ..utils import profiling
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -61,6 +65,7 @@ def _start_build(name: str):
            "-v", "-o", tmp, src]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
+    profiling.count("nvcc_compiles")
     return proc, tmp, so
 
 
@@ -78,13 +83,15 @@ def _finish_build(name: str, job) -> str:
 def build_all() -> dict[str, str]:
     """Compile every csrc/*.cu in parallel; returns each one's ptxas
     report (empty where the library was already up to date)."""
-    jobs = {n: _start_build(n) for n in sources()}
-    return {n: _finish_build(n, j) for n, j in jobs.items()}
+    with profiling.span("build"):
+        jobs = {n: _start_build(n) for n in sources()}
+        return {n: _finish_build(n, j) for n, j in jobs.items()}
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, built if needed."""
     if name not in _libs:
-        _finish_build(name, _start_build(name))
-        _libs[name] = ctypes.CDLL(_paths(name)[1])
+        with profiling.span("load"):
+            _finish_build(name, _start_build(name))
+            _libs[name] = ctypes.CDLL(_paths(name)[1])
     return _libs[name]

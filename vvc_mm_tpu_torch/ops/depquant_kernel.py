@@ -18,7 +18,7 @@ time, the states by a ballot and a popcount.  Their plain versions are
 common/depquant.py's quantize_dep_plain and dequantize_dep_plain, written
 in the kernels' decompositions; common/depquant.py's quantize_dep and
 dequantize_dep call this module for CUDA tensors.  `LAUNCHES` counts
-launches.
+launches (a group of utils/profiling.py's counter registry).
 """
 from __future__ import annotations
 
@@ -26,9 +26,11 @@ import ctypes
 
 import torch
 
+from ..utils import profiling
 from . import cuda_lib
 
-LAUNCHES = {"quantize_dep": 0, "dequantize_dep": 0}
+LAUNCHES = profiling.counters("depquant_kernel",
+                              ("quantize_dep", "dequantize_dep"))
 # When a dict, common/depquant.py's wrappers keep the arguments of their
 # last launch in it, keyed by (kernel, block batch shape): a timing run
 # replays a kernel on the inputs the encoder really gave it.
@@ -64,7 +66,7 @@ def _launch(name: str, device: torch.device, *args) -> None:
             err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    LAUNCHES[name] += 1
+    profiling.launch(LAUNCHES, name)
 
 
 def _check(name: str, t: torch.Tensor, order: torch.Tensor) -> None:

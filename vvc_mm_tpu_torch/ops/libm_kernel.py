@@ -11,7 +11,8 @@ On a CUDA tensor each wrapper launches the kernel (one launch a call) and
 raises if the launch fails; on a CPU tensor it runs the plain version,
 common/libm_f32.py.  The expansions and the correctly rounded sqrt are
 float32 and float64 torch operations around the wrappers, the same on
-both devices.  `LAUNCHES` counts launches.
+both devices.  `LAUNCHES` counts launches (a group of utils/profiling.py's
+counter registry).
 """
 from __future__ import annotations
 
@@ -20,9 +21,10 @@ import ctypes
 import torch
 
 from ..common import libm_f32 as plain
+from ..utils import profiling
 from . import cuda_lib
 
-LAUNCHES = {"libm_f32": 0}
+LAUNCHES = profiling.counters("libm_kernel", ("libm_f32",))
 _FUNCS = {"sinf": 1, "cosf": 1, "tanf": 1, "atan2f": 2}
 _BOUND: dict = {}
 
@@ -44,7 +46,7 @@ def _launch(name: str, out: torch.Tensor, *args: torch.Tensor) -> None:
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"libm_{name}: CUDA launch failed with error {err}")
-    LAUNCHES["libm_f32"] += 1
+    profiling.launch(LAUNCHES, "libm_f32")
 
 
 def _unary(name: str, x) -> torch.Tensor:

@@ -33,7 +33,8 @@ package's XLA mirror (`common/mm/mc.py` _mc_luma_positions_xla /
 _mc_chroma_positions_xla, sad_block_positions_xla, mc_block_positions_xla,
 the loop of sad_positions_multi and sad_bilinear_positions_xla).  The wrapper takes the plain version only for a
 reference plane that lies on the CPU; for a CUDA tensor it launches the
-kernel or raises.  `LAUNCHES` counts kernel launches, per kernel.
+kernel or raises.  `LAUNCHES` counts kernel launches, per kernel (a group
+of utils/profiling.py's counter registry).
 """
 from __future__ import annotations
 
@@ -43,20 +44,21 @@ import torch
 
 from ..common import interp
 from ..common.typedefs import NTAPS_CHROMA, NTAPS_LUMA
+from ..utils import profiling
 from . import cuda_lib
 
-LAUNCHES = {"mc_luma_positions": 0, "mc_chroma_positions": 0,
-            "sad_block_positions": 0, "mc_block_positions": 0,
-            "sad_luma_positions": 0, "sad_bilinear_positions": 0}
+LAUNCHES = profiling.counters("mc_kernel", (
+    "mc_luma_positions", "mc_chroma_positions", "sad_block_positions",
+    "mc_block_positions", "sad_luma_positions", "sad_bilinear_positions"))
 # K1/K2 launches by subblock grid, e.g. "256x512" ("one row": a list of
 # subblocks, as projected DMVR's bilateral costs take); K3/K4's by block
 # width and candidate count, e.g. "s=8 K=5"; K5's by field count and
 # subblock grid, e.g. "K=5 8x32"
-LAUNCHES_BY_SHAPE: dict[str, dict[str, int]] = {"mc_luma_positions": {},
-                                                "mc_chroma_positions": {},
-                                                "sad_block_positions": {},
-                                                "mc_block_positions": {},
-                                                "sad_luma_positions": {}}
+LAUNCHES_BY_SHAPE: dict[str, dict[str, int]] = profiling.counters(
+    "mc_kernel.by_shape")
+LAUNCHES_BY_SHAPE.update({k: {} for k in (
+    "mc_luma_positions", "mc_chroma_positions", "sad_block_positions",
+    "mc_block_positions", "sad_luma_positions")})
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # (source, C argument types) of each kernel's launcher; the last argument
@@ -109,7 +111,7 @@ def _launch_kernel(name: str, device: torch.device, *args) -> None:
             err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    LAUNCHES[name] += 1
+    profiling.launch(LAUNCHES, name)
 
 
 def _assemble(blocks: torch.Tensor, nsy: int, nsx: int, s: int

@@ -21,7 +21,8 @@ chain, builds the template from the reprojection and holds the plain
 versions (the port's float32 chain looped over fields and models) is
 `MVReprojection.positions` / `MVReprojection.centers`
 (common/mm/reprojection.py): it calls `launch` on the card and the plain
-version on the CPU.  `LAUNCHES` counts launches.
+version on the CPU.  `LAUNCHES` counts launches (a group of
+utils/profiling.py's counter registry).
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import ctypes
 import torch
 
 from ..common.typedefs import MotionModelID as M
+from ..utils import profiling
 from . import cuda_lib
 
 # the models the kernel computes; any other model keeps the float32 chain
@@ -39,11 +41,13 @@ FORMS = {None: 0, "merged": 1, "search": 2}
 MAX_MODELS = 8
 SKIP = -1
 
-LAUNCHES = {"sphere_positions": 0, "sphere_centers": 0}
+LAUNCHES = profiling.counters("sphere_kernel",
+                              ("sphere_positions", "sphere_centers"))
 # launches by form, model count, field count and output grid, e.g.
 # "merged m=5 K=1 256x512"
-LAUNCHES_BY_SHAPE: dict[str, dict[str, int]] = {"sphere_positions": {},
-                                                "sphere_centers": {}}
+LAUNCHES_BY_SHAPE: dict[str, dict[str, int]] = profiling.counters(
+    "sphere_kernel.by_shape")
+LAUNCHES_BY_SHAPE.update(sphere_positions={}, sphere_centers={})
 
 # the kernel's Consts, in order: each the float32 value of a Python scalar
 # of the plain chain
@@ -160,7 +164,7 @@ def launch(name: str, tmpl: _Args, model_idx: torch.Tensor | None,
                      torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    LAUNCHES[name] += 1
+    profiling.launch(LAUNCHES, name)
     k, n = mvs.shape[:2]
     ny, nx = out.shape[1:3]
     form = _FORM_NAMES[tmpl.form]

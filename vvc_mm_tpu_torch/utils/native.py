@@ -15,6 +15,8 @@ import subprocess
 
 import numpy as np
 
+from . import profiling
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(os.path.dirname(_PKG), "native", "cabac.c")
 _BUILD = os.path.join(_PKG, "_build")
@@ -46,10 +48,16 @@ def _build() -> str:
 
 
 def get_lib() -> ctypes.CDLL:
-    """The loaded native library, built if needed."""
-    global _lib
+    """The loaded native library, built if needed (a `native_lib` span
+    while tracing)."""
     if _lib is not None:
         return _lib
+    with profiling.span("native_lib"):
+        return _load()
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
     lib = ctypes.CDLL(_build())
     lib.enc_new.restype = ctypes.c_void_p
     lib.enc_new.argtypes = [ctypes.c_void_p, ctypes.c_int]
